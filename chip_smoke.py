@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one H100: builds the kernels,
+holds each against its plain PyTorch version on the card, serves the
+full-width qwen1.5-0.5b split LM through ``generate_reference``, and times
+the kernels and the slice.
+
+    python3 chip_smoke.py            # everything (needs one sm_90 card)
+    python3 chip_smoke.py --quick    # build + kernel checks only
+
+Phases (any failure raises and the script exits non-zero):
+  1. build every kernel library (one nvcc each, started together);
+  2. flash decode vs ``flash_decode_ref`` at the main path's head shapes
+     (B 4, KV 16, G 1, hd 64, C 64 and 1024) and gemma3's (KV 8, G 2,
+     hd 256), bf16 / int8 / f32 caches, softcap 0 and 30;
+  3. threefry link masks (iid, Gilbert–Elliott) drawn on the card equal
+     the same draws on the CPU;
+  4. full-width qwen1.5-0.5b (random weights from a seed), batch 4, prompt
+     32, 32 tokens, loss 0.1: f32 greedy tokens of the kernel path equal
+     the naive oracle's under iid and GE; bf16 per-step logits (teacher
+     forced) of kernel vs naive within twice the bf16-vs-f32 difference;
+     the kernel launched 24 x tokens times per run; the main path (bf16
+     weights and KV, iid) run with the launch counts zeroed just before;
+  5. where a decode round's time goes: the link alone (iid, GE), a round
+     with the link off, and a torch.profiler trace of the main path
+     (device-busy share, kernels per round);
+  6. kernel, plain and library times at the main path's shapes and the
+     bytes bound.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12                        # H100 SXM, NVIDIA data sheet
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+TOKENS, PROMPT, BATCH, LOSS = 32, 32, 4, 0.1
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_events(fn, iters=200, warmup=20) -> float:
+    """Mean ms per call of back-to-back eager calls, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_graph(fn, iters=200) -> float:
+    """Mean ms per call with ``iters`` calls captured in one CUDA graph and
+    replayed: the device time, without the host's launch overhead."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: the flash-decode kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _decode_inputs(gen, b, kvh, g, hd, c, qdt, cache):
+    import torch
+
+    q = torch.randn((b, kvh, g, hd), generator=gen, device="cuda").to(qdt)
+    if cache == "int8":
+        k = torch.randint(-127, 128, (b, c, kvh, hd), generator=gen, device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, c, kvh, hd), generator=gen, device="cuda", dtype=torch.int8)
+        ks = (torch.rand((b, c, kvh), generator=gen, device="cuda") * 0.05 + 0.01).bfloat16()
+        vs = (torch.rand((b, c, kvh), generator=gen, device="cuda") * 0.05 + 0.01).bfloat16()
+        return q, k, v, ks, vs
+    dt = torch.bfloat16 if cache == "bfloat16" else torch.float32
+    k = torch.randn((b, c, kvh, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, c, kvh, hd), generator=gen, device="cuda").to(dt)
+    return q, k, v, None, None
+
+
+def check_flash_decode() -> float:
+    """Kernel vs plain on the card.  Tolerances: 2e-5 for f32 outputs (the
+    kernel's per-position online softmax sums in another order than the
+    plain version's 64-row blocks); one bf16 ulp (rtol 2**-7) for bf16
+    outputs, since both compute in f32 and round once, and f32 values a
+    hair apart can round to neighbouring bf16 values."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import cuda_kernel, flash_decode_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    combos = [(torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"), (torch.float32, "float32"),
+              (torch.float32, "int8")]
+    shapes = [(4, 16, 1, 64, 64), (4, 16, 1, 64, 1024), (4, 8, 2, 256, 1024)]
+    worst = 0.0
+    n_cases = 0
+    for b, kvh, g, hd, c in shapes:
+        lengths = sorted({min(n, c) for n in (0, 1, 63, 64, 65, c)})
+        rows = [lengths[i % len(lengths)] for i in range(max(b, len(lengths)))]
+        for qdt, cache in combos:
+            for r0 in range(0, len(rows), b):
+                nv = (rows[r0:r0 + b] + rows[:b])[:b]
+                n = torch.tensor(nv, dtype=torch.int32, device="cuda")
+                q, k, v, ks, vs = _decode_inputs(gen, b, kvh, g, hd, c, qdt, cache)
+                for softcap in (0.0, 30.0):
+                    got = cuda_kernel.flash_decode(q, k, v, ks, vs, n, softcap=softcap)
+                    want = flash_decode_ref(q, k, v, ks, vs, n[:, None], block_kv=64, softcap=softcap)
+                    torch.cuda.synchronize()
+                    tol = dict(rtol=2e-5, atol=2e-5) if qdt == torch.float32 else dict(rtol=2.0 ** -7, atol=1e-5)
+                    torch.testing.assert_close(got.float(), want.float(), **tol,
+                                               msg=lambda m: f"{(b, kvh, g, hd, c, cache, str(qdt), nv, softcap)}: {m}")
+                    assert torch.all(got[n == 0] == 0), "n_valid = 0 must give zeros"
+                    worst = max(worst, float((got.float() - want.float()).abs().max()))
+                    n_cases += 1
+    log(f"[kernel] flash_decode vs flash_decode_ref: {n_cases} cases agree, max |err| {worst:.3e}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: masks on the card equal masks on the CPU
+# ---------------------------------------------------------------------------
+
+def check_masks() -> None:
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core import link
+    from repro_torch.net import channels
+
+    ge = channels.make_channel("ge", loss_rate=LOSS)
+    for seed in (0, 1, 7):
+        pairs = []
+        for dev in ("cuda", "cpu"):
+            key = prng.PRNGKey(seed, dev)
+            iid = link.element_loss_mask(key, (BATCH, 1, 1024), LOSS)
+            burst = ge.element_keep(prng.fold_in(key, 1), BATCH * 1024, 25, shuffle=True)
+            perm = prng.permutation(prng.fold_in(key, 2), 4096)
+            pairs.append([t.cpu() for t in (iid, burst, perm)])
+        for a, b in zip(*pairs):
+            assert torch.equal(a, b), "masks drawn on the card differ from the CPU's"
+    log("[masks] iid, GE and permutation draws on the card equal the CPU's, bit for bit")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the full-width slice
+# ---------------------------------------------------------------------------
+
+def forced_logits(model, cfg, prompts, forced, key):
+    """Per-step logits (B, T+1, V) of the DI round with the decode inputs
+    forced to ``forced`` (teacher forcing), on the reference's key chain."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import cache as cache_lib
+
+    b, s = prompts.shape
+    prefill, step = make_prefill_step(cfg), make_serve_step(cfg)
+    with torch.inference_mode():
+        cache = cache_lib.init_cache(cfg, b, s + forced.shape[1], device=prompts.device)
+        key, sub = prng.split(key)
+        logits, cache = prefill(model, {"tokens": prompts}, cache, sub)
+        out = [logits]
+        for i in range(forced.shape[1]):
+            key, sub = prng.split(key)
+            logits, cache = step(model, forced[:, i:i + 1], cache, s + i, sub)
+            out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def run_slice(report: dict) -> int:
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import cuda_kernel
+    from repro_torch.launch.serve import generate_reference
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = get_config("qwen1.5-0.5b")
+    n_layers = base.num_layers
+    key = prng.PRNGKey(0, "cuda")
+    prompts = prng.randint(key, (BATCH, PROMPT), 0, base.vocab_size)
+    per_run = n_layers * TOKENS
+    slice_times = {}
+
+    def serve(model, cfg, impl, channel, tag):
+        before = cuda_kernel.launch_count
+        toks, timings = generate_reference(model, cfg.with_updates(attn_impl=impl), prompts, TOKENS,
+                                           loss_rate=LOSS, key=key, channel=channel)
+        launched = cuda_kernel.launch_count - before
+        want = per_run if impl == "flash_decode" else 0
+        assert launched == want, f"{tag}: {launched} kernel launches, expected {want}"
+        assert toks.shape == (BATCH, TOKENS) and toks.dtype == torch.int32
+        assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+        slice_times[tag] = timings
+        log(f"[slice] {tag}: prefill {timings['prefill_s']:.4f} s, decode "
+            f"{timings['decode_s_per_token'] * 1e3:.3f} ms/token, kernel launches {launched}")
+        return toks
+
+    # f32: the kernel path's greedy tokens equal the naive oracle's.
+    cfg32 = base.with_updates(dtype="float32")
+    model32 = lm.init_lm(cfg32, seed=0, device="cuda")
+    for channel in ("iid", "ge"):
+        a = serve(model32, cfg32, "flash_decode", channel, f"f32/{channel}/flash_decode")
+        b = serve(model32, cfg32, "naive", channel, f"f32/{channel}/naive")
+        assert torch.equal(a, b), f"f32 {channel}: kernel tokens differ from the naive oracle's"
+        log(f"[slice] f32 {channel}: greedy tokens of the kernel path equal the naive oracle's")
+        forced = a
+    del model32
+
+    # bf16 (production): teacher-forced logits, kernel vs naive, against the
+    # bf16 rounding noise itself (naive bf16 vs naive f32 on the same weights).
+    cfg16 = base.with_updates(dtype="bfloat16")
+    model16 = lm.init_lm(cfg16, seed=0, device="cuda")
+    ref32 = lm.LM(cfg32, device="cuda")
+    ref32.load_state_dict({k: v.float() for k, v in model16.state_dict().items()})
+    errors = {}
+    for kv in ("", "int8"):
+        c16 = cfg16.with_updates(kv_cache_dtype=kv)
+        c32 = cfg32.with_updates(kv_cache_dtype=kv)
+        before = cuda_kernel.launch_count
+        lk = forced_logits(model16, c16.with_updates(attn_impl="flash_decode"), prompts, forced, key)
+        assert cuda_kernel.launch_count - before == per_run
+        ln = forced_logits(model16, c16.with_updates(attn_impl="naive"), prompts, forced, key)
+        lf = forced_logits(ref32, c32.with_updates(attn_impl="naive"), prompts, forced, key)
+        assert bool(torch.isfinite(lk).all()), "non-finite logits"
+        e_kernel = float((lk - ln).abs().max())
+        e_dtype = float((ln - lf).abs().max())
+        e_kf = float((lk - lf).abs().max())
+        agree = float((lk.argmax(-1) == ln.argmax(-1)).float().mean())
+        tag = f"bf16/{kv or 'bf16'}-kv"
+        errors[tag] = dict(kernel_vs_naive=e_kernel, naive_bf16_vs_f32=e_dtype, kernel_vs_f32=e_kf,
+                           argmax_agreement=agree)
+        log(f"[slice] {tag}: max |logit| kernel-naive {e_kernel:.4f}, naive bf16-f32 {e_dtype:.4f}, "
+            f"kernel-f32 {e_kf:.4f}, argmax agreement {agree:.4f}")
+        # |K - N| <= |K - F| + |F - N|: a kernel no farther from f32 than the
+        # naive path's own bf16 rounding stays within twice that rounding.
+        assert e_kernel <= 2.0 * e_dtype, f"{tag}: kernel differs from naive beyond bf16 noise"
+        del lk, ln, lf
+    del ref32
+    report["bf16_teacher_forced"] = errors
+
+    # GE on the production dtype, for its time.
+    serve(model16, cfg16, "flash_decode", "ge", "bf16/ge/flash_decode")
+    # The main path: bf16 weights and KV, iid link, through the kernel.
+    cuda_kernel.launch_count = 0
+    serve(model16, cfg16, "flash_decode", "iid", "bf16/iid/flash_decode (main path)")
+    launches = cuda_kernel.launch_count
+    assert launches == per_run
+    report["slice_times"] = slice_times
+    decode_breakdown(model16, cfg16.with_updates(attn_impl="flash_decode"), prompts, key, report)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: where a decode round's time goes
+# ---------------------------------------------------------------------------
+
+def decode_breakdown(model, cfg, prompts, key, report) -> None:
+    """Host-clock times (ending in a synchronize) of the pieces of one
+    decode round at the main path, and a profiler trace of the main path."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.launch.serve import generate_reference
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import cache as cache_lib, lm
+
+    out = {}
+    x = torch.randn((BATCH, 1, cfg.d_model), device="cuda").to(torch.bfloat16)
+    for channel in ("iid", "ge"):
+        c = cfg.with_updates(link=dataclasses.replace(cfg.link, channel=channel, loss_rate=LOSS))
+        link_fn = lm.make_link_fn(c, model, key, "serve")
+        out[f"link_{channel}_ms"] = time_events(lambda: link_fn(x), iters=20, warmup=3)
+    keys = [prng.fold_in(key, i) for i in range(TOKENS)]
+    with torch.inference_mode():
+        for mode in ("off", "serve"):
+            cache = cache_lib.init_cache(cfg, BATCH, PROMPT + TOKENS, device="cuda")
+            _, cache = make_prefill_step(cfg, link_mode=mode)(model, {"tokens": prompts}, cache, key)
+            step = make_serve_step(cfg, link_mode=mode)
+            token = prompts[:, -1:]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(TOKENS):
+                step(model, token, cache, PROMPT + i, keys[i])
+            torch.cuda.synchronize()
+            out[f"decode_link_{mode}_ms_per_token"] = (time.perf_counter() - t0) / TOKENS * 1e3
+    # Device-busy share of the main path's decode under the profiler (which
+    # adds host overhead, so the share is a lower bound on the untraced run's).
+    from torch.profiler import ProfilerActivity, profile
+
+    generate_reference(model, cfg, prompts, 4, loss_rate=LOSS, key=key, channel="iid")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, timings = generate_reference(model, cfg, prompts, TOKENS, loss_rate=LOSS, key=key, channel="iid")
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    wall_us = (timings["prefill_s"] + timings["decode_s_per_token"] * TOKENS) * 1e6
+    if kernels:
+        out.update(profiled_wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                   device_busy_share=busy_us / wall_us, kernels_per_round=len(kernels) / (TOKENS + 1))
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        out["top_kernels_ms"] = {k[:80]: v / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+    else:
+        out["device_busy_share"] = "not measured (no device events in the trace)"
+    report["decode_breakdown"] = out
+    log(f"[profile] {json.dumps(out)}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: kernel timing at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def time_flash_decode(b, kvh, g, hd, c, n_valid, cache, qdt_name="bfloat16") -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import cuda_kernel, flash_decode_ref
+
+    qdt = getattr(torch, qdt_name)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, ks, vs = _decode_inputs(gen, b, kvh, g, hd, c, qdt, cache)
+    n = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
+    saved = cuda_kernel.launch_count
+    ms_graph = time_graph(lambda: cuda_kernel.flash_decode(q, k, v, ks, vs, n))
+    ms_eager = time_events(lambda: cuda_kernel.flash_decode(q, k, v, ks, vs, n))
+    cuda_kernel.launch_count = saved
+    plain_ms = time_events(lambda: flash_decode_ref(q, k, v, ks, vs, n[:, None], block_kv=64), iters=50)
+    # Yardstick only: SDPA over the dequantized valid prefix, GQA-enabled.
+    if ks is not None:
+        kd = (k[:, :n_valid].float() * ks[:, :n_valid].float()[..., None]).to(qdt)
+        vd = (v[:, :n_valid].float() * vs[:, :n_valid].float()[..., None]).to(qdt)
+    else:
+        kd, vd = k[:, :n_valid].to(qdt), v[:, :n_valid].to(qdt)
+    qs = q.reshape(b, kvh * g, 1, hd)
+    kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(qs, kt, vt, enable_gqa=True)
+    lib_ms = time_graph(sdpa)
+    lib_eager = time_events(sdpa)
+    elem = {"bfloat16": 2, "float32": 4, "int8": 1}[cache]
+    q_elem = 2 if qdt == torch.bfloat16 else 4
+    rows = b * n_valid * kvh
+    nbytes = 2 * b * kvh * g * hd * q_elem + 2 * rows * hd * elem + (2 * rows * 2 if cache == "int8" else 0) + 4 * b
+    ops = 4 * rows * g * hd
+    bound_s = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[cache])
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS[cache] else "operations"
+    rec = dict(shape=dict(B=b, KV=kvh, G=g, hd=hd, C=c, n_valid=n_valid, cache=cache, q=qdt_name),
+               ms=ms_graph, ms_eager=ms_eager, plain_ms=plain_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
+               library_ms=lib_ms, library_ms_eager=lib_eager, bytes=nbytes, ops=ops)
+    log(f"[time] flash_decode {rec['shape']}: kernel {ms_graph * 1e3:.2f} us (graph) / {ms_eager * 1e3:.2f} us "
+        f"(eager), plain {plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.2f} us (graph) / {lib_eager * 1e3:.2f} us, "
+        f"bound {bound_s * 1e6:.3f} us ({bound_by}, {nbytes} B)")
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device; the port's smoke run needs the card")
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        log(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found; run from a checkout of the repository")
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.decode_attention import cuda_kernel
+
+    t0 = time.perf_counter()
+    card = card_line()
+    log(f"[card] {card}")
+    log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}, capability {torch.cuda.get_device_capability(0)}")
+    t_build = time.perf_counter()
+    libs = nvcc.build_libraries([(cuda_kernel.LIB_NAME, cuda_kernel.SOURCES)])
+    log(f"[build] {len(libs)} librar{'y' if len(libs) == 1 else 'ies'} in {time.perf_counter() - t_build:.1f} s")
+    for path in libs.values():
+        text = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
+        smem = [int(m) for m in re.findall(r"(\d+) bytes smem", text)]
+        if regs:
+            log(f"[build] {path.name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+                f"spill stores up to {max(spills or [0])} B, static smem up to {max(smem or [0])} B")
+
+    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    max_err = check_flash_decode()
+    record = dict(name="flash_decode", route="cuda",
+                  source="src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu",
+                  replaces="src/repro/kernels/decode_attention/kernel.py:120",
+                  max_abs_err=max_err)
+    if not args.quick:
+        check_masks()
+        launches = run_slice(report)
+        timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
+        report["kernel_times"] = [timing] + [
+            time_flash_decode(*shape) for shape in (
+                (BATCH, 16, 1, 64, 64, 64, "int8"),
+                (BATCH, 16, 1, 64, 1024, 1024, "bfloat16"),
+                (BATCH, 8, 2, 256, 1024, 1024, "bfloat16"),
+            )
+        ]
+        record.update(launches=launches, ms=timing["ms"], plain_ms=timing["plain_ms"],
+                      bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
+                      library_ms=timing["library_ms"])
+    report["kernels"] = [record]
+    report["seconds"] = time.perf_counter() - t0
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    if args.quick:
+        log("[quick] kernel checks passed; no result line in --quick mode")
+        return 0
+    print(json.dumps({"kernels": report["kernels"]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

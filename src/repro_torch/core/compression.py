@@ -1,0 +1,111 @@
+"""Lossy activation compression (paper Appendix A) — the port's twin of
+``repro/core/compression.py`` for the serving path.
+
+* Quantization (Eq. 13-15): clip to the calibrated per-element
+  ``[s_min, s_max]``, round to an ``n``-bit integer code (round half to
+  even, as ``jnp.round``); the code is what crosses the channel.
+* PCA (Eq. 18-19): transmit ``w a``, reconstruct ``w^T a' + b``.
+
+The straight-through training roundtrip waits for the fine-tuning port
+(ROADMAP A9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """Per-element scale factors; shapes broadcast against the activation's
+    trailing feature dims."""
+
+    bits: int
+    s_min: torch.Tensor
+    s_max: torch.Tensor
+
+
+def _range(spec: QuantSpec, like: torch.Tensor):
+    s_min = spec.s_min.to(device=like.device, dtype=like.dtype)
+    s_max = spec.s_max.to(device=like.device, dtype=like.dtype)
+    rng = torch.clamp(s_max - s_min, min=1e-8)
+    return s_min, s_max, rng
+
+
+def quantize(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Eq. (13)-(14): the integer code, as a float tensor of x's dtype."""
+    levels = float(2 ** spec.bits - 1)
+    s_min, s_max, rng = _range(spec, x)
+    clipped = torch.minimum(torch.maximum(x, s_min), s_max)
+    return torch.round((clipped - s_min) / rng * levels)
+
+
+def dequantize(code: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Eq. (15)."""
+    levels = float(2 ** spec.bits - 1)
+    s_min, _, rng = _range(spec, code)
+    return code / levels * rng + s_min
+
+
+@dataclasses.dataclass(frozen=True)
+class PCASpec:
+    """w: (D', D) top eigenvector rows; b: (D,) residual mean bias (Eq. 23)."""
+
+    w: torch.Tensor
+    b: torch.Tensor
+
+    @property
+    def reduced_dim(self) -> int:
+        return int(self.w.shape[0])
+
+
+def pca_compress(x: torch.Tensor, spec: PCASpec) -> torch.Tensor:
+    """Eq. (18): a' = w a."""
+    return torch.einsum("...d,kd->...k", x, spec.w.to(device=x.device, dtype=x.dtype))
+
+
+def pca_decompress(coeff: torch.Tensor, spec: PCASpec) -> torch.Tensor:
+    """Eq. (19): a = w^T a' + b."""
+    w = spec.w.to(device=coeff.device, dtype=coeff.dtype)
+    return torch.einsum("...k,kd->...d", coeff, w) + spec.b.to(device=coeff.device, dtype=coeff.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Compressor:
+    """f_cmp / f_dec pair (paper Eq. 8).  kind in {identity, quant, pca}."""
+
+    kind: str = "identity"
+    quant: Optional[QuantSpec] = None
+    pca: Optional[PCASpec] = None
+
+    def compress(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "identity":
+            return x
+        if self.kind == "quant":
+            return quantize(x, self.quant)
+        if self.kind == "pca":
+            return pca_compress(x, self.pca)
+        raise ValueError(self.kind)
+
+    def decompress(self, z: torch.Tensor) -> torch.Tensor:
+        if self.kind == "identity":
+            return z
+        if self.kind == "quant":
+            return dequantize(z, self.quant)
+        if self.kind == "pca":
+            return pca_decompress(z, self.pca)
+        raise ValueError(self.kind)
+
+    def message_elements(self, feature_dim: int) -> int:
+        """How many scalars cross the channel per activation vector."""
+        if self.kind == "pca":
+            return self.pca.reduced_dim
+        return feature_dim
+
+    def bytes_per_element(self) -> float:
+        if self.kind == "quant":
+            return self.quant.bits / 8.0
+        return 4.0

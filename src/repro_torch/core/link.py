@@ -1,0 +1,102 @@
+"""Unreliable-link model (paper §III-B, Eq. 1-3) — the port's twin of
+``repro/core/link.py``: keep masks drawn from ``repro_torch.prng`` with the
+reference's key use, so every mask is bit-equal to the reference's, plus
+the NumPy channel constants the latency analytics use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+
+# Floor for every kept-fraction denominator (1 - p, 1 - p_eff), so a loss
+# rate of 1.0 returns zeros instead of 0 * inf = NaN.
+MIN_KEEP_FRACTION = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class ChannelConfig:
+    """Physical channel constants (paper §IV-A)."""
+
+    packet_bytes: int = 100          # packet size l, including MAC/net overhead
+    throughput_bps: float = 9.0e6    # b = 9.0 Mbit/s
+    loss_rate: float = 0.0           # p
+    bytes_per_element: int = 4       # 32-bit float activations by default
+
+    @property
+    def elements_per_packet(self) -> int:
+        return max(1, self.packet_bytes // self.bytes_per_element)
+
+    def num_packets_for_bytes(self, num_bytes: float) -> int:
+        return max(1, -(-int(num_bytes) // self.packet_bytes))
+
+    def num_packets(self, num_elements: int) -> int:
+        return -(-num_elements // self.elements_per_packet)
+
+    def slot_time_s(self) -> float:
+        """Time T to transmit one packet."""
+        return self.packet_bytes * 8.0 / self.throughput_bps
+
+
+def element_loss_mask(key: torch.Tensor, shape, loss_rate: float) -> torch.Tensor:
+    """Eq. (1): i.i.d. Bernoulli keep mask with E[m] = 1 - p (float32 0/1)."""
+    return prng.bernoulli(key, 1.0 - loss_rate, tuple(shape)).to(torch.float32)
+
+
+def element_mask_from_packets(
+    pkt_keep: torch.Tensor, num_elements: int, elements_per_packet: int,
+    key: torch.Tensor, shuffle: bool,
+) -> torch.Tensor:
+    """Expand a packet keep mask to a flat element mask, optionally through
+    the paper's anti-burst interleaving permutation (Eq. 2):
+    ``out[perm[i]] = mask[i]``."""
+    mask = torch.repeat_interleave(pkt_keep.to(torch.float32), elements_per_packet)[:num_elements]
+    if shuffle:
+        perm = prng.permutation(key, num_elements)
+        out = torch.zeros(num_elements, dtype=torch.float32, device=mask.device)
+        out[perm] = mask
+        mask = out
+    return mask
+
+
+def packet_loss_mask(
+    key: torch.Tensor, num_elements: int, loss_rate: float,
+    elements_per_packet: int, shuffle: bool = True,
+) -> torch.Tensor:
+    """Eq. (2)-(3): whole packets of ``s`` consecutive (post-shuffle)
+    elements dropped together; a flat float32 0/1 keep mask."""
+    kperm, kdrop = prng.split(key)
+    n_packets = -(-num_elements // elements_per_packet)
+    pkt_keep = prng.bernoulli(kdrop, 1.0 - loss_rate, (n_packets,))
+    return element_mask_from_packets(pkt_keep, num_elements, elements_per_packet, kperm, shuffle)
+
+
+def scalar_as(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (as ``jnp.asarray(value, dtype)``),
+    returned as a Python float so an op against a ``dtype`` tensor uses
+    exactly that value without a host-to-device copy."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def apply_channel(
+    key: torch.Tensor, x: torch.Tensor, loss_rate: float, *,
+    granularity: str = "element", elements_per_packet: int = 25,
+    shuffle: bool = True, compensate: bool = True,
+) -> torch.Tensor:
+    """Transmit ``x`` through the lossy link (Eq. 1/10) and apply the
+    receiver's ``1/(1-p)`` compensation (Eq. 11), as a reciprocal multiply."""
+    if granularity == "element":
+        mask = element_loss_mask(key, x.shape, loss_rate)
+    elif granularity == "packet":
+        mask = packet_loss_mask(key, x.numel(), loss_rate, elements_per_packet, shuffle).reshape(x.shape)
+    else:
+        raise ValueError(f"unknown granularity: {granularity!r}")
+    y = x * mask.to(x.dtype)
+    if compensate:
+        keep = np.maximum(np.float32(1.0) - np.float32(loss_rate), np.float32(MIN_KEEP_FRACTION))
+        y = y * scalar_as(np.float32(1.0) / keep, x.dtype)
+    return y

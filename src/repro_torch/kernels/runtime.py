@@ -1,0 +1,46 @@
+"""Device policy of the port's kernels (twin of ``repro/kernels/runtime.py``).
+
+One rule, decided by the tensor a wrapper is handed:
+
+* a CPU tensor -> the kernel's plain PyTorch version (the tests' path);
+* a CUDA tensor on a card of capability (9, 0) (Hopper, ``sm_90a``) -> the
+  hand-written kernel;
+* a CUDA tensor on any other card, or any other device -> ``RuntimeError``.
+
+There is no switch that sends a CUDA tensor to the plain version: on the
+card a kernel runs or the call fails.
+"""
+
+from __future__ import annotations
+
+import torch
+
+KERNEL_CAPABILITY = (9, 0)
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True -> launch the hand kernel; False -> the plain version (CPU)."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        cap = torch.cuda.get_device_capability(t.device)
+        if tuple(cap) == KERNEL_CAPABILITY:
+            return True
+        raise RuntimeError(
+            f"the port's kernels are built for sm_90a (capability "
+            f"{KERNEL_CAPABILITY}); {torch.cuda.get_device_name(t.device)} has "
+            f"capability {tuple(cap)}"
+        )
+    raise RuntimeError(f"no kernel for tensors on {t.device}")
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU.  Raises when CUDA is asked for and there is no card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' (or --device cpu) to run the plain versions on the CPU"
+        )
+    return dev

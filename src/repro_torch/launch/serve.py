@@ -1,0 +1,158 @@
+"""Serving driver of the port: split-LM distributed inference over the
+emulated lossy IoT link (the paper's DI round, Eq. 12, one token at a
+time) — the twin of ``repro/launch/serve.py``'s ``generate_reference``.
+
+``generate_reference`` runs one prefill, then one DI round per token, with
+the reference's key chain (``split`` before the prefill and before every
+step), so its greedy tokens equal the reference's token for token.  The
+continuous-batching ``generate()`` and the ``repro.net`` protocol report
+are not ported yet (ROADMAP A5, A11).
+
+    python -m repro_torch.launch.serve --arch qwen1.5-0.5b --full-size
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import time
+
+import torch
+
+from repro_torch import prng
+from repro_torch.configs import ARCHITECTURES, get_config
+from repro_torch.core import comtune
+from repro_torch.core.compression import Compressor, PCASpec, QuantSpec
+from repro_torch.core.link import ChannelConfig
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models import cache as cache_lib, lm
+
+log = logging.getLogger("repro_torch.launch.serve")
+
+
+def _override_link(cfg, loss_rate=None, channel=None):
+    updates = {}
+    if loss_rate is not None:
+        updates["loss_rate"] = loss_rate
+    if channel is not None:
+        updates["channel"] = channel
+    if not updates:
+        return cfg
+    return cfg.with_updates(link=dataclasses.replace(cfg.link, **updates))
+
+
+def _accounting_compressor(cfg) -> Compressor:
+    """Compressor with the configured scheme's true message size (PCA sends
+    ``pca_dim`` f32 coefficients per vector)."""
+    link = cfg.link
+    if link.compression == "quant":
+        return Compressor(kind="quant", quant=QuantSpec(link.quant_bits, torch.zeros(()), torch.ones(())))
+    if link.compression == "pca":
+        pca_dim = link.pca_dim or cfg.d_model // 4
+        return Compressor(kind="pca", pca=PCASpec(w=torch.zeros(pca_dim, cfg.d_model), b=torch.zeros(cfg.d_model)))
+    return Compressor(kind="identity")
+
+
+def _link_accounting(cfg, batch: int) -> dict:
+    """Per-round message size + analytic link latency (paper §III-B)."""
+    channel_cfg = ChannelConfig(loss_rate=cfg.link.loss_rate)
+    spec = comtune.LinkSpec(
+        loss_rate=cfg.link.loss_rate,
+        compressor=_accounting_compressor(cfg),
+        channel=cfg.link.channel,
+        channel_params=tuple(cfg.link.channel_params),
+        fec_m=cfg.link.fec_m,
+    )
+    return {
+        "link_latency_s_per_round": comtune.di_latency_s(spec, cfg.d_model, batch, channel_cfg),
+        "message_kb_per_token": comtune.message_bytes(spec, cfg.d_model) * batch / 1e3,
+    }
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def generate_reference(model: lm.LM, cfg, prompts: torch.Tensor, num_tokens: int,
+                       loss_rate: float | None = None, key: torch.Tensor | None = None,
+                       greedy: bool = True, channel: str | None = None):
+    """Greedy per-token DI serving loop.  Returns (tokens (B, num_tokens)
+    int32, timings); the timed regions end in a device synchronize."""
+    assert greedy, "the reference loop is the greedy-equivalence oracle"
+    device = prompts.device
+    key = key if key is not None else prng.PRNGKey(0, device)
+    b, s_prompt = prompts.shape
+    cfg = _override_link(cfg, loss_rate=loss_rate, channel=channel)
+    prefill = make_prefill_step(cfg)
+    step = make_serve_step(cfg)
+
+    cache = cache_lib.init_cache(cfg, b, s_prompt + num_tokens, device=device)
+    key, sub = prng.split(key)
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, {"tokens": prompts}, cache, sub)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    out = []
+    token = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    t0 = time.perf_counter()
+    for i in range(num_tokens):
+        out.append(token)
+        key, sub = prng.split(key)
+        logits, cache = step(model, token, cache, s_prompt + i, sub)
+        token = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+
+    timings = {
+        "prefill_s": t_prefill,
+        "decode_s_per_token": t_decode / max(1, num_tokens),
+        "tokens_per_s": (b * num_tokens) / max(t_decode, 1e-9),
+    }
+    timings.update(_link_accounting(cfg, b))
+    return torch.cat(out, dim=1), timings
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", choices=sorted(ARCHITECTURES), required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--loss-rate", type=float, default=0.1)
+    ap.add_argument("--channel", default="iid", choices=["iid", "ge", "gilbert_elliott"],
+                    help="serve-time channel process")
+    ap.add_argument("--attn-impl", default=None, choices=["naive", "blockwise", "flash_decode"],
+                    help="override cfg.attn_impl: blockwise/flash_decode decode through the "
+                    "flash-decode kernel, naive through the full-softmax oracle")
+    ap.add_argument("--full-size", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if not args.full_size:
+        cfg = cfg.reduced()
+    if args.attn_impl:
+        cfg = cfg.with_updates(attn_impl=args.attn_impl)
+    key = prng.PRNGKey(0, device)
+    model = lm.init_lm(cfg, seed=0, device=device)
+    prompts = prng.randint(key, (args.batch, args.prompt_len), 0, cfg.vocab_size)
+    log.info("serving with generate_reference: generate() over the continuous engine "
+             "and the protocol report are not ported yet (ROADMAP A5, A11)")
+    toks, timings = generate_reference(model, cfg, prompts, args.tokens, loss_rate=args.loss_rate,
+                                       key=key, channel=args.channel)
+    log.info(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
+    log.info(f"generated: {toks[:, :10].cpu().numpy()} ...")
+    for k, v in timings.items():
+        log.info(f"{k}: {v:.5f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,211 @@
+"""Grouped-query attention with RoPE, sliding windows and rotating KV
+caches — the port's twin of ``repro/models/attention.py``.
+
+Decode (one new token against the cache) runs, by ``cfg.attn_impl``:
+
+* ``flash_decode`` / ``blockwise`` — ``kernels.decode_attention``: the
+  length-masked online softmax over the valid rows only, int8 KV
+  dequantized inline (the hand CUDA kernel on the card);
+* ``naive`` — the oracle: the valid prefix dequantized to the model dtype
+  and a full softmax.
+
+Prefill runs naive causal attention.  Windowed layers keep a rotating cache
+of ``window`` slots; RoPE is applied at write time, and writes land at
+``index % C``, so the live slots are always the prefix ``[0, min(index+1, C))``.
+
+Caches are dicts of tensors updated **in place** (the reference returns
+new arrays); ``Attention.forward`` returns only the layer's output.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.models import rope as rope_lib
+from repro_torch.models.common import dense_std, frozen, trunc_normal_
+
+NEG_INF = -1.0e30
+Cache = Dict[str, torch.Tensor]
+
+
+def _sqrt_f32(hd: int) -> float:
+    """``sqrt(float32(hd))``, the f32 value the reference divides scores by."""
+    return float(torch.sqrt(torch.tensor(float(hd), dtype=torch.float32)))
+
+
+def _grouped(q: torch.Tensor, num_kv: int) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, KV, G, hd)."""
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, num_kv, h // num_kv, hd)
+
+
+def _naive_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                softcap: float) -> torch.Tensor:
+    """q (B, Sq, KV, G, hd), k/v (B, Skv, KV, hd), mask broadcastable to
+    (B, KV, G, Sq, Skv): materialized f32 scores, softmax, probs in q's dtype."""
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float()
+    scores = scores / _sqrt_f32(q.shape[-1])
+    if softcap > 0.0:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def cache_len(spec: LayerSpec, max_seq: int) -> int:
+    return min(max_seq, spec.window) if spec.window > 0 else max_seq
+
+
+def init_kv_cache(batch: int, length: int, num_kv: int, head_dim: int, dtype,
+                  kv_cache_dtype: str = "", *, device) -> Cache:
+    """A model-dtype cache, or int8 codes + per-(pos, head) bf16 scales."""
+    shape = (batch, length, num_kv, head_dim)
+    if kv_cache_dtype == "int8":
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.bfloat16, device=device),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.bfloat16, device=device),
+        }
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., hd) -> int8 codes + bf16 absmax scale (clamped at 1e-8), codes
+    rounded half to even."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(dim=-1) / 127.0, min=1e-8)
+    codes = torch.round(x32 / scale[..., None])
+    return codes.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (codes.float() * scale.float()[..., None]).to(dtype)
+
+
+def _is_quantized(cache: Cache) -> bool:
+    return "k_scale" in cache
+
+
+def _read_cache(cache: Cache, dtype):
+    if _is_quantized(cache):
+        return (_dequantize_kv(cache["k"], cache["k_scale"], dtype),
+                _dequantize_kv(cache["v"], cache["v_scale"], dtype))
+    return cache["k"], cache["v"]
+
+
+def _parts(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
+    if _is_quantized(cache):
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k, "v": v}
+
+
+def _write_decode(cache: Cache, k: torch.Tensor, v: torch.Tensor, index: int) -> Cache:
+    """Write one position (S == 1) at rotating slot ``index % C``, in place."""
+    slot = index % cache["k"].shape[1]
+    for name, val in _parts(cache, k, v).items():
+        cache[name][:, slot:slot + 1] = val
+    return cache
+
+
+def _write_prefill(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
+    """Write positions 0..S-1 as rotating decode writes would (position p in
+    slot p % C, keeping the last C), in place."""
+    c = cache["k"].shape[1]
+    s = k.shape[1]
+    for name, val in _parts(cache, k, v).items():
+        if s <= c:
+            cache[name][:, :s] = val
+        else:
+            slots = (torch.arange(c, device=val.device) + (s - c)) % c
+            cache[name][:, slots] = val[:, s - c:]
+    return cache
+
+
+def _masked_decode_attn(qg: torch.Tensor, cache: Cache, cache_index: int, softcap: float,
+                        dtype) -> torch.Tensor:
+    """The naive decode oracle: the valid prefix ``[0, min(index+1, C))`` is
+    sliced out, dequantized to the model dtype, and attended in full."""
+    n_valid = min(int(cache_index) + 1, cache["k"].shape[1])
+    live = {name: buf[:, :n_valid] for name, buf in cache.items()}
+    mask = torch.ones((1, 1, 1, 1, n_valid), dtype=torch.bool, device=qg.device)
+    k_read, v_read = _read_cache(live, dtype)
+    return _naive_attn(qg, k_read, v_read, mask, softcap)
+
+
+# ---------------------------------------------------------------------------
+# Layer
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """q/k/v/out projections in the reference's ``x @ w`` layout:
+    ``wq`` (d, H*hd), ``wk``/``wv`` (d, KV*hd), ``w_out`` (H*hd, d)."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, dtype, device):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        self.spec = spec
+        self.wq = frozen((d, h * hd), dtype, device)
+        self.wk = frozen((d, kv * hd), dtype, device)
+        self.wv = frozen((d, kv * hd), dtype, device)
+        self.w_out = frozen((h * hd, d), dtype, device)
+        if cfg.qkv_bias:
+            self.bq = frozen((h * hd,), dtype, device)
+            self.bk = frozen((kv * hd,), dtype, device)
+            self.bv = frozen((kv * hd,), dtype, device)
+        else:
+            self.bq = self.bk = self.bv = None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.w_out):
+            trunc_normal_(w, dense_std(w.shape), gen)
+        for bias in (self.bq, self.bk, self.bv):
+            if bias is not None:
+                nn.init.zeros_(bias)
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                cache: Optional[Cache] = None, cache_index: Optional[int] = None) -> torch.Tensor:
+        b, s, _ = x.shape
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        if self.bq is not None:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        q = rope_lib.apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta, cfg.mrope_sections)
+        k = rope_lib.apply_rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta, cfg.mrope_sections)
+        v = v.reshape(b, s, kvh, hd)
+        qg = _grouped(q, kvh)
+
+        if cache is not None and s == 1:
+            _write_decode(cache, k, v, cache_index)
+            if cfg.attn_impl in ("flash_decode", "blockwise"):
+                n_valid = min(int(cache_index) + 1, cache["k"].shape[1])
+                out = decode_attention(qg, cache, n_valid, softcap=cfg.logit_softcap,
+                                       block_kv=cfg.attn_decode_block_kv)
+            else:
+                out = _masked_decode_attn(qg, cache, cache_index, cfg.logit_softcap, k.dtype)
+        else:
+            if cfg.attn_impl in ("blockwise", "flash_decode") and s > cfg.attn_block_q:
+                raise NotImplementedError(
+                    f"prefill of {s} > attn_block_q={cfg.attn_block_q} tokens needs blockwise / "
+                    "flash attention, not ported yet (ROADMAP B3)")
+            pos = torch.arange(s, device=x.device)
+            msk = pos[:, None] >= pos[None, :]
+            if self.spec.window > 0:
+                msk &= pos[:, None] - pos[None, :] < self.spec.window
+            out = _naive_attn(qg, k, v, msk[None, None, None], cfg.logit_softcap)
+            if cache is not None:
+                _write_prefill(cache, k, v)
+        return out.reshape(b, s, h * hd) @ self.w_out
+

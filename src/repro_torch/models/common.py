@@ -1,0 +1,63 @@
+"""Shared building blocks: dtypes, the truncated-normal initializers, norms
+and activations (twin of ``repro/models/common.py``)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def frozen(shape, dtype, device) -> nn.Parameter:
+    """An uninitialized inference-only parameter."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+
+
+@torch.no_grad()
+def trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> torch.Tensor:
+    """N(0, 1) truncated to [-2, 2], scaled by ``std``, drawn in f32 and cast
+    to the parameter's dtype (the reference's ``dense_init``/``embed_init``)."""
+    x = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    nn.init.trunc_normal_(x, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
+    return t.copy_(x * std)
+
+
+def dense_std(shape) -> float:
+    """Fan-in scale of ``dense_init``: 1 / sqrt(shape[-2])."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    return 1.0 / math.sqrt(fan_in)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with the (1 + scale) convention, eps 1e-6, computed in f32."""
+
+    def __init__(self, d: int, dtype, device):
+        super().__init__()
+        self.scale = frozen((d,), dtype, device)
+
+    def reset_parameters(self) -> None:
+        nn.init.zeros_(self.scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + 1e-6)
+        return (y * (1.0 + self.scale.float())).to(x.dtype)
+
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu
+    raise ValueError(name)
