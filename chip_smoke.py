@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one H100: builds the kernels,
 holds each against its plain PyTorch version on the card, serves the
-full-width qwen1.5-0.5b split LM through ``generate_reference``, and times
-the kernels and the slice.
+full-width qwen1.5-0.5b split LM through ``generate_reference`` and through
+the continuous-batching engine (contiguous and paged pools), and times the
+kernels and both paths.
 
     python3 chip_smoke.py            # everything (needs one sm_90 card)
     python3 chip_smoke.py --quick    # build + kernel checks only
@@ -11,19 +12,35 @@ Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one nvcc each, started together);
   2. flash decode vs ``flash_decode_ref`` at the main path's head shapes
      (B 4, KV 16, G 1, hd 64, C 64 and 1024) and gemma3's (KV 8, G 2,
-     hd 256), bf16 / int8 / f32 caches, softcap 0 and 30;
+     hd 256), bf16 / int8 / f32 caches, softcap 0 and 30; then paged flash
+     decode vs ``paged_flash_decode_ref`` at the engine's shape (B 8, KV 16,
+     G 1, hd 64, block 16) and gemma3's heads, over a permuted block table,
+     n_valid in {0, 1, 15, 16, 17, full};
   3. threefry link masks (iid, Gilbert–Elliott) drawn on the card equal
      the same draws on the CPU;
   4. full-width qwen1.5-0.5b (random weights from a seed), batch 4, prompt
-     32, 32 tokens, loss 0.1: f32 greedy tokens of the kernel path equal
-     the naive oracle's under iid and GE; bf16 per-step logits (teacher
-     forced) of kernel vs naive within twice the bf16-vs-f32 difference;
-     the kernel launched 24 x tokens times per run; the main path (bf16
-     weights and KV, iid) run with the launch counts zeroed just before;
+     32, 32 tokens, loss 0.1, through ``generate_reference``: f32 greedy
+     tokens of the kernel path equal the naive oracle's under iid and GE;
+     bf16 per-step logits (teacher forced) of kernel vs naive within twice
+     the bf16-vs-f32 difference; the kernel launched 24 x tokens times per
+     run; slice 1's main path (bf16 weights and KV, iid) run with the
+     launch counts zeroed just before;
   5. where a decode round's time goes: the link alone (iid, GE), a round
-     with the link off, and a torch.profiler trace of the main path
+     with the link off, and a torch.profiler trace of that path
      (device-busy share, kernels per round);
-  6. kernel, plain and library times at the main path's shapes and the
+  6. flash-decode kernel, plain and library times at the main path's
+     shapes and the bytes bound;
+  7. the continuous engine: f32, iid and GE, 4 requests: paged tokens ==
+     contiguous tokens == ``generate_reference`` per request, each engine's
+     kernel launched 24 x decode steps; the engine's main path (bf16, iid,
+     16 requests of prompts 5/13/29/61/127 and 32 tokens through 8 slots of
+     the paged pool, launch counts zeroed just before): TTFT and TPOT per
+     request, tokens/s, peak blocks; the contiguous pool on the same
+     requests gives the same tokens; one request per bucket, teacher
+     forced through the naive oracle, picks the oracle's argmax to within
+     4x the bf16 noise; a profiled window of that path
+     (device-busy share) and the link's rounds timed alone;
+  8. paged-kernel, plain and library times at the engine's shape and the
      bytes bound.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -99,6 +116,29 @@ def time_graph(fn, iters=200) -> float:
     return start.elapsed_time(end) / (5 * iters)
 
 
+def device_profile(fn) -> dict:
+    """Run ``fn`` under torch.profiler: device time summed over the card's
+    kernels, their number, the top eight by device time, and the host wall
+    of ``fn`` (ending in a synchronize) inside the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    if not kernels:
+        return {"device_busy_share": "not measured (no device events in the trace)"}
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    return dict(wall_ms=wall_s * 1e3, device_busy_ms=busy_ms, kernels=len(kernels),
+                top_kernels_ms={k[:80]: v / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]})
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: the flash-decode kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -154,6 +194,53 @@ def check_flash_decode() -> float:
                     worst = max(worst, float((got.float() - want.float()).abs().max()))
                     n_cases += 1
     log(f"[kernel] flash_decode vs flash_decode_ref: {n_cases} cases agree, max |err| {worst:.3e}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 2 (paged): the paged flash-decode kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(gen, b, kvh, g, hd, bs, j, qdt, cache):
+    """q, a block pool of ``b * j + 1`` blocks (block 0 the trash block) and
+    a table holding a random permutation of blocks 1..b*j."""
+    import torch
+
+    q, k, v, ks, vs = _decode_inputs(gen, b * j + 1, kvh, g, hd, bs, qdt, cache)
+    perm = torch.randperm(b * j, generator=gen, device="cuda") + 1
+    return q[:b].contiguous(), k, v, ks, vs, perm.reshape(b, j).to(torch.int32)
+
+
+def check_paged_flash_decode() -> float:
+    """Paged kernel vs ``paged_flash_decode_ref`` at the engine's main shape
+    (B 8, KV 16, G 1, hd 64, bs 16) and gemma3's heads (KV 8, G 2, hd 256);
+    tolerances as for the contiguous kernel."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import cuda_kernel, paged_flash_decode_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    combos = [(torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"), (torch.float32, "float32"),
+              (torch.float32, "int8")]
+    bs, j = 16, 10
+    worst = 0.0
+    n_cases = 0
+    for b, kvh, g, hd in ((8, 16, 1, 64), (8, 8, 2, 256)):
+        nv = [0, 1, 15, 16, 17, j * bs, 0, 1][:b]
+        n = torch.tensor(nv, dtype=torch.int32, device="cuda")
+        for qdt, cache in combos:
+            q, k, v, ks, vs, bt = _paged_inputs(gen, b, kvh, g, hd, bs, j, qdt, cache)
+            for softcap in (0.0, 30.0):
+                got = cuda_kernel.paged_flash_decode(q, k, v, ks, vs, bt, n, softcap=softcap)
+                want = paged_flash_decode_ref(q, k, v, ks, vs, bt, n, block_size=bs, softcap=softcap)
+                torch.cuda.synchronize()
+                tol = dict(rtol=2e-5, atol=2e-5) if qdt == torch.float32 else dict(rtol=2.0 ** -7, atol=1e-5)
+                torch.testing.assert_close(got.float(), want.float(), **tol,
+                                           msg=lambda m: f"{(b, kvh, g, hd, cache, str(qdt), softcap)}: {m}")
+                assert torch.all(got[n == 0] == 0), "n_valid = 0 must give zeros"
+                worst = max(worst, float((got.float() - want.float()).abs().max()))
+                n_cases += 1
+    log(f"[kernel] paged_flash_decode vs paged_flash_decode_ref: {n_cases} cases agree, max |err| {worst:.3e}")
     return worst
 
 
@@ -331,25 +418,200 @@ def decode_breakdown(model, cfg, prompts, key, report) -> None:
             out[f"decode_link_{mode}_ms_per_token"] = (time.perf_counter() - t0) / TOKENS * 1e3
     # Device-busy share of the main path's decode under the profiler (which
     # adds host overhead, so the share is a lower bound on the untraced run's).
-    from torch.profiler import ProfilerActivity, profile
-
     generate_reference(model, cfg, prompts, 4, loss_rate=LOSS, key=key, channel="iid")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, timings = generate_reference(model, cfg, prompts, TOKENS, loss_rate=LOSS, key=key, channel="iid")
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    wall_us = (timings["prefill_s"] + timings["decode_s_per_token"] * TOKENS) * 1e6
-    if kernels:
-        out.update(profiled_wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-                   device_busy_share=busy_us / wall_us, kernels_per_round=len(kernels) / (TOKENS + 1))
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        out["top_kernels_ms"] = {k[:80]: v / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+    timings = {}
+    prof = device_profile(lambda: timings.update(generate_reference(
+        model, cfg, prompts, TOKENS, loss_rate=LOSS, key=key, channel="iid")[1]))
+    wall_ms = (timings["prefill_s"] + timings["decode_s_per_token"] * TOKENS) * 1e3
+    if "kernels" in prof:
+        out.update(profiled_wall_ms=wall_ms, device_busy_ms=prof["device_busy_ms"],
+                   device_busy_share=prof["device_busy_ms"] / wall_ms,
+                   kernels_per_round=prof["kernels"] / (TOKENS + 1), top_kernels_ms=prof["top_kernels_ms"])
     else:
-        out["device_busy_share"] = "not measured (no device events in the trace)"
+        out.update(prof)
     report["decode_breakdown"] = out
     log(f"[profile] {json.dumps(out)}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the continuous-batching engine at full width
+# ---------------------------------------------------------------------------
+
+def _engine_serve(model, cfg, pool, prompts, keys, tokens):
+    """Serve one request per prompt through a fresh engine; returns the
+    engine, its requests and the tokens (R, tokens)."""
+    import numpy as np
+
+    from repro_torch.serve import ContinuousEngine
+
+    eng = ContinuousEngine(cfg, pool, device="cuda")
+    reqs = [eng.submit(p, tokens, key=k) for p, k in zip(prompts, keys)]
+    eng.run(model)
+    return eng, reqs, np.stack([r.tokens for r in reqs])
+
+
+def hold_to_oracle(model16, cfg16, prompts, keys, toks) -> dict:
+    """The bf16 main path against the naive oracle, one request per bucket:
+    the served tokens, teacher forced through the naive path on the
+    request's key chain (batch 1, unpadded), give the oracle's logits at
+    every step.  The served token must be the oracle's argmax to within 4x
+    the bf16 noise (naive bf16 vs naive f32 on the same weights): engine
+    logits within twice that noise of the oracle's, as phase 4 holds the
+    flash kernel, can pick no token further below the oracle's best."""
+    import torch
+
+    from repro_torch.models import lm
+
+    dev = model16.embed.device
+    cfg32 = cfg16.with_updates(dtype="float32", attn_impl="naive")
+    ref32 = lm.LM(cfg32, device=dev)
+    ref32.load_state_dict({k: v.float() for k, v in model16.state_dict().items()})
+    rows = []
+    for p, k, t in zip(prompts, keys, toks):
+        prompt = torch.from_numpy(p).to(dev)[None]
+        forced = torch.from_numpy(t[:-1]).to(dev)[None]
+        ln = forced_logits(model16, cfg16.with_updates(attn_impl="naive"), prompt, forced, k)[0].float()
+        lf = forced_logits(ref32, cfg32, prompt, forced, k)[0].float()
+        assert bool(torch.isfinite(ln).all()), "non-finite oracle logits"
+        served = ln.gather(1, torch.from_numpy(t).long().to(dev)[:, None])[:, 0]
+        margin = float((ln.max(dim=1).values - served).max())
+        noise = float((ln - lf).abs().max())
+        agree = float((ln.argmax(dim=1).cpu().numpy() == t).mean())
+        rows.append(dict(prompt=int(p.size), margin=margin, bf16_noise=noise, argmax_agreement=agree))
+        log(f"[engine]   oracle, prompt {p.size:3d}: served token below the oracle's best by at most "
+            f"{margin:.4f} (bf16 noise {noise:.4f}), argmax agreement {agree:.4f}")
+        assert margin <= 4.0 * noise, f"prompt {p.size}: served tokens stray from the naive oracle beyond bf16 noise"
+    del ref32
+    return {"requests": rows}
+
+
+def run_engine(report) -> int:
+    """f32, iid and GE: the paged engine's greedy tokens equal the contiguous
+    engine's and ``generate_reference``'s run per request; each engine
+    launched its kernel 24 times per decode step.  Then the main path: bf16,
+    iid, 16 requests (prompts 5/13/29/61/127, buckets 8..128) of 32 tokens
+    through 8 slots of the paged pool, with the paged launch count zeroed
+    just before; the contiguous engine on the same requests must give the
+    same tokens, and the naive oracle must agree with them (``hold_to_oracle``).
+    Returns the main path's paged launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import cuda_kernel
+    from repro_torch.launch.serve import generate_reference
+    from repro_torch.models import lm
+    from repro_torch.serve import PoolConfig
+
+    base = get_config("qwen1.5-0.5b").with_updates(attn_impl="flash_decode")
+    n_layers = base.num_layers
+    key = prng.PRNGKey(1, "cuda")
+    out = {}
+
+    def with_link(cfg, channel):
+        return cfg.with_updates(link=dataclasses.replace(cfg.link, channel=channel, loss_rate=LOSS))
+
+    def counted(fn):
+        f0, p0 = cuda_kernel.launch_count, cuda_kernel.paged_launch_count
+        res = fn()
+        return res, cuda_kernel.launch_count - f0, cuda_kernel.paged_launch_count - p0
+
+    cfg32 = base.with_updates(dtype="float32")
+    model32 = lm.init_lm(cfg32, seed=0, device="cuda")
+    lengths = [5, 9, 13, 16]
+    prompts = [prng.randint(prng.fold_in(key, 100 + i), (n,), 0, base.vocab_size).cpu().numpy()
+               for i, n in enumerate(lengths)]
+    keys = [prng.fold_in(key, i) for i in range(len(prompts))]
+    pool = PoolConfig(max_slots=4, max_new=TOKENS, max_prompt=16, min_bucket=8, block_size=16)
+    for channel in ("iid", "ge"):
+        cfg = with_link(cfg32, channel)
+        got = {}
+        for paged in (False, True):
+            t0 = time.perf_counter()
+            (eng, _, toks), n_flat, n_paged = counted(
+                lambda: _engine_serve(model32, cfg, dataclasses.replace(pool, paged=paged), prompts, keys, TOKENS))
+            want = (0, n_layers * eng.steps) if paged else (n_layers * eng.steps, 0)
+            assert (n_flat, n_paged) == want, f"{channel} paged={paged}: launches {(n_flat, n_paged)}, want {want}"
+            got[paged] = toks
+            log(f"[engine] f32/{channel}/{'paged' if paged else 'contiguous'}: {eng.steps} steps, "
+                f"{time.perf_counter() - t0:.2f} s, launches {max(n_flat, n_paged)} = 24 x steps")
+        assert np.array_equal(got[False], got[True]), f"f32 {channel}: paged tokens differ from contiguous"
+        refs = np.stack([generate_reference(model32, cfg, torch.from_numpy(p).cuda()[None], TOKENS, key=k)[0]
+                         .cpu().numpy()[0] for p, k in zip(prompts, keys)])
+        agree = float((refs == got[True]).mean())
+        out[f"f32_{channel}_token_agreement_with_reference"] = agree
+        log(f"[engine] f32/{channel}: paged tokens == contiguous tokens; agreement with generate_reference "
+            f"per request {agree:.4f}")
+        assert np.array_equal(refs, got[True]), f"f32 {channel}: engine tokens differ from generate_reference"
+    del model32
+
+    cfg16 = with_link(base.with_updates(dtype="bfloat16"), "iid")
+    model16 = lm.init_lm(cfg16, seed=0, device="cuda")
+    main_pool = PoolConfig(max_slots=8, max_new=TOKENS, max_prompt=128, min_bucket=8, paged=True, block_size=16)
+    cycle = (5, 13, 29, 61, 127)
+    prompts = [prng.randint(prng.fold_in(key, 200 + i), (cycle[i % 5],), 0, base.vocab_size).cpu().numpy()
+               for i in range(16)]
+    keys = [prng.fold_in(key, 300 + i) for i in range(16)]
+    _engine_serve(model16, cfg16, main_pool, prompts[:5], keys[:5], 2)        # first use of each bucket
+    torch.cuda.synchronize()
+    # The main path: the counts are zeroed just before it and read just after.
+    cuda_kernel.launch_count = cuda_kernel.paged_launch_count = 0
+    t0 = time.perf_counter()
+    eng, reqs, toks = _engine_serve(model16, cfg16, main_pool, prompts, keys, TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, flat = cuda_kernel.paged_launch_count, cuda_kernel.launch_count
+    assert flat == 0 and launches == n_layers * eng.steps, f"main path: {launches} paged launches, {eng.steps} steps"
+    assert toks.shape == (16, TOKENS) and toks.min() >= 0 and toks.max() < base.vocab_size
+    stats = eng.stats()
+    main = dict(requests=16, tokens_each=TOKENS, wall_s=wall, tokens_per_s=16 * TOKENS / wall, steps=eng.steps,
+                paged_launches=launches, peak_blocks_used=stats["peak_blocks_used"],
+                pool_blocks_total=stats["pool_blocks_total"], active_mean=stats["active_mean"],
+                per_request=[dict(prompt=int(r.prompt.size), bucket=r.bucket, ttft_s=r.ttft_s,
+                                  prefill_s=r.t_first_token - r.t_admit, tpot_s=r.tpot_s) for r in reqs],
+                ttft_p50_s=stats["ttft_p50_s"], ttft_p99_s=stats["ttft_p99_s"], tpot_p50_s=stats["tpot_p50_s"],
+                tpot_p99_s=stats["tpot_p99_s"])
+    log(f"[engine] main path (bf16, iid, paged, 8 slots): 16 x {TOKENS} tokens in {wall:.3f} s = "
+        f"{main['tokens_per_s']:.1f} tok/s, {eng.steps} steps, paged launches {launches} = 24 x steps, "
+        f"peak blocks {stats['peak_blocks_used']:.0f} of {stats['pool_blocks_total']:.0f}")
+    for r in main["per_request"]:
+        log(f"[engine]   prompt {r['prompt']:3d} (bucket {r['bucket']:3d}): TTFT {r['ttft_s'] * 1e3:8.1f} ms "
+            f"(prefill {r['prefill_s'] * 1e3:6.1f} ms), TPOT {r['tpot_s'] * 1e3:6.2f} ms")
+    t0 = time.perf_counter()
+    (ceng, _, ctoks), n_flat, _ = counted(
+        lambda: _engine_serve(model16, cfg16, dataclasses.replace(main_pool, paged=False), prompts, keys, TOKENS))
+    torch.cuda.synchronize()
+    cwall = time.perf_counter() - t0
+    assert n_flat == n_layers * ceng.steps
+    main["contiguous"] = dict(wall_s=cwall, tokens_per_s=16 * TOKENS / cwall, steps=ceng.steps,
+                              token_agreement_with_paged=float((ctoks == toks).mean()))
+    log(f"[engine] same requests, contiguous pool: {cwall:.3f} s = {16 * TOKENS / cwall:.1f} tok/s, "
+        f"token agreement with paged {main['contiguous']['token_agreement_with_paged']:.4f}")
+    assert np.array_equal(ctoks, toks), "bf16 main path: contiguous tokens differ from paged"
+    main["oracle"] = hold_to_oracle(model16, cfg16, prompts[:5], keys[:5], toks[:5])
+    # Where the main path's time goes: a short window of it under the
+    # profiler (one request per bucket, 8 tokens each; the full run's half a
+    # million kernels take the profiler minutes to process).
+    prof = device_profile(lambda: _engine_serve(model16, cfg16, main_pool, prompts[:5], keys[:5], 8))
+    if "kernels" in prof:
+        prof["device_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
+    # The link's share: one decode step's 8 slot-wise rounds, and one
+    # admission's streamed rounds (one per padded position) at buckets 8, 128.
+    rounds = prng.split(key, 8)
+    x = torch.randn((8, 1, base.d_model), device="cuda").to(torch.bfloat16)
+    link = {"slotwise_8_slots_ms": time_events(lambda: lm.make_slotwise_link_fn(cfg16, model16, rounds, "serve")(x),
+                                               iters=10, warmup=2)}
+    for bucket in (8, 128):
+        xs = torch.randn((1, bucket, base.d_model), device="cuda").to(torch.bfloat16)
+        link[f"streamed_bucket_{bucket}_ms"] = time_events(
+            lambda: lm.make_link_fn(cfg16, model16, key, "serve")(xs), iters=3, warmup=1)
+    prof.update(link)
+    main["profile"] = prof
+    log(f"[profile] engine main path: {json.dumps(prof)}")
+    out["main_path"] = main
+    report["engine"] = out
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +660,57 @@ def time_flash_decode(b, kvh, g, hd, c, n_valid, cache, qdt_name="bfloat16") -> 
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: paged kernel timing at the engine's shape
+# ---------------------------------------------------------------------------
+
+def time_paged_flash_decode(n_valid, cache="bfloat16", b=8, kvh=16, g=1, hd=64, bs=16, j=10) -> dict:
+    """Paged kernel times at the engine's main shape (8 slots, 16 KV heads,
+    hd 64, block 16, a 10-block table row: max_seq 160), per-row ``n_valid``.
+    The library yardstick is SDPA over the same rows gathered into a
+    contiguous copy with a length mask; the gather is not timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import cuda_kernel, paged_flash_decode_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, ks, vs, bt = _paged_inputs(gen, b, kvh, g, hd, bs, j, torch.bfloat16, cache)
+    n = torch.tensor(n_valid, dtype=torch.int32, device="cuda")
+    saved = cuda_kernel.paged_launch_count
+    call = lambda: cuda_kernel.paged_flash_decode(q, k, v, ks, vs, bt, n)
+    ms_graph = time_graph(call)
+    ms_eager = time_events(call)
+    cuda_kernel.paged_launch_count = saved
+    plain_ms = time_events(lambda: paged_flash_decode_ref(q, k, v, ks, vs, bt, n, block_size=bs), iters=50)
+    idx = bt.reshape(-1).long()
+    gather = lambda a: a[idx].reshape((b, j * bs) + tuple(a.shape[2:]))
+    kd, vd = gather(k), gather(v)
+    if ks is not None:
+        kd = (kd.float() * gather(ks).float()[..., None]).bfloat16()
+        vd = (vd.float() * gather(vs).float()[..., None]).bfloat16()
+    kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+    mask = (torch.arange(j * bs, device="cuda")[None, :] < n[:, None])[:, None, None, :]
+    qs = q.reshape(b, kvh * g, 1, hd)
+    sdpa = lambda: F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib_ms = time_graph(sdpa)
+    lib_eager = time_events(sdpa)
+    elem = {"bfloat16": 2, "float32": 4, "int8": 1}[cache]
+    rows = sum(n_valid) * kvh
+    nbytes = (2 * b * kvh * g * hd * 2 + 2 * rows * hd * elem + (2 * rows * 2 if cache == "int8" else 0)
+              + 4 * b * j + 4 * b)
+    ops = 4 * rows * g * hd
+    bound_s = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[cache])
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS[cache] else "operations"
+    rec = dict(shape=dict(B=b, KV=kvh, G=g, hd=hd, block_size=bs, J=j, n_valid=list(n_valid), cache=cache, q="bfloat16"),
+               ms=ms_graph, ms_eager=ms_eager, plain_ms=plain_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
+               library_ms=lib_ms, library_ms_eager=lib_eager, bytes=nbytes, ops=ops)
+    log(f"[time] paged_flash_decode {rec['shape']}: kernel {ms_graph * 1e3:.2f} us (graph) / {ms_eager * 1e3:.2f} us "
+        f"(eager), plain {plain_ms * 1e3:.1f} us, sdpa on the gathered rows {lib_ms * 1e3:.2f} us (graph) / "
+        f"{lib_eager * 1e3:.2f} us, bound {bound_s * 1e6:.3f} us ({bound_by}, {nbytes} B)")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
@@ -438,6 +751,10 @@ def main(argv=None) -> int:
                   source="src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu",
                   replaces="src/repro/kernels/decode_attention/kernel.py:120",
                   max_abs_err=max_err)
+    paged_record = dict(name="paged_flash_decode", route="cuda",
+                        source="src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu",
+                        replaces="src/repro/kernels/decode_attention/kernel.py:241",
+                        max_abs_err=check_paged_flash_decode())
     if not args.quick:
         check_masks()
         launches = run_slice(report)
@@ -452,7 +769,16 @@ def main(argv=None) -> int:
         record.update(launches=launches, ms=timing["ms"], plain_ms=timing["plain_ms"],
                       bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
                       library_ms=timing["library_ms"])
-    report["kernels"] = [record]
+        paged_launches = run_engine(report)
+        # Mid-generation rows of the main path: prompt + 16 generated + 1.
+        mid = [p + 17 for p in (5, 13, 29, 61, 127, 5, 13, 29)]
+        ptiming = time_paged_flash_decode(mid)
+        report["paged_kernel_times"] = [ptiming] + [
+            time_paged_flash_decode(mid, cache="int8"), time_paged_flash_decode([160] * 8)]
+        paged_record.update(launches=paged_launches, ms=ptiming["ms"], plain_ms=ptiming["plain_ms"],
+                            bound_ms=ptiming["bound_ms"], bound_by=ptiming["bound_by"],
+                            library_ms=ptiming["library_ms"])
+    report["kernels"] = [record, paged_record]
     report["seconds"] = time.perf_counter() - t0
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,7 +1,13 @@
-"""Length-masked decode attention: the hand CUDA kernel (``cuda_kernel``),
-its plain PyTorch version (``torch_ref``) and the model-facing dispatch."""
+"""Length-masked decode attention over a contiguous cache or a paged block
+pool: the hand CUDA kernels (``cuda_kernel``), their plain PyTorch versions
+(``torch_ref``) and the model-facing dispatch."""
 
-from repro_torch.kernels.decode_attention.dispatch import decode_attention, decode_block_kv
-from repro_torch.kernels.decode_attention.torch_ref import flash_decode_ref
+from repro_torch.kernels.decode_attention.dispatch import (
+    decode_attention,
+    decode_block_kv,
+    paged_decode_attention,
+)
+from repro_torch.kernels.decode_attention.torch_ref import flash_decode_ref, paged_flash_decode_ref
 
-__all__ = ["decode_attention", "decode_block_kv", "flash_decode_ref"]
+__all__ = ["decode_attention", "decode_block_kv", "flash_decode_ref", "paged_decode_attention",
+           "paged_flash_decode_ref"]

@@ -1,11 +1,12 @@
-"""ctypes binding and launch wrapper of ``csrc/flash_decode.cu``.
+"""ctypes binding and launch wrappers of ``csrc/flash_decode.cu``.
 
 The library is built with ``nvcc`` at first use (``kernels/nvcc.py``).
-``flash_decode`` checks device, dtype, shape and contiguity, allocates the
-output with ``torch.empty``, launches on PyTorch's current stream and
-raises if the launch reports an error.  ``launch_count`` counts the
-launches and nothing else, so a run can show that it went through the
-kernel.
+``flash_decode`` (contiguous cache) and ``paged_flash_decode`` (block pool
+and table) check device, dtype, shape and contiguity, allocate the output
+with ``torch.empty``, launch on PyTorch's current stream and raise if the
+launch reports an error.  ``launch_count`` and ``paged_launch_count``
+count each wrapper's launches and nothing else, so a run can show that it
+went through the kernel.
 """
 
 from __future__ import annotations
@@ -26,20 +27,24 @@ CACHE_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 Q_TYPES = {torch.bfloat16: 1, torch.float32: 2}
 
 launch_count: int = 0
-_fn = None
+paged_launch_count: int = 0
+_lib = None
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
+def _library():
+    global _lib
+    if _lib is None:
         lib = nvcc.load_library(LIB_NAME, SOURCES)
-        fn = lib.flash_decode_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib.flash_decode_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+        lib.paged_flash_decode_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+        for fn in (lib.flash_decode_launch, lib.paged_flash_decode_launch):
+            fn.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.flash_decode_error_string)
-    return _fn
+        _lib = lib
+    return _lib
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -63,32 +68,94 @@ def flash_decode(
     b, kvh, g, hd = q.shape
     c = k.shape[1]
     tensors = [q, k, v, n_valid] + ([k_scale, v_scale] if k_scale is not None else [])
+    _check_common(q, k, v, tensors)
+    _check(tuple(k.shape) == (b, c, kvh, hd) and tuple(v.shape) == (b, c, kvh, hd),
+           f"cache shape {tuple(k.shape)} vs q {tuple(q.shape)}")
+    _check(n_valid.dtype == torch.int32 and tuple(n_valid.shape) == (b,), "n_valid must be (B,) int32")
+    _check_scales(k, k_scale, v_scale, (b, c, kvh))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    quantized = k_scale is not None
+    lib = _library()
+    err = lib.flash_decode_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
+        n_valid.data_ptr(), out.data_ptr(),
+        b, c, kvh, g, hd, CACHE_TYPES[k.dtype], Q_TYPES[q.dtype], float(softcap), _stream(q),
+    )
+    _raise_on(err, "flash_decode")
+    launch_count += 1
+    return out
+
+
+def paged_flash_decode(
+    q: torch.Tensor,                     # (B, KV, G, hd) bf16/f32
+    k: torch.Tensor,                     # (N, bs, KV, hd) int8/bf16/f32 block pool
+    v: torch.Tensor,
+    k_scale: Optional[torch.Tensor],     # (N, bs, KV) bf16, int8 pools only
+    v_scale: Optional[torch.Tensor],
+    block_table: torch.Tensor,           # (B, J) int32 pool block ids in [0, N)
+    n_valid: torch.Tensor,               # (B,) int32
+    *,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Length-masked decode attention over a shared block pool, walked
+    through each request's block-table row, on the card; returns (B, KV,
+    G, hd) in q's dtype.  Rows past ``J * bs`` are never read.  The block
+    ids are not checked (that would need a device sync): the caller keeps
+    them in ``[0, N)``."""
+    global paged_launch_count
+    b, kvh, g, hd = q.shape
+    nblk, bs = k.shape[:2]
+    tensors = [q, k, v, block_table, n_valid] + ([k_scale, v_scale] if k_scale is not None else [])
+    _check_common(q, k, v, tensors)
+    _check(tuple(k.shape) == (nblk, bs, kvh, hd) and tuple(v.shape) == (nblk, bs, kvh, hd),
+           f"pool shape {tuple(k.shape)} vs q {tuple(q.shape)}")
+    _check(block_table.dtype == torch.int32 and block_table.dim() == 2 and block_table.shape[0] == b
+           and block_table.shape[1] >= 1, "block_table must be (B, J) int32 with J >= 1")
+    _check(n_valid.dtype == torch.int32 and tuple(n_valid.shape) == (b,), "n_valid must be (B,) int32")
+    _check_scales(k, k_scale, v_scale, (nblk, bs, kvh))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    quantized = k_scale is not None
+    lib = _library()
+    err = lib.paged_flash_decode_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
+        block_table.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
+        b, bs, block_table.shape[1], kvh, g, hd, CACHE_TYPES[k.dtype], Q_TYPES[q.dtype],
+        float(softcap), _stream(q),
+    )
+    _raise_on(err, "paged_flash_decode")
+    paged_launch_count += 1
+    return out
+
+
+def _check_common(q, k, v, tensors) -> None:
     _check(all(t.is_cuda and t.device == q.device for t in tensors), "all inputs must be on one CUDA device")
     _check(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
     _check(q.dtype in Q_TYPES, f"q dtype {q.dtype} not in {list(Q_TYPES)}")
     _check(k.dtype in CACHE_TYPES and v.dtype == k.dtype, f"cache dtype {k.dtype}/{v.dtype}")
-    _check(hd in HEAD_DIMS and 1 <= g <= MAX_GROUP, f"head_dim {hd} / group {g} unsupported")
-    _check(tuple(k.shape) == (b, c, kvh, hd) and tuple(v.shape) == (b, c, kvh, hd),
-           f"cache shape {tuple(k.shape)} vs q {tuple(q.shape)}")
-    _check(n_valid.dtype == torch.int32 and tuple(n_valid.shape) == (b,), "n_valid must be (B,) int32")
+    _check(q.shape[-1] in HEAD_DIMS and 1 <= q.shape[2] <= MAX_GROUP,
+           f"head_dim {q.shape[-1]} / group {q.shape[2]} unsupported")
+
+
+def _check_scales(k, k_scale, v_scale, shape) -> None:
     quantized = k.dtype == torch.int8
     _check(quantized == (k_scale is not None) == (v_scale is not None), "scales go with int8 caches only")
     if quantized:
         _check(k_scale.dtype == torch.bfloat16 and v_scale.dtype == torch.bfloat16
-               and tuple(k_scale.shape) == (b, c, kvh) and tuple(v_scale.shape) == (b, c, kvh),
-               "scales must be (B, C, KV) bf16")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    fn, err_str = _launcher()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
-        n_valid.data_ptr(), out.data_ptr(),
-        b, c, kvh, g, hd, CACHE_TYPES[k.dtype], Q_TYPES[q.dtype], float(softcap), stream,
-    )
+               and tuple(k_scale.shape) == shape and tuple(v_scale.shape) == shape,
+               f"scales must be {shape} bf16")
+
+
+def _stream(q: torch.Tensor) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"flash_decode launch failed: {err_str(err).decode()} (code {err})")
-    launch_count += 1
-    return out
+        raise RuntimeError(f"{name} launch failed: {_library().flash_decode_error_string(err).decode()} "
+                           f"(code {err})")

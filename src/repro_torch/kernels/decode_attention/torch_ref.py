@@ -1,16 +1,19 @@
 """Plain PyTorch flash decode: the port's twin of
-``repro/kernels/decode_attention/ref.py::flash_decode_ref``.
+``repro/kernels/decode_attention/ref.py`` (``flash_decode_ref`` and
+``paged_flash_decode_ref``).
 
-It mirrors the reference op for op: f32 dequantization of each KV block,
+Both mirror the reference op for op: f32 dequantization of each KV block,
 scores ``q . k * 1/sqrt(hd)``, optional ``tanh(s / cap) * cap``, the
 ``k_pos < n_valid`` mask applied as ``where(mask, s, -1e30)`` before the
 max, ``exp`` then ``where(mask, p, 0)``, the online-softmax update, and
 ``acc / max(l, 1e-20)`` cast to q's dtype.  The reference vmaps a
-``fori_loop`` over ``ceil(n_valid / block_kv)`` blocks per (request, head);
+``fori_loop`` over ``ceil(n_valid / block)`` blocks per (request, head);
 here the block loop runs to the largest row's bound for all rows at once,
 and a row whose own bound has passed keeps its carry (what the vmapped
-loop does).  It is the CPU path of ``dispatch.decode_attention`` and the
-plain version the CUDA kernel is held against on the card.
+loop does).  The contiguous version slices block ``kj`` of each row's
+cache; the paged version fetches physical block ``block_table[b, kj]`` of
+the shared pool.  They are the CPU path of ``dispatch`` and the plain
+versions the CUDA kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -22,41 +25,26 @@ import torch
 NEG_INF = -1.0e30
 
 
-def flash_decode_ref(
-    q: torch.Tensor,                     # (B, KV, G, hd)
-    k: torch.Tensor,                     # (B, C, KV, hd)
-    v: torch.Tensor,
-    k_scale: Optional[torch.Tensor],     # (B, C, KV) or None
-    v_scale: Optional[torch.Tensor],
-    n_valid: torch.Tensor,               # (B, 1) int32
-    *,
-    block_kv: int = 64,
-    softcap: float = 0.0,
-) -> torch.Tensor:
+def _walk(q: torch.Tensor, n_valid: torch.Tensor, block: int, fetch, softcap: float) -> torch.Tensor:
+    """The online softmax over ``ceil(n_valid / block)`` blocks per row.
+    ``fetch(kj)`` returns block ``kj`` of every row as f32 ``(B, block, KV,
+    hd)`` k and v, already dequantized."""
     b, kvh, g, hd = q.shape
-    c = k.shape[1]
-    assert c % block_kv == 0, (c, block_kv)
-    quantized = k_scale is not None
     qf = q.float()
     scale = float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(hd))))
     nv = n_valid.reshape(b).to(torch.int64)
-    n_blocks = (nv + block_kv - 1) // block_kv                       # (B,)
+    n_blocks = (nv + block - 1) // block                             # (B,)
     acc = torch.zeros((b, kvh, g, hd), dtype=torch.float32, device=q.device)
     m = torch.full((b, kvh, g), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kvh, g), dtype=torch.float32, device=q.device)
     steps = int(n_blocks.max()) if b else 0
-    iota = torch.arange(block_kv, device=q.device)
+    iota = torch.arange(block, device=q.device)
     for kj in range(steps):
-        start = kj * block_kv
-        kb = k[:, start:start + block_kv].float()                   # (B, bkv, KV, hd)
-        vb = v[:, start:start + block_kv].float()
-        if quantized:
-            kb = kb * k_scale[:, start:start + block_kv].float()[..., None]
-            vb = vb * v_scale[:, start:start + block_kv].float()[..., None]
-        s = torch.einsum("bkgh,bskh->bkgs", qf, kb) * scale          # (B, KV, G, bkv)
+        kb, vb = fetch(kj)
+        s = torch.einsum("bkgh,bskh->bkgs", qf, kb) * scale          # (B, KV, G, block)
         if softcap > 0.0:
             s = torch.tanh(s / softcap) * softcap
-        msk = ((start + iota)[None, :] < nv[:, None])[:, None, None, :]
+        msk = ((kj * block + iota)[None, :] < nv[:, None])[:, None, None, :]
         s = torch.where(msk, s, NEG_INF)
         s_max = s.amax(dim=-1)
         m_new = torch.maximum(m, s_max)
@@ -73,3 +61,57 @@ def flash_decode_ref(
     out = acc / torch.clamp(l, min=1e-20)[..., None]
     return out.to(q.dtype)                                           # (B, KV, G, hd)
 
+
+def _dequant(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    x = x.float()
+    return x if scale is None else x * scale.float()[..., None]
+
+
+def flash_decode_ref(
+    q: torch.Tensor,                     # (B, KV, G, hd)
+    k: torch.Tensor,                     # (B, C, KV, hd)
+    v: torch.Tensor,
+    k_scale: Optional[torch.Tensor],     # (B, C, KV) or None
+    v_scale: Optional[torch.Tensor],
+    n_valid: torch.Tensor,               # (B, 1) int32
+    *,
+    block_kv: int = 64,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    assert k.shape[1] % block_kv == 0, (k.shape, block_kv)
+    quantized = k_scale is not None
+
+    def fetch(kj):
+        sl = slice(kj * block_kv, (kj + 1) * block_kv)
+        return (_dequant(k[:, sl], k_scale[:, sl] if quantized else None),
+                _dequant(v[:, sl], v_scale[:, sl] if quantized else None))
+
+    return _walk(q, n_valid, block_kv, fetch, softcap)
+
+
+def paged_flash_decode_ref(
+    q: torch.Tensor,                     # (B, KV, G, hd)
+    k: torch.Tensor,                     # (N, bs, KV, hd) block pool
+    v: torch.Tensor,
+    k_scale: Optional[torch.Tensor],     # (N, bs, KV) or None
+    v_scale: Optional[torch.Tensor],
+    block_table: torch.Tensor,           # (B, J) int32 physical block ids
+    n_valid: torch.Tensor,               # (B,) int32
+    *,
+    block_size: int,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Paged twin of :func:`flash_decode_ref`: row ``b``'s logical block
+    ``kj`` is pool block ``block_table[b, kj]``.  ``n_valid`` is clamped to
+    the table's ``J * block_size`` rows, as the CUDA kernel clamps it."""
+    assert k.shape[1] == block_size, (k.shape, block_size)
+    quantized = k_scale is not None
+    bt = block_table.to(torch.int64)
+    n = torch.clamp(n_valid.reshape(-1), max=bt.shape[1] * block_size)
+
+    def fetch(kj):
+        pid = bt[:, kj]
+        return (_dequant(k[pid], k_scale[pid] if quantized else None),
+                _dequant(v[pid], v_scale[pid] if quantized else None))
+
+    return _walk(q, n, block_size, fetch, softcap)

@@ -44,3 +44,10 @@ def resolve_device(device="cuda") -> torch.device:
             "device='cpu' (or --device cpu) to run the plain versions on the CPU"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (no-op on the CPU): the end of every
+    timed region and of every completion stamp."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,12 +1,14 @@
 """Serving driver of the port: split-LM distributed inference over the
-emulated lossy IoT link (the paper's DI round, Eq. 12, one token at a
-time) — the twin of ``repro/launch/serve.py``'s ``generate_reference``.
+emulated lossy IoT link (the paper's DI round, Eq. 12) -- the twin of
+``repro/launch/serve.py``.
 
-``generate_reference`` runs one prefill, then one DI round per token, with
-the reference's key chain (``split`` before the prefill and before every
-step), so its greedy tokens equal the reference's token for token.  The
-continuous-batching ``generate()`` and the ``repro.net`` protocol report
-are not ported yet (ROADMAP A5, A11).
+``generate()`` serves a batch through the continuous-batching slot-pool
+engine (``serve.continuous``) as independent requests, request ``i`` keyed
+``fold_in(key, i)``.  ``generate_reference`` runs one prefill, then one DI
+round per token for the whole batch, with the reference's key chain
+(``split`` before the prefill and before every step); per request, the
+engine's greedy tokens equal it token for token.  The ``repro.net``
+protocol report is not ported yet (ROADMAP A11).
 
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --full-size
 """
@@ -25,9 +27,10 @@ from repro_torch.configs import ARCHITECTURES, get_config
 from repro_torch.core import comtune
 from repro_torch.core.compression import Compressor, PCASpec, QuantSpec
 from repro_torch.core.link import ChannelConfig
-from repro_torch.kernels.runtime import resolve_device
+from repro_torch.kernels.runtime import resolve_device, synchronize
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import cache as cache_lib, lm
+from repro_torch.serve import continuous
 
 log = logging.getLogger("repro_torch.launch.serve")
 
@@ -71,9 +74,21 @@ def _link_accounting(cfg, batch: int) -> dict:
     }
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def generate(model: lm.LM, cfg, prompts: torch.Tensor, num_tokens: int, loss_rate: float | None = None,
+             key: torch.Tensor | None = None, greedy: bool = True, channel: str | None = None):
+    """Returns (generated (B, num_tokens) int32, timings).  The batch is
+    served by the continuous-batching engine (``engine_for``, on the
+    prompts' device) as B independent DI streams; per request ``i``, greedy
+    output equals ``generate_reference(prompts[i:i+1], key=fold_in(key, i))``
+    token for token."""
+    if not greedy:
+        raise NotImplementedError("sampling and the whole-generation engine are not ported yet (ROADMAP A7)")
+    cfg = _override_link(cfg, loss_rate=loss_rate, channel=channel)
+    engine = continuous.engine_for(cfg, prompts.shape[1], num_tokens, device=prompts.device)
+    tokens, timings = engine.generate_batch(model, prompts, num_tokens,
+                                            key=key if key is not None else prng.PRNGKey(0))
+    timings.update(_link_accounting(cfg, prompts.shape[0]))
+    return tokens, timings
 
 
 @torch.inference_mode()
@@ -92,10 +107,10 @@ def generate_reference(model: lm.LM, cfg, prompts: torch.Tensor, num_tokens: int
 
     cache = cache_lib.init_cache(cfg, b, s_prompt + num_tokens, device=device)
     key, sub = prng.split(key)
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
     logits, cache = prefill(model, {"tokens": prompts}, cache, sub)
-    _sync(device)
+    synchronize(device)
     t_prefill = time.perf_counter() - t0
 
     out = []
@@ -106,7 +121,7 @@ def generate_reference(model: lm.LM, cfg, prompts: torch.Tensor, num_tokens: int
         key, sub = prng.split(key)
         logits, cache = step(model, token, cache, s_prompt + i, sub)
         token = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-    _sync(device)
+    synchronize(device)
     t_decode = time.perf_counter() - t0
 
     timings = {
@@ -144,10 +159,8 @@ def main(argv=None):
     key = prng.PRNGKey(0, device)
     model = lm.init_lm(cfg, seed=0, device=device)
     prompts = prng.randint(key, (args.batch, args.prompt_len), 0, cfg.vocab_size)
-    log.info("serving with generate_reference: generate() over the continuous engine "
-             "and the protocol report are not ported yet (ROADMAP A5, A11)")
-    toks, timings = generate_reference(model, cfg, prompts, args.tokens, loss_rate=args.loss_rate,
-                                       key=key, channel=args.channel)
+    toks, timings = generate(model, cfg, prompts, args.tokens, loss_rate=args.loss_rate, key=key,
+                             channel=args.channel)
     log.info(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
     log.info(f"generated: {toks[:, :10].cpu().numpy()} ...")
     for k, v in timings.items():

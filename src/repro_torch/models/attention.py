@@ -13,24 +13,75 @@ Prefill runs naive causal attention.  Windowed layers keep a rotating cache
 of ``window`` slots; RoPE is applied at write time, and writes land at
 ``index % C``, so the live slots are always the prefix ``[0, min(index+1, C))``.
 
+``cache_index`` is an int (every row at the same length), a ``(B,)`` int32
+tensor of per-row lengths (the continuous engine's slot pool: each row
+writes at its own ``length % C`` and attends over its own prefix), or a
+``PagedIndex`` (the shared block pool: rows are reached through block
+tables and decode always runs the paged flash decode).
+
 Caches are dicts of tensors updated **in place** (the reference returns
 new arrays); ``Attention.forward`` returns only the layer's output.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import dense_std, frozen, trunc_normal_
 
 NEG_INF = -1.0e30
 Cache = Dict[str, torch.Tensor]
+
+
+class PagedPlan(NamedTuple):
+    """One decode step's pool coordinates for the layers of one rotating
+    length: where each row writes, what it attends over, and its table."""
+
+    write_block: torch.Tensor    # (B,) int64 -- physical block of the new row (0 for dead slots)
+    write_row: torch.Tensor      # (B,) int64 -- row inside that block
+    n_valid: torch.Tensor        # (B,) int32 -- min(lengths + 1, cache_len)
+    block_table: torch.Tensor    # (B, ceil(cache_len / block_size)) int32, contiguous
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PagedIndex:
+    """Paged-decode coordinates, passed as ``cache_index`` when the decode
+    state is a block pool (twin of ``repro.models.attention.PagedIndex``).
+    Each layer derives its own rotating length from ``max_seq``; ``live``
+    routes dead slots' decode writes to the reserved trash block 0, since a
+    retired slot's blocks may already belong to a new request.  One index
+    serves one decode step: ``plan`` computes the step's coordinates once
+    per rotating length and every layer of that length shares them."""
+
+    lengths: torch.Tensor        # (B,) int32 -- tokens already cached per slot
+    block_table: torch.Tensor    # (B, J) int32 -- physical block ids (0 = trash)
+    live: torch.Tensor           # (B,) bool -- slot currently owns its blocks
+    max_seq: int
+    block_size: int
+    _plans: Dict[int, PagedPlan] = dataclasses.field(default_factory=dict, repr=False)
+
+    def plan(self, c_len: int) -> PagedPlan:
+        """Logical row ``lengths % c_len`` (the contiguous rotation) maps to
+        table entry ``row // block_size``, offset ``row % block_size``."""
+        if c_len not in self._plans:
+            bs = self.block_size
+            row = self.lengths.to(torch.int64) % c_len
+            ent = torch.gather(self.block_table.to(torch.int64), 1, (row // bs)[:, None])[:, 0]
+            self._plans[c_len] = PagedPlan(
+                write_block=torch.where(self.live, ent, 0), write_row=row % bs,
+                n_valid=_n_valid(self.lengths, c_len),
+                block_table=self.block_table[:, :-(-c_len // bs)].to(torch.int32).contiguous())
+        return self._plans[c_len]
+
+
+Index = Union[int, torch.Tensor, PagedIndex]
 
 
 def _sqrt_f32(hd: int) -> float:
@@ -112,12 +163,36 @@ def _parts(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
     return {"k": k, "v": v}
 
 
-def _write_decode(cache: Cache, k: torch.Tensor, v: torch.Tensor, index: int) -> Cache:
-    """Write one position (S == 1) at rotating slot ``index % C``, in place."""
-    slot = index % cache["k"].shape[1]
-    for name, val in _parts(cache, k, v).items():
-        cache[name][:, slot:slot + 1] = val
+def _write_decode(cache: Cache, k: torch.Tensor, v: torch.Tensor, index) -> Cache:
+    """Write one position (S == 1) at rotating slot ``index % C``, in place;
+    a ``(B,)`` tensor index writes each row at its own slot."""
+    c = cache["k"].shape[1]
+    if not torch.is_tensor(index):
+        slot = int(index) % c
+        for name, val in _parts(cache, k, v).items():
+            cache[name][:, slot:slot + 1] = val
+        return cache
+    rows = torch.arange(k.shape[0], device=k.device)
+    slots = index.to(device=k.device, dtype=torch.int64) % c
+    for name, val in _parts(cache, k[:, 0], v[:, 0]).items():
+        cache[name][rows, slots] = val
     return cache
+
+
+def _write_decode_paged(cache: Cache, k: torch.Tensor, v: torch.Tensor, plan: PagedPlan) -> Cache:
+    """Paged twin of :func:`_write_decode`, in place, at the rows ``plan``
+    maps the step's rotating writes to; dead slots write trash block 0."""
+    for name, val in _parts(cache, k[:, 0], v[:, 0]).items():
+        cache[name][plan.write_block, plan.write_row] = val
+    return cache
+
+
+def _n_valid(cache_index, c: int):
+    """Rows each request attends over: ``min(index + 1, C)``, an int for an
+    int index and ``(B,)`` int32 for per-row lengths."""
+    if not torch.is_tensor(cache_index):
+        return min(int(cache_index) + 1, c)
+    return torch.clamp(cache_index.to(torch.int32) + 1, max=c)
 
 
 def _write_prefill(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
@@ -134,14 +209,21 @@ def _write_prefill(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
     return cache
 
 
-def _masked_decode_attn(qg: torch.Tensor, cache: Cache, cache_index: int, softcap: float,
+def _masked_decode_attn(qg: torch.Tensor, cache: Cache, cache_index, softcap: float,
                         dtype) -> torch.Tensor:
-    """The naive decode oracle: the valid prefix ``[0, min(index+1, C))`` is
-    sliced out, dequantized to the model dtype, and attended in full."""
-    n_valid = min(int(cache_index) + 1, cache["k"].shape[1])
-    live = {name: buf[:, :n_valid] for name, buf in cache.items()}
-    mask = torch.ones((1, 1, 1, 1, n_valid), dtype=torch.bool, device=qg.device)
-    k_read, v_read = _read_cache(live, dtype)
+    """The naive decode oracle.  An int index slices the valid prefix
+    ``[0, min(index+1, C))`` out, dequantizes it to the model dtype and
+    attends in full; per-row lengths keep the whole cache and mask each
+    row's dead slots before the softmax (the reference's traced form)."""
+    c = cache["k"].shape[1]
+    n_valid = _n_valid(cache_index, c)
+    if isinstance(n_valid, int):
+        cache = {name: buf[:, :n_valid] for name, buf in cache.items()}
+        mask = torch.ones((1, 1, 1, 1, n_valid), dtype=torch.bool, device=qg.device)
+    else:
+        valid = torch.arange(c, device=qg.device)[None, :] < n_valid.to(qg.device)[:, None]
+        mask = valid[:, None, None, None, :]                     # (B, 1, 1, 1, C)
+    k_read, v_read = _read_cache(cache, dtype)
     return _naive_attn(qg, k_read, v_read, mask, softcap)
 
 
@@ -176,7 +258,7 @@ class Attention(nn.Module):
                 nn.init.zeros_(bias)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                cache: Optional[Cache] = None, cache_index: Optional[int] = None) -> torch.Tensor:
+                cache: Optional[Cache] = None, cache_index: Optional[Index] = None) -> torch.Tensor:
         b, s, _ = x.shape
         h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
@@ -187,10 +269,19 @@ class Attention(nn.Module):
         v = v.reshape(b, s, kvh, hd)
         qg = _grouped(q, kvh)
 
-        if cache is not None and s == 1:
+        if cache is not None and s == 1 and isinstance(cache_index, PagedIndex):
+            # The block pool has no contiguous layout for the naive oracle:
+            # paged decode always runs the paged flash decode.
+            c = cache_len(self.spec, cache_index.max_seq)
+            plan = cache_index.plan(c)
+            _write_decode_paged(cache, k, v, plan)
+            out = paged_decode_attention(qg, cache, plan.block_table, plan.n_valid,
+                                         seq_len=c, block_size=cache_index.block_size,
+                                         softcap=cfg.logit_softcap)
+        elif cache is not None and s == 1:
             _write_decode(cache, k, v, cache_index)
             if cfg.attn_impl in ("flash_decode", "blockwise"):
-                n_valid = min(int(cache_index) + 1, cache["k"].shape[1])
+                n_valid = _n_valid(cache_index, cache["k"].shape[1])
                 out = decode_attention(qg, cache, n_valid, softcap=cfg.logit_softcap,
                                        block_kv=cfg.attn_decode_block_kv)
             else:

@@ -24,7 +24,7 @@ from repro_torch.core.compression import Compressor, PCASpec, QuantSpec
 from repro_torch.core.link import scalar_as
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.attention import Cache
+from repro_torch.models.attention import Cache, Index, PagedIndex
 from repro_torch.models.common import RMSNorm, dtype_of, frozen, trunc_normal_
 from repro_torch.models.transformer import Stack
 
@@ -84,14 +84,18 @@ class LM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cfg: Optional[ModelConfig] = None, *,
                 positions: Optional[torch.Tensor] = None, cache: Optional[List[Cache]] = None,
-                cache_index: Optional[int] = None, link_fn=None) -> torch.Tensor:
-        """Logits (B, S, V) in f32; ``cache`` (if any) is written in place."""
+                cache_index: Optional[Index] = None, link_fn=None) -> torch.Tensor:
+        """Logits (B, S, V) in f32; ``cache`` (if any) is written in place.
+        Per-row ``cache_index`` lengths (a tensor or ``PagedIndex``) need
+        explicit ``(B, S)`` positions."""
         cfg = cfg or self.cfg
         b, s = tokens.shape
         x = self.embed[tokens]
         if cfg.embed_scale:
             x = x * scalar_as(float(np.sqrt(np.float32(cfg.d_model))), x.dtype)
         if positions is None:
+            if torch.is_tensor(cache_index) or isinstance(cache_index, PagedIndex):
+                raise ValueError("per-row cache_index lengths need explicit positions")
             positions = rope_lib.default_positions(b, s, offset=cache_index or 0, device=tokens.device)
         x = self.stack(x, cfg, positions, cache=cache, cache_index=cache_index, link_fn=link_fn)
         x = self.final_norm(x)
@@ -131,14 +135,38 @@ def make_link_fn(cfg: ModelConfig, model: LM, key: Optional[torch.Tensor], mode:
     (train waits for ROADMAP A9)."""
     if mode == "off":
         return None
+    spec = _calibrated_spec(cfg, model, loss_rate, link_spec)
+
+    def fn(x):
+        return comtune.emulate_link(key, x, spec, mode)
+
+    return fn
+
+
+def _calibrated_spec(cfg: ModelConfig, model: LM, loss_rate: Optional[float],
+                     link_spec: Optional[comtune.LinkSpec]) -> comtune.LinkSpec:
+    """The link spec (from ``cfg`` unless given, with ``loss_rate`` applied)
+    under the calibrated compressor held in ``model.link``."""
     if link_spec is None:
         link_spec = link_spec_from_config(cfg, loss_rate=loss_rate)
     elif loss_rate is not None:
         link_spec = link_spec.with_channel_loss_rate(loss_rate)
-    spec = dataclasses.replace(link_spec, compressor=model.link.compressor(cfg))
+    return dataclasses.replace(link_spec, compressor=model.link.compressor(cfg))
+
+
+def make_slotwise_link_fn(cfg: ModelConfig, model: LM, keys: torch.Tensor, mode: str):
+    """Per-slot link for a batched decode step (twin of
+    ``repro.models.lm.make_slotwise_link_fn``): row ``i`` of the split
+    activation ``(B, S, d)`` goes through ``emulate_link`` alone, under its
+    own key ``keys[i]`` -- bitwise the draws of a batch-1 round with that
+    key.  A loop over the rows; the device counters of the reference's
+    version wait for ROADMAP A8."""
+    if mode == "off":
+        return None
+    spec = _calibrated_spec(cfg, model, None, None)
 
     def fn(x):
-        return comtune.emulate_link(key, x, spec, mode)
+        return torch.cat([comtune.emulate_link(keys[i], x[i:i + 1], spec, mode) for i in range(x.shape[0])])
 
     return fn
 

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.models.attention import Attention, Cache
+from repro_torch.models.attention import Attention, Cache, Index
 from repro_torch.models.common import RMSNorm
 from repro_torch.models.mlp import MLP
 
@@ -68,7 +68,7 @@ class Stack(nn.Module):
             layer.reset_parameters(gen)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                cache: Optional[List[Cache]] = None, cache_index: Optional[int] = None,
+                cache: Optional[List[Cache]] = None, cache_index: Optional[Index] = None,
                 link_fn=None) -> torch.Tensor:
         """Run every layer, applying ``link_fn`` at the split point."""
         split = min(max(cfg.link.split_after_units, 0), cfg.resolved_num_units) if link_fn else 0

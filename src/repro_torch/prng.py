@@ -53,17 +53,25 @@ def threefry2x32(k1, k2, x0: torch.Tensor, x1: torch.Tensor) -> Tuple[torch.Tens
     return x0, x1
 
 
+def _words(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two words of a key ``(2,)`` or a key stack ``(..., 2)``, shaped
+    ``(..., 1)`` so they broadcast against a trailing counter axis."""
+    return key[..., 0, None], key[..., 1, None]
+
+
 def _threefry_2x32(key: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     """jax's ``threefry_2x32(keypair, count)``: hash a flat counter array by
-    pairing its first half with its second half (zero-padded when odd)."""
+    pairing its first half with its second half (zero-padded when odd).  A
+    key stack ``(..., 2)`` hashes the counter under every key at once:
+    ``(...,) + count.shape``."""
     flat = count.reshape(-1)
     n = flat.numel()
     if n % 2:
         flat = torch.cat([flat, flat.new_zeros(1)])
     half = flat.numel() // 2
-    o0, o1 = threefry2x32(key[0], key[1], flat[:half], flat[half:])
-    out = torch.cat([o0, o1])
-    return out[:n].reshape(count.shape)
+    o0, o1 = threefry2x32(*_words(key), flat[:half], flat[half:])
+    out = torch.cat([o0, o1], dim=-1)
+    return out[..., :n].reshape(key.shape[:-1] + count.shape)
 
 
 def _iota_2x32(shape: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -73,17 +81,20 @@ def _iota_2x32(shape: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor
 
 
 def split(key: torch.Tensor, num: int = 2, *, partitionable: Optional[bool] = None) -> torch.Tensor:
-    """``jax.random.split(key, num)`` -> ``(num, 2)``."""
+    """``jax.random.split(key, num)`` -> ``(num, 2)``.  A key stack ``(...,
+    2)`` splits every key at once -> ``(..., num, 2)``, bit-equal to
+    splitting each key alone (what ``vmap(jax.random.split)`` gives)."""
     if _resolve(partitionable):
         hi, lo = _iota_2x32((num,), key.device)
-        b0, b1 = threefry2x32(key[0], key[1], hi, lo)
+        b0, b1 = threefry2x32(*_words(key), hi, lo)
         return torch.stack([b0, b1], dim=-1)
     counts = torch.arange(2 * num, dtype=torch.int64, device=key.device)
-    return _threefry_2x32(key, counts).reshape(num, 2)
+    return _threefry_2x32(key, counts).reshape(key.shape[:-1] + (num, 2))
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)`` (the same in both schemes)."""
+    """``jax.random.fold_in(key, data)`` (the same in both schemes; a key
+    stack folds ``data`` into every key)."""
     count = torch.tensor([0, int(data) & M32], dtype=torch.int64, device=key.device)
     return _threefry_2x32(key, count)
 

@@ -1,0 +1,201 @@
+"""The port's paged decode attention (``paged_flash_decode_ref`` and
+``paged_decode_attention``) against the reference's ``paged_flash_decode_ref``
+and its Pallas ``paged_flash_decode_kernel`` run in interpret mode, on inputs
+made from a seed with numpy; paged against contiguous on the gathered cache;
+invariance to where the blocks lie in the pool; the windowed table slice;
+and, on an sm_90 card only, the CUDA kernel against the plain version.
+
+Tolerances as in tests/test_torch_decode_attention.py: 2e-6 for f32 pools
+(the bound the reference pins between its own kernel and ref), 1e-5 for
+int8 pools, whose dequantized summands reach ~8 and which torch's einsum
+sums in another order than XLA's dot.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    flash_decode_ref,
+    paged_decode_attention,
+    paged_flash_decode_ref,
+)
+
+TOL = dict(rtol=2e-6, atol=2e-6)
+TOL_INT8 = dict(rtol=1e-5, atol=1e-5)
+BS = 8
+
+
+@pytest.fixture
+def jref():
+    """The reference package (decode attention), imported where it is needed
+    so the card-only test runs where jax is absent."""
+    pytest.importorskip("jax")
+    from repro.kernels import decode_attention
+
+    return decode_attention
+
+
+@pytest.fixture
+def hopper():
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs an sm_90 CUDA device (the kernel is built for sm_90a)")
+
+
+def _pool(seed, b, n_blocks, bs, kvh, g, hd, quantized):
+    """q (B, KV, G, hd) f32 and a block pool as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, kvh, g, hd)).astype(np.float32)
+    shape = (n_blocks, bs, kvh, hd)
+    if quantized:
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = (rng.random(shape[:3]) * 0.05 + 0.01).astype(np.float32)
+        vs = (rng.random(shape[:3]) * 0.05 + 0.01).astype(np.float32)
+        return q, k, v, ks, vs
+    return q, rng.standard_normal(shape).astype(np.float32), rng.standard_normal(shape).astype(np.float32), None, None
+
+
+def _table(seed, b, j, n_blocks):
+    """(b, j) distinct physical ids drawn from 1..n_blocks-1 (never trash 0)."""
+    ids = np.random.RandomState(seed).permutation(np.arange(1, n_blocks))[: b * j]
+    return ids.reshape(b, j).astype(np.int32)
+
+
+def _torch(q, k, v, ks, vs):
+    bf = lambda a: None if a is None else torch.tensor(a).to(torch.bfloat16)
+    return torch.tensor(q), torch.tensor(k), torch.tensor(v), bf(ks), bf(vs)
+
+
+def _jax(q, k, v, ks, vs):
+    import jax.numpy as jnp
+
+    bf = lambda a: None if a is None else jnp.asarray(a, jnp.bfloat16)
+    return jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bf(ks), bf(vs)
+
+
+def _gathered(k, v, ks, vs, bt):
+    """Request-major contiguous caches holding the table's rows."""
+    b, j = bt.shape
+    idx = torch.as_tensor(bt, dtype=torch.int64).reshape(-1)
+    take = lambda a: None if a is None else a[idx].reshape((b, j * a.shape[1]) + tuple(a.shape[2:]))
+    return take(k), take(v), take(ks), take(vs)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_ref_matches_reference_ref_and_kernel(jref, g, quantized, softcap):
+    """Per-row n_valid in {0, 1, bs-1, bs, bs+1, J*bs} over a shuffled table:
+    empty rows give zeros, ragged and full walks agree with both reference
+    paths."""
+    import jax.numpy as jnp
+
+    b, j, kvh, hd, nblk = 6, 4, 2, 16, 32
+    raw = _pool(g * 10 + quantized, b, nblk, BS, kvh, g, hd, quantized)
+    bt = _table(g, b, j, nblk)
+    n = np.array([0, 1, BS - 1, BS, BS + 1, j * BS], np.int32)
+    got = paged_flash_decode_ref(*_torch(*raw), torch.tensor(bt), torch.tensor(n), block_size=BS,
+                                 softcap=softcap).numpy()
+    jargs = _jax(*raw) + (jnp.asarray(bt), jnp.asarray(n))
+    want_ref = np.asarray(jref.paged_flash_decode_ref(*jargs, block_size=BS, softcap=softcap))
+    want_ker = np.asarray(jref.paged_flash_decode_kernel(*jargs, block_size=BS, softcap=softcap, interpret=True))
+    tol = TOL_INT8 if quantized else TOL
+    np.testing.assert_allclose(got, want_ref, **tol)
+    np.testing.assert_allclose(got, want_ker, **tol)
+    np.testing.assert_array_equal(got[0], 0.0)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("n_valid", [1, BS - 1, BS, 4 * BS])
+def test_paged_matches_contiguous_on_gathered_cache(g, quantized, n_valid):
+    """The paged walk over shuffled blocks equals the contiguous flash decode
+    over the same rows gathered into request-major caches."""
+    b, j, kvh, hd = 2, 4, 2, 16
+    q, k, v, ks, vs = _torch(*_pool(7, b, 16, BS, kvh, g, hd, quantized))
+    bt = torch.tensor(_table(7, b, j, 16))
+    n = torch.full((b,), n_valid, dtype=torch.int32)
+    paged = paged_flash_decode_ref(q, k, v, ks, vs, bt, n, block_size=BS)
+    contiguous = flash_decode_ref(q, *_gathered(k, v, ks, vs, bt), n[:, None], block_kv=BS)
+    torch.testing.assert_close(paged, contiguous, **TOL)
+
+
+def test_physical_permutation_invariance():
+    """The same logical rows under two physical placements give bitwise
+    equal outputs: the walk follows the table in logical order."""
+    b, j, kvh, g, hd = 2, 4, 2, 2, 16
+    q, k, v, ks, vs = _torch(*_pool(9, b, 16, BS, kvh, g, hd, True))
+    bt1, bt2 = torch.tensor(_table(1, b, j, 16)), torch.tensor(_table(2, b, j, 16))
+    moved = []
+    for a in (k, v, ks, vs):
+        out = torch.zeros_like(a)
+        out[bt2.reshape(-1).long()] = a[bt1.reshape(-1).long()]
+        moved.append(out)
+    n = torch.tensor([5, 3 * BS + 2], dtype=torch.int32)
+    a = paged_flash_decode_ref(q, k, v, ks, vs, bt1, n, block_size=BS)
+    b_ = paged_flash_decode_ref(q, *moved, bt2, n, block_size=BS)
+    assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("impl", ["ref", "kernel"])
+def test_windowed_layer_slices_table(jref, impl):
+    """``paged_decode_attention(seq_len=...)`` walks only the layer's own
+    ``ceil(seq_len / bs)`` table entries: out-of-range ids in the tail of a
+    wider row never reach the walk, and the result equals the reference's
+    ``paged_decode_attention`` and the contiguous walk over the first blocks."""
+    import jax.numpy as jnp
+
+    b, j, kvh, g, hd = 2, 4, 2, 2, 16
+    raw = _pool(11, b, 16, BS, kvh, g, hd, False)
+    q, k, v, _, _ = _torch(*raw)
+    bt = _table(11, b, j, 16)
+    wide = bt.copy()
+    wide[:, 2:] = 10_000                                  # would fault if walked
+    seq_len = BS + 3                                      # cache_len of a window-11 layer
+    for n_valid in (1, BS, seq_len):
+        n = np.full((b,), n_valid, np.int32)
+        got = paged_decode_attention(q[:, None], {"k": k, "v": v}, torch.tensor(wide), torch.tensor(n),
+                                     seq_len=seq_len, block_size=BS)[:, 0]
+        jq, jk, jv, _, _ = _jax(*raw)
+        want = jref.paged_decode_attention(jq[:, None], {"k": jk, "v": jv}, jnp.asarray(bt), jnp.asarray(n),
+                                           seq_len=seq_len, block_size=BS, impl=impl, interpret=True)[:, 0]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL, err_msg=f"n_valid={n_valid}")
+        gk, gv, _, _ = _gathered(k, v, None, None, torch.tensor(bt[:, :2]))
+        contiguous = flash_decode_ref(q, gk, gv, None, None, torch.tensor(n)[:, None], block_kv=BS)
+        torch.testing.assert_close(got, contiguous, **TOL)
+
+
+@pytest.mark.usefixtures("hopper")
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "float32"])
+def test_cuda_kernel_matches_plain(dtype):
+    """The paged CUDA kernel against its plain version on the card, at the
+    engine's main head shape and gemma3's (G = 2, hd = 256), over a shuffled
+    table with n_valid rows 0, 1, bs-1, bs, bs+1 and the full table."""
+    from repro_torch.kernels.decode_attention import cuda_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bs, j = 16, 10
+    for b, kvh, g, hd in ((6, 16, 1, 64), (6, 8, 2, 256)):
+        qdt = torch.float32 if dtype == "float32" else torch.bfloat16
+        nblk = b * j + 1
+        q = torch.randn((b, kvh, g, hd), generator=gen, device="cuda").to(qdt)
+        shape = (nblk, bs, kvh, hd)
+        if dtype == "int8":
+            k = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+            v = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+            ks = (torch.rand(shape[:3], generator=gen, device="cuda") * 0.05 + 0.01).bfloat16()
+            vs = (torch.rand(shape[:3], generator=gen, device="cuda") * 0.05 + 0.01).bfloat16()
+        else:
+            k = torch.randn(shape, generator=gen, device="cuda").to(qdt)
+            v = torch.randn(shape, generator=gen, device="cuda").to(qdt)
+            ks = vs = None
+        bt = (torch.randperm(b * j, generator=gen, device="cuda") + 1).reshape(b, j).to(torch.int32)
+        n = torch.tensor([0, 1, bs - 1, bs, bs + 1, j * bs], dtype=torch.int32, device="cuda")
+        for softcap in (0.0, 30.0):
+            got = cuda_kernel.paged_flash_decode(q, k, v, ks, vs, bt, n, softcap=softcap).float()
+            want = paged_flash_decode_ref(q, k, v, ks, vs, bt, n, block_size=bs, softcap=softcap).float()
+            tol = 2e-5 if qdt == torch.float32 else 2.0 ** -7
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            assert torch.all(got[0] == 0)

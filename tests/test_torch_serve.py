@@ -63,9 +63,12 @@ def test_link_accounting_matches(compression):
 
 def test_cli_on_cpu(caplog):
     """``python -m repro_torch.launch.serve --device cpu`` at reduced size:
-    prompts from ``prng.randint`` as the reference's CLI draws them."""
+    prompts from ``prng.randint`` as the reference's CLI draws them, served
+    through ``generate()`` (the continuous engine) as the reference's CLI
+    serves them."""
     caplog.set_level("INFO", logger="repro_torch.launch.serve")
     t_serve.main(["--arch", "qwen1.5-0.5b", "--batch", "2", "--prompt-len", "4", "--tokens", "2",
                   "--channel", "ge", "--attn-impl", "flash_decode", "--device", "cpu"])
     text = caplog.text
-    assert "generated:" in text and "decode_s_per_token" in text and "not ported yet" in text
+    assert "generated:" in text and "decode_s_per_token" in text and "slot_occupancy" in text
+    assert "not ported yet" not in text
