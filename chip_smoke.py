@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one H100: builds the kernels,
 holds each against its plain PyTorch version on the card, serves the
-full-width qwen1.5-0.5b split LM through ``generate_reference`` and through
-the continuous-batching engine (contiguous and paged pools), and times the
-kernels and both paths.
+full-width qwen1.5-0.5b split LM through ``generate_reference``, through
+the continuous-batching engine (contiguous and paged pools) and through
+``lm.forward`` with the link kernels (``LinkSpec(use_kernel=True)``), and
+times the kernels and the paths.
 
     python3 chip_smoke.py            # everything (needs one sm_90 card)
     python3 chip_smoke.py --quick    # build + kernel checks only
@@ -15,7 +16,12 @@ Phases (any failure raises and the script exits non-zero):
      hd 256), bf16 / int8 / f32 caches, softcap 0 and 30; then paged flash
      decode vs ``paged_flash_decode_ref`` at the engine's shape (B 8, KV 16,
      G 1, hd 64, block 16) and gemma3's heads, over a permuted block table,
-     n_valid in {0, 1, 15, 16, 17, full};
+     n_valid in {0, 1, 15, 16, 17, full}; then the link kernels, bit for
+     bit (``torch.equal``): the fused egress vs ``lossy_link_egress_ref``
+     at T 4 / 1 / 8 x D 1024 and (257, 513), bf16 and f32, bits 8 / 1 / 16,
+     p 0.1 / 0 / 0.8, the model's calibrated range and +-3 ranges; the
+     Gilbert–Elliott burst mask vs ``burst_mask_ref`` at R x N = 1 x 164
+     (a decode round), 32 x 164, 17 x 256, 5 x 130, 1 x 1;
   3. threefry link masks (iid, Gilbert–Elliott) drawn on the card equal
      the same draws on the CPU;
   4. full-width qwen1.5-0.5b (random weights from a seed), batch 4, prompt
@@ -41,7 +47,23 @@ Phases (any failure raises and the script exits non-zero):
      4x the bf16 noise; a profiled window of that path
      (device-busy share) and the link's rounds timed alone;
   8. paged-kernel, plain and library times at the engine's shape and the
-     bytes bound.
+     bytes bound;
+  9. the link-kernel slice: full-width qwen1.5-0.5b, batch 4, prompt 32,
+     32 tokens, loss 0.1, ``LinkSpec(use_kernel=True)`` through
+     ``lm.forward`` on ``generate_reference``'s key chain: under GE (f32,
+     bf16) the tokens equal the same loop's without the kernel; under iid
+     (f32, bf16) they equal the loop whose decode rounds apply the plain
+     egress on the same draws, and in f32 the naive oracle's too; per run
+     32 egress launches (iid) or 32 + 32 burst-mask launches (GE: one per
+     streamed prefill position, one per decode round), and 24 x 32 flash
+     decode launches; the bf16 iid and GE runs are this slice's main path
+     (counts zeroed just before each); one slot-wise decode link of 8 rows
+     equals 8 batch-1 rounds (8 launches); one link round and decode rounds
+     with and without the kernels, timed in turns (plain, kernel, kernel,
+     plain);
+ 10. both link kernels' times (graph replay and eager), their plain
+     versions' and their bytes bounds at the main path's shapes.
+Phases 9 and 10 run after phase 3, ahead of the profiled phases 5 and 7.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
@@ -711,6 +733,319 @@ def time_paged_flash_decode(n_valid, cache="bfloat16", b=8, kvh=16, g=1, hd=64, 
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 2 (link): the split-point link kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _ranges(gen, d, kind):
+    """s_min, s_max (D,) f32 on the card: the model's calibrated compressor
+    (``lm.LinkParams`` as ``init_lm`` sets it) or jittered +-3 ranges."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    if kind == "model":
+        cfg = get_config("qwen1.5-0.5b")
+        assert cfg.d_model == d
+        params = lm.LinkParams(cfg, "cuda")
+        params.reset_parameters(gen)
+        return params.s_min.detach(), params.s_max.detach()
+    s_min = -3.0 + torch.rand((d,), generator=gen, device="cuda") * 0.2
+    s_max = 3.0 - torch.rand((d,), generator=gen, device="cuda") * 0.2
+    return s_min, s_max
+
+
+def check_lossy_link_egress() -> float:
+    """Egress kernel vs ``lossy_link_egress_ref`` on the card, bit for bit
+    (``torch.equal``): the main shape (T 4, D 1024, bf16, 8 bits, p 0.1),
+    T 1 and 8, f32 input, (257, 513), p 0 and 0.8, bits 1 and 16, under the
+    model's calibrated range and +-3 ranges."""
+    import torch
+
+    from repro_torch.kernels.lossy_link import cuda_kernel, lossy_link_egress_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n_cases = 0
+    for t, d in ((4, 1024), (1, 1024), (8, 1024), (257, 513)):
+        for kind in (("model", "pm3") if d == 1024 else ("pm3",)):
+            s_min, s_max = _ranges(gen, d, kind)
+            for dt in (torch.bfloat16, torch.float32):
+                x = (torch.randn((t, d), generator=gen, device="cuda") * 3).to(dt)
+                u = torch.rand((t, d), generator=gen, device="cuda")
+                for bits in (8, 1, 16):
+                    for p in (LOSS, 0.0, 0.8):
+                        got = cuda_kernel.lossy_link_egress(x, u, s_min, s_max, bits=bits, loss_rate=p)
+                        want = lossy_link_egress_ref(x, u, s_min, s_max, bits=bits, loss_rate=p)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            err = float((got.float() - want.float()).abs().max())
+                            raise AssertionError(f"egress {(t, d, str(dt), kind, bits, p)}: kernel differs from "
+                                                 f"the plain version (max |err| {err:.3e})")
+                        n_cases += 1
+    log(f"[kernel] lossy_link_egress vs lossy_link_egress_ref: {n_cases} cases bit for bit")
+    return 0.0
+
+
+def check_burst_mask() -> float:
+    """Burst-mask kernel vs ``burst_mask_ref`` on the card, exactly: R 1 N
+    164 (the decode round: 4 x 1024 elements / 25 per packet), R 32 N 164,
+    R 17 N 256, R 5 N 130, R 1 N 1; the main path's channel and a leaky one."""
+    import torch
+
+    from repro_torch.kernels.lossy_link import burst_mask_ref, cuda_kernel
+    from repro_torch.net import channels
+
+    ge = channels.make_channel("ge", loss_rate=LOSS)
+    params = [dict(p_gb=ge.p_gb, p_bg=ge.p_bg, loss_good=ge.loss_good, loss_bad=ge.loss_bad),
+              dict(p_gb=0.1, p_bg=0.3, loss_good=0.02, loss_bad=0.8)]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n_cases = 0
+    for r, n in ((1, 164), (32, 164), (17, 256), (5, 130), (1, 1)):
+        ui, ul, ut = (torch.rand(s, generator=gen, device="cuda") for s in ((r,), (r, n), (r, n)))
+        for kw in params:
+            got = cuda_kernel.burst_mask(ui, ul, ut, **kw)
+            want = burst_mask_ref(ui, ul, ut, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"burst_mask {(r, n, kw)}: kernel differs from the plain version"
+            n_cases += 1
+    log(f"[kernel] burst_mask vs burst_mask_ref: {n_cases} cases exact")
+    return 0.0
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the link-kernel slice, LinkSpec(use_kernel=True), at full width
+# ---------------------------------------------------------------------------
+
+def spec_loop(model, cfg, prompts, key, spec, decode_link=None):
+    """``generate_reference``'s loop written through ``lm.forward(link_mode=
+    "serve", link_spec=spec)``: ``split`` before the prefill and before each
+    round.  ``decode_link(sub)``, if given, builds the decode rounds' link
+    instead (``forward``'s ``link_fn``).  Returns (B, TOKENS) int32."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.models import cache as cache_lib, lm
+
+    b, s = prompts.shape
+    with torch.inference_mode():
+        cache = cache_lib.init_cache(cfg, b, s + TOKENS, device="cuda")
+        key, sub = prng.split(key)
+        logits, cache, _ = lm.forward(model, prompts, cfg, cache=cache, cache_index=0, link_key=sub,
+                                      link_mode="serve", link_spec=spec)
+        token = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out = []
+        for i in range(TOKENS):
+            out.append(token)
+            key, sub = prng.split(key)
+            link_fn = decode_link(sub) if decode_link else None
+            logits, cache, _ = lm.forward(model, token, cfg, cache=cache, cache_index=s + i, link_key=sub,
+                                          link_mode="serve", link_spec=spec, link_fn=link_fn)
+            token = torch.argmax(logits[:, 0], dim=-1)[:, None].to(torch.int32)
+    return torch.cat(out, dim=1)
+
+
+def plain_egress_link(model, cfg):
+    """The decode round's link with the plain egress on the kernel's draws:
+    ``uniform(sub, (T, D))`` into ``lossy_link_egress_ref``."""
+    from repro_torch import prng
+    from repro_torch.kernels.lossy_link import lossy_link_egress_ref
+
+    q = model.link.compressor(cfg).quant
+
+    def build(sub):
+        def fn(x):
+            flat = x.reshape(-1, x.shape[-1])
+            u = prng.uniform(sub, tuple(flat.shape))
+            return lossy_link_egress_ref(flat, u, q.s_min, q.s_max, bits=q.bits, loss_rate=LOSS).reshape(x.shape)
+        return fn
+
+    return build
+
+
+def _zero_counts():
+    from repro_torch.kernels.decode_attention import cuda_kernel as fd
+    from repro_torch.kernels.lossy_link import cuda_kernel as ll
+
+    fd.launch_count = fd.paged_launch_count = ll.egress_launch_count = ll.burst_launch_count = 0
+
+
+def _counts() -> dict:
+    from repro_torch.kernels.decode_attention import cuda_kernel as fd
+    from repro_torch.kernels.lossy_link import cuda_kernel as ll
+
+    return dict(flash_decode=fd.launch_count, paged_flash_decode=fd.paged_launch_count,
+                lossy_link_egress=ll.egress_launch_count, burst_mask=ll.burst_launch_count)
+
+
+def run_link_kernels(report) -> dict:
+    """Full-width qwen1.5-0.5b (random weights from a seed), batch 4, prompt
+    32, 32 tokens, loss 0.1, ``LinkSpec(use_kernel=True)`` under the
+    calibrated compressor, driven through ``lm.forward``.  GE (f32, bf16):
+    the tokens equal the same loop's without the kernel.  i.i.d. (f32,
+    bf16): the tokens equal the loop whose decode rounds apply the plain
+    egress on the same draws; in f32 also with the naive attention oracle.
+    Launches per run: egress 32 (iid) / 0 (GE), burst mask 0 / 32 + 32
+    (one per streamed prefill position, one per decode round), flash decode
+    24 x 32.  The bf16 iid and GE runs are this slice's main path: the
+    counts are zeroed just before each and read just after.  Then one
+    batched slot-wise decode link of 8 rows equals 8 batch-1 rounds; then
+    times of the link rounds and of decode rounds on the kernel path.
+    Returns the launches of the main path's runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.comtune import LinkSpec
+    from repro_torch.kernels.lossy_link import cuda_kernel as ll
+    from repro_torch.models import cache as cache_lib, lm
+
+    base = get_config("qwen1.5-0.5b").with_updates(attn_impl="flash_decode")
+    per_run = base.num_layers * TOKENS
+    key = prng.PRNGKey(2, "cuda")
+    prompts = prng.randint(key, (BATCH, PROMPT), 0, base.vocab_size)
+    spec = lambda channel, kernel=True: LinkSpec(loss_rate=LOSS, channel=channel, use_kernel=kernel)
+    want = {"iid": dict(flash_decode=per_run, paged_flash_decode=0, lossy_link_egress=TOKENS, burst_mask=0),
+            "ge": dict(flash_decode=per_run, paged_flash_decode=0, lossy_link_egress=0, burst_mask=PROMPT + TOKENS)}
+    out = {}
+    main_launches = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = base.with_updates(dtype=dtype)
+        model = lm.init_lm(cfg, seed=0, device="cuda")      # the bf16 model stays for the rest
+        for channel in ("iid", "ge"):
+            tag = f"{dtype}/{channel}"
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = spec_loop(model, cfg, prompts, key, spec(channel))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+            assert launches == want[channel], f"{tag}: launches {launches}, want {want[channel]}"
+            if dtype == "bfloat16":
+                main_launches[channel] = launches
+            assert got.shape == (BATCH, TOKENS) and int(got.min()) >= 0 and int(got.max()) < cfg.vocab_size
+            if channel == "ge":
+                plain = spec_loop(model, cfg, prompts, key, spec(channel, kernel=False))
+                what = "the same loop without the kernel"
+            else:
+                plain = spec_loop(model, cfg, prompts, key, spec(channel), decode_link=plain_egress_link(model, cfg))
+                what = "the loop with the plain egress"
+            agree = float((got == plain).float().mean())
+            out[tag] = dict(wall_s=wall, launches=launches, token_agreement=agree)
+            log(f"[link-kernels] {tag}: {BATCH} x {TOKENS} tokens in {wall:.3f} s, launches {launches}; "
+                f"agreement with {what} {agree:.4f}")
+            assert torch.equal(got, plain), f"{tag}: kernel-path tokens differ from {what}"
+            if dtype == "float32" and channel == "iid":
+                naive = spec_loop(model, cfg.with_updates(attn_impl="naive"), prompts, key, spec(channel),
+                                  decode_link=plain_egress_link(model, cfg))
+                assert torch.equal(got, naive), f"{tag}: kernel-path tokens differ from the naive oracle's"
+                log(f"[link-kernels] {tag}: tokens equal the naive oracle's (plain egress, naive attention)")
+        if dtype == "float32":
+            del model
+    # One batched slot-wise decode link of 8 rows against 8 batch-1 rounds.
+    rounds = prng.split(key, 8)
+    x = torch.randn((8, 1, cfg.d_model), device="cuda").to(torch.bfloat16)
+    for channel in ("iid", "ge"):
+        before = (ll.egress_launch_count, ll.burst_launch_count)
+        with torch.inference_mode():
+            y = lm.make_slotwise_link_fn(cfg, model, rounds, "serve", link_spec=spec(channel))(x)
+            delta = (ll.egress_launch_count - before[0], ll.burst_launch_count - before[1])
+            rows = torch.cat([lm.make_link_fn(cfg, model, rounds[i], "serve", link_spec=spec(channel))(x[i:i + 1])
+                              for i in range(8)])
+        assert delta == ((8, 0) if channel == "iid" else (0, 8)), f"slot-wise {channel}: launches {delta}"
+        assert torch.equal(y, rows), f"slot-wise {channel}: differs from 8 batch-1 rounds"
+        log(f"[link-kernels] slot-wise step, 8 rows, {channel}: equal to 8 batch-1 rounds, launches {delta}")
+    # Times, plain and kernel in turns (plain, kernel, kernel, plain): one
+    # link round (CUDA events, eager) and decode rounds (host clock).
+    xr = torch.randn((BATCH, 1, cfg.d_model), device="cuda").to(torch.bfloat16)
+    keys = [prng.fold_in(key, i) for i in range(TOKENS)]
+    samples = {}
+    for channel in ("iid", "ge"):
+        fns = {k: lm.make_link_fn(cfg, model, key, "serve", link_spec=spec(channel, k)) for k in (False, True)}
+        for kernel in (False, True, True, False) * 2:
+            samples.setdefault(f"link_{channel}_{'kernel' if kernel else 'plain'}_ms", []).append(
+                time_events(lambda: fns[kernel](xr), iters=10, warmup=2))
+        for kernel in (False, True, True, False):
+            with torch.inference_mode():
+                cache = cache_lib.init_cache(cfg, BATCH, PROMPT + TOKENS, device="cuda")
+                lm.forward(model, prompts, cfg, cache=cache, cache_index=0, link_key=key, link_mode="serve",
+                           link_spec=spec(channel, kernel))
+                token = prompts[:, -1:]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(TOKENS):
+                    lm.forward(model, token, cfg, cache=cache, cache_index=PROMPT + i, link_key=keys[i],
+                               link_mode="serve", link_spec=spec(channel, kernel))
+                torch.cuda.synchronize()
+            samples.setdefault(f"decode_{channel}_{'kernel' if kernel else 'plain'}_ms_per_token", []).append(
+                (time.perf_counter() - t0) / TOKENS * 1e3)
+    times = {name: dict(median=float(np.median(v)), samples=v) for name, v in samples.items()}
+    out["times"] = times
+    log(f"[link-kernels] times (bf16, batch {BATCH}; median of the turns): "
+        f"{json.dumps({k: round(v['median'], 3) for k, v in times.items()})}")
+    report["link_kernels"] = out
+    return main_launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: link-kernel timing at the main path's shapes
+# ---------------------------------------------------------------------------
+
+EGRESS_OPS_PER_ELEMENT = 14      # clip 2, range 2, code 4, dequantize 3, keep, compensate, select
+BURST_OPS_PER_PACKET = 6         # 4 threshold comparisons, 2 selects
+
+
+def _bound(nbytes, ops, peak):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_lossy_link() -> dict:
+    """Kernel (CUDA-graph replay and eager), plain (CUDA events, eager) and
+    bound times of both link kernels at the main path's shapes: the egress
+    on a decode round's (4, 1024) bf16 activation, 8 bits, p 0.1, under the
+    model's calibrated range; the burst mask on one row of 164 packets
+    under the main path's GE channel.  No single PyTorch call computes
+    either function, so there is no library time."""
+    import torch
+
+    from repro_torch.kernels.lossy_link import burst_mask_ref, cuda_kernel, lossy_link_egress_ref
+    from repro_torch.net import channels
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    t, d = BATCH, 1024
+    x = (torch.randn((t, d), generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    u = torch.rand((t, d), generator=gen, device="cuda")
+    s_min, s_max = _ranges(gen, d, "model")
+    kw = dict(bits=8, loss_rate=LOSS)
+    call = lambda: cuda_kernel.lossy_link_egress(x, u, s_min, s_max, **kw)
+    nbytes = t * d * (2 + 4 + 2) + 2 * d * 4
+    ops = EGRESS_OPS_PER_ELEMENT * t * d
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["float32"])
+    egress = dict(shape=dict(T=t, D=d, x="bfloat16", bits=8, p=LOSS), ms=time_graph(call), ms_eager=time_events(call),
+                  plain_ms=time_events(lambda: lossy_link_egress_ref(x, u, s_min, s_max, **kw), iters=50),
+                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes, ops=ops)
+    ge = channels.make_channel("ge", loss_rate=LOSS)
+    gkw = dict(p_gb=ge.p_gb, p_bg=ge.p_bg, loss_good=ge.loss_good, loss_bad=ge.loss_bad)
+    r, n = 1, -(-t * d // 25)
+    ui, ul, ut = (torch.rand(s, generator=gen, device="cuda") for s in ((r,), (r, n), (r, n)))
+    call = lambda: cuda_kernel.burst_mask(ui, ul, ut, **gkw)
+    nbytes = 4 * r + 3 * 4 * r * n
+    ops = BURST_OPS_PER_PACKET * r * n
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["float32"])
+    burst = dict(shape=dict(R=r, N=n), ms=time_graph(call), ms_eager=time_events(call),
+                 plain_ms=time_events(lambda: burst_mask_ref(ui, ul, ut, **gkw), iters=20),
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes, ops=ops,
+                 note=f"the real floor is the {n}-step dependent chain of the row, not its bytes")
+    for name, rec in (("lossy_link_egress", egress), ("burst_mask", burst)):
+        log(f"[time] {name} {rec['shape']}: kernel {rec['ms'] * 1e3:.2f} us (graph) / {rec['ms_eager'] * 1e3:.2f} us "
+            f"(eager), plain {rec['plain_ms'] * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.4f} us "
+            f"({rec['bound_by']}, {rec['bytes']} B)")
+    return {"lossy_link_egress": egress, "burst_mask": burst}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
@@ -727,6 +1062,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.decode_attention import cuda_kernel
+    from repro_torch.kernels.lossy_link import cuda_kernel as link_kernel
 
     t0 = time.perf_counter()
     card = card_line()
@@ -734,7 +1070,8 @@ def main(argv=None) -> int:
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, capability {torch.cuda.get_device_capability(0)}")
     t_build = time.perf_counter()
-    libs = nvcc.build_libraries([(cuda_kernel.LIB_NAME, cuda_kernel.SOURCES)])
+    libs = nvcc.build_libraries([(cuda_kernel.LIB_NAME, cuda_kernel.SOURCES),
+                                 (link_kernel.LIB_NAME, link_kernel.SOURCES)])
     log(f"[build] {len(libs)} librar{'y' if len(libs) == 1 else 'ies'} in {time.perf_counter() - t_build:.1f} s")
     for path in libs.values():
         text = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
@@ -755,8 +1092,22 @@ def main(argv=None) -> int:
                         source="src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu",
                         replaces="src/repro/kernels/decode_attention/kernel.py:241",
                         max_abs_err=check_paged_flash_decode())
+    link_source = "src/repro_torch/kernels/lossy_link/csrc/lossy_link.cu"
+    egress_record = dict(name="lossy_link_egress", route="cuda", source=link_source,
+                         replaces="src/repro/kernels/lossy_link/kernel.py:140", max_abs_err=check_lossy_link_egress())
+    burst_record = dict(name="burst_mask", route="cuda", source=link_source,
+                        replaces="src/repro/kernels/lossy_link/kernel.py:94", max_abs_err=check_burst_mask())
     if not args.quick:
         check_masks()
+        # Phases 9-10 run ahead of the profiled phases, so that their
+        # host-clock times are taken before any profiler trace.
+        link_launches = run_link_kernels(report)
+        link_times = time_lossy_link()
+        report["link_kernel_times"] = link_times
+        for rec, channel in ((egress_record, "iid"), (burst_record, "ge")):
+            t = link_times[rec["name"]]
+            rec.update(launches=link_launches[channel][rec["name"]], ms=t["ms"], plain_ms=t["plain_ms"],
+                       bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
         launches = run_slice(report)
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [
@@ -778,7 +1129,7 @@ def main(argv=None) -> int:
         paged_record.update(launches=paged_launches, ms=ptiming["ms"], plain_ms=ptiming["plain_ms"],
                             bound_ms=ptiming["bound_ms"], bound_by=ptiming["bound_by"],
                             library_ms=ptiming["library_ms"])
-    report["kernels"] = [record, paged_record]
+    report["kernels"] = [record, paged_record, egress_record, burst_record]
     report["seconds"] = time.perf_counter() - t0
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -5,8 +5,11 @@ The distributed-inference graph (paper Eq. 12):
     y = f_out ∘ f_dec ∘ (1/(1-p) · f_c(p)) ∘ f_cmp ∘ f_in
 ``emulate_link`` is the one entry point, in the modes ``serve`` (compress,
 channel, compensate, decompress), ``clean`` (compression only) and ``off``.
-The fine-tuning graph (``train``), FEC protection, the fused egress /
-burst-mask kernels and adaptive compensation are not ported yet.
+``LinkSpec(use_kernel=True)`` takes the serving link through the hand
+kernels of ``kernels/lossy_link``: the fused egress for the plain i.i.d.
+quantized link, the burst-mask kernel for Gilbert–Elliott channels.  The
+fine-tuning graph (``train``), FEC protection and adaptive compensation are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from repro_torch import prng
 from repro_torch.core import link as link_lib
 from repro_torch.core.compression import Compressor
 from repro_torch.core.link import MIN_KEEP_FRACTION, scalar_as
+from repro_torch.kernels.lossy_link import dispatch as link_kernels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +36,7 @@ class LinkSpec:
     granularity: str = "element"       # "element" (Eq. 1) or "packet" (Eq. 2-3)
     elements_per_packet: int = 25      # 100 B packets / 4 B floats
     shuffle: bool = True               # paper's anti-burst interleaving
+    use_kernel: bool = False           # the link kernels on the serve path
     channel: str = "iid"
     channel_params: tuple = ()
     fec_m: int = 0                     # FEC parity packets per block (0 = none)
@@ -41,6 +46,13 @@ class LinkSpec:
         that would shadow it."""
         params = tuple((k, v) for k, v in self.channel_params if k != "loss_rate")
         return dataclasses.replace(self, loss_rate=rate, channel_params=params)
+
+    @property
+    def uses_net_path(self) -> bool:
+        """True when the link cannot take the plain-iid fast paths (the fused
+        egress kernel bakes in ``loss_rate``): a stateful channel, FEC, or a
+        ``channel_params`` loss-rate override."""
+        return self.channel not in ("", "iid") or self.fec_m > 0 or "loss_rate" in dict(self.channel_params)
 
     def resolve_channel(self):
         """The channel model this spec names; a ("loss_rate", x) channel
@@ -57,6 +69,23 @@ def _not_ported(spec: LinkSpec) -> None:
         raise NotImplementedError("packet FEC on the link is not ported yet (ROADMAP A11)")
 
 
+def _stateful_channel_mask(key: torch.Tensor, x: torch.Tensor, spec: LinkSpec):
+    """Keep mask (x's shape, f32) and stationary loss rate of a non-iid
+    channel.  Under ``use_kernel`` a Gilbert–Elliott channel draws its
+    packet masks with the burst-mask kernel (one row), from the same keys
+    the channel's own scan uses, so the mask is bit-equal either way."""
+    ch = spec.resolve_channel()
+    if spec.use_kernel and spec.channel in ("ge", "gilbert_elliott"):
+        kperm, kmask = prng.split(key)
+        n_packets = -(-x.numel() // spec.elements_per_packet)
+        pkt = link_kernels.burst_mask(kmask, 1, n_packets, p_gb=ch.p_gb, p_bg=ch.p_bg,
+                                      loss_good=ch.loss_good, loss_bad=ch.loss_bad)[0]
+        flat = link_lib.element_mask_from_packets(pkt, x.numel(), spec.elements_per_packet, kperm, spec.shuffle)
+    else:
+        flat = ch.element_keep(key, x.numel(), spec.elements_per_packet, shuffle=spec.shuffle)
+    return flat.reshape(x.shape), ch.stationary_loss_rate
+
+
 def channel_link(key: torch.Tensor, x: torch.Tensor, spec: LinkSpec) -> torch.Tensor:
     """Eq. (10)-(11): channel + compensation on the compressed message."""
     _not_ported(spec)
@@ -68,9 +97,8 @@ def channel_link(key: torch.Tensor, x: torch.Tensor, spec: LinkSpec) -> torch.Te
             key, x, loss_rate, granularity=spec.granularity,
             elements_per_packet=spec.elements_per_packet, shuffle=spec.shuffle, compensate=True,
         )
-    ch = spec.resolve_channel()
-    mask = ch.element_keep(key, x.numel(), spec.elements_per_packet, shuffle=spec.shuffle).reshape(x.shape)
-    keep = max(1.0 - ch.stationary_loss_rate, MIN_KEEP_FRACTION)
+    mask, p_eff = _stateful_channel_mask(key, x, spec)
+    keep = max(1.0 - p_eff, MIN_KEEP_FRACTION)
     return x * mask.to(x.dtype) / scalar_as(keep, x.dtype)
 
 
@@ -94,11 +122,15 @@ def emulate_link(key: Optional[torch.Tensor], x: torch.Tensor, spec: LinkSpec, m
     if mode == "train":
         raise NotImplementedError("the COMtune fine-tuning link (train mode) is not ported yet (ROADMAP A9)")
     if mode == "serve":
-        msg = spec.compressor.compress(x)
         if x.dim() == 3 and x.shape[1] > 1:
-            msg = streamed_channel_link(key, msg, spec)
-        else:
-            msg = channel_link(key, msg, spec)
+            msg = streamed_channel_link(key, spec.compressor.compress(x), spec)
+            return spec.compressor.decompress(msg)
+        # The fused egress implements the plain iid channel only (it bakes
+        # in spec.loss_rate); anything on the net path goes through
+        # channel_link, which has its own burst-mask kernel for GE.
+        if spec.use_kernel and spec.compressor.kind == "quant" and not spec.uses_net_path:
+            return link_kernels.lossy_link_egress(key, x, spec.compressor.quant, spec.loss_rate)
+        msg = channel_link(key, spec.compressor.compress(x), spec)
         return spec.compressor.decompress(msg)
     raise ValueError(f"unknown link mode: {mode!r}")
 

@@ -154,16 +154,18 @@ def _calibrated_spec(cfg: ModelConfig, model: LM, loss_rate: Optional[float],
     return dataclasses.replace(link_spec, compressor=model.link.compressor(cfg))
 
 
-def make_slotwise_link_fn(cfg: ModelConfig, model: LM, keys: torch.Tensor, mode: str):
+def make_slotwise_link_fn(cfg: ModelConfig, model: LM, keys: torch.Tensor, mode: str,
+                          loss_rate: Optional[float] = None, link_spec: Optional[comtune.LinkSpec] = None):
     """Per-slot link for a batched decode step (twin of
     ``repro.models.lm.make_slotwise_link_fn``): row ``i`` of the split
     activation ``(B, S, d)`` goes through ``emulate_link`` alone, under its
     own key ``keys[i]`` -- bitwise the draws of a batch-1 round with that
-    key.  A loop over the rows; the device counters of the reference's
-    version wait for ROADMAP A8."""
+    key.  ``loss_rate`` and ``link_spec`` act as in ``make_link_fn``.  A
+    loop over the rows; the device counters of the reference's version (and
+    its ``live`` weights for them) wait for ROADMAP A8."""
     if mode == "off":
         return None
-    spec = _calibrated_spec(cfg, model, None, None)
+    spec = _calibrated_spec(cfg, model, loss_rate, link_spec)
 
     def fn(x):
         return torch.cat([comtune.emulate_link(keys[i], x[i:i + 1], spec, mode) for i in range(x.shape[0])])
