@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one H100: builds the kernels,
-holds each against its plain PyTorch version on the card, serves the
-full-width qwen1.5-0.5b split LM through ``generate_reference``, through
-the continuous-batching engine (contiguous and paged pools) and through
-``lm.forward`` with the link kernels (``LinkSpec(use_kernel=True)``), and
-times the kernels and the paths.
+holds each of the six against its plain PyTorch version on the card, serves
+the full-width qwen1.5-0.5b split LM through ``generate_reference``, through
+the continuous-batching engine (contiguous and paged pools), through
+``lm.forward`` with the link kernels (``LinkSpec(use_kernel=True)``) and
+with prompts past ``attn_block_q`` (the flash-attention prefill), drives
+the SSM scan through its entry point, and times the kernels and the paths.
 
     python3 chip_smoke.py            # everything (needs one sm_90 card)
     python3 chip_smoke.py --quick    # build + kernel checks only
@@ -21,7 +22,13 @@ Phases (any failure raises and the script exits non-zero):
      at T 4 / 1 / 8 x D 1024 and (257, 513), bf16 and f32, bits 8 / 1 / 16,
      p 0.1 / 0 / 0.8, the model's calibrated range and +-3 ranges; the
      Gilbert–Elliott burst mask vs ``burst_mask_ref`` at R x N = 1 x 164
-     (a decode round), 32 x 164, 17 x 256, 5 x 130, 1 x 1;
+     (a decode round), 32 x 164, 17 x 256, 5 x 130, 1 x 1; flash attention
+     vs ``flash_attention_ref`` over the reference test's grid (Sq 1 at
+     q_offset 383, a window, non-causal, ragged 200), Sq 1000 and hd 256,
+     GQA G 1 and 2, softcap 0 and 30, f32 (atol 2e-5) and bf16 (2e-2, and
+     one bf16 ulp of the f32 plain value); the
+     SSM scan vs ``ssm_scan_ref`` bit for bit at T 1 / 100 / 300 x D 1 /
+     130 / 512;
   3. threefry link masks (iid, Gilbert–Elliott) drawn on the card equal
      the same draws on the CPU;
   4. full-width qwen1.5-0.5b (random weights from a seed), batch 4, prompt
@@ -62,8 +69,21 @@ Phases (any failure raises and the script exits non-zero):
      with and without the kernels, timed in turns (plain, kernel, kernel,
      plain);
  10. both link kernels' times (graph replay and eager), their plain
-     versions' and their bytes bounds at the main path's shapes.
-Phases 9 and 10 run after phase 3, ahead of the profiled phases 5 and 7.
+     versions' and their bytes bounds at the main path's shapes;
+ 11. the long-prompt slice: full-width qwen1.5-0.5b, loss 0.1, iid, prompts
+     past ``attn_block_q`` (512): ``generate_reference`` (batch 2, prompt
+     1000, 16 tokens) with f32 tokens equal to the naive oracle's and 24
+     flash-attention launches a prefill; the paged engine (block 16,
+     max_prompt 1024) on prompts 1000 / 700 / 300 / 61, f32, tokens equal to
+     the per-request ``generate_reference``, 24 launches per admission in
+     bucket 1024 and none for the two short ones, TTFT and prefill seconds
+     per admission; bf16 teacher-forced logits within twice the bf16 noise;
+ 12. the SSM scan through its entry point at a jamba mamba layer's state
+     (1 x 512 x 131,072 f32), equal to the plain version; flash-attention
+     times at the slice's shape (B 2, H 16, hd 64, S 1000, causal, bf16)
+     and gemma3's local layer (KV 8, G 2, hd 256, S 2048, window 1024)
+     beside SDPA, the scan's time, plain times and bounds.
+Phases 9-12 run after phase 3, ahead of the profiled phases 5 and 7.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
@@ -865,17 +885,23 @@ def plain_egress_link(model, cfg):
 
 def _zero_counts():
     from repro_torch.kernels.decode_attention import cuda_kernel as fd
+    from repro_torch.kernels.flash_attention import cuda_kernel as fa
     from repro_torch.kernels.lossy_link import cuda_kernel as ll
+    from repro_torch.kernels.ssm_scan import cuda_kernel as ss
 
     fd.launch_count = fd.paged_launch_count = ll.egress_launch_count = ll.burst_launch_count = 0
+    fa.launch_count = ss.launch_count = 0
 
 
 def _counts() -> dict:
     from repro_torch.kernels.decode_attention import cuda_kernel as fd
+    from repro_torch.kernels.flash_attention import cuda_kernel as fa
     from repro_torch.kernels.lossy_link import cuda_kernel as ll
+    from repro_torch.kernels.ssm_scan import cuda_kernel as ss
 
     return dict(flash_decode=fd.launch_count, paged_flash_decode=fd.paged_launch_count,
-                lossy_link_egress=ll.egress_launch_count, burst_mask=ll.burst_launch_count)
+                lossy_link_egress=ll.egress_launch_count, burst_mask=ll.burst_launch_count,
+                flash_attention=fa.flash_attention_launch_count(), ssm_scan=ss.launch_count)
 
 
 def run_link_kernels(report) -> dict:
@@ -906,8 +932,10 @@ def run_link_kernels(report) -> dict:
     key = prng.PRNGKey(2, "cuda")
     prompts = prng.randint(key, (BATCH, PROMPT), 0, base.vocab_size)
     spec = lambda channel, kernel=True: LinkSpec(loss_rate=LOSS, channel=channel, use_kernel=kernel)
-    want = {"iid": dict(flash_decode=per_run, paged_flash_decode=0, lossy_link_egress=TOKENS, burst_mask=0),
-            "ge": dict(flash_decode=per_run, paged_flash_decode=0, lossy_link_egress=0, burst_mask=PROMPT + TOKENS)}
+    want = {"iid": dict(flash_decode=per_run, paged_flash_decode=0, lossy_link_egress=TOKENS, burst_mask=0,
+                        flash_attention=0, ssm_scan=0),
+            "ge": dict(flash_decode=per_run, paged_flash_decode=0, lossy_link_egress=0, burst_mask=PROMPT + TOKENS,
+                       flash_attention=0, ssm_scan=0)}
     out = {}
     main_launches = {}
     for dtype in ("float32", "bfloat16"):
@@ -1046,6 +1074,341 @@ def time_lossy_link() -> dict:
     return {"lossy_link_egress": egress, "burst_mask": burst}
 
 
+# ---------------------------------------------------------------------------
+# Phase 2 (slice 4): flash attention and the SSM scan against their plain versions
+# ---------------------------------------------------------------------------
+
+# (sq, skv, hd, causal, window, q_offset): the reference test's grid
+# (tests/test_kernels.py:67-75), then the slice's prompt and gemma3's heads.
+FLASH_GRID = [
+    (256, 256, 64, True, 0, 0),
+    (256, 256, 64, True, 64, 0),
+    (200, 200, 32, True, 0, 0),
+    (1, 384, 64, True, 0, 383),
+    (1, 384, 64, True, 128, 383),
+    (128, 128, 128, False, 0, 0),
+    (1000, 1000, 64, True, 0, 0),
+    (300, 300, 256, True, 128, 0),
+    (200, 200, 256, False, 0, 0),
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:89 and :101
+BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5               # one bf16 ulp of the f32 value, f32 noise
+
+
+def check_flash_attention() -> float:
+    """Flash-attention kernel vs ``flash_attention_ref`` on the card over the
+    reference test's grid (decode-shaped Sq 1 at q_offset 383, a window,
+    non-causal, ragged 200), the slice's 1000-token prompt and hd 256, GQA
+    G 1 and 2, softcap 0 and 30, f32 and bf16; the reference's tolerances
+    (``atol`` 2e-5 f32, 2e-2 bf16).  At bf16 the absolute 2e-2 is near a
+    typical output of a long causal row, so each bf16 output is also held to
+    ``BF16_REL`` of the plain version computed in f32 on the same
+    (bf16-valued) inputs: the kernel accumulates in f32 and rounds once, so
+    it may sit at most one bf16 ulp (<= 2**-7 relative) from that value,
+    plus ``BF16_ABS`` for f32 noise where an output cancels to near 0."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda_kernel, gqa_flash_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_rel = 0.0      # bf16 error over BF16_REL * |f32 value| + BF16_ABS; must stay <= 1
+    n_cases = 0
+    for sq, skv, hd, causal, window, q_offset in FLASH_GRID:
+        for g in (1, 2):
+            for dname, tol in FLASH_TOL.items():
+                dt = getattr(torch, dname)
+                mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+                q, k, v = mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd)
+                for softcap in (0.0, 30.0):
+                    kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+                    got = cuda_kernel.flash_attention(q, k, v, **kw)
+                    want = gqa_flash_attention_ref(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    assert got.dtype == dt and got.shape == q.shape
+                    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol,
+                                               msg=lambda m: f"{(sq, skv, hd, causal, window, q_offset, g, dname, softcap)}: {m}")
+                    worst[dname] = max(worst[dname], float((got.float() - want.float()).abs().max()))
+                    if dt == torch.bfloat16:
+                        want32 = gqa_flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+                        ratio = float(((got.float() - want32).abs() / (BF16_REL * want32.abs() + BF16_ABS)).max())
+                        assert ratio <= 1.0, (f"{(sq, skv, hd, causal, window, q_offset, g, softcap)}: bf16 output "
+                                              f"off the f32 plain value by {ratio:.2f} of one bf16 ulp + {BF16_ABS}")
+                        worst_rel = max(worst_rel, ratio)
+                    n_cases += 1
+    log(f"[kernel] flash_attention vs flash_attention_ref: {n_cases} cases agree, max |err| f32 "
+        f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}; bf16 vs the f32 plain value at most "
+        f"{worst_rel:.3f} of (one bf16 ulp + {BF16_ABS})")
+    return max(worst.values())
+
+
+def check_ssm_scan() -> float:
+    """SSM-scan kernel vs ``ssm_scan_ref`` on the card, bit for bit
+    (``torch.equal``): T 1, 100, 300 x D 1, 130, 512 (130 ragged against a
+    warp), B 1 and 3, f32 and bf16 inputs, f32 and bf16 initial states."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import cuda_kernel, ssm_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n_cases = 0
+    for t in (1, 100, 300):
+        for d in (1, 130, 512):
+            for bsz, dt, hdt in ((1, torch.float32, torch.float32), (3, torch.bfloat16, torch.float32),
+                                 (3, torch.float32, torch.bfloat16)):
+                a = (0.8 + 0.2 * torch.rand((bsz, t, d), generator=gen, device="cuda")).to(dt)
+                b = (0.1 * torch.randn((bsz, t, d), generator=gen, device="cuda")).to(dt)
+                h0 = torch.randn((bsz, d), generator=gen, device="cuda").to(hdt)
+                got = cuda_kernel.ssm_scan(a, b, h0)
+                want = ssm_scan_ref(a, b, h0)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    err = float((got - want).abs().max())
+                    raise AssertionError(f"ssm_scan {(bsz, t, d, str(dt), str(hdt))}: kernel differs from the "
+                                         f"plain version (max |err| {err:.3e})")
+                n_cases += 1
+    log(f"[kernel] ssm_scan vs ssm_scan_ref: {n_cases} cases bit for bit")
+    return 0.0
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the long-prompt slice (prefill past attn_block_q) at full width
+# ---------------------------------------------------------------------------
+
+LONG_PROMPT, LONG_TOKENS, LONG_BATCH = 1000, 16, 2
+LONG_ENGINE_PROMPTS = (1000, 700, 300, 61)
+
+
+def run_long_prefill(report) -> dict:
+    """Full-width qwen1.5-0.5b (random weights from a seed), loss 0.1, i.i.d.
+    link, prompts past ``attn_block_q`` (512).  ``generate_reference``,
+    batch 2, prompt 1000, 16 tokens: f32 tokens through the flash-attention
+    prefill and flash decode equal the naive oracle's; bf16 teacher-forced
+    logits within twice the bf16 noise; 24 flash-attention launches a
+    prefill.  Then the paged engine (block 16, max_prompt 1024), f32,
+    prompts 1000 / 700 / 300 / 61 of 16 tokens: buckets 1024, 1024, 512,
+    64, so two admissions take the kernel (24 launches each) and two the
+    naive branch; served tokens equal the per-request ``generate_reference``.
+    The f32 reference run and the engine run are this slice's main path:
+    the counts are zeroed just before each and read just after.  Returns
+    the engine run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate_reference
+    from repro_torch.models import lm
+    from repro_torch.serve import ContinuousEngine, PoolConfig
+
+    base = get_config("qwen1.5-0.5b").with_updates(attn_impl="flash_decode")
+    n_layers = base.num_layers
+    assert LONG_PROMPT > base.attn_block_q
+    key = prng.PRNGKey(3, "cuda")
+    prompts = prng.randint(key, (LONG_BATCH, LONG_PROMPT), 0, base.vocab_size)
+    out = {}
+
+    cfg32 = base.with_updates(dtype="float32")
+    model32 = lm.init_lm(cfg32, seed=0, device="cuda")
+    _zero_counts()
+    toks, timings = generate_reference(model32, cfg32, prompts, LONG_TOKENS, loss_rate=LOSS, key=key, channel="iid")
+    launches = _counts()
+    want = dict(flash_decode=n_layers * LONG_TOKENS, paged_flash_decode=0, lossy_link_egress=0, burst_mask=0,
+                flash_attention=n_layers, ssm_scan=0)
+    assert launches == want, f"long generate_reference: launches {launches}, want {want}"
+    assert toks.shape == (LONG_BATCH, LONG_TOKENS) and int(toks.min()) >= 0 and int(toks.max()) < base.vocab_size
+    naive, ntimings = generate_reference(model32, cfg32.with_updates(attn_impl="naive"), prompts, LONG_TOKENS,
+                                         loss_rate=LOSS, key=key, channel="iid")
+    agree = float((toks == naive).float().mean())
+    out["reference_f32"] = dict(launches=launches, timings=timings, naive_timings=ntimings, token_agreement=agree)
+    log(f"[long] f32 generate_reference, batch {LONG_BATCH}, prompt {LONG_PROMPT}: prefill "
+        f"{timings['prefill_s']:.3f} s (naive {ntimings['prefill_s']:.3f} s), decode "
+        f"{timings['decode_s_per_token'] * 1e3:.2f} ms/token, launches {launches}; agreement with the naive "
+        f"oracle {agree:.4f}")
+    assert torch.equal(toks, naive), "long prompt, f32: kernel-path tokens differ from the naive oracle's"
+    forced = toks
+
+    # The paged engine, f32: two admissions past attn_block_q, two below.
+    pool = PoolConfig(max_slots=4, max_new=LONG_TOKENS, max_prompt=1024, min_bucket=8, paged=True, block_size=16)
+    eprompts = [prng.randint(prng.fold_in(key, 400 + i), (n,), 0, base.vocab_size).cpu().numpy()
+                for i, n in enumerate(LONG_ENGINE_PROMPTS)]
+    ekeys = [prng.fold_in(key, 500 + i) for i in range(len(eprompts))]
+    eng = ContinuousEngine(cfg32, pool, device="cuda")
+    reqs = [eng.submit(p, LONG_TOKENS, key=k) for p, k in zip(eprompts, ekeys)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    eng.run(model32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine_launches = _counts()
+    n_long = sum(r.bucket > base.attn_block_q for r in reqs)
+    assert [r.bucket for r in reqs] == [1024, 1024, 512, 64] and n_long == 2
+    want = dict(flash_decode=0, paged_flash_decode=n_layers * eng.steps, lossy_link_egress=0, burst_mask=0,
+                flash_attention=n_layers * n_long, ssm_scan=0)
+    assert engine_launches == want, f"long engine: launches {engine_launches}, want {want}"
+    etoks = np.stack([r.tokens for r in reqs])
+    refs = np.stack([generate_reference(model32, cfg32, torch.from_numpy(p).cuda()[None], LONG_TOKENS, key=k)[0]
+                     .cpu().numpy()[0] for p, k in zip(eprompts, ekeys)])
+    eagree = float((refs == etoks).mean())
+    per_request = [dict(prompt=int(r.prompt.size), bucket=r.bucket, ttft_s=r.ttft_s,
+                        prefill_s=r.t_first_token - r.t_admit, tpot_s=r.tpot_s) for r in reqs]
+    out["engine_f32"] = dict(wall_s=wall, steps=eng.steps, launches=engine_launches, token_agreement=eagree,
+                             per_request=per_request)
+    log(f"[long] f32 paged engine, prompts {list(LONG_ENGINE_PROMPTS)}: {wall:.3f} s, {eng.steps} steps, launches "
+        f"{engine_launches}; agreement with generate_reference per request {eagree:.4f}")
+    for r in per_request:
+        log(f"[long]   prompt {r['prompt']:4d} (bucket {r['bucket']:4d}): TTFT {r['ttft_s']:.3f} s, prefill "
+            f"{r['prefill_s']:.3f} s, TPOT {r['tpot_s'] * 1e3:.2f} ms")
+    assert np.array_equal(refs, etoks), "long prompts: engine tokens differ from generate_reference"
+    del model32, eng
+
+    # bf16: teacher-forced logits of the kernel path against the naive path,
+    # within twice the bf16 noise (naive bf16 vs naive f32, same weights).
+    cfg16 = base.with_updates(dtype="bfloat16")
+    model16 = lm.init_lm(cfg16, seed=0, device="cuda")
+    ref32 = lm.LM(cfg32, device="cuda")
+    ref32.load_state_dict({k: v.float() for k, v in model16.state_dict().items()})
+    lk = forced_logits(model16, cfg16, prompts, forced, key)
+    ln = forced_logits(model16, cfg16.with_updates(attn_impl="naive"), prompts, forced, key)
+    lf = forced_logits(ref32, cfg32.with_updates(attn_impl="naive"), prompts, forced, key)
+    assert bool(torch.isfinite(lk).all()), "non-finite logits"
+    e_kernel, e_dtype = float((lk - ln).abs().max()), float((ln - lf).abs().max())
+    out["bf16_teacher_forced"] = dict(kernel_vs_naive=e_kernel, naive_bf16_vs_f32=e_dtype,
+                                      kernel_vs_f32=float((lk - lf).abs().max()),
+                                      argmax_agreement=float((lk.argmax(-1) == ln.argmax(-1)).float().mean()))
+    log(f"[long] bf16 teacher forced: max |logit| kernel-naive {e_kernel:.4f}, naive bf16-f32 {e_dtype:.4f}")
+    assert e_kernel <= 2.0 * e_dtype, "long prompt, bf16: kernel differs from naive beyond bf16 noise"
+    del model16, ref32, lk, ln, lf
+    report["long_prefill"] = out
+    return engine_launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the SSM scan through its entry point, and both new kernels' times
+# ---------------------------------------------------------------------------
+
+# jamba-v0.1's mamba layer (src/repro/configs/jamba_v0_1_52b.py:38-40):
+# d_inner = 2 x 4096 = 8192 channels x d_state 16 = 131,072 state lanes.
+SSM_T, SSM_D = 512, 8192 * 16
+
+
+def _ssm_inputs(bsz, t, d, seed=9):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = 0.8 + 0.2 * torch.rand((bsz, t, d), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((bsz, t, d), generator=gen, device="cuda")
+    return a, b, torch.randn((bsz, d), generator=gen, device="cuda")
+
+
+def run_ssm_scan_path() -> int:
+    """The scan's own entry point (``repro_torch.kernels.ssm_scan.ssm_scan``,
+    the twin of ``repro.kernels.ssm_scan.ssm_scan``; no model calls it) at
+    a jamba mamba layer's flattened state, f32: the counts are zeroed just
+    before and read just after; the states are finite, of the right shape,
+    and equal the plain version bit for bit."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+
+    a, b, h0 = _ssm_inputs(1, SSM_T, SSM_D)
+    _zero_counts()
+    h = ssm_scan(a, b, h0)
+    torch.cuda.synchronize()
+    launches = _counts()["ssm_scan"]
+    assert launches == 1, f"ssm_scan entry point: {launches} launches"
+    assert h.shape == (1, SSM_T, SSM_D) and h.dtype == torch.float32 and bool(torch.isfinite(h).all())
+    assert torch.equal(h, ssm_scan_ref(a, b, h0)), "ssm_scan at the jamba shape differs from the plain version"
+    log(f"[ssm] ssm_scan entry point at (1, {SSM_T}, {SSM_D}) f32: {launches} launch, equal to the plain version")
+    return launches
+
+
+def _visible_pairs(sq, skv, causal, window, q_offset=0) -> int:
+    """(query, key) pairs the mask lets through: the work this input needs."""
+    total = 0
+    for i in range(sq):
+        qp = q_offset + i
+        hi = min(qp + 1, skv) if causal else skv
+        lo = max(qp - window + 1, 0) if window > 0 else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
+    """Kernel (graph replay and eager), plain and library times of causal
+    prefill attention, and the bound: bytes (q, k, v read once, out written
+    once) over 3.35 TB/s against 4 * hd flops per visible pair over the
+    card's peak for the operands' type.  For bf16 operands that is the bf16
+    tensor-core rate: a bf16 product accumulated in f32 is exact, as the
+    kernel's upcast f32 FMAs are, so the f32 CUDA-core rate the kernel runs
+    at is its choice, not the function's floor.  The library time is
+    SDPA on the (B, H, S, hd) layout: ``is_causal`` without a window, a
+    boolean window mask with one."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import cuda_kernel, gqa_flash_attention_ref
+
+    dt = getattr(torch, dname)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    mk = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(dt)
+    q, k, v = mk(b, s, h, hd), mk(b, s, kvh, hd), mk(b, s, kvh, hd)
+    kw = dict(causal=True, window=window)
+    saved = cuda_kernel.launch_count
+    call = lambda: cuda_kernel.flash_attention(q, k, v, **kw)
+    ms = time_graph(call, iters=20)
+    ms_eager = time_events(call, iters=20, warmup=3)
+    cuda_kernel.launch_count = saved
+    plain_ms = time_events(lambda: gqa_flash_attention_ref(q, k, v, **kw), iters=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if window:
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_ms = time_graph(sdpa, iters=20)
+    elem = 2 if dt == torch.bfloat16 else 4
+    nbytes = (2 * b * s * h * hd + 2 * b * s * kvh * hd) * elem
+    ops = 4 * hd * b * h * _visible_pairs(s, s, True, window)
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS[dname])
+    rec = dict(shape=dict(B=b, S=s, H=h, KV=kvh, hd=hd, causal=True, window=window, dtype=dname), ms=ms,
+               ms_eager=ms_eager, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+               bytes=nbytes, ops=ops)
+    log(f"[time] flash_attention {rec['shape']}: kernel {ms * 1e3:.1f} us (graph) / {ms_eager * 1e3:.1f} us (eager), "
+        f"plain {plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.1f} us (graph), bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by}, {ops / 1e9:.3f} GFLOP, {nbytes} B)")
+    return rec
+
+
+def time_ssm_scan() -> dict:
+    """Kernel (graph replay and eager), plain and bound times of the scan at
+    a jamba mamba layer's flattened state (B 1, T 512, D 131,072, f32):
+    bytes (a, b, h0 read once, every state written once) over 3.35 TB/s
+    against one FMA (2 flops) a step per lane over the f32 peak.  No single
+    PyTorch call computes the recurrence, so there is no library time."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import cuda_kernel, ssm_scan_ref
+
+    a, b, h0 = _ssm_inputs(1, SSM_T, SSM_D, seed=11)
+    saved = cuda_kernel.launch_count
+    call = lambda: cuda_kernel.ssm_scan(a, b, h0)
+    ms = time_graph(call, iters=20)
+    ms_eager = time_events(call, iters=20, warmup=3)
+    cuda_kernel.launch_count = saved
+    plain_ms = time_events(lambda: ssm_scan_ref(a, b, h0), iters=3, warmup=1)
+    nbytes = 3 * SSM_T * SSM_D * 4 + SSM_D * 4
+    ops = 2 * SSM_T * SSM_D
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["float32"])
+    rec = dict(shape=dict(B=1, T=SSM_T, D=SSM_D, dtype="float32"), ms=ms, ms_eager=ms_eager, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes, ops=ops)
+    log(f"[time] ssm_scan {rec['shape']}: kernel {ms * 1e3:.1f} us (graph) / {ms_eager * 1e3:.1f} us (eager), "
+        f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B)")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
@@ -1061,17 +1424,22 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import nvcc
-    from repro_torch.kernels.decode_attention import cuda_kernel
-    from repro_torch.kernels.lossy_link import cuda_kernel as link_kernel
 
     t0 = time.perf_counter()
     card = card_line()
     log(f"[card] {card}")
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, capability {torch.cuda.get_device_capability(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_build = time.perf_counter()
-    libs = nvcc.build_libraries([(cuda_kernel.LIB_NAME, cuda_kernel.SOURCES),
-                                 (link_kernel.LIB_NAME, link_kernel.SOURCES)])
+    from repro_torch.kernels.decode_attention import cuda_kernel as decode_kernel
+    from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
+    from repro_torch.kernels.lossy_link import cuda_kernel as link_kernel
+    from repro_torch.kernels.ssm_scan import cuda_kernel as scan_kernel
+
+    wrappers = (decode_kernel, link_kernel, flash_kernel, scan_kernel)
+    libs = nvcc.build_libraries([(m.LIB_NAME, m.SOURCES) for m in wrappers])
     log(f"[build] {len(libs)} librar{'y' if len(libs) == 1 else 'ies'} in {time.perf_counter() - t_build:.1f} s")
     for path in libs.values():
         text = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
@@ -1097,9 +1465,15 @@ def main(argv=None) -> int:
                          replaces="src/repro/kernels/lossy_link/kernel.py:140", max_abs_err=check_lossy_link_egress())
     burst_record = dict(name="burst_mask", route="cuda", source=link_source,
                         replaces="src/repro/kernels/lossy_link/kernel.py:94", max_abs_err=check_burst_mask())
+    flash_record = dict(name="flash_attention", route="cuda",
+                        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                        replaces="src/repro/kernels/flash_attention/kernel.py:106",
+                        max_abs_err=check_flash_attention())
+    ssm_record = dict(name="ssm_scan", route="cuda", source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                      replaces="src/repro/kernels/ssm_scan/kernel.py:55", max_abs_err=check_ssm_scan())
     if not args.quick:
         check_masks()
-        # Phases 9-10 run ahead of the profiled phases, so that their
+        # Phases 9-12 run ahead of the profiled phases, so that their
         # host-clock times are taken before any profiler trace.
         link_launches = run_link_kernels(report)
         link_times = time_lossy_link()
@@ -1108,6 +1482,17 @@ def main(argv=None) -> int:
             t = link_times[rec["name"]]
             rec.update(launches=link_launches[channel][rec["name"]], ms=t["ms"], plain_ms=t["plain_ms"],
                        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
+        long_launches = run_long_prefill(report)
+        ssm_launches = run_ssm_scan_path()
+        ftiming = time_flash_attention(LONG_BATCH, 16, 16, 64, LONG_PROMPT, 0)
+        report["flash_attention_times"] = [ftiming, time_flash_attention(1, 16, 8, 256, 2048, 1024)]
+        flash_record.update(launches=long_launches["flash_attention"], ms=ftiming["ms"],
+                            plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
+                            bound_by=ftiming["bound_by"], library_ms=ftiming["library_ms"])
+        stiming = time_ssm_scan()
+        report["ssm_scan_times"] = stiming
+        ssm_record.update(launches=ssm_launches, ms=stiming["ms"], plain_ms=stiming["plain_ms"],
+                          bound_ms=stiming["bound_ms"], bound_by=stiming["bound_by"], library_ms=None)
         launches = run_slice(report)
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [
@@ -1129,7 +1514,11 @@ def main(argv=None) -> int:
         paged_record.update(launches=paged_launches, ms=ptiming["ms"], plain_ms=ptiming["plain_ms"],
                             bound_ms=ptiming["bound_ms"], bound_by=ptiming["bound_by"],
                             library_ms=ptiming["library_ms"])
-    report["kernels"] = [record, paged_record, egress_record, burst_record]
+    report["kernels"] = [record, paged_record, egress_record, burst_record, flash_record, ssm_record]
+    for rec in report["kernels"]:
+        if rec.get("library_ms") is not None and rec["library_ms"] < rec["bound_ms"]:
+            log(f"[bound] WARNING {rec['name']}: the library call ({rec['library_ms'] * 1e3:.2f} us) beats the "
+                f"bound ({rec['bound_ms'] * 1e3:.2f} us), so the bound is not a floor")
     report["seconds"] = time.perf_counter() - t0
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,0 +1,90 @@
+"""ctypes binding and launch wrapper of ``csrc/flash_attention.cu``.
+
+The library is built with ``nvcc`` at first use (``kernels/nvcc.py``).
+``flash_attention`` checks device, dtype, shape and contiguity, allocates
+the output with ``torch.empty``, launches on PyTorch's current stream and
+raises if the launch reports an error.  ``launch_count`` counts its
+launches and nothing else, so a run can show that it went through the
+kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import nvcc
+
+LIB_NAME = "flash_attention"
+SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+DTYPES = {torch.bfloat16: 1, torch.float32: 2}
+MAX_HEAD_DIM = 256
+MAX_GRID_Y = 65535
+
+launch_count: int = 0
+_lib = None
+
+
+def flash_attention_launch_count() -> int:
+    return launch_count
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = nvcc.load_library(LIB_NAME, SOURCES)
+        lib.flash_attention_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"flash_attention: {msg}")
+
+
+def flash_attention(
+    q: torch.Tensor,          # (B, Sq, H, hd) bf16/f32
+    k: torch.Tensor,          # (B, Skv, KV, hd), H % KV == 0
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Online-softmax attention of the whole query sequence on the card;
+    query head ``h`` reads KV head ``h // (H // KV)`` in place.  Returns
+    (B, Sq, H, hd) in q's dtype."""
+    global launch_count
+    _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "q, k, v must be 4-d")
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    _check(all(t.is_cuda and t.device == q.device for t in (q, k, v)), "all inputs must be on one CUDA device")
+    _check(all(t.is_contiguous() for t in (q, k, v)), "inputs must be contiguous")
+    _check(q.dtype in DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
+           f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: q, k, v must share one of {list(DTYPES)}")
+    _check(tuple(k.shape) == (b, skv, kvh, hd) and tuple(v.shape) == (b, skv, kvh, hd),
+           f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
+    _check(kvh >= 1 and h % kvh == 0, f"{h} query heads are not a multiple of {kvh} KV heads")
+    _check(1 <= hd <= MAX_HEAD_DIM, f"head_dim {hd} outside [1, {MAX_HEAD_DIM}]")
+    _check(b * h <= MAX_GRID_Y, f"B * H = {b * h} > {MAX_GRID_Y}")
+    _check(q_offset >= 0 and window >= 0, f"q_offset {q_offset} / window {window} must be >= 0")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    err = _library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, hd, DTYPES[q.dtype],
+        int(bool(causal)), int(window), int(q_offset), float(softcap),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: "
+                           f"{_library().flash_attention_error_string(err).decode()} (code {err})")
+    launch_count += 1
+    return out

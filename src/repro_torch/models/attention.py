@@ -9,8 +9,12 @@ Decode (one new token against the cache) runs, by ``cfg.attn_impl``:
 * ``naive`` — the oracle: the valid prefix dequantized to the model dtype
   and a full softmax.
 
-Prefill runs naive causal attention.  Windowed layers keep a rotating cache
-of ``window`` slots; RoPE is applied at write time, and writes land at
+Prefill runs naive causal attention up to ``cfg.attn_block_q`` tokens.
+Past it (``blockwise`` / ``flash_decode``) it runs the online softmax over
+KV blocks: ``_blockwise_attn``, the reference's recurrence op for op, on a
+CPU tensor, and the hand CUDA flash-attention kernel
+(``kernels.flash_attention``) on the card.  Windowed layers keep a rotating
+cache of ``window`` slots; RoPE is applied at write time, and writes land at
 ``index % C``, so the live slots are always the prefix ``[0, min(index+1, C))``.
 
 ``cache_index`` is an int (every row at the same length), a ``(B,)`` int32
@@ -30,9 +34,12 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.kernels import runtime
 from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+from repro_torch.kernels.flash_attention import grouped_flash_attention
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import dense_std, frozen, trunc_normal_
 
@@ -106,6 +113,57 @@ def _naive_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.T
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+
+
+def _blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int,
+                    q_offset: int, block_q: int, block_kv: int, softcap: float) -> torch.Tensor:
+    """FlashAttention-style online softmax in plain PyTorch (twin of the
+    reference's ``_blockwise_attn``): q (B, Sq, KV, G, hd) and k/v (B, Skv,
+    KV, hd) are padded here to block multiples; every KV block is walked,
+    masked by causality, the window and ``k_pos < Skv``; the probabilities
+    are cast to q's dtype before the PV product, as the reference casts
+    them."""
+    b, sq, kvh, g, hd = q.shape
+    skv = k.shape[1]
+    bq, bkv = min(block_q, sq), min(block_kv, skv)
+    pad_q, pad_kv = (-sq) % bq, (-skv) % bkv
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pad_q))
+    if pad_kv:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
+    nq, nkv = q.shape[1] // bq, k.shape[1] // bkv
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32)))
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qblk = q[:, qi * bq:(qi + 1) * bq]
+        q_pos = q_offset + qi * bq + torch.arange(bq, device=dev)
+        acc = torch.zeros((b, kvh, g, bq, hd), dtype=torch.float32, device=dev)
+        m = torch.full((b, kvh, g, bq), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, kvh, g, bq), dtype=torch.float32, device=dev)
+        for kj in range(nkv):
+            kblk, vblk = k[:, kj * bkv:(kj + 1) * bkv], v[:, kj * bkv:(kj + 1) * bkv]
+            k_pos = kj * bkv + torch.arange(bkv, device=dev)
+            s = torch.einsum("bqkgh,bskh->bkgqs", qblk, kblk).float() * scale
+            if softcap > 0.0:
+                s = torch.tanh(s / softcap) * softcap
+            msk = torch.ones((bq, bkv), dtype=torch.bool, device=dev)
+            if causal:
+                msk &= k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                msk &= q_pos[:, None] - k_pos[None, :] < window
+            msk &= k_pos[None, :] < skv
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(msk, torch.exp(s - m_new[..., None]), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p.to(qblk.dtype), vblk).float()
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-20)
+        outs.append(torch.einsum("bkgqh->bqkgh", out).to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :sq]
 
 
 # ---------------------------------------------------------------------------
@@ -288,14 +346,17 @@ class Attention(nn.Module):
                 out = _masked_decode_attn(qg, cache, cache_index, cfg.logit_softcap, k.dtype)
         else:
             if cfg.attn_impl in ("blockwise", "flash_decode") and s > cfg.attn_block_q:
-                raise NotImplementedError(
-                    f"prefill of {s} > attn_block_q={cfg.attn_block_q} tokens needs blockwise / "
-                    "flash attention, not ported yet (ROADMAP B3)")
-            pos = torch.arange(s, device=x.device)
-            msk = pos[:, None] >= pos[None, :]
-            if self.spec.window > 0:
-                msk &= pos[:, None] - pos[None, :] < self.spec.window
-            out = _naive_attn(qg, k, v, msk[None, None, None], cfg.logit_softcap)
+                kw = dict(causal=True, window=self.spec.window, q_offset=0, softcap=cfg.logit_softcap)
+                if runtime.use_kernel(qg):
+                    out = grouped_flash_attention(qg, k, v, **kw)
+                else:
+                    out = _blockwise_attn(qg, k, v, block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv, **kw)
+            else:
+                pos = torch.arange(s, device=x.device)
+                msk = pos[:, None] >= pos[None, :]
+                if self.spec.window > 0:
+                    msk &= pos[:, None] - pos[None, :] < self.spec.window
+                out = _naive_attn(qg, k, v, msk[None, None, None], cfg.logit_softcap)
             if cache is not None:
                 _write_prefill(cache, k, v)
         return out.reshape(b, s, h * hd) @ self.w_out
