@@ -11,10 +11,13 @@ the SSM scan through its entry point, and times the kernels and the paths.
     python3 chip_smoke.py --quick    # build + kernel checks only
 
 Phases (any failure raises and the script exits non-zero):
-  1. build every kernel library (one nvcc each, started together);
+  1. build every kernel library (one nvcc each, started together), and
+     print the new kernels' registers and spills;
   2. flash decode vs ``flash_decode_ref`` at the main path's head shapes
-     (B 4, KV 16, G 1, hd 64, C 64 and 1024) and gemma3's (KV 8, G 2,
-     hd 256), bf16 / int8 / f32 caches, softcap 0 and 30; then paged flash
+     (B 4, KV 16, G 1, hd 64, C 64 and 1024), gemma3's (KV 8, G 2, hd 256)
+     and B 1 at C 4096, bf16 / int8 / f32 caches, softcap 0 and 30; caches
+     of 1024 rows and up split across blocks (the merge kernel after the
+     split kernel) and n_valid 0 / 1 / 63 / 65 leave splits empty; then paged flash
      decode vs ``paged_flash_decode_ref`` at the engine's shape (B 8, KV 16,
      G 1, hd 64, block 16) and gemma3's heads, over a permuted block table,
      n_valid in {0, 1, 15, 16, 17, full}; then the link kernels, bit for
@@ -24,9 +27,11 @@ Phases (any failure raises and the script exits non-zero):
      Gilbert–Elliott burst mask vs ``burst_mask_ref`` at R x N = 1 x 164
      (a decode round), 32 x 164, 17 x 256, 5 x 130, 1 x 1; flash attention
      vs ``flash_attention_ref`` over the reference test's grid (Sq 1 at
-     q_offset 383, a window, non-causal, ragged 200), Sq 1000 and hd 256,
-     GQA G 1 and 2, softcap 0 and 30, f32 (atol 2e-5) and bf16 (2e-2, and
-     one bf16 ulp of the f32 plain value); the
+     q_offset 383, a window, non-causal, ragged 200), Sq 1000, hd 256 and
+     a causal ragged hd 128, GQA G 1 and 2, softcap 0 and 30, f32 (atol
+     2e-5) and bf16 (2e-2, and one bf16 ulp of the f32 plain value), each
+     case on the body ``body_for`` names (bf16 at hd 64 / 128 / 256 on the
+     tensor cores, the rest on the CUDA cores; per-body counters); the
      SSM scan vs ``ssm_scan_ref`` bit for bit at T 1 / 100 / 300 x D 1 /
      130 / 512;
   3. threefry link masks (iid, Gilbert–Elliott) drawn on the card equal
@@ -42,16 +47,17 @@ Phases (any failure raises and the script exits non-zero):
      with the link off, and a torch.profiler trace of that path
      (device-busy share, kernels per round);
   6. flash-decode kernel, plain and library times at the main path's
-     shapes and the bytes bound;
+     shapes (64 and 1,024 rows, gemma3's heads) and the bytes bound, with
+     each shape's split plan and device kernels a call;
   7. the continuous engine: f32, iid and GE, 4 requests: paged tokens ==
      contiguous tokens == ``generate_reference`` per request, each engine's
      kernel launched 24 x decode steps; the engine's main path (bf16, iid,
      16 requests of prompts 5/13/29/61/127 and 32 tokens through 8 slots of
      the paged pool, launch counts zeroed just before): TTFT and TPOT per
-     request, tokens/s, peak blocks; the contiguous pool on the same
-     requests gives the same tokens; one request per bucket, teacher
+     request, tokens/s, peak blocks; one request per bucket, teacher
      forced through the naive oracle, picks the oracle's argmax to within
-     4x the bf16 noise; a profiled window of that path
+     4x the bf16 noise, and so does the contiguous pool (its own split-KV
+     kernel) on the same requests; a profiled window of that path
      (device-busy share) and the link's rounds timed alone;
   8. paged-kernel, plain and library times at the engine's shape and the
      bytes bound;
@@ -77,12 +83,15 @@ Phases (any failure raises and the script exits non-zero):
      max_prompt 1024) on prompts 1000 / 700 / 300 / 61, f32, tokens equal to
      the per-request ``generate_reference``, 24 launches per admission in
      bucket 1024 and none for the two short ones, TTFT and prefill seconds
-     per admission; bf16 teacher-forced logits within twice the bf16 noise;
+     per admission, all on the CUDA-core body; bf16 teacher-forced logits
+     within twice the bf16 noise, its prefill 24 launches on the
+     tensor-core body;
  12. the SSM scan through its entry point at a jamba mamba layer's state
      (1 x 512 x 131,072 f32), equal to the plain version; flash-attention
      times at the slice's shape (B 2, H 16, hd 64, S 1000, causal, bf16)
      and gemma3's local layer (KV 8, G 2, hd 256, S 2048, window 1024)
-     beside SDPA, the scan's time, plain times and bounds.
+     beside SDPA (both on the tensor-core body), the scan's time, plain
+     times and bounds.
 Phases 9-12 run after phase 3, ahead of the profiled phases 5 and 7.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -114,6 +123,23 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_resources(ptxas_log: str, names) -> list:
+    """(short name, registers and spills) from ``-Xptxas -v`` for each
+    compiled entry function whose mangled name holds one of ``names``."""
+    out = []
+    for chunk in ptxas_log.split("Compiling entry function")[1:]:
+        fn = chunk.split("'")[1] if "'" in chunk else ""
+        hit = next((n for n in names if n in fn), None)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        if hit and regs:
+            args = fn.split(hit, 1)[1].split("EEv")[0].lstrip("I")   # mangled template arguments
+            out.append((f"{hit}<{args}>",
+                        f"{regs.group(1)} registers, spill stores/loads "
+                        f"{spill.group(1) if spill else '?'}/{spill.group(2) if spill else '?'} B"))
+    return out
 
 
 def time_events(fn, iters=200, warmup=20) -> float:
@@ -206,7 +232,10 @@ def check_flash_decode() -> float:
     kernel's per-position online softmax sums in another order than the
     plain version's 64-row blocks); one bf16 ulp (rtol 2**-7) for bf16
     outputs, since both compute in f32 and round once, and f32 values a
-    hair apart can round to neighbouring bf16 values."""
+    hair apart can round to neighbouring bf16 values.  The caches of 1024
+    and 4096 rows split across blocks (``decode_plan``: nsplit > 1, the
+    merge kernel after the split kernel), and n_valid 0 / 1 / 63 / 65
+    leave most splits with no row."""
     import torch
 
     from repro_torch.kernels.decode_attention import cuda_kernel, flash_decode_ref
@@ -214,10 +243,15 @@ def check_flash_decode() -> float:
     gen = torch.Generator(device="cuda").manual_seed(0)
     combos = [(torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"), (torch.float32, "float32"),
               (torch.float32, "int8")]
-    shapes = [(4, 16, 1, 64, 64), (4, 16, 1, 64, 1024), (4, 8, 2, 256, 1024)]
+    shapes = [(4, 16, 1, 64, 64), (4, 16, 1, 64, 1024), (4, 8, 2, 256, 1024), (1, 16, 1, 64, 4096)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     n_cases = 0
+    n_split_cases = 0
     for b, kvh, g, hd, c in shapes:
+        plan = cuda_kernel.decode_plan(b, kvh, g, c, sms)
+        log(f"[kernel] flash_decode plan at B {b}, KV {kvh}, G {g}, hd {hd}, C {c}: {plan}")
+        assert (plan["nsplit"] > 1) == (c >= 1024), f"C {c}: plan {plan}"
         lengths = sorted({min(n, c) for n in (0, 1, 63, 64, 65, c)})
         rows = [lengths[i % len(lengths)] for i in range(max(b, len(lengths)))]
         for qdt, cache in combos:
@@ -235,7 +269,9 @@ def check_flash_decode() -> float:
                     assert torch.all(got[n == 0] == 0), "n_valid = 0 must give zeros"
                     worst = max(worst, float((got.float() - want.float()).abs().max()))
                     n_cases += 1
-    log(f"[kernel] flash_decode vs flash_decode_ref: {n_cases} cases agree, max |err| {worst:.3e}")
+                    n_split_cases += plan["nsplit"] > 1
+    log(f"[kernel] flash_decode vs flash_decode_ref: {n_cases} cases agree ({n_split_cases} split across "
+        f"blocks), max |err| {worst:.3e}")
     return worst
 
 
@@ -533,9 +569,12 @@ def run_engine(report) -> int:
     launched its kernel 24 times per decode step.  Then the main path: bf16,
     iid, 16 requests (prompts 5/13/29/61/127, buckets 8..128) of 32 tokens
     through 8 slots of the paged pool, with the paged launch count zeroed
-    just before; the contiguous engine on the same requests must give the
-    same tokens, and the naive oracle must agree with them (``hold_to_oracle``).
-    Returns the main path's paged launches."""
+    just before; the naive oracle must agree with its tokens
+    (``hold_to_oracle``).  The contiguous engine on the same requests runs
+    the contiguous kernel, whose split-KV sums take another order than the
+    paged kernel's, so in bf16 its greedy tokens may part from the paged
+    ones at a near-tie (in f32 above they are equal); its tokens are held
+    to the same oracle bar.  Returns the main path's paged launches."""
     import numpy as np
     import torch
 
@@ -630,8 +669,9 @@ def run_engine(report) -> int:
                               token_agreement_with_paged=float((ctoks == toks).mean()))
     log(f"[engine] same requests, contiguous pool: {cwall:.3f} s = {16 * TOKENS / cwall:.1f} tok/s, "
         f"token agreement with paged {main['contiguous']['token_agreement_with_paged']:.4f}")
-    assert np.array_equal(ctoks, toks), "bf16 main path: contiguous tokens differ from paged"
     main["oracle"] = hold_to_oracle(model16, cfg16, prompts[:5], keys[:5], toks[:5])
+    log("[engine] the contiguous pool's tokens against the same oracle:")
+    main["contiguous"]["oracle"] = hold_to_oracle(model16, cfg16, prompts[:5], keys[:5], ctoks[:5])
     # Where the main path's time goes: a short window of it under the
     # profiler (one request per bucket, 8 tokens each; the full run's half a
     # million kernels take the profiler minutes to process).
@@ -670,6 +710,7 @@ def time_flash_decode(b, kvh, g, hd, c, n_valid, cache, qdt_name="bfloat16") -> 
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, ks, vs = _decode_inputs(gen, b, kvh, g, hd, c, qdt, cache)
     n = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
+    plan = cuda_kernel.decode_plan(b, kvh, g, c, torch.cuda.get_device_properties(0).multi_processor_count)
     saved = cuda_kernel.launch_count
     ms_graph = time_graph(lambda: cuda_kernel.flash_decode(q, k, v, ks, vs, n))
     ms_eager = time_events(lambda: cuda_kernel.flash_decode(q, k, v, ks, vs, n))
@@ -695,8 +736,9 @@ def time_flash_decode(b, kvh, g, hd, c, n_valid, cache, qdt_name="bfloat16") -> 
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS[cache] else "operations"
     rec = dict(shape=dict(B=b, KV=kvh, G=g, hd=hd, C=c, n_valid=n_valid, cache=cache, q=qdt_name),
                ms=ms_graph, ms_eager=ms_eager, plain_ms=plain_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
-               library_ms=lib_ms, library_ms_eager=lib_eager, bytes=nbytes, ops=ops)
-    log(f"[time] flash_decode {rec['shape']}: kernel {ms_graph * 1e3:.2f} us (graph) / {ms_eager * 1e3:.2f} us "
+               library_ms=lib_ms, library_ms_eager=lib_eager, bytes=nbytes, ops=ops, plan=plan)
+    log(f"[time] flash_decode {rec['shape']} (nsplit {plan['nsplit']}, {plan['rows_per_split']} rows a split, "
+        f"{plan['kernels']} device kernel(s) a call): kernel {ms_graph * 1e3:.2f} us (graph) / {ms_eager * 1e3:.2f} us "
         f"(eager), plain {plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.2f} us (graph) / {lib_eager * 1e3:.2f} us, "
         f"bound {bound_s * 1e6:.3f} us ({bound_by}, {nbytes} B)")
     return rec
@@ -891,6 +933,7 @@ def _zero_counts():
 
     fd.launch_count = fd.paged_launch_count = ll.egress_launch_count = ll.burst_launch_count = 0
     fa.launch_count = ss.launch_count = 0
+    fa.body_launch_count.update(wgmma=0, simt=0)
 
 
 def _counts() -> dict:
@@ -1090,6 +1133,7 @@ FLASH_GRID = [
     (1000, 1000, 64, True, 0, 0),
     (300, 300, 256, True, 128, 0),
     (200, 200, 256, False, 0, 0),
+    (300, 300, 128, True, 0, 0),
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:89 and :101
 BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5               # one bf16 ulp of the f32 value, f32 noise
@@ -1105,7 +1149,10 @@ def check_flash_attention() -> float:
     ``BF16_REL`` of the plain version computed in f32 on the same
     (bf16-valued) inputs: the kernel accumulates in f32 and rounds once, so
     it may sit at most one bf16 ulp (<= 2**-7 relative) from that value,
-    plus ``BF16_ABS`` for f32 noise where an output cancels to near 0."""
+    plus ``BF16_ABS`` for f32 noise where an output cancels to near 0.
+    Each case must run on the body ``body_for`` names (bf16 at hd 64 / 128 /
+    256 on the tensor cores, the rest on the CUDA cores): its per-body
+    launch counter moves by one, the other's not at all."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel, gqa_flash_attention_ref
@@ -1114,6 +1161,7 @@ def check_flash_attention() -> float:
     worst = {"float32": 0.0, "bfloat16": 0.0}
     worst_rel = 0.0      # bf16 error over BF16_REL * |f32 value| + BF16_ABS; must stay <= 1
     n_cases = 0
+    per_body = {"wgmma": 0, "simt": 0}
     for sq, skv, hd, causal, window, q_offset in FLASH_GRID:
         for g in (1, 2):
             for dname, tol in FLASH_TOL.items():
@@ -1122,7 +1170,12 @@ def check_flash_attention() -> float:
                 q, k, v = mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd)
                 for softcap in (0.0, 30.0):
                     kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+                    body = cuda_kernel.body_for(dt, hd)
+                    before = dict(cuda_kernel.body_launch_count)
                     got = cuda_kernel.flash_attention(q, k, v, **kw)
+                    moved = {n: cuda_kernel.body_launch_count[n] - before[n] for n in before}
+                    assert moved == {n: int(n == body) for n in before}, f"{(hd, dname)}: bodies {moved}, want {body}"
+                    per_body[body] += 1
                     want = gqa_flash_attention_ref(q, k, v, **kw)
                     torch.cuda.synchronize()
                     assert got.dtype == dt and got.shape == q.shape
@@ -1136,7 +1189,9 @@ def check_flash_attention() -> float:
                                               f"off the f32 plain value by {ratio:.2f} of one bf16 ulp + {BF16_ABS}")
                         worst_rel = max(worst_rel, ratio)
                     n_cases += 1
-    log(f"[kernel] flash_attention vs flash_attention_ref: {n_cases} cases agree, max |err| f32 "
+    assert per_body["wgmma"] > 0 and per_body["simt"] > 0
+    log(f"[kernel] flash_attention vs flash_attention_ref: {n_cases} cases agree ({per_body['wgmma']} on the "
+        f"wgmma body, {per_body['simt']} on the CUDA-core body), max |err| f32 "
         f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}; bf16 vs the f32 plain value at most "
         f"{worst_rel:.3f} of (one bf16 ulp + {BF16_ABS})")
     return max(worst.values())
@@ -1189,14 +1244,16 @@ def run_long_prefill(report) -> dict:
     prompts 1000 / 700 / 300 / 61 of 16 tokens: buckets 1024, 1024, 512,
     64, so two admissions take the kernel (24 launches each) and two the
     naive branch; served tokens equal the per-request ``generate_reference``.
-    The f32 reference run and the engine run are this slice's main path:
-    the counts are zeroed just before each and read just after.  Returns
-    the engine run's launches."""
+    The f32 reference run and the engine run are this slice's main path
+    on the CUDA-core body, the bf16 teacher-forced run on the tensor-core
+    body: the counts are zeroed just before each and read just after.
+    Returns the f32 engine run's launches and the bf16 run's."""
     import numpy as np
     import torch
 
     from repro_torch import prng
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import cuda_kernel as fa
     from repro_torch.launch.serve import generate_reference
     from repro_torch.models import lm
     from repro_torch.serve import ContinuousEngine, PoolConfig
@@ -1216,6 +1273,7 @@ def run_long_prefill(report) -> dict:
     want = dict(flash_decode=n_layers * LONG_TOKENS, paged_flash_decode=0, lossy_link_egress=0, burst_mask=0,
                 flash_attention=n_layers, ssm_scan=0)
     assert launches == want, f"long generate_reference: launches {launches}, want {want}"
+    assert fa.body_launch_count == {"wgmma": 0, "simt": n_layers}, f"f32 prefill bodies {fa.body_launch_count}"
     assert toks.shape == (LONG_BATCH, LONG_TOKENS) and int(toks.min()) >= 0 and int(toks.max()) < base.vocab_size
     naive, ntimings = generate_reference(model32, cfg32.with_updates(attn_impl="naive"), prompts, LONG_TOKENS,
                                          loss_rate=LOSS, key=key, channel="iid")
@@ -1247,6 +1305,7 @@ def run_long_prefill(report) -> dict:
     want = dict(flash_decode=0, paged_flash_decode=n_layers * eng.steps, lossy_link_egress=0, burst_mask=0,
                 flash_attention=n_layers * n_long, ssm_scan=0)
     assert engine_launches == want, f"long engine: launches {engine_launches}, want {want}"
+    assert fa.body_launch_count == {"wgmma": 0, "simt": n_layers * n_long}, f"bodies {fa.body_launch_count}"
     etoks = np.stack([r.tokens for r in reqs])
     refs = np.stack([generate_reference(model32, cfg32, torch.from_numpy(p).cuda()[None], LONG_TOKENS, key=k)[0]
                      .cpu().numpy()[0] for p, k in zip(eprompts, ekeys)])
@@ -1269,19 +1328,24 @@ def run_long_prefill(report) -> dict:
     model16 = lm.init_lm(cfg16, seed=0, device="cuda")
     ref32 = lm.LM(cfg32, device="cuda")
     ref32.load_state_dict({k: v.float() for k, v in model16.state_dict().items()})
+    _zero_counts()
     lk = forced_logits(model16, cfg16, prompts, forced, key)
+    # The one bf16 prefill of 1000 tokens: a launch a layer, all on the tensor-core body.
+    bf16_launches = _counts()
+    assert fa.body_launch_count == {"wgmma": n_layers, "simt": 0}, f"bf16 prefill bodies {fa.body_launch_count}"
+    assert bf16_launches["flash_attention"] == n_layers, f"bf16 long run: launches {bf16_launches}"
     ln = forced_logits(model16, cfg16.with_updates(attn_impl="naive"), prompts, forced, key)
     lf = forced_logits(ref32, cfg32.with_updates(attn_impl="naive"), prompts, forced, key)
     assert bool(torch.isfinite(lk).all()), "non-finite logits"
     e_kernel, e_dtype = float((lk - ln).abs().max()), float((ln - lf).abs().max())
-    out["bf16_teacher_forced"] = dict(kernel_vs_naive=e_kernel, naive_bf16_vs_f32=e_dtype,
+    out["bf16_teacher_forced"] = dict(launches=bf16_launches, kernel_vs_naive=e_kernel, naive_bf16_vs_f32=e_dtype,
                                       kernel_vs_f32=float((lk - lf).abs().max()),
                                       argmax_agreement=float((lk.argmax(-1) == ln.argmax(-1)).float().mean()))
     log(f"[long] bf16 teacher forced: max |logit| kernel-naive {e_kernel:.4f}, naive bf16-f32 {e_dtype:.4f}")
     assert e_kernel <= 2.0 * e_dtype, "long prompt, bf16: kernel differs from naive beyond bf16 noise"
     del model16, ref32, lk, ln, lf
     report["long_prefill"] = out
-    return engine_launches
+    return engine_launches, bf16_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1355,11 +1419,12 @@ def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
     mk = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(dt)
     q, k, v = mk(b, s, h, hd), mk(b, s, kvh, hd), mk(b, s, kvh, hd)
     kw = dict(causal=True, window=window)
-    saved = cuda_kernel.launch_count
+    saved = cuda_kernel.launch_count, dict(cuda_kernel.body_launch_count)
     call = lambda: cuda_kernel.flash_attention(q, k, v, **kw)
     ms = time_graph(call, iters=20)
     ms_eager = time_events(call, iters=20, warmup=3)
-    cuda_kernel.launch_count = saved
+    cuda_kernel.launch_count = saved[0]
+    cuda_kernel.body_launch_count.update(saved[1])
     plain_ms = time_events(lambda: gqa_flash_attention_ref(q, k, v, **kw), iters=5, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     if window:
@@ -1375,8 +1440,9 @@ def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
     bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS[dname])
     rec = dict(shape=dict(B=b, S=s, H=h, KV=kvh, hd=hd, causal=True, window=window, dtype=dname), ms=ms,
                ms_eager=ms_eager, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-               bytes=nbytes, ops=ops)
-    log(f"[time] flash_attention {rec['shape']}: kernel {ms * 1e3:.1f} us (graph) / {ms_eager * 1e3:.1f} us (eager), "
+               bytes=nbytes, ops=ops, body=cuda_kernel.body_for(dt, hd))
+    log(f"[time] flash_attention {rec['shape']} ({rec['body']} body): kernel {ms * 1e3:.1f} us (graph) / "
+        f"{ms_eager * 1e3:.1f} us (eager), "
         f"plain {plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.1f} us (graph), bound {bound_ms * 1e3:.2f} us "
         f"({bound_by}, {ops / 1e9:.3f} GFLOP, {nbytes} B)")
     return rec
@@ -1449,6 +1515,9 @@ def main(argv=None) -> int:
         if regs:
             log(f"[build] {path.name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
                 f"spill stores up to {max(spills or [0])} B, static smem up to {max(smem or [0])} B")
+        for name, line in kernel_resources(text, ("flash_attention_wgmma_kernel", "split_decode_kernel",
+                                                  "merge_splits_kernel")):
+            log(f"[build]   {name}: {line}")
 
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     max_err = check_flash_decode()
@@ -1465,8 +1534,10 @@ def main(argv=None) -> int:
                          replaces="src/repro/kernels/lossy_link/kernel.py:140", max_abs_err=check_lossy_link_egress())
     burst_record = dict(name="burst_mask", route="cuda", source=link_source,
                         replaces="src/repro/kernels/lossy_link/kernel.py:94", max_abs_err=check_burst_mask())
+    # Flash attention's record is its bf16 body's (timed in phase 12, launched
+    # by phase 11's bf16 run); the f32 body's launches are in the report.
     flash_record = dict(name="flash_attention", route="cuda",
-                        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
                         replaces="src/repro/kernels/flash_attention/kernel.py:106",
                         max_abs_err=check_flash_attention())
     ssm_record = dict(name="ssm_scan", route="cuda", source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
@@ -1482,11 +1553,12 @@ def main(argv=None) -> int:
             t = link_times[rec["name"]]
             rec.update(launches=link_launches[channel][rec["name"]], ms=t["ms"], plain_ms=t["plain_ms"],
                        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
-        long_launches = run_long_prefill(report)
+        long_launches, long_bf16_launches = run_long_prefill(report)
         ssm_launches = run_ssm_scan_path()
         ftiming = time_flash_attention(LONG_BATCH, 16, 16, 64, LONG_PROMPT, 0)
         report["flash_attention_times"] = [ftiming, time_flash_attention(1, 16, 8, 256, 2048, 1024)]
-        flash_record.update(launches=long_launches["flash_attention"], ms=ftiming["ms"],
+        report["long_prefill"]["f32_engine_launches_cuda_core_body"] = long_launches["flash_attention"]
+        flash_record.update(launches=long_bf16_launches["flash_attention"], ms=ftiming["ms"],
                             plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
                             bound_by=ftiming["bound_by"], library_ms=ftiming["library_ms"])
         stiming = time_ssm_scan()

@@ -1,11 +1,12 @@
 // Flash decode for Hopper (sm_90a): length-masked online-softmax attention
 // of one query token against a KV cache, with inline int8 dequantization,
-// over a rotating contiguous cache or a shared block pool (paged).
+// over a rotating contiguous cache (split-KV) or a shared block pool (paged).
 //
 // Replaces two Pallas TPU kernels of repro/kernels/decode_attention/kernel.py:
-//   * flash_decode_kernel (kernel.py:120) -- the contiguous cache;
+//   * flash_decode_kernel (kernel.py:120) -- the contiguous cache:
+//     split_decode_kernel + merge_splits_kernel below;
 //   * paged_flash_decode_kernel (kernel.py:241) -- the block pool walked
-//     through a per-request block table.
+//     through a per-request block table: paged_decode_kernel below.
 // Both compute the same function:
 //   out[b, h, g, :] = sum_p softmax_p(s_p) v_p,  s_p = softcap?(q . k_p / sqrt(hd))
 // over the valid prefix p < n_valid[b] of the request's logical cache, with
@@ -25,25 +26,35 @@
 // (B * n_valid * KV * hd * 2 * elem bytes of K/V, plus the scales), far
 // below the ~20 flop/byte where the card's f32 rate would take over.  The
 // TPU kernels DMA a whole (C, hd) panel or a whole table block per grid
-// step; this one reads only the n_valid rows (O(valid) bytes), and masks
-// the ragged tail itself, so no padding copy or gather of the cache is
-// ever made.
+// step; these read only the n_valid rows (O(valid) bytes) and mask the
+// ragged tail themselves, so no padding copy or gather of the cache is made.
 //
-// Design (simple first; speed is later work):
-//   * one block per (b, kv-head) and per tile of <= 4 query heads of its
-//     GQA group; 8 warps.  The TPU's sequential grid axis over KV blocks
-//     (with (acc, m, l) carried in VMEM scratch, and the paged table and
-//     n_valid in SMEM scalar prefetch) becomes a loop inside the block:
-//     Hopper blocks run in no order and carry nothing between them;
-//   * the paged block reads its own table row and turns each logical row
-//     into a pool row itself, one table lookup per row;
-//   * each lane holds hd/32 consecutive elements of q (f32 registers);
-//   * warps stride over the valid positions; per position a lane loads its
-//     slice of k and v, dequantizes int8 with the row's bf16 scale, and the
-//     warp reduces q . k with shuffles;
-//   * each warp keeps its own running (m, l, acc) online softmax;
-//   * the warps' states are merged through shared memory and written in
-//     the output dtype.
+// Contiguous design (split-KV; what a bytes-bound kernel needs is many
+// loads in flight across the whole card, and few dependent steps a row):
+//   * the grid is (B * KV, G tiles, nsplit): split s of a request walks
+//     cache rows [s * rows_per_split, (s + 1) * rows_per_split) clipped to
+//     n_valid, so a long cache spreads over about one wave of blocks
+//     (nsplit is planned on the host, cuda_kernel.split_plan);
+//   * 4 warps; a row is read by the fewest lanes that cover it with 16-byte
+//     loads (hd 64 bf16: 8 lanes, 4 rows a warp; int8: 4 lanes), and each
+//     lane issues the loads of kU rows (K and V) before the first reduction,
+//     so a block pays one memory latency per kU * rows-a-step rows, not one
+//     a row; q . k reduces over a row's lanes with log2(lanes) shuffles;
+//   * a block serves a tile of the request's GQA group (G itself for G 1
+//     and 2, else 4 heads), so every row it loads serves all the tile's heads;
+//   * each row group keeps its own online softmax and takes its kU rows in
+//     one update (one max, kU + 1 exps); the groups merge with shuffles,
+//     the warps through shared memory;
+//   * nsplit == 1 writes the output; otherwise each split writes its f32
+//     (m, l, acc) partial to scratch and merge_splits_kernel, launched
+//     right after on the same stream, combines them:
+//       M = max m_s,  out = sum acc_s e^(m_s - M) / max(sum l_s e^(m_s - M), 1e-20);
+//     a split that sees no row has m = -1e30, l = 0, acc = 0 and adds nothing.
+//
+// Paged design (the first port's body, unchanged; its redesign is later work): one
+// block per (b, kv-head, tile of <= 4 query heads), 8 warps striding over the
+// valid rows one row a warp at a time, each warp with its own online softmax,
+// merged through shared memory; the block reads its own table row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,9 +64,6 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kGroupTile = 4;
 constexpr int kMaxGroup = 16;
 constexpr float kNegInf = -1.0e30f;
 constexpr int kUnsupported = -1;
@@ -89,15 +97,309 @@ struct Args {
   const int* block_table;  // (B, J), paged only
   const int* n_valid;
   void* out;
+  float* part_acc;         // (B * KV * G, nsplit, hd), contiguous with nsplit > 1 only
+  float* part_ml;          // (B * KV * G, nsplit, 2)
   int B, C, KV, G;         // C: cache rows (contiguous) or block size (paged)
   int J;                   // table width (paged only)
+  int nsplit, rows_per_split;
   float softcap;
   cudaStream_t stream;
 };
 
-template <typename QT, typename KT, int HD, bool kPaged>
+// ---------------------------------------------------------------------------
+// Contiguous cache: split-KV with 16-byte loads
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitWarps = 4;
+constexpr int kSplitThreads = kSplitWarps * 32;
+
+// 16 bytes of a cache row as f32 (exact): 16 int8 codes, 8 bf16 or 4 f32 values.
+template <typename KT>
+__device__ __forceinline__ void unpack16(const uint4& raw, float* f) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  if constexpr (std::is_same<KT, int8_t>::value) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      f[e] = static_cast<float>(static_cast<int8_t>((w[e / 4] >> (8 * (e % 4))) & 0xFFu));
+  } else if constexpr (std::is_same<KT, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[2 * e] = __uint_as_float(w[e] << 16);             // the lower-addressed value
+      f[2 * e + 1] = __uint_as_float(w[e] & 0xFFFF0000u);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = __uint_as_float(w[e]);
+  }
+}
+
+template <typename KT, int HD>
+struct SplitShape {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(KT));  // elements a 16-byte load
+  static constexpr int kNV = HD / kVec;                           // loads a row
+  static constexpr int kLPR = kNV < 32 ? kNV : 32;                // lanes a row
+  static constexpr int kVPL = kNV / kLPR;                         // loads a lane per row
+  static constexpr int kEPL = kVPL * kVec;                        // elements a lane
+  static constexpr int kRPW = 32 / kLPR;                          // rows a warp per step
+  static constexpr int kGroups = kSplitWarps * kRPW;              // rows a block per step
+  static constexpr int kUWant = 64 / kGroups < 1 ? 1 : 64 / kGroups;
+  static constexpr int kUMax = 8 / kVPL;
+  static constexpr int kU = kUWant < kUMax ? kUWant : kUMax;      // steps in flight
+};
+
+// GT: query heads of a block's group tile (1, 2 or 4).
+template <typename QT, typename KT, int HD, int GT>
+__global__ void __launch_bounds__(kSplitThreads)
+split_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ k_scale,
+                    const __nv_bfloat16* __restrict__ v_scale, const int* __restrict__ n_valid,
+                    QT* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml,
+                    int C, int KV, int G, int rows_per_split, float softcap) {
+  using S = SplitShape<KT, HD>;
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  const int bh = blockIdx.x;  // b * KV + h
+  const int b = bh / KV;
+  const int h = bh % KV;
+  const int g0 = blockIdx.y * GT;
+  const int ng = min(GT, G - g0);
+  const int split = blockIdx.z;
+  const int nsplit = gridDim.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int sub = lane % S::kLPR;                   // lane within its row group
+  const int group = warp * S::kRPW + lane / S::kLPR;
+  const int nv = max(0, min(n_valid[b], C));
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(r_begin + rows_per_split, nv);
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+
+  // Lane `sub` holds the row's 16-byte pieces sub, sub + kLPR, ...: element
+  // (t, e) of a lane is row element (sub + t * kLPR) * kVec + e.
+  float qr[GT][S::kEPL];
+  float acc[GT][S::kEPL];
+  float m[GT];
+  float l[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int t = 0; t < S::kVPL; ++t)
+#pragma unroll
+      for (int e = 0; e < S::kVec; ++e) {
+        const int d = (sub + t * S::kLPR) * S::kVec + e;
+        acc[g][t * S::kVec + e] = 0.f;
+        qr[g][t * S::kVec + e] =
+            g < ng ? to_f32(q[(static_cast<size_t>(bh) * G + g0 + g) * HD + d]) : 0.f;
+      }
+  }
+
+  for (int base = r_begin; base < r_end; base += S::kGroups * S::kU) {
+    uint4 kraw[S::kU][S::kVPL];
+    uint4 vraw[S::kU][S::kVPL];
+    float ks[S::kU];
+    float vs[S::kU];
+    bool valid[S::kU];
+    // Every load of the kU rows is issued before any of them is used.
+#pragma unroll
+    for (int u = 0; u < S::kU; ++u) {
+      const int p = base + u * S::kGroups + group;
+      valid[u] = p < r_end;
+      const size_t row = (static_cast<size_t>(b) * C + (valid[u] ? p : r_begin)) * KV + h;
+      const uint4* kr = reinterpret_cast<const uint4*>(k + row * HD);
+      const uint4* vr = reinterpret_cast<const uint4*>(v + row * HD);
+#pragma unroll
+      for (int t = 0; t < S::kVPL; ++t) {
+        kraw[u][t] = valid[u] ? __ldg(kr + sub + t * S::kLPR) : make_uint4(0, 0, 0, 0);
+        vraw[u][t] = valid[u] ? __ldg(vr + sub + t * S::kLPR) : make_uint4(0, 0, 0, 0);
+      }
+      ks[u] = 1.f;
+      vs[u] = 1.f;
+      if (kQuant && valid[u]) {
+        ks[u] = __bfloat162float(k_scale[row]);
+        vs[u] = __bfloat162float(v_scale[row]);
+      }
+    }
+
+    // Scores of the kU rows: every lane of every group takes part in the
+    // shuffles, so rows past r_end are scored (on zeros) and dropped below.
+    float s[S::kU][GT];
+#pragma unroll
+    for (int u = 0; u < S::kU; ++u) {
+      float kf[S::kEPL];
+#pragma unroll
+      for (int t = 0; t < S::kVPL; ++t) unpack16<KT>(kraw[u][t], kf + t * S::kVec);
+      if (kQuant) {
+#pragma unroll
+        for (int e = 0; e < S::kEPL; ++e) kf[e] *= ks[u];
+      }
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < S::kEPL; ++e) part += qr[g][e] * kf[e];
+#pragma unroll
+        for (int o = S::kLPR / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+        float x = part * scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        s[u][g] = x;
+      }
+    }
+
+    // One online-softmax update for the kU rows.
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < S::kU; ++u)
+        if (valid[u]) mx = fmaxf(mx, s[u][g]);
+      const float corr = expf(m[g] - mx);
+      l[g] *= corr;
+#pragma unroll
+      for (int e = 0; e < S::kEPL; ++e) acc[g][e] *= corr;
+      m[g] = mx;
+    }
+#pragma unroll
+    for (int u = 0; u < S::kU; ++u) {
+      if (!valid[u]) continue;
+      float vf[S::kEPL];
+#pragma unroll
+      for (int t = 0; t < S::kVPL; ++t) unpack16<KT>(vraw[u][t], vf + t * S::kVec);
+      if (kQuant) {
+#pragma unroll
+        for (int e = 0; e < S::kEPL; ++e) vf[e] *= vs[u];
+      }
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        const float p = expf(s[u][g] - m[g]);
+        l[g] += p;
+#pragma unroll
+        for (int e = 0; e < S::kEPL; ++e) acc[g][e] += p * vf[e];
+      }
+    }
+  }
+
+  // Merge the row groups of a warp (lanes with the same `sub` hold the same
+  // elements), then the warps through shared memory.
+#pragma unroll
+  for (int o = S::kLPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float mx = fmaxf(m[g], mo);
+      const float a = expf(m[g] - mx);
+      const float c = expf(mo - mx);
+      l[g] = l[g] * a + lo * c;
+#pragma unroll
+      for (int e = 0; e < S::kEPL; ++e)
+        acc[g][e] = acc[g][e] * a + __shfl_xor_sync(0xffffffffu, acc[g][e], o) * c;
+      m[g] = mx;
+    }
+  }
+  __shared__ float sm_m[kSplitWarps][GT];
+  __shared__ float sm_l[kSplitWarps][GT];
+  __shared__ float sm_acc[kSplitWarps][GT][HD];
+  if (lane < S::kLPR) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      if (lane == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
+      }
+#pragma unroll
+      for (int t = 0; t < S::kVPL; ++t)
+#pragma unroll
+        for (int e = 0; e < S::kVec; ++e)
+          sm_acc[warp][g][(sub + t * S::kLPR) * S::kVec + e] = acc[g][t * S::kVec + e];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < ng * HD; i += kSplitThreads) {
+    const int g = i / HD;
+    const int d = i % HD;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    float lsum = 0.f;
+    float asum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float f = expf(sm_m[w][g] - mx);
+      lsum += sm_l[w][g] * f;
+      asum += sm_acc[w][g][d] * f;
+    }
+    const size_t orow = static_cast<size_t>(bh) * G + g0 + g;
+    if (nsplit == 1) {
+      out[orow * HD + d] = from_f32<QT>(asum / fmaxf(lsum, 1e-20f));
+    } else {
+      const size_t prow = orow * nsplit + split;
+      part_acc[prow * HD + d] = asum;
+      if (d == 0) {
+        part_ml[prow * 2] = mx;
+        part_ml[prow * 2 + 1] = lsum;
+      }
+    }
+  }
+}
+
+// One block of HD threads per output row (b, h, g): combine its splits.
+template <typename QT, int HD>
+__global__ void __launch_bounds__(HD)
+merge_splits_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                    QT* __restrict__ out, int nsplit) {
+  const size_t row = blockIdx.x;
+  const int d = threadIdx.x;
+  const float* ml = part_ml + row * nsplit * 2;
+  float mx = kNegInf;
+  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, ml[2 * s]);
+  float lsum = 0.f;
+  float asum = 0.f;
+  for (int s = 0; s < nsplit; ++s) {
+    const float f = expf(ml[2 * s] - mx);
+    lsum += ml[2 * s + 1] * f;
+    asum += part_acc[(row * nsplit + s) * HD + d] * f;
+  }
+  out[row * HD + d] = from_f32<QT>(asum / fmaxf(lsum, 1e-20f));
+}
+
+template <typename QT, typename KT, int HD>
+struct SplitLaunch {
+  template <int GT>
+  static int run_tile(const Args& a) {
+    const dim3 grid(a.B * a.KV, (a.G + GT - 1) / GT, a.nsplit);
+    split_decode_kernel<QT, KT, HD, GT><<<grid, kSplitThreads, 0, a.stream>>>(
+        static_cast<const QT*>(a.q), static_cast<const KT*>(a.k), static_cast<const KT*>(a.v),
+        static_cast<const __nv_bfloat16*>(a.k_scale), static_cast<const __nv_bfloat16*>(a.v_scale),
+        a.n_valid, static_cast<QT*>(a.out), a.part_acc, a.part_ml, a.C, a.KV, a.G, a.rows_per_split,
+        a.softcap);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static int run(const Args& a) {
+    if (a.nsplit < 1 || a.rows_per_split < 1 || a.nsplit > 65535 ||
+        static_cast<long long>(a.nsplit) * a.rows_per_split < a.C ||
+        (a.nsplit > 1 && (a.part_acc == nullptr || a.part_ml == nullptr)))
+      return kUnsupported;
+    // The group tile (cuda_kernel.group_tile): G itself for G 1 and 2, else 4.
+    int err = a.G == 1 ? run_tile<1>(a) : a.G == 2 ? run_tile<2>(a) : run_tile<4>(a);
+    if (err != 0 || a.nsplit == 1) return err;
+    merge_splits_kernel<QT, HD><<<a.B * a.KV * a.G, HD, 0, a.stream>>>(
+        a.part_acc, a.part_ml, static_cast<QT*>(a.out), a.nsplit);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Paged pool: one block per (request, KV head, group tile)
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kGroupTile = 4;
+
+template <typename QT, typename KT, int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
+paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                     const KT* __restrict__ v,
                     const __nv_bfloat16* __restrict__ k_scale,
                     const __nv_bfloat16* __restrict__ v_scale,
@@ -113,9 +415,9 @@ flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const int ng = min(kGroupTile, G - g0);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int rows = kPaged ? J * C : C;  // rows the request can address
+  const int rows = J * C;  // rows the request can address
   const int nv = max(0, min(n_valid[b], rows));
-  const int* bt_row = kPaged ? block_table + static_cast<size_t>(b) * J : nullptr;
+  const int* bt_row = block_table + static_cast<size_t>(b) * J;
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
 
   float qr[kGroupTile][EPL];
@@ -135,9 +437,8 @@ flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   }
 
   for (int p = warp; p < nv; p += kWarps) {
-    // Logical row p -> physical row of the (rows, KV, hd) buffer.
-    const size_t prow = kPaged ? static_cast<size_t>(bt_row[p / C]) * C + p % C
-                               : static_cast<size_t>(b) * C + p;
+    // Logical row p -> physical row of the (N * bs, KV, hd) pool.
+    const size_t prow = static_cast<size_t>(bt_row[p / C]) * C + p % C;
     const size_t row = prow * KV + h;
     const KT* kr = k + row * HD + lane * EPL;
     const KT* vr = v + row * HD + lane * EPL;
@@ -211,58 +512,58 @@ flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 }
 
 template <typename QT, typename KT, int HD>
-int launch(const Args& a) {
-  const dim3 grid(a.B * a.KV, (a.G + kGroupTile - 1) / kGroupTile);
-  const auto* ks = static_cast<const __nv_bfloat16*>(a.k_scale);
-  const auto* vs = static_cast<const __nv_bfloat16*>(a.v_scale);
-  if (a.block_table != nullptr) {
-    flash_decode_kernel<QT, KT, HD, true><<<grid, kThreads, 0, a.stream>>>(
-        static_cast<const QT*>(a.q), static_cast<const KT*>(a.k), static_cast<const KT*>(a.v), ks, vs,
+struct PagedLaunch {
+  static int run(const Args& a) {
+    const dim3 grid(a.B * a.KV, (a.G + kGroupTile - 1) / kGroupTile);
+    paged_decode_kernel<QT, KT, HD><<<grid, kThreads, 0, a.stream>>>(
+        static_cast<const QT*>(a.q), static_cast<const KT*>(a.k), static_cast<const KT*>(a.v),
+        static_cast<const __nv_bfloat16*>(a.k_scale), static_cast<const __nv_bfloat16*>(a.v_scale),
         a.block_table, a.n_valid, static_cast<QT*>(a.out), a.C, a.KV, a.G, a.J, a.softcap);
-  } else {
-    flash_decode_kernel<QT, KT, HD, false><<<grid, kThreads, 0, a.stream>>>(
-        static_cast<const QT*>(a.q), static_cast<const KT*>(a.k), static_cast<const KT*>(a.v), ks, vs,
-        nullptr, a.n_valid, static_cast<QT*>(a.out), a.C, a.KV, a.G, 0, a.softcap);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
-}
+};
 
-template <typename QT, typename KT>
+// ---------------------------------------------------------------------------
+// Type dispatch shared by both entry points
+// ---------------------------------------------------------------------------
+
+template <template <typename, typename, int> class L, typename QT, typename KT>
 int launch_hd(int HD, const Args& a) {
   switch (HD) {
     case 64:
-      return launch<QT, KT, 64>(a);
+      return L<QT, KT, 64>::run(a);
     case 128:
-      return launch<QT, KT, 128>(a);
+      return L<QT, KT, 128>::run(a);
     case 256:
-      return launch<QT, KT, 256>(a);
+      return L<QT, KT, 256>::run(a);
     default:
       return kUnsupported;
   }
 }
 
-template <typename QT>
+template <template <typename, typename, int> class L, typename QT>
 int launch_cache(int cache_type, int HD, const Args& a) {
   switch (cache_type) {
     case 0:
-      return launch_hd<QT, int8_t>(HD, a);
+      return launch_hd<L, QT, int8_t>(HD, a);
     case 1:
-      return launch_hd<QT, __nv_bfloat16>(HD, a);
+      return launch_hd<L, QT, __nv_bfloat16>(HD, a);
     case 2:
-      return launch_hd<QT, float>(HD, a);
+      return launch_hd<L, QT, float>(HD, a);
     default:
       return kUnsupported;
   }
 }
 
+template <template <typename, typename, int> class L>
 int dispatch(const Args& a, int HD, int cache_type, int q_type) {
   if (a.B <= 0 || a.C <= 0 || a.KV <= 0 || a.G <= 0 || a.G > kMaxGroup) return kUnsupported;
   if (cache_type == 0 && (a.k_scale == nullptr || a.v_scale == nullptr)) return kUnsupported;
   switch (q_type) {
     case 1:
-      return launch_cache<__nv_bfloat16>(cache_type, HD, a);
+      return launch_cache<L, __nv_bfloat16>(cache_type, HD, a);
     case 2:
-      return launch_cache<float>(cache_type, HD, a);
+      return launch_cache<L, float>(cache_type, HD, a);
     default:
       return kUnsupported;
   }
@@ -271,17 +572,24 @@ int dispatch(const Args& a, int HD, int cache_type, int q_type) {
 }  // namespace
 
 // Type codes: cache_type 0 = int8 (+ bf16 scales), 1 = bf16, 2 = f32;
-// q_type 1 = bf16, 2 = f32.  Each returns 0, a cudaError_t from the
-// launch, or -1 for arguments the kernel does not take.  Each launches on
-// `stream`, does not synchronise and allocates nothing.
+// q_type 1 = bf16, 2 = f32.  Each returns 0, a cudaError_t from a launch,
+// or -1 for arguments the kernels do not take.  Each launches on `stream`,
+// does not synchronise and allocates nothing.
+//
+// Contiguous: nsplit splits of rows_per_split cache rows each
+// (nsplit * rows_per_split >= C).  nsplit == 1 launches one kernel and
+// takes no scratch; nsplit > 1 launches the split kernel and the merge,
+// with part_acc (B * KV * G * nsplit * hd f32) and part_ml
+// (B * KV * G * nsplit * 2 f32) as scratch.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale,
-                                   const void* n_valid, void* out, int B, int C, int KV,
-                                   int G, int HD, int cache_type, int q_type, float softcap,
-                                   void* stream) {
+                                   const void* n_valid, void* out, void* part_acc, void* part_ml,
+                                   int B, int C, int KV, int G, int HD, int cache_type, int q_type,
+                                   int nsplit, int rows_per_split, float softcap, void* stream) {
   const Args a{q, k, v, k_scale, v_scale, nullptr, static_cast<const int*>(n_valid), out,
-               B, C, KV, G, 0, softcap, static_cast<cudaStream_t>(stream)};
-  return dispatch(a, HD, cache_type, q_type);
+               static_cast<float*>(part_acc), static_cast<float*>(part_ml), B, C, KV, G, 0,
+               nsplit, rows_per_split, softcap, static_cast<cudaStream_t>(stream)};
+  return dispatch<SplitLaunch>(a, HD, cache_type, q_type);
 }
 
 // Paged: k, v (N, bs, KV, hd) pool, table (B, J) int32 of pool block ids,
@@ -294,9 +602,9 @@ extern "C" int paged_flash_decode_launch(const void* q, const void* k, const voi
                                          void* stream) {
   if (J <= 0 || block_table == nullptr) return kUnsupported;
   const Args a{q, k, v, k_scale, v_scale, static_cast<const int*>(block_table),
-               static_cast<const int*>(n_valid), out, B, bs, KV, G, J, softcap,
-               static_cast<cudaStream_t>(stream)};
-  return dispatch(a, HD, cache_type, q_type);
+               static_cast<const int*>(n_valid), out, nullptr, nullptr, B, bs, KV, G, J, 1, bs,
+               softcap, static_cast<cudaStream_t>(stream)};
+  return dispatch<PagedLaunch>(a, HD, cache_type, q_type);
 }
 
 extern "C" const char* flash_decode_error_string(int code) {

@@ -2,22 +2,28 @@
 
 The library is built with ``nvcc`` at first use (``kernels/nvcc.py``).
 ``flash_decode`` (contiguous cache) and ``paged_flash_decode`` (block pool
-and table) check device, dtype, shape and contiguity, allocate the output
-with ``torch.empty``, launch on PyTorch's current stream and raise if the
-launch reports an error.  ``launch_count`` and ``paged_launch_count``
-count each wrapper's launches and nothing else, so a run can show that it
-went through the kernel.
+and table) check device, dtype, shape, contiguity and alignment, allocate
+the output (and the split scratch) with ``torch.empty``, launch on
+PyTorch's current stream and raise if a launch reports an error.
+``launch_count`` and ``paged_launch_count`` count each wrapper's calls and
+nothing else, so a run can show that it went through the kernels.
+
+A contiguous call splits the cache across blocks as ``split_plan`` says:
+with one split it launches one kernel; with more it launches the split
+kernel and the merge, two device kernels for one call (one count).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import nvcc
+from repro_torch.kernels.decode_attention.torch_ref import split_rows
 
 LIB_NAME = "flash_decode"
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_decode.cu",)
@@ -25,6 +31,9 @@ HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16
 CACHE_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 Q_TYPES = {torch.bfloat16: 1, torch.float32: 2}
+SPLIT_MIN_ROWS = 64          # a split walks a multiple of this many cache rows
+RESIDENT_BLOCKS_PER_SM = 2   # the blocks of one wave: SMs x this
+H100_SMS = 132
 
 launch_count: int = 0
 paged_launch_count: int = 0
@@ -36,7 +45,7 @@ def _library():
     if _lib is None:
         lib = nvcc.load_library(LIB_NAME, SOURCES)
         lib.flash_decode_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
         lib.paged_flash_decode_launch.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
         for fn in (lib.flash_decode_launch, lib.paged_flash_decode_launch):
@@ -52,6 +61,37 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_decode: {msg}")
 
 
+def group_tile(g: int) -> int:
+    """Query heads a split block serves (the kernel's GT): G itself for G 1
+    and 2, else 4."""
+    return g if g <= 2 else 4
+
+
+def split_plan(blocks: int, rows: int, sms: int = H100_SMS) -> int:
+    """Splits of a contiguous decode call: about enough that ``blocks *
+    nsplit`` fills one wave (``sms * RESIDENT_BLOCKS_PER_SM`` blocks), with
+    each split a multiple of ``SPLIT_MIN_ROWS`` of the ``rows`` a request can
+    address (a block walks 64 rows a step at hd 64).  ``blocks`` is B x KV x
+    G tiles.  A split that starts past a request's ``n_valid`` sees no row
+    and merges to nothing."""
+    most = max(1, rows // SPLIT_MIN_ROWS)
+    want = max(1, min(most, -(-sms * RESIDENT_BLOCKS_PER_SM // max(1, blocks))))
+    per = SPLIT_MIN_ROWS * -(-rows // (SPLIT_MIN_ROWS * want))
+    return -(-rows // per)
+
+
+def decode_plan(b: int, kvh: int, g: int, c: int, sms: int = H100_SMS) -> dict:
+    """What a contiguous call of this shape launches: splits, rows a split,
+    and device kernels a call (2 with the merge)."""
+    nsplit = split_plan(b * kvh * -(-g // group_tile(g)), c, sms)
+    return dict(nsplit=nsplit, rows_per_split=split_rows(c, nsplit), kernels=1 if nsplit == 1 else 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flash_decode(
     q: torch.Tensor,                     # (B, KV, G, hd) bf16/f32
     k: torch.Tensor,                     # (B, C, KV, hd) int8/bf16/f32
@@ -62,8 +102,8 @@ def flash_decode(
     *,
     softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Length-masked decode attention on the card; returns (B, KV, G, hd)
-    in q's dtype."""
+    """Length-masked decode attention on the card, the cache split across
+    blocks as ``decode_plan`` says; returns (B, KV, G, hd) in q's dtype."""
     global launch_count
     b, kvh, g, hd = q.shape
     c = k.shape[1]
@@ -72,17 +112,26 @@ def flash_decode(
     _check(tuple(k.shape) == (b, c, kvh, hd) and tuple(v.shape) == (b, c, kvh, hd),
            f"cache shape {tuple(k.shape)} vs q {tuple(q.shape)}")
     _check(n_valid.dtype == torch.int32 and tuple(n_valid.shape) == (b,), "n_valid must be (B,) int32")
+    _check(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0, "k and v must be 16-byte aligned")
     _check_scales(k, k_scale, v_scale, (b, c, kvh))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    plan = decode_plan(b, kvh, g, c, _sms(q.device.index))
+    nsplit = plan["nsplit"]
+    part_acc = part_ml = None
+    if nsplit > 1:
+        part_acc = torch.empty((b * kvh * g * nsplit * hd,), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((b * kvh * g * nsplit * 2,), dtype=torch.float32, device=q.device)
     quantized = k_scale is not None
     lib = _library()
     err = lib.flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
         n_valid.data_ptr(), out.data_ptr(),
-        b, c, kvh, g, hd, CACHE_TYPES[k.dtype], Q_TYPES[q.dtype], float(softcap), _stream(q),
+        part_acc.data_ptr() if nsplit > 1 else None, part_ml.data_ptr() if nsplit > 1 else None,
+        b, c, kvh, g, hd, CACHE_TYPES[k.dtype], Q_TYPES[q.dtype], nsplit, plan["rows_per_split"],
+        float(softcap), _stream(q),
     )
     _raise_on(err, "flash_decode")
     launch_count += 1

@@ -14,6 +14,11 @@ loop does).  The contiguous version slices block ``kj`` of each row's
 cache; the paged version fetches physical block ``block_table[b, kj]`` of
 the shared pool.  They are the CPU path of ``dispatch`` and the plain
 versions the CUDA kernels are held against on the card.
+
+``flash_decode_split_ref`` is the plain version of the contiguous CUDA
+kernel's split-KV arithmetic: per split of ``split_rows(C, nsplit)`` rows
+the partial (m, l, acc), then the merge.  The tests hold it to
+``flash_decode_ref`` and to the reference; the model never calls it.
 """
 
 from __future__ import annotations
@@ -115,3 +120,49 @@ def paged_flash_decode_ref(
                 _dequant(v[pid], v_scale[pid] if quantized else None))
 
     return _walk(q, n, block_size, fetch, softcap)
+
+
+def split_rows(cache_len: int, nsplit: int) -> int:
+    """Cache rows of each split: split ``s`` covers ``[s * r, (s + 1) * r)``."""
+    return -(-cache_len // nsplit)
+
+
+def flash_decode_split_ref(
+    q: torch.Tensor,                     # (B, KV, G, hd)
+    k: torch.Tensor,                     # (B, C, KV, hd)
+    v: torch.Tensor,
+    k_scale: Optional[torch.Tensor],     # (B, C, KV) or None
+    v_scale: Optional[torch.Tensor],
+    n_valid: torch.Tensor,               # (B,) or (B, 1) int32
+    *,
+    nsplit: int,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Split-KV decode attention: split ``s`` takes the valid rows of
+    ``[s * r, (s + 1) * r)`` (``r = split_rows(C, nsplit)``) to
+    ``m_s = max score`` (-1e30 when it sees none), ``l_s = sum e^(s - m_s)``
+    and ``acc_s = sum e^(s - m_s) v``; then ``M = max m_s`` and
+    ``out = sum acc_s e^(m_s - M) / max(sum l_s e^(m_s - M), 1e-20)``."""
+    b, kvh, g, hd = q.shape
+    c = k.shape[1]
+    rows = split_rows(c, nsplit)
+    scale = float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(hd))))
+    kf = _dequant(k, k_scale)
+    vf = _dequant(v, v_scale)
+    s = torch.einsum("bkgh,bskh->bkgs", q.float(), kf) * scale       # (B, KV, G, C)
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    pad = nsplit * rows - c
+    s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF).reshape(b, kvh, g, nsplit, rows)
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, 0, 0, pad)).reshape(b, nsplit, rows, kvh, hd)
+    nv = n_valid.reshape(b).to(torch.int64)
+    msk = (torch.arange(nsplit * rows, device=q.device)[None, :] < nv[:, None]).reshape(b, 1, 1, nsplit, rows)
+    s = torch.where(msk, s, NEG_INF)
+    m = s.amax(dim=-1)                                              # (B, KV, G, nsplit)
+    p = torch.where(msk, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgnr,bnrkh->bkgnh", p, vf)
+    big = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - big)
+    out = (acc * w[..., None]).sum(dim=3) / torch.clamp((l * w).sum(dim=-1), min=1e-20)[..., None]
+    return out.to(q.dtype)

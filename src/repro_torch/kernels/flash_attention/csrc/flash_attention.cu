@@ -1,6 +1,9 @@
-// Flash attention forward for Hopper (sm_90a): causal / sliding-window /
-// full attention of a whole query sequence with an online softmax, as the
-// prefill of prompts longer than ``attn_block_q`` runs it.
+// Flash attention forward for Hopper (sm_90a) on the CUDA cores: causal /
+// sliding-window / full attention of a whole query sequence with an online
+// softmax, as the prefill of prompts longer than ``attn_block_q`` runs it.
+// This is the body for f32 operands and for head dims other than 64, 128
+// and 256; bf16 at those head dims takes the tensor-core body in
+// flash_attention_wgmma.cu (cuda_kernel.body_for picks).
 //
 // Replaces the Pallas TPU kernel flash_attention_kernel
 // (repro/kernels/flash_attention/kernel.py:106, body _flash_kernel), and on
@@ -17,12 +20,17 @@
 //   k, v     (B, Skv, KV, hd)  same dtype; query head h reads KV head
 //            h / (H / KV) in place, so GQA never materializes a repeat
 //
-// Bound: at prefill length the work is operations, not bytes: 4 * hd flops
-// per visible (query, key) pair against 2 * hd * elem bytes per query row,
-// so past a few dozen keys a row the card's f32 rate (67 TFLOP/s; this
-// kernel uses CUDA cores, not tensor cores) is the floor.
+// Bound: the larger of bytes (q, k, v read once, out written once, over
+// 3.35 TB/s) and operations (4 * hd flops per visible (query, key) pair)
+// over the peak for the operands' type.  For f32 operands that is the
+// CUDA-core f32 rate (67 TFLOP/s: TF32 would not keep f32 parity).  For
+// bf16 operands it is the bf16 tensor-core rate (989 TFLOP/s), because a
+// bf16 product accumulated in f32 is exact; at the long prefill's shape the
+// bytes bound it.  This body's f32 FMAs are its choice, not the function's
+// floor: it runs bf16 at a few per cent of that bound, which is why bf16 at
+// hd 64 / 128 / 256 has its own body.
 //
-// Design (simple first; wgmma / TMA / bf16 tensor cores are later work):
+// Design (simple first):
 //   * one block of 256 threads per (b * H + h, 64-row query tile); the
 //     TPU's BlockSpec delivered the whole (Skv, hd) K/V panel to VMEM per
 //     grid step, here K and V are staged 64 rows at a time through shared
@@ -91,7 +99,7 @@ size_t smem_bytes(int hd) {
 // HDMAX bounds the accumulator registers; hd <= HDMAX is a runtime value.
 template <typename T, int HDMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        T* __restrict__ out, int Sq, int Skv, int H, int KV, int hd, int causal,
                        int window, int q_offset, float softcap) {
   constexpr int kDims = HDMAX / kTX;  // accumulator dims per thread
@@ -245,7 +253,7 @@ struct Args {
 template <typename T, int HDMAX>
 int launch(const Args& a) {
   const size_t smem = smem_bytes(a.hd);
-  auto* kernel = flash_attention_kernel<T, HDMAX>;
+  auto* kernel = flash_attention_simt_kernel<T, HDMAX>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,11 +1,17 @@
-"""ctypes binding and launch wrapper of ``csrc/flash_attention.cu``.
+"""ctypes binding and launch wrapper of the two flash-attention bodies.
 
-The library is built with ``nvcc`` at first use (``kernels/nvcc.py``).
-``flash_attention`` checks device, dtype, shape and contiguity, allocates
-the output with ``torch.empty``, launches on PyTorch's current stream and
-raises if the launch reports an error.  ``launch_count`` counts its
-launches and nothing else, so a run can show that it went through the
-kernel.
+``csrc/flash_attention_wgmma.cu`` runs bf16 operands at head dims 64, 128
+and 256 on the tensor cores (wgmma, K/V fed by TMA); ``csrc/flash_attention.cu``
+runs everything else on the CUDA cores (f32 operands, where TF32 would
+break f32 parity, and other head dims).  ``body_for`` picks from the dtype
+and head dim alone; nothing retries on the other body.  Both build into one
+library with ``nvcc`` at first use (``kernels/nvcc.py``).
+
+``flash_attention`` checks device, dtype, shape, contiguity and alignment,
+allocates the output with ``torch.empty``, launches on PyTorch's current
+stream and raises if the launch reports an error.  ``launch_count`` counts
+its launches and nothing else, so a run can show that it went through the
+kernel; ``body_launch_count`` splits the same count by body.
 """
 
 from __future__ import annotations
@@ -18,12 +24,15 @@ import torch
 from repro_torch.kernels import nvcc
 
 LIB_NAME = "flash_attention"
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu")
 DTYPES = {torch.bfloat16: 1, torch.float32: 2}
+WGMMA_HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = 256
 MAX_GRID_Y = 65535
 
 launch_count: int = 0
+body_launch_count: dict = {"wgmma": 0, "simt": 0}
 _lib = None
 
 
@@ -31,15 +40,26 @@ def flash_attention_launch_count() -> int:
     return launch_count
 
 
+def body_for(dtype: torch.dtype, hd: int) -> str:
+    """The body a call takes: ``"wgmma"`` (tensor cores) for bf16 at head
+    dim 64, 128 or 256, else ``"simt"`` (CUDA cores, f32 arithmetic)."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "simt"
+
+
 def _library():
     global _lib
     if _lib is None:
         lib = nvcc.load_library(LIB_NAME, SOURCES)
+        # (q, k, v, out, B, Sq, Skv, H, KV, hd, [dtype,] causal, window, q_offset, softcap, stream)
         lib.flash_attention_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-        lib.flash_attention_launch.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_wgmma_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+        for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch):
+            fn.restype = ctypes.c_int
+        for fn in (lib.flash_attention_error_string, lib.flash_attention_wgmma_error_string):
+            fn.argtypes = [ctypes.c_int]
+            fn.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
@@ -76,15 +96,25 @@ def flash_attention(
     _check(1 <= hd <= MAX_HEAD_DIM, f"head_dim {hd} outside [1, {MAX_HEAD_DIM}]")
     _check(b * h <= MAX_GRID_Y, f"B * H = {b * h} > {MAX_GRID_Y}")
     _check(q_offset >= 0 and window >= 0, f"q_offset {q_offset} / window {window} must be >= 0")
+    body = body_for(q.dtype, hd)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    err = _library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, hd, DTYPES[q.dtype],
-        int(bool(causal)), int(window), int(q_offset), float(softcap),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    lib = _library()
+    flags = (int(bool(causal)), int(window), int(q_offset), float(softcap),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if body == "wgmma":
+        # TMA reads the tensors in place: every base must be 16-byte aligned.
+        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)), "bf16 inputs must be 16-byte aligned")
+        err = lib.flash_attention_wgmma_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                               b, sq, skv, h, kvh, hd, *flags)
+        what = lib.flash_attention_wgmma_error_string
+    else:
+        err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                         b, sq, skv, h, kvh, hd, DTYPES[q.dtype], *flags)
+        what = lib.flash_attention_error_string
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: "
-                           f"{_library().flash_attention_error_string(err).decode()} (code {err})")
+        raise RuntimeError(f"flash_attention ({body} body) launch failed: {what(err).decode()} (code {err})")
     launch_count += 1
+    body_launch_count[body] += 1
     return out

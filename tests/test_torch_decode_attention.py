@@ -18,9 +18,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
+    cuda_kernel,
     decode_attention,
     decode_block_kv,
     flash_decode_ref,
+    flash_decode_split_ref,
 )
 
 TOL = dict(rtol=2e-6, atol=2e-6)
@@ -89,6 +91,62 @@ def test_ref_matches_reference_ref_and_kernel(jref, g, quantized, softcap):
     np.testing.assert_allclose(got, want_ref, **tol)
     np.testing.assert_allclose(got, want_ker, **tol)
     np.testing.assert_array_equal(got[0], 0.0)
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 7])
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_split_ref_matches_reference(jref, nsplit, quantized, softcap):
+    """The split-KV arithmetic of the contiguous CUDA kernel (per-split
+    partials, then the merge) against ``flash_decode_ref`` and both
+    reference paths.  C 32 in nsplit 7 gives splits of 5 rows, so n_valid
+    0 and 1 leave six or seven splits with no row, which must merge to
+    nothing (zeros for n_valid 0)."""
+    import jax.numpy as jnp
+
+    c = 32
+    raw = _inputs(nsplit * 10 + quantized, 5, c, 2, 2, 16, quantized)
+    n = np.array([0, 1, BKV - 1, 21, c], np.int32)
+    targs = _torch_args(*raw)
+    got = flash_decode_split_ref(*targs, torch.tensor(n), nsplit=nsplit, softcap=softcap).numpy()
+    plain = flash_decode_ref(*targs, torch.tensor(n)[:, None], block_kv=BKV, softcap=softcap).numpy()
+    jargs = _jax_args(*raw) + (jnp.asarray(n[:, None]),)
+    want_ref = np.asarray(jref.flash_decode_ref(*jargs, block_kv=BKV, softcap=softcap))
+    want_ker = np.asarray(jref.flash_decode_kernel(*jargs, block_kv=BKV, softcap=softcap, interpret=True))
+    tol = TOL_INT8 if quantized else TOL
+    np.testing.assert_allclose(got, plain, **tol)
+    np.testing.assert_allclose(got, want_ref, **tol)
+    np.testing.assert_allclose(got, want_ker, **tol)
+    np.testing.assert_array_equal(got[0], 0.0)
+
+
+@pytest.mark.parametrize("blocks,rows,want", [
+    (64, 64, 1),          # the main path: B 4 x KV 16, 64 rows: one split, no merge
+    (64, 1024, 4),        # the long path's decode: about a wave of 256-row splits
+    (32, 1024, 8),        # gemma3's heads (B 4 x KV 8)
+    (16, 4096, 16),       # B 1 x KV 16 at 4096 rows
+    (64, 63, 1),          # fewer rows than one split's minimum
+    (4, 100, 1),          # 100 rows: one split of at least 64
+    (4, 200, 2),          # 200 rows: two 128-row splits, the last ragged
+    (1024, 4096, 1),      # the grid already fills a wave
+])
+def test_split_plan(blocks, rows, want):
+    nsplit = cuda_kernel.split_plan(blocks, rows, sms=132)
+    assert nsplit == want
+    per = -(-rows // nsplit)
+    assert nsplit == 1 or (per >= cuda_kernel.SPLIT_MIN_ROWS and (nsplit - 1) * per < rows)
+
+
+@pytest.mark.parametrize("b,kvh,g,c,want", [
+    (4, 16, 1, 64, dict(nsplit=1, rows_per_split=64, kernels=1)),
+    (4, 16, 1, 1024, dict(nsplit=4, rows_per_split=256, kernels=2)),
+    (4, 8, 2, 1024, dict(nsplit=8, rows_per_split=128, kernels=2)),   # G 2 in one tile of 4
+    (2, 4, 8, 1024, dict(nsplit=16, rows_per_split=64, kernels=2)),  # G 8: two tiles, 16 blocks
+])
+def test_decode_plan(b, kvh, g, c, want):
+    plan = cuda_kernel.decode_plan(b, kvh, g, c, sms=132)
+    assert plan == want
+    assert plan["nsplit"] * plan["rows_per_split"] >= c
 
 
 @pytest.mark.parametrize("c", [65, 100])
@@ -162,3 +220,38 @@ def test_cuda_kernel_matches_plain(dtype):
             want = flash_decode_ref(q, k, v, ks, vs, n[:, None], block_kv=64, softcap=softcap).float()
             tol = 2e-5 if qdt == torch.float32 else 2.0 ** -7
             torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.usefixtures("hopper")
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "float32"])
+def test_cuda_split_kernel_matches_plain(dtype):
+    """Caches long enough to split across blocks (nsplit > 1, the merge
+    kernel after the split kernel), n_valid 0 / 1 / 63 / 65 leaving most
+    splits empty, against ``flash_decode_ref`` and ``flash_decode_split_ref``
+    with the plan's split count."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, kvh, g, hd, c, rows in ((4, 16, 1, 64, 1024, [0, 1, 63, 65]), (1, 16, 1, 64, 4096, [4001]),
+                                   (4, 8, 2, 256, 1024, [1024, 65, 1, 0])):
+        plan = cuda_kernel.decode_plan(b, kvh, g, c, sms)
+        assert plan["nsplit"] > 1
+        qdt = torch.float32 if dtype == "float32" else torch.bfloat16
+        q = torch.randn((b, kvh, g, hd), generator=gen, device="cuda").to(qdt)
+        if dtype == "int8":
+            k = torch.randint(-127, 128, (b, c, kvh, hd), generator=gen, device="cuda", dtype=torch.int8)
+            v = torch.randint(-127, 128, (b, c, kvh, hd), generator=gen, device="cuda", dtype=torch.int8)
+            ks = (torch.rand((b, c, kvh), generator=gen, device="cuda") * 0.05 + 0.01).bfloat16()
+            vs = (torch.rand((b, c, kvh), generator=gen, device="cuda") * 0.05 + 0.01).bfloat16()
+        else:
+            k = torch.randn((b, c, kvh, hd), generator=gen, device="cuda").to(qdt)
+            v = torch.randn((b, c, kvh, hd), generator=gen, device="cuda").to(qdt)
+            ks = vs = None
+        n = torch.tensor(rows, dtype=torch.int32, device="cuda")
+        before = cuda_kernel.launch_count
+        got = cuda_kernel.flash_decode(q, k, v, ks, vs, n).float()
+        assert cuda_kernel.launch_count == before + 1
+        tol = 2e-5 if qdt == torch.float32 else 2.0 ** -7
+        for want in (flash_decode_ref(q, k, v, ks, vs, n[:, None], block_kv=64),
+                     flash_decode_split_ref(q, k, v, ks, vs, n, nsplit=plan["nsplit"])):
+            torch.testing.assert_close(got, want.float(), rtol=tol, atol=tol)
+        assert torch.all(got[n == 0] == 0)

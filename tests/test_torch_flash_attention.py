@@ -144,6 +144,98 @@ def test_blockwise_equals_kernel_function():
     torch.testing.assert_close(out_model, flash_attention(q, k, v, window=64), rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256])
+def test_body_for(dtype, hd):
+    """bf16 at head dims 64, 128 and 256 takes the tensor-core body; f32
+    (TF32 would break f32 parity) and every other head dim the CUDA cores."""
+    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128, 256) else "simt"
+    assert cuda_kernel.body_for(getattr(torch, dtype), hd) == want
+
+
+# Phase 2's grid in chip_smoke.py (FLASH_GRID): the reference test's grid,
+# the slice's 1000-token prompt, gemma3's hd 256 and a causal ragged hd 128.
+CHIP_GRID = GRID + [
+    (1000, 1000, 64, True, 0, 0),
+    (300, 300, 256, True, 128, 0),
+    (200, 200, 256, False, 0, 0),
+    (300, 300, 128, True, 0, 0),
+]
+BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5   # one bf16 ulp of the f32 value, f32 noise
+
+
+def _emulate_wgmma_body(q, k, v, *, causal, window, q_offset, softcap, p_lo=True):
+    """The tensor-core body's arithmetic in torch on the CPU: bf16 Q K^T
+    summed in f32 over KV tiles of the body's 64 keys, scale, softcap and
+    mask, the online softmax in f32, P split into bf16 hi and lo parts
+    (``p_lo=False`` drops lo), both multiplied by bf16 V and summed in f32,
+    ``acc / max(l, 1e-20)`` rounded once to bf16."""
+    b, sq, h, hd = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    bkv = 64
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+    scale = 1.0 / np.sqrt(hd)
+    m = torch.full((b, h, sq), -1e30)
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, hd))
+    qp = q_offset + torch.arange(sq)
+    for k0 in range(0, skv, bkv):
+        kp = torch.arange(k0, min(k0 + bkv, skv))
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + bkv]) * scale
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        ok = torch.ones((sq, kp.numel()), dtype=torch.bool)
+        if causal:
+            ok &= kp[None] <= qp[:, None]
+        if window > 0:
+            ok &= qp[:, None] - kp[None] < window
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() if p_lo else torch.zeros_like(p)
+        acc = acc * corr[..., None] + hi @ vf[:, :, k0:k0 + bkv] + lo @ vf[:, :, k0:k0 + bkv]
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-20)[..., None]).transpose(1, 2).bfloat16()
+
+
+def _ulp_ratio(got, want32):
+    return float(((got.float() - want32).abs() / (BF16_REL * want32.abs() + BF16_ABS)).max())
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("sq,skv,hd,causal,window,q_offset", [c for c in CHIP_GRID if c[2] in (64, 128, 256)])
+def test_wgmma_body_arithmetic_meets_the_bf16_bar(sq, skv, hd, causal, window, q_offset, g):
+    """The design shown on the CPU: the body's arithmetic on bf16 inputs
+    sits within one bf16 ulp + 1e-5 of the plain version computed in f32,
+    the check phase 2 of chip_smoke.py holds the kernel to; and within the
+    reference's bf16 ``atol`` of the bf16 plain version."""
+    gen = torch.Generator().manual_seed(sq + skv + hd + g)
+    mk = lambda *s: torch.randn(s, generator=gen).bfloat16()
+    q, k, v = mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd)
+    for softcap in (0.0, 30.0):
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        got = _emulate_wgmma_body(q, k, v, **kw)
+        want32 = gqa_flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        assert _ulp_ratio(got, want32) <= 1.0, (softcap, _ulp_ratio(got, want32))
+        np.testing.assert_allclose(got.float().numpy(), gqa_flash_attention_ref(q, k, v, **kw).float().numpy(),
+                                   atol=TOL["bfloat16"])
+
+
+def test_wgmma_body_needs_p_lo():
+    """The check has teeth: with P rounded once to bf16 (no lo part) the
+    same arithmetic misses the one-ulp bar by far."""
+    gen = torch.Generator().manual_seed(3)
+    mk = lambda *s: torch.randn(s, generator=gen).bfloat16()
+    q, k, v = mk(2, 256, 2, 64), mk(2, 256, 2, 64), mk(2, 256, 2, 64)
+    kw = dict(causal=True, window=0, q_offset=0, softcap=0.0)
+    want32 = gqa_flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    assert _ulp_ratio(_emulate_wgmma_body(q, k, v, **kw), want32) <= 1.0
+    assert _ulp_ratio(_emulate_wgmma_body(q, k, v, p_lo=False, **kw), want32) > 4.0
+
+
 def test_wrapper_rejects_cpu_and_bad_shapes():
     """The CUDA wrapper takes CUDA tensors only and checks its inputs
     before anything is built or launched."""
@@ -202,3 +294,38 @@ def test_cuda_model_prefill_takes_the_kernel():
         logits, _, _ = lm.forward(model, tokens, cfg, cache=cache, cache_index=0)
     assert cuda_kernel.launch_count - before == cfg.num_layers
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.usefixtures("hopper")
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_cuda_wgmma_body_matches_plain(hd):
+    """bf16 at hd 64 / 128 / 256 runs on the tensor-core body (its counter
+    moves, the CUDA-core body's does not) and stays within one bf16 ulp +
+    1e-5 of the plain version computed in f32: causal ragged, windowed with
+    softcap, decode-shaped, non-causal, GQA."""
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    for sq, skv, g, causal, window, q_offset, softcap in (
+            (300, 300, 2, True, 0, 0, 0.0), (300, 300, 1, True, 128, 0, 30.0), (1, 384, 2, True, 128, 383, 0.0),
+            (130, 130, 1, False, 0, 0, 0.0), (1000, 1000, 2, True, 0, 0, 0.0)):
+        q, k, v = _cuda_case(gen, 2, sq, skv, 2 * g, 2, hd, torch.bfloat16)
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        before = dict(cuda_kernel.body_launch_count)
+        got = flash_attention(q, k, v, **kw)
+        assert cuda_kernel.body_launch_count == {"wgmma": before["wgmma"] + 1, "simt": before["simt"]}
+        want32 = gqa_flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        assert _ulp_ratio(got, want32) <= 1.0, (sq, skv, g, kw)
+
+
+@pytest.mark.usefixtures("hopper")
+@pytest.mark.parametrize("dtype,hd", [("float32", 64), ("float32", 256), ("bfloat16", 32)])
+def test_cuda_simt_body_takes_the_rest(dtype, hd):
+    """f32 operands and other head dims run on the CUDA-core body."""
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    q, k, v = _cuda_case(gen, 2, 200, 200, 4, 2, hd, getattr(torch, dtype))
+    before = dict(cuda_kernel.body_launch_count)
+    got = flash_attention(q, k, v)
+    assert cuda_kernel.body_launch_count == {"wgmma": before["wgmma"], "simt": before["simt"] + 1}
+    want = gqa_flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[dtype])
