@@ -12,20 +12,29 @@ the SSM scan through its entry point, and times the kernels and the paths.
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one nvcc each, started together), and
-     print the new kernels' registers and spills;
+     print the split-decode, merge, burst-mask and wgmma kernels' registers
+     and spills;
   2. flash decode vs ``flash_decode_ref`` at the main path's head shapes
      (B 4, KV 16, G 1, hd 64, C 64 and 1024), gemma3's (KV 8, G 2, hd 256)
      and B 1 at C 4096, bf16 / int8 / f32 caches, softcap 0 and 30; caches
      of 1024 rows and up split across blocks (the merge kernel after the
      split kernel) and n_valid 0 / 1 / 63 / 65 leave splits empty; then paged flash
-     decode vs ``paged_flash_decode_ref`` at the engine's shape (B 8, KV 16,
-     G 1, hd 64, block 16) and gemma3's heads, over a permuted block table,
-     n_valid in {0, 1, 15, 16, 17, full}; then the link kernels, bit for
+     decode (the same split body) vs ``paged_flash_decode_ref`` and
+     ``paged_flash_decode_split_ref`` at the engine's shape (B 8, KV 16, G 1,
+     hd 64, block 16, 160 rows: one split), gemma3's heads (hd 256, G 2)
+     and G 8 at hd 128 over 320 rows (five splits), a 1,024-row table (16
+     splits) and one-row blocks (the table window restaged), bf16 / int8 /
+     f32, over a permuted block table,
+     n_valid at 0, 1, the block edges, the split edges and full, each case
+     equal bit for bit to the contiguous kernel on the gathered rows; then
+     the link kernels, bit for
      bit (``torch.equal``): the fused egress vs ``lossy_link_egress_ref``
      at T 4 / 1 / 8 x D 1024 and (257, 513), bf16 and f32, bits 8 / 1 / 16,
      p 0.1 / 0 / 0.8, the model's calibrated range and +-3 ranges; the
-     Gilbert–Elliott burst mask vs ``burst_mask_ref`` at R x N = 1 x 164
-     (a decode round), 32 x 164, 17 x 256, 5 x 130, 1 x 1; flash attention
+     Gilbert–Elliott burst mask (a warp scan of state maps) vs
+     ``burst_mask_ref`` and ``burst_mask_scan_ref`` at R x N = 1 x 164 (a
+     decode round), 32 x 164, 17 x 256, 5 x 130, 1 x 1, N 31 / 32 / 33, 5 x
+     1000 and 2 x 4097 (tiles carried); flash attention
      vs ``flash_attention_ref`` over the reference test's grid (Sq 1 at
      q_offset 383, a window, non-causal, ragged 200), Sq 1000, hd 256 and
      a causal ragged hd 128, GQA G 1 and 2, softcap 0 and 30, f32 (atol
@@ -47,8 +56,10 @@ Phases (any failure raises and the script exits non-zero):
      with the link off, and a torch.profiler trace of that path
      (device-busy share, kernels per round);
   6. flash-decode kernel, plain and library times at the main path's
-     shapes (64 and 1,024 rows, gemma3's heads) and the bytes bound, with
-     each shape's split plan and device kernels a call;
+     shapes (64 and 1,024 rows, gemma3's heads, the engine's 160-row slot
+     cache) and the bytes bound, with each shape's split plan and device
+     kernels a call, and the slot cache's time at two splits (the plan
+     before ``SPLIT_FROM_ROWS``) beside its planned one;
   7. the continuous engine: f32, iid and GE, 4 requests: paged tokens ==
      contiguous tokens == ``generate_reference`` per request, each engine's
      kernel launched 24 x decode steps; the engine's main path (bf16, iid,
@@ -56,11 +67,14 @@ Phases (any failure raises and the script exits non-zero):
      the paged pool, launch counts zeroed just before): TTFT and TPOT per
      request, tokens/s, peak blocks; one request per bucket, teacher
      forced through the naive oracle, picks the oracle's argmax to within
-     4x the bf16 noise, and so does the contiguous pool (its own split-KV
-     kernel) on the same requests; a profiled window of that path
+     4x the bf16 noise, and so does the contiguous pool (the same split-KV
+     body and plan) on the same requests, whose bf16 tokens equal the paged
+     pool's; a profiled window of that path
      (device-busy share) and the link's rounds timed alone;
-  8. paged-kernel, plain and library times at the engine's shape and the
-     bytes bound;
+  8. paged-kernel, plain and library times at the engine's shape (mid
+     generation bf16 and int8, full 160 rows) with the split plan and
+     device kernels a call, the bytes bound, and the bf16 shapes' times at
+     two splits (the plan before ``SPLIT_FROM_ROWS``) beside the planned one;
   9. the link-kernel slice: full-width qwen1.5-0.5b, batch 4, prompt 32,
      32 tokens, loss 0.1, ``LinkSpec(use_kernel=True)`` through
      ``lm.forward`` on ``generate_reference``'s key chain: under GE (f32,
@@ -75,7 +89,8 @@ Phases (any failure raises and the script exits non-zero):
      with and without the kernels, timed in turns (plain, kernel, kernel,
      plain);
  10. both link kernels' times (graph replay and eager), their plain
-     versions' and their bytes bounds at the main path's shapes;
+     versions' and their bytes bounds at the main path's shapes (the burst
+     mask at R 1 and R 32 x N 164, with its walk's dependent steps);
  11. the long-prompt slice: full-width qwen1.5-0.5b, loss 0.1, iid, prompts
      past ``attn_block_q`` (512): ``generate_reference`` (batch 2, prompt
      1000, 16 tokens) with f32 tokens equal to the naive oracle's and 24
@@ -135,8 +150,9 @@ def kernel_resources(ptxas_log: str, names) -> list:
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         if hit and regs:
-            args = fn.split(hit, 1)[1].split("EEv")[0].lstrip("I")   # mangled template arguments
-            out.append((f"{hit}<{args}>",
+            rest = fn.split(hit, 1)[1]
+            args = rest.split("EEv")[0][1:] if rest.startswith("I") else ""   # mangled template arguments
+            out.append((f"{hit}<{args}>" if args else hit,
                         f"{regs.group(1)} registers, spill stores/loads "
                         f"{spill.group(1) if spill else '?'}/{spill.group(2) if spill else '?'} B"))
     return out
@@ -289,36 +305,73 @@ def _paged_inputs(gen, b, kvh, g, hd, bs, j, qdt, cache):
     return q[:b].contiguous(), k, v, ks, vs, perm.reshape(b, j).to(torch.int32)
 
 
+# (B, KV, G, hd, bs, J): the engine's shape (160 rows, one split, no merge),
+# gemma3's heads and G 8 (two group tiles) at hd 128 over 320 rows (five
+# splits each), a 1,024-row table (16 splits), and blocks of one row, whose
+# 512-row splits restage the kernel's 128-entry table window.
+PAGED_SHAPES = [(8, 16, 1, 64, 16, 10), (8, 8, 2, 256, 16, 20), (4, 4, 8, 128, 16, 20), (2, 8, 1, 128, 16, 64),
+                (16, 16, 1, 64, 1, 1024)]
+
+
+def _paged_lengths(bs, rows, per):
+    """n_valid 0, 1, bs - 1, bs, bs + 1, the first two split boundaries
+    and the last - 1 / 0 / + 1, and the full table."""
+    edges = list(range(per, rows, per))
+    edges = sorted(set(edges[:2] + edges[-1:]))
+    return sorted({n for n in [0, 1, bs - 1, bs, bs + 1, rows] + [e + d for e in edges for d in (-1, 0, 1)]
+                   if 0 <= n <= rows})
+
+
 def check_paged_flash_decode() -> float:
-    """Paged kernel vs ``paged_flash_decode_ref`` at the engine's main shape
-    (B 8, KV 16, G 1, hd 64, bs 16) and gemma3's heads (KV 8, G 2, hd 256);
-    tolerances as for the contiguous kernel."""
+    """Paged kernel vs ``paged_flash_decode_ref`` and
+    ``paged_flash_decode_split_ref`` at ``PAGED_SHAPES``, bf16 / int8 / f32
+    caches, softcap 0 and 30, over a permuted block table, with n_valid at
+    the block and split edges; tolerances as for the contiguous kernel.
+    Every case is also run through the contiguous kernel on the table's
+    rows gathered in logical order: one body at one plan, so the two must be
+    equal bit for bit (``torch.equal``)."""
     import torch
 
-    from repro_torch.kernels.decode_attention import cuda_kernel, paged_flash_decode_ref
+    from repro_torch.kernels.decode_attention import cuda_kernel, paged_flash_decode_ref, paged_flash_decode_split_ref
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     combos = [(torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"), (torch.float32, "float32"),
               (torch.float32, "int8")]
-    bs, j = 16, 10
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
-    n_cases = 0
-    for b, kvh, g, hd in ((8, 16, 1, 64), (8, 8, 2, 256)):
-        nv = [0, 1, 15, 16, 17, j * bs, 0, 1][:b]
-        n = torch.tensor(nv, dtype=torch.int32, device="cuda")
+    n_cases = n_split_cases = 0
+    for b, kvh, g, hd, bs, j in PAGED_SHAPES:
+        plan = cuda_kernel.decode_plan(b, kvh, g, j * bs, sms)
+        lengths = _paged_lengths(bs, j * bs, plan["rows_per_split"])
+        log(f"[kernel] paged_flash_decode plan at B {b}, KV {kvh}, G {g}, hd {hd}, bs {bs}, J {j}: {plan}; "
+            f"n_valid {lengths}")
+        rows = [lengths[i % len(lengths)] for i in range(-(-len(lengths) // b) * b)]
         for qdt, cache in combos:
-            q, k, v, ks, vs, bt = _paged_inputs(gen, b, kvh, g, hd, bs, j, qdt, cache)
-            for softcap in (0.0, 30.0):
-                got = cuda_kernel.paged_flash_decode(q, k, v, ks, vs, bt, n, softcap=softcap)
-                want = paged_flash_decode_ref(q, k, v, ks, vs, bt, n, block_size=bs, softcap=softcap)
-                torch.cuda.synchronize()
-                tol = dict(rtol=2e-5, atol=2e-5) if qdt == torch.float32 else dict(rtol=2.0 ** -7, atol=1e-5)
-                torch.testing.assert_close(got.float(), want.float(), **tol,
-                                           msg=lambda m: f"{(b, kvh, g, hd, cache, str(qdt), softcap)}: {m}")
-                assert torch.all(got[n == 0] == 0), "n_valid = 0 must give zeros"
-                worst = max(worst, float((got.float() - want.float()).abs().max()))
-                n_cases += 1
-    log(f"[kernel] paged_flash_decode vs paged_flash_decode_ref: {n_cases} cases agree, max |err| {worst:.3e}")
+            for r0 in range(0, len(rows), b):
+                nv = rows[r0:r0 + b]
+                n = torch.tensor(nv, dtype=torch.int32, device="cuda")
+                q, k, v, ks, vs, bt = _paged_inputs(gen, b, kvh, g, hd, bs, j, qdt, cache)
+                idx = bt.reshape(-1).long()
+                gather = lambda a: None if a is None else a[idx].reshape((b, j * bs) + tuple(a.shape[2:]))
+                for softcap in (0.0, 30.0):
+                    got = cuda_kernel.paged_flash_decode(q, k, v, ks, vs, bt, n, softcap=softcap)
+                    flat = cuda_kernel.flash_decode(q, gather(k), gather(v), gather(ks), gather(vs), n, softcap=softcap)
+                    want = paged_flash_decode_ref(q, k, v, ks, vs, bt, n, block_size=bs, softcap=softcap)
+                    split = paged_flash_decode_split_ref(q, k, v, ks, vs, bt, n, block_size=bs, nsplit=plan["nsplit"],
+                                                         softcap=softcap)
+                    torch.cuda.synchronize()
+                    tag = (b, kvh, g, hd, bs, j, cache, str(qdt), nv, softcap)
+                    tol = dict(rtol=2e-5, atol=2e-5) if qdt == torch.float32 else dict(rtol=2.0 ** -7, atol=1e-5)
+                    for ref in (want, split):
+                        torch.testing.assert_close(got.float(), ref.float(), **tol, msg=lambda m: f"{tag}: {m}")
+                    assert torch.all(got[n == 0] == 0), "n_valid = 0 must give zeros"
+                    assert torch.equal(got, flat), f"{tag}: paged differs from the contiguous kernel on the same rows"
+                    worst = max(worst, float((got.float() - want.float()).abs().max()))
+                    n_cases += 1
+                    n_split_cases += plan["nsplit"] > 1
+    log(f"[kernel] paged_flash_decode vs paged_flash_decode_ref and the split ref: {n_cases} cases agree "
+        f"({n_split_cases} split across blocks), max |err| {worst:.3e}; each equal, bit for bit, to the "
+        f"contiguous kernel on the gathered rows")
     return worst
 
 
@@ -571,10 +624,9 @@ def run_engine(report) -> int:
     through 8 slots of the paged pool, with the paged launch count zeroed
     just before; the naive oracle must agree with its tokens
     (``hold_to_oracle``).  The contiguous engine on the same requests runs
-    the contiguous kernel, whose split-KV sums take another order than the
-    paged kernel's, so in bf16 its greedy tokens may part from the paged
-    ones at a near-tie (in f32 above they are equal); its tokens are held
-    to the same oracle bar.  Returns the main path's paged launches."""
+    the same split body at the same plan, so its bf16 greedy tokens equal
+    the paged ones; they are held to the same oracle bar too.  Returns the
+    main path's paged launches."""
     import numpy as np
     import torch
 
@@ -669,6 +721,9 @@ def run_engine(report) -> int:
                               token_agreement_with_paged=float((ctoks == toks).mean()))
     log(f"[engine] same requests, contiguous pool: {cwall:.3f} s = {16 * TOKENS / cwall:.1f} tok/s, "
         f"token agreement with paged {main['contiguous']['token_agreement_with_paged']:.4f}")
+    # One split body at one plan: the pools' bf16 arithmetic is the same, so
+    # are their greedy tokens.
+    assert np.array_equal(ctoks, toks), "bf16: contiguous-pool tokens differ from the paged pool's"
     main["oracle"] = hold_to_oracle(model16, cfg16, prompts[:5], keys[:5], toks[:5])
     log("[engine] the contiguous pool's tokens against the same oracle:")
     main["contiguous"]["oracle"] = hold_to_oracle(model16, cfg16, prompts[:5], keys[:5], ctoks[:5])
@@ -700,11 +755,31 @@ def run_engine(report) -> int:
 # Phase 6: kernel timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def time_flash_decode(b, kvh, g, hd, c, n_valid, cache, qdt_name="bfloat16") -> dict:
+def time_at_plans(call, plans) -> dict:
+    """Graph-replay ms of ``call`` (a decode wrapper's call) with
+    ``cuda_kernel.decode_plan`` replaced by each fixed split count in
+    ``plans``: a what-if for another plan (the plan before a change, or
+    one the planner does not pick), timed beside the planned one."""
+    from repro_torch.kernels.decode_attention import cuda_kernel
+    from repro_torch.kernels.decode_attention.torch_ref import split_rows
+
+    out = {}
+    real = cuda_kernel.decode_plan
+    for nsplit in plans:
+        cuda_kernel.decode_plan = lambda b, kvh, g, c, sms=None, ns=nsplit: dict(
+            nsplit=ns, rows_per_split=split_rows(c, ns), kernels=1 if ns == 1 else 2)
+        try:
+            out[str(nsplit)] = time_graph(call)
+        finally:
+            cuda_kernel.decode_plan = real
+    return out
+
+
+def time_flash_decode(b, kvh, g, hd, c, n_valid, cache, qdt_name="bfloat16", other_plans=()) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention import cuda_kernel, flash_decode_ref
+    from repro_torch.kernels.decode_attention import cuda_kernel, decode_block_kv, flash_decode_ref
 
     qdt = getattr(torch, qdt_name)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -712,10 +787,13 @@ def time_flash_decode(b, kvh, g, hd, c, n_valid, cache, qdt_name="bfloat16") -> 
     n = torch.full((b,), n_valid, dtype=torch.int32, device="cuda")
     plan = cuda_kernel.decode_plan(b, kvh, g, c, torch.cuda.get_device_properties(0).multi_processor_count)
     saved = cuda_kernel.launch_count
-    ms_graph = time_graph(lambda: cuda_kernel.flash_decode(q, k, v, ks, vs, n))
-    ms_eager = time_events(lambda: cuda_kernel.flash_decode(q, k, v, ks, vs, n))
+    call = lambda: cuda_kernel.flash_decode(q, k, v, ks, vs, n)
+    ms_graph = time_graph(call)
+    ms_eager = time_events(call)
+    at_plan = time_at_plans(call, other_plans)
     cuda_kernel.launch_count = saved
-    plain_ms = time_events(lambda: flash_decode_ref(q, k, v, ks, vs, n[:, None], block_kv=64), iters=50)
+    bkv = decode_block_kv(c, 64)
+    plain_ms = time_events(lambda: flash_decode_ref(q, k, v, ks, vs, n[:, None], block_kv=bkv), iters=50)
     # Yardstick only: SDPA over the dequantized valid prefix, GQA-enabled.
     if ks is not None:
         kd = (k[:, :n_valid].float() * ks[:, :n_valid].float()[..., None]).to(qdt)
@@ -736,10 +814,12 @@ def time_flash_decode(b, kvh, g, hd, c, n_valid, cache, qdt_name="bfloat16") -> 
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS[cache] else "operations"
     rec = dict(shape=dict(B=b, KV=kvh, G=g, hd=hd, C=c, n_valid=n_valid, cache=cache, q=qdt_name),
                ms=ms_graph, ms_eager=ms_eager, plain_ms=plain_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
-               library_ms=lib_ms, library_ms_eager=lib_eager, bytes=nbytes, ops=ops, plan=plan)
+               library_ms=lib_ms, library_ms_eager=lib_eager, bytes=nbytes, ops=ops, plan=plan,
+               ms_at_other_plans=at_plan)
+    others = "".join(f", {v * 1e3:.2f} us at {k} split(s)" for k, v in at_plan.items())
     log(f"[time] flash_decode {rec['shape']} (nsplit {plan['nsplit']}, {plan['rows_per_split']} rows a split, "
         f"{plan['kernels']} device kernel(s) a call): kernel {ms_graph * 1e3:.2f} us (graph) / {ms_eager * 1e3:.2f} us "
-        f"(eager), plain {plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.2f} us (graph) / {lib_eager * 1e3:.2f} us, "
+        f"(eager){others}, plain {plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.2f} us (graph) / {lib_eager * 1e3:.2f} us, "
         f"bound {bound_s * 1e6:.3f} us ({bound_by}, {nbytes} B)")
     return rec
 
@@ -748,11 +828,14 @@ def time_flash_decode(b, kvh, g, hd, c, n_valid, cache, qdt_name="bfloat16") -> 
 # Phase 8: paged kernel timing at the engine's shape
 # ---------------------------------------------------------------------------
 
-def time_paged_flash_decode(n_valid, cache="bfloat16", b=8, kvh=16, g=1, hd=64, bs=16, j=10) -> dict:
+def time_paged_flash_decode(n_valid, cache="bfloat16", b=8, kvh=16, g=1, hd=64, bs=16, j=10,
+                            other_plans=()) -> dict:
     """Paged kernel times at the engine's main shape (8 slots, 16 KV heads,
-    hd 64, block 16, a 10-block table row: max_seq 160), per-row ``n_valid``.
-    The library yardstick is SDPA over the same rows gathered into a
-    contiguous copy with a length mask; the gather is not timed."""
+    hd 64, block 16, a 10-block table row: max_seq 160), per-row ``n_valid``,
+    with the call's split plan, and at each split count in ``other_plans``
+    (``time_at_plans``).  The library yardstick is SDPA
+    over the same rows gathered into a contiguous copy with a length mask;
+    the gather is not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -761,10 +844,12 @@ def time_paged_flash_decode(n_valid, cache="bfloat16", b=8, kvh=16, g=1, hd=64, 
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v, ks, vs, bt = _paged_inputs(gen, b, kvh, g, hd, bs, j, torch.bfloat16, cache)
     n = torch.tensor(n_valid, dtype=torch.int32, device="cuda")
+    plan = cuda_kernel.decode_plan(b, kvh, g, j * bs, torch.cuda.get_device_properties(0).multi_processor_count)
     saved = cuda_kernel.paged_launch_count
     call = lambda: cuda_kernel.paged_flash_decode(q, k, v, ks, vs, bt, n)
     ms_graph = time_graph(call)
     ms_eager = time_events(call)
+    at_plan = time_at_plans(call, other_plans)
     cuda_kernel.paged_launch_count = saved
     plain_ms = time_events(lambda: paged_flash_decode_ref(q, k, v, ks, vs, bt, n, block_size=bs), iters=50)
     idx = bt.reshape(-1).long()
@@ -788,9 +873,12 @@ def time_paged_flash_decode(n_valid, cache="bfloat16", b=8, kvh=16, g=1, hd=64, 
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS[cache] else "operations"
     rec = dict(shape=dict(B=b, KV=kvh, G=g, hd=hd, block_size=bs, J=j, n_valid=list(n_valid), cache=cache, q="bfloat16"),
                ms=ms_graph, ms_eager=ms_eager, plain_ms=plain_ms, bound_ms=bound_s * 1e3, bound_by=bound_by,
-               library_ms=lib_ms, library_ms_eager=lib_eager, bytes=nbytes, ops=ops)
-    log(f"[time] paged_flash_decode {rec['shape']}: kernel {ms_graph * 1e3:.2f} us (graph) / {ms_eager * 1e3:.2f} us "
-        f"(eager), plain {plain_ms * 1e3:.1f} us, sdpa on the gathered rows {lib_ms * 1e3:.2f} us (graph) / "
+               library_ms=lib_ms, library_ms_eager=lib_eager, bytes=nbytes, ops=ops, plan=plan,
+               ms_at_other_plans=at_plan)
+    others = "".join(f", {v * 1e3:.2f} us at {k} split(s)" for k, v in at_plan.items())
+    log(f"[time] paged_flash_decode {rec['shape']} (nsplit {plan['nsplit']}, {plan['rows_per_split']} rows a split, "
+        f"{plan['kernels']} device kernel(s) a call): kernel {ms_graph * 1e3:.2f} us (graph) / {ms_eager * 1e3:.2f} us "
+        f"(eager){others}, plain {plain_ms * 1e3:.1f} us, sdpa on the gathered rows {lib_ms * 1e3:.2f} us (graph) / "
         f"{lib_eager * 1e3:.2f} us, bound {bound_s * 1e6:.3f} us ({bound_by}, {nbytes} B)")
     return rec
 
@@ -849,13 +937,20 @@ def check_lossy_link_egress() -> float:
     return 0.0
 
 
+BURST_SHAPES = ((1, 164), (32, 164), (17, 256), (5, 130), (1, 1), (1, 31), (3, 32), (1, 33), (5, 1000),
+                (2, 4097))
+
+
 def check_burst_mask() -> float:
-    """Burst-mask kernel vs ``burst_mask_ref`` on the card, exactly: R 1 N
-    164 (the decode round: 4 x 1024 elements / 25 per packet), R 32 N 164,
-    R 17 N 256, R 5 N 130, R 1 N 1; the main path's channel and a leaky one."""
+    """Burst-mask kernel vs ``burst_mask_ref`` and ``burst_mask_scan_ref``
+    on the card, exactly (``torch.equal``): R 1 N 164 (the decode round: 4 x
+    1024 elements / 25 per packet), R 32 N 164, R 17 N 256, R 5 N 130, R 1
+    N 1, N 31 / 32 / 33 (lanes with no packet), N 1000 and 4097 (the state
+    carried across 256-packet tiles); the main path's channel and a leaky
+    one."""
     import torch
 
-    from repro_torch.kernels.lossy_link import burst_mask_ref, cuda_kernel
+    from repro_torch.kernels.lossy_link import burst_mask_ref, burst_mask_scan_ref, cuda_kernel
     from repro_torch.net import channels
 
     ge = channels.make_channel("ge", loss_rate=LOSS)
@@ -863,15 +958,17 @@ def check_burst_mask() -> float:
               dict(p_gb=0.1, p_bg=0.3, loss_good=0.02, loss_bad=0.8)]
     gen = torch.Generator(device="cuda").manual_seed(5)
     n_cases = 0
-    for r, n in ((1, 164), (32, 164), (17, 256), (5, 130), (1, 1)):
+    for r, n in BURST_SHAPES:
         ui, ul, ut = (torch.rand(s, generator=gen, device="cuda") for s in ((r,), (r, n), (r, n)))
         for kw in params:
             got = cuda_kernel.burst_mask(ui, ul, ut, **kw)
             want = burst_mask_ref(ui, ul, ut, **kw)
+            scan = burst_mask_scan_ref(ui, ul, ut, **kw)
             torch.cuda.synchronize()
             assert torch.equal(got, want), f"burst_mask {(r, n, kw)}: kernel differs from the plain version"
+            assert torch.equal(got, scan), f"burst_mask {(r, n, kw)}: kernel differs from the scan's plain version"
             n_cases += 1
-    log(f"[kernel] burst_mask vs burst_mask_ref: {n_cases} cases exact")
+    log(f"[kernel] burst_mask vs burst_mask_ref and burst_mask_scan_ref: {n_cases} cases exact")
     return 0.0
 
 
@@ -1073,13 +1170,22 @@ def _bound(nbytes, ops, peak):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def burst_chain_depth(n: int, tile: int = 256, lanes: int = 32) -> int:
+    """Dependent steps of the burst kernel's walk of one row: per tile of
+    ``cols`` packets a lane's fold and re-walk of ``ceil(cols / 32)``
+    packets each, and the 5 shuffle steps of the scan between them."""
+    return sum(2 * -(-min(tile, n - t0) // lanes) + 5 for t0 in range(0, n, tile))
+
+
 def time_lossy_link() -> dict:
     """Kernel (CUDA-graph replay and eager), plain (CUDA events, eager) and
     bound times of both link kernels at the main path's shapes: the egress
     on a decode round's (4, 1024) bf16 activation, 8 bits, p 0.1, under the
     model's calibrated range; the burst mask on one row of 164 packets
-    under the main path's GE channel.  No single PyTorch call computes
-    either function, so there is no library time."""
+    (every GE round) and on 32 rows of 164 under the main path's GE
+    channel, with the walk's dependent steps beside the bytes bound.  No
+    single PyTorch call computes either function, so there is no library
+    time."""
     import torch
 
     from repro_torch.kernels.lossy_link import burst_mask_ref, cuda_kernel, lossy_link_egress_ref
@@ -1100,21 +1206,26 @@ def time_lossy_link() -> dict:
                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes, ops=ops)
     ge = channels.make_channel("ge", loss_rate=LOSS)
     gkw = dict(p_gb=ge.p_gb, p_bg=ge.p_bg, loss_good=ge.loss_good, loss_bad=ge.loss_bad)
-    r, n = 1, -(-t * d // 25)
-    ui, ul, ut = (torch.rand(s, generator=gen, device="cuda") for s in ((r,), (r, n), (r, n)))
-    call = lambda: cuda_kernel.burst_mask(ui, ul, ut, **gkw)
-    nbytes = 4 * r + 3 * 4 * r * n
-    ops = BURST_OPS_PER_PACKET * r * n
-    bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["float32"])
-    burst = dict(shape=dict(R=r, N=n), ms=time_graph(call), ms_eager=time_events(call),
-                 plain_ms=time_events(lambda: burst_mask_ref(ui, ul, ut, **gkw), iters=20),
-                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes, ops=ops,
-                 note=f"the real floor is the {n}-step dependent chain of the row, not its bytes")
-    for name, rec in (("lossy_link_egress", egress), ("burst_mask", burst)):
+    n = -(-t * d // 25)
+    out = {"lossy_link_egress": egress}
+    for name, r in (("burst_mask", 1), ("burst_mask_r32", 32)):
+        ui, ul, ut = (torch.rand(s, generator=gen, device="cuda") for s in ((r,), (r, n), (r, n)))
+        call = lambda: cuda_kernel.burst_mask(ui, ul, ut, **gkw)
+        nbytes = 4 * r + 3 * 4 * r * n
+        ops = BURST_OPS_PER_PACKET * r * n
+        bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["float32"])
+        out[name] = dict(shape=dict(R=r, N=n), ms=time_graph(call), ms_eager=time_events(call),
+                         plain_ms=time_events(lambda: burst_mask_ref(ui, ul, ut, **gkw), iters=20),
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes, ops=ops,
+                         chain_depth=burst_chain_depth(n),
+                         note=f"the floor is the row's dependent walk ({burst_chain_depth(n)} steps, was {n}), "
+                              f"not its bytes")
+    for name, rec in out.items():
+        depth = f", dependent steps a row {rec['chain_depth']}" if "chain_depth" in rec else ""
         log(f"[time] {name} {rec['shape']}: kernel {rec['ms'] * 1e3:.2f} us (graph) / {rec['ms_eager'] * 1e3:.2f} us "
             f"(eager), plain {rec['plain_ms'] * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.4f} us "
-            f"({rec['bound_by']}, {rec['bytes']} B)")
-    return {"lossy_link_egress": egress, "burst_mask": burst}
+            f"({rec['bound_by']}, {rec['bytes']} B){depth}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1516,7 +1627,7 @@ def main(argv=None) -> int:
             log(f"[build] {path.name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
                 f"spill stores up to {max(spills or [0])} B, static smem up to {max(smem or [0])} B")
         for name, line in kernel_resources(text, ("flash_attention_wgmma_kernel", "split_decode_kernel",
-                                                  "merge_splits_kernel")):
+                                                  "merge_splits_kernel", "burst_mask_kernel")):
             log(f"[build]   {name}: {line}")
 
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -1573,16 +1684,17 @@ def main(argv=None) -> int:
                 (BATCH, 16, 1, 64, 1024, 1024, "bfloat16"),
                 (BATCH, 8, 2, 256, 1024, 1024, "bfloat16"),
             )
-        ]
+        ] + [time_flash_decode(8, 16, 1, 64, 160, 160, "bfloat16", other_plans=(2,))]   # the engine's slot cache
         record.update(launches=launches, ms=timing["ms"], plain_ms=timing["plain_ms"],
                       bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
                       library_ms=timing["library_ms"])
         paged_launches = run_engine(report)
         # Mid-generation rows of the main path: prompt + 16 generated + 1.
         mid = [p + 17 for p in (5, 13, 29, 61, 127, 5, 13, 29)]
-        ptiming = time_paged_flash_decode(mid)
+        # 2 splits: the planner's choice at 160 rows before SPLIT_FROM_ROWS.
+        ptiming = time_paged_flash_decode(mid, other_plans=(2,))
         report["paged_kernel_times"] = [ptiming] + [
-            time_paged_flash_decode(mid, cache="int8"), time_paged_flash_decode([160] * 8)]
+            time_paged_flash_decode(mid, cache="int8"), time_paged_flash_decode([160] * 8, other_plans=(2,))]
         paged_record.update(launches=paged_launches, ms=ptiming["ms"], plain_ms=ptiming["plain_ms"],
                             bound_ms=ptiming["bound_ms"], bound_by=ptiming["bound_by"],
                             library_ms=ptiming["library_ms"])

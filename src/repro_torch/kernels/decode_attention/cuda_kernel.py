@@ -2,14 +2,18 @@
 
 The library is built with ``nvcc`` at first use (``kernels/nvcc.py``).
 ``flash_decode`` (contiguous cache) and ``paged_flash_decode`` (block pool
-and table) check device, dtype, shape, contiguity and alignment, allocate
-the output (and the split scratch) with ``torch.empty``, launch on
-PyTorch's current stream and raise if a launch reports an error.
-``launch_count`` and ``paged_launch_count`` count each wrapper's calls and
-nothing else, so a run can show that it went through the kernels.
+and table) run one split-KV body, which differs between them only in how a
+logical row becomes a cache row.  Each wrapper refuses inputs that require
+grad (``runtime.forbid_grad``), checks device, dtype, shape, contiguity and
+alignment, allocates the output (and the split scratch) with
+``torch.empty``, launches on PyTorch's current stream and raises if a
+launch reports an error.  ``launch_count`` and ``paged_launch_count`` count
+each wrapper's calls and nothing else, so a run can show that it went
+through the kernels.
 
-A contiguous call splits the cache across blocks as ``split_plan`` says:
-with one split it launches one kernel; with more it launches the split
+Both split the logical rows across blocks as ``decode_plan`` says, the
+same plan for a contiguous cache of C rows and a table of J * bs rows:
+with one split a call launches one kernel; with more it launches the split
 kernel and the merge, two device kernels for one call (one count).
 """
 
@@ -22,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, runtime
 from repro_torch.kernels.decode_attention.torch_ref import split_rows
 
 LIB_NAME = "flash_decode"
@@ -31,7 +35,9 @@ HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16
 CACHE_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 Q_TYPES = {torch.bfloat16: 1, torch.float32: 2}
+INT32_MAX = 2 ** 31 - 1
 SPLIT_MIN_ROWS = 64          # a split walks a multiple of this many cache rows
+SPLIT_FROM_ROWS = 256        # a request addressing fewer rows is one split
 RESIDENT_BLOCKS_PER_SM = 2   # the blocks of one wave: SMs x this
 H100_SMS = 132
 
@@ -47,7 +53,7 @@ def _library():
         lib.flash_decode_launch.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
         lib.paged_flash_decode_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
         for fn in (lib.flash_decode_launch, lib.paged_flash_decode_launch):
             fn.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
@@ -68,21 +74,27 @@ def group_tile(g: int) -> int:
 
 
 def split_plan(blocks: int, rows: int, sms: int = H100_SMS) -> int:
-    """Splits of a contiguous decode call: about enough that ``blocks *
-    nsplit`` fills one wave (``sms * RESIDENT_BLOCKS_PER_SM`` blocks), with
-    each split a multiple of ``SPLIT_MIN_ROWS`` of the ``rows`` a request can
-    address (a block walks 64 rows a step at hd 64).  ``blocks`` is B x KV x
-    G tiles.  A split that starts past a request's ``n_valid`` sees no row
-    and merges to nothing."""
-    most = max(1, rows // SPLIT_MIN_ROWS)
+    """Splits of a decode call: about enough that ``blocks * nsplit`` fills
+    one wave (``sms * RESIDENT_BLOCKS_PER_SM`` blocks), with each split a
+    multiple of ``SPLIT_MIN_ROWS`` of the ``rows`` a request can address (a
+    block walks 64 rows a step at hd 64).  ``blocks`` is B x KV x G tiles.
+    Fewer than ``SPLIT_FROM_ROWS`` rows stay in one split: one block walks
+    them in at most four steps, sooner than two splits and the merge kernel
+    take (``PERF.md`` section 6: the engine's 160 rows, one split against
+    two).  A split that starts past a request's ``n_valid`` sees no row and
+    merges to nothing."""
+    if rows < SPLIT_FROM_ROWS:
+        return 1
+    most = rows // SPLIT_MIN_ROWS
     want = max(1, min(most, -(-sms * RESIDENT_BLOCKS_PER_SM // max(1, blocks))))
     per = SPLIT_MIN_ROWS * -(-rows // (SPLIT_MIN_ROWS * want))
     return -(-rows // per)
 
 
 def decode_plan(b: int, kvh: int, g: int, c: int, sms: int = H100_SMS) -> dict:
-    """What a contiguous call of this shape launches: splits, rows a split,
-    and device kernels a call (2 with the merge)."""
+    """What a call of this shape launches: splits, rows a split, and device
+    kernels a call (2 with the merge).  ``c`` is the logical rows a request
+    addresses: the contiguous cache's C, or the paged table's J * bs."""
     nsplit = split_plan(b * kvh * -(-g // group_tile(g)), c, sms)
     return dict(nsplit=nsplit, rows_per_split=split_rows(c, nsplit), kernels=1 if nsplit == 1 else 2)
 
@@ -105,6 +117,7 @@ def flash_decode(
     """Length-masked decode attention on the card, the cache split across
     blocks as ``decode_plan`` says; returns (B, KV, G, hd) in q's dtype."""
     global launch_count
+    runtime.forbid_grad("flash_decode", q, k, v, k_scale, v_scale)
     b, kvh, g, hd = q.shape
     c = k.shape[1]
     tensors = [q, k, v, n_valid] + ([k_scale, v_scale] if k_scale is not None else [])
@@ -112,25 +125,17 @@ def flash_decode(
     _check(tuple(k.shape) == (b, c, kvh, hd) and tuple(v.shape) == (b, c, kvh, hd),
            f"cache shape {tuple(k.shape)} vs q {tuple(q.shape)}")
     _check(n_valid.dtype == torch.int32 and tuple(n_valid.shape) == (b,), "n_valid must be (B,) int32")
-    _check(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0, "k and v must be 16-byte aligned")
     _check_scales(k, k_scale, v_scale, (b, c, kvh))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    plan = decode_plan(b, kvh, g, c, _sms(q.device.index))
-    nsplit = plan["nsplit"]
-    part_acc = part_ml = None
-    if nsplit > 1:
-        part_acc = torch.empty((b * kvh * g * nsplit * hd,), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((b * kvh * g * nsplit * 2,), dtype=torch.float32, device=q.device)
+    plan, scratch = _split(q, c)
     quantized = k_scale is not None
-    lib = _library()
-    err = lib.flash_decode_launch(
+    err = _library().flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
-        n_valid.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr() if nsplit > 1 else None, part_ml.data_ptr() if nsplit > 1 else None,
-        b, c, kvh, g, hd, CACHE_TYPES[k.dtype], Q_TYPES[q.dtype], nsplit, plan["rows_per_split"],
+        n_valid.data_ptr(), out.data_ptr(), *_ptrs(scratch),
+        b, c, kvh, g, hd, CACHE_TYPES[k.dtype], Q_TYPES[q.dtype], plan["nsplit"], plan["rows_per_split"],
         float(softcap), _stream(q),
     )
     _raise_on(err, "flash_decode")
@@ -150,11 +155,13 @@ def paged_flash_decode(
     softcap: float = 0.0,
 ) -> torch.Tensor:
     """Length-masked decode attention over a shared block pool, walked
-    through each request's block-table row, on the card; returns (B, KV,
-    G, hd) in q's dtype.  Rows past ``J * bs`` are never read.  The block
-    ids are not checked (that would need a device sync): the caller keeps
-    them in ``[0, N)``."""
+    through each request's block-table row, on the card, its J * bs
+    logical rows split across blocks as ``decode_plan`` says; returns (B,
+    KV, G, hd) in q's dtype.  Rows past ``J * bs`` are never read.  The
+    block ids are not checked (that would need a device sync): the caller
+    keeps them in ``[0, N)``."""
     global paged_launch_count
+    runtime.forbid_grad("paged_flash_decode", q, k, v, k_scale, v_scale)
     b, kvh, g, hd = q.shape
     nblk, bs = k.shape[:2]
     tensors = [q, k, v, block_table, n_valid] + ([k_scale, v_scale] if k_scale is not None else [])
@@ -163,18 +170,20 @@ def paged_flash_decode(
            f"pool shape {tuple(k.shape)} vs q {tuple(q.shape)}")
     _check(block_table.dtype == torch.int32 and block_table.dim() == 2 and block_table.shape[0] == b
            and block_table.shape[1] >= 1, "block_table must be (B, J) int32 with J >= 1")
+    j = block_table.shape[1]
+    _check(j * bs <= INT32_MAX, f"table of {j} blocks of {bs} rows is too long")
     _check(n_valid.dtype == torch.int32 and tuple(n_valid.shape) == (b,), "n_valid must be (B,) int32")
     _check_scales(k, k_scale, v_scale, (nblk, bs, kvh))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    plan, scratch = _split(q, j * bs)
     quantized = k_scale is not None
-    lib = _library()
-    err = lib.paged_flash_decode_launch(
+    err = _library().paged_flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
-        block_table.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
-        b, bs, block_table.shape[1], kvh, g, hd, CACHE_TYPES[k.dtype], Q_TYPES[q.dtype],
+        block_table.data_ptr(), n_valid.data_ptr(), out.data_ptr(), *_ptrs(scratch),
+        b, bs, j, kvh, g, hd, CACHE_TYPES[k.dtype], Q_TYPES[q.dtype], plan["nsplit"], plan["rows_per_split"],
         float(softcap), _stream(q),
     )
     _raise_on(err, "paged_flash_decode")
@@ -189,6 +198,24 @@ def _check_common(q, k, v, tensors) -> None:
     _check(k.dtype in CACHE_TYPES and v.dtype == k.dtype, f"cache dtype {k.dtype}/{v.dtype}")
     _check(q.shape[-1] in HEAD_DIMS and 1 <= q.shape[2] <= MAX_GROUP,
            f"head_dim {q.shape[-1]} / group {q.shape[2]} unsupported")
+    # The body reads each cache row with 16-byte loads.
+    _check(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0, "k and v must be 16-byte aligned")
+
+
+def _split(q: torch.Tensor, rows: int):
+    """The plan of a call over ``rows`` logical rows a request, and its
+    scratch: (part_acc, part_ml) f32, or () with one split."""
+    b, kvh, g, hd = q.shape
+    plan = decode_plan(b, kvh, g, rows, _sms(q.device.index))
+    nsplit = plan["nsplit"]
+    if nsplit == 1:
+        return plan, ()
+    return plan, (torch.empty((b * kvh * g * nsplit * hd,), dtype=torch.float32, device=q.device),
+                  torch.empty((b * kvh * g * nsplit * 2,), dtype=torch.float32, device=q.device))
+
+
+def _ptrs(scratch) -> tuple:
+    return tuple(t.data_ptr() for t in scratch) if scratch else (None, None)
 
 
 def _check_scales(k, k_scale, v_scale, shape) -> None:

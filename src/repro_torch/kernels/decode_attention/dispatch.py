@@ -5,10 +5,11 @@
 and the rotating cache dict in its native ``(B, C, KV, hd)`` layout (int8
 codes + bf16 scales, or float); ``paged_decode_attention`` takes the shared
 ``(N, bs, KV, hd)`` block pool and the requests' block tables.  A CUDA
-tensor goes to the hand kernel, which walks only the valid rows and masks
-the ragged tail itself; a CPU tensor goes to the plain version, with the
-reference's block choice and pad path for contiguous cache lengths that
-share no usable divisor with the block (65, 100, ...).
+tensor goes to the hand kernel, one split-KV body for both pools that walks
+only the valid rows and masks the ragged tail itself; a CPU tensor goes to
+the plain version, with the reference's block choice and pad path for
+contiguous cache lengths that share no usable divisor with the block (65,
+100, ...).
 """
 
 from __future__ import annotations

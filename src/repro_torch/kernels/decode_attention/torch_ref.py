@@ -15,10 +15,13 @@ cache; the paged version fetches physical block ``block_table[b, kj]`` of
 the shared pool.  They are the CPU path of ``dispatch`` and the plain
 versions the CUDA kernels are held against on the card.
 
-``flash_decode_split_ref`` is the plain version of the contiguous CUDA
-kernel's split-KV arithmetic: per split of ``split_rows(C, nsplit)`` rows
-the partial (m, l, acc), then the merge.  The tests hold it to
-``flash_decode_ref`` and to the reference; the model never calls it.
+``flash_decode_split_ref`` is the plain version of the CUDA split-KV
+body's arithmetic: per split of ``split_rows(C, nsplit)`` rows the partial
+(m, l, acc), then the merge.  Both pools run that one body on the card, so
+``paged_flash_decode_split_ref`` gathers the table's blocks into a
+request-major cache and takes the same splits.  The tests hold both to
+``flash_decode_ref`` / ``paged_flash_decode_ref`` and to the reference;
+the model never calls them.
 """
 
 from __future__ import annotations
@@ -166,3 +169,33 @@ def flash_decode_split_ref(
     w = torch.exp(m - big)
     out = (acc * w[..., None]).sum(dim=3) / torch.clamp((l * w).sum(dim=-1), min=1e-20)[..., None]
     return out.to(q.dtype)
+
+
+def paged_flash_decode_split_ref(
+    q: torch.Tensor,                     # (B, KV, G, hd)
+    k: torch.Tensor,                     # (N, bs, KV, hd) block pool
+    v: torch.Tensor,
+    k_scale: Optional[torch.Tensor],     # (N, bs, KV) or None
+    v_scale: Optional[torch.Tensor],
+    block_table: torch.Tensor,           # (B, J) int32 physical block ids
+    n_valid: torch.Tensor,               # (B,) int32
+    *,
+    block_size: int,
+    nsplit: int,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Paged twin of :func:`flash_decode_split_ref`: request ``b``'s logical
+    row ``p`` is pool row ``block_table[b, p // bs] * bs + p % bs``, so the
+    table's blocks gathered in order make a ``(B, J * bs, KV, hd)`` cache,
+    split as the contiguous one is.  ``n_valid`` is clamped to the table's
+    ``J * bs`` rows, as the CUDA kernel clamps it."""
+    assert k.shape[1] == block_size, (k.shape, block_size)
+    b, j = block_table.shape
+    idx = block_table.to(torch.int64).reshape(-1)
+
+    def take(a):
+        return None if a is None else a[idx].reshape((b, j * block_size) + tuple(a.shape[2:]))
+
+    n = torch.clamp(n_valid.reshape(-1), max=j * block_size)
+    return flash_decode_split_ref(q, take(k), take(v), take(k_scale), take(v_scale), n, nsplit=nsplit,
+                                  softcap=softcap)

@@ -7,9 +7,10 @@ break f32 parity, and other head dims).  ``body_for`` picks from the dtype
 and head dim alone; nothing retries on the other body.  Both build into one
 library with ``nvcc`` at first use (``kernels/nvcc.py``).
 
-``flash_attention`` checks device, dtype, shape, contiguity and alignment,
-allocates the output with ``torch.empty``, launches on PyTorch's current
-stream and raises if the launch reports an error.  ``launch_count`` counts
+``flash_attention`` refuses inputs that require grad
+(``runtime.forbid_grad``), checks device, dtype, shape, contiguity and
+alignment, allocates the output with ``torch.empty``, launches on PyTorch's
+current stream and raises if the launch reports an error.  ``launch_count`` counts
 its launches and nothing else, so a run can show that it went through the
 kernel; ``body_launch_count`` splits the same count by body.
 """
@@ -21,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, runtime
 
 LIB_NAME = "flash_attention"
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -83,6 +84,7 @@ def flash_attention(
     query head ``h`` reads KV head ``h // (H // KV)`` in place.  Returns
     (B, Sq, H, hd) in q's dtype."""
     global launch_count
+    runtime.forbid_grad("flash_attention", q, k, v)
     _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "q, k, v must be 4-d")
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]

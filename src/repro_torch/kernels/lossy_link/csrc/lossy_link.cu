@@ -21,17 +21,28 @@
 // torch.round).  The scalars (levels, p, comp, the range floor) are fixed on
 // the host as the reference fixes them.
 //
-// Burst mask.  Bound: the N-step dependent chain of each row, not bytes
-// (R = 1 in every DI round: one chain of ~164 packets).  The per-packet
-// decisions do not depend on the state, so a block first stages a tile of
-// kRows rows x kChunk packets with all its threads, coalesced along the
-// packets, as four flag bits a packet in shared memory (keep if good, keep
-// if bad, next state if good, next state if bad); then one thread a row
-// walks its chunk with the state in a register, choosing bits; then all
-// threads store the tile as f32 0/1.  The TPU kernel advances a block of
-// rows in lockstep down a fori_loop over the packet axis; a faster design
-// would compose the per-packet maps {G,B} -> {G,B} as an associative scan
-// across a warp (later work).
+// Burst mask.  Bound: the dependent chain of each row, not bytes (R = 1 in
+// every DI round: one chain of ~164 packets, 2 KB).  The TPU kernel
+// advances a block of rows in lockstep down a fori_loop over the packet
+// axis, one dependent step a packet.  Here a packet's state step depends
+// only on u_tr: bad' = bad ? u_tr >= p_bg : u_tr < p_gb, so each step is
+// one of the four maps {G,B} -> {G,B}, and composing maps is associative
+// and exact.  One warp walks a row, a tile of kBurstTile packets at a time:
+//   1. the warp stages the tile, coalesced along the packets, as four flag
+//      bits a packet in shared memory (keep if good, keep if bad, next
+//      state if good, next state if bad);
+//   2. each lane folds its contiguous chunk of ceil(tile / 32) packets into
+//      one map (2 bits: the image of G, the image of B);
+//   3. an inclusive scan of the lanes' maps with __shfl_up_sync (5 steps),
+//      applied to the state entering the tile, gives each lane the state
+//      entering its chunk, and lane 31's gives the state entering the next
+//      tile;
+//   4. each lane walks its chunk again, from that state and from registers,
+//      choosing keep bits;
+//   5. the warp stores the tile as f32 0/1, coalesced.
+// A tile's chain of up to 256 dependent steps becomes ceil(cols / 32) + 5 +
+// ceil(cols / 32) (6 + 5 + 6 at N 164).  The comparisons and f32 thresholds
+// are those of the reference's scan, so the masks are bit for bit the same.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,10 +53,11 @@ namespace {
 constexpr int kUnsupported = -1;
 constexpr int kEgressThreads = 256;
 constexpr int kEgressMaxBlocks = 132 * 16;
-constexpr int kBurstThreads = 256;
-constexpr int kRows = 32;        // chains a block walks: one warp of walkers
-constexpr int kChunk = 256;      // packets staged per pass
-constexpr int kChunkPitch = kChunk + 4;  // row pitch in bytes: walkers hit distinct banks
+constexpr int kBurstWarps = 4;           // rows (chains) a block: one warp each
+constexpr int kBurstTile = 256;          // packets a warp stages per pass
+constexpr int kBurstPerLane = kBurstTile / 32;  // loads a lane per array, and its chunk at most
+constexpr unsigned kIdentity = 0x2u;     // the map G -> G, B -> B
+constexpr unsigned kFullMask = 0xffffffffu;
 
 struct EgressConsts {
   float levels, p, comp, rng_floor;
@@ -78,47 +90,83 @@ __global__ void __launch_bounds__(kEgressThreads)
   }
 }
 
-__global__ void __launch_bounds__(kBurstThreads)
+// A map {G,B} -> {G,B} in 2 bits: bit 0 is the image of G, bit 1 the image
+// of B (1 = bad).  then(f, g) is f followed by g.
+__device__ __forceinline__ unsigned then(unsigned f, unsigned g) {
+  return ((g >> (f & 1u)) & 1u) | (((g >> ((f >> 1) & 1u)) & 1u) << 1);
+}
+
+__global__ void __launch_bounds__(kBurstWarps * 32)
     burst_mask_kernel(const float* __restrict__ u_init, const float* __restrict__ u_loss,
                       const float* __restrict__ u_tr, float* __restrict__ out, int R, int N,
                       BurstConsts c) {
-  __shared__ uint8_t flags[kRows * kChunkPitch];
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, R - row0);
-  const int tid = threadIdx.x;
-  bool bad = tid < rows && u_init[row0 + tid] < c.pi_b;
-  for (int t0 = 0; t0 < N; t0 += kChunk) {
-    const int cols = min(kChunk, N - t0);
-    for (int k = tid; k < rows * kChunk; k += kBurstThreads) {
-      const int r = k / kChunk;
-      const int t = k % kChunk;
-      if (t < cols) {
-        const int64_t g = static_cast<int64_t>(row0 + r) * N + t0 + t;
-        const float ul = u_loss[g];
-        const float ut = u_tr[g];
-        flags[r * kChunkPitch + t] = static_cast<uint8_t>(
-            (ul >= c.loss_good) | ((ul >= c.loss_bad) << 1) | ((ut < c.p_gb) << 2) | ((ut >= c.p_bg) << 3));
+  __shared__ uint8_t flags[kBurstWarps][kBurstTile];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kBurstWarps + warp;
+  if (row >= R) return;  // warp-uniform; the warps never sync with each other
+  uint8_t* f = flags[warp];
+  const float* ul = u_loss + static_cast<int64_t>(row) * N;
+  const float* ut = u_tr + static_cast<int64_t>(row) * N;
+  float* dst = out + static_cast<int64_t>(row) * N;
+  unsigned bad = u_init[row] < c.pi_b ? 1u : 0u;  // the state entering the tile
+  for (int t0 = 0; t0 < N; t0 += kBurstTile) {
+    const int cols = min(kBurstTile, N - t0);
+    const int chunk = (cols + 31) / 32;
+    const int lo = min(lane * chunk, cols);  // the lane's chunk is [lo, lo + n)
+    const int n = min(chunk, cols - lo);
+    // Every load of the tile is issued before any is used.
+    float l[kBurstPerLane];
+    float tr[kBurstPerLane];
+#pragma unroll
+    for (int i = 0; i < kBurstPerLane; ++i) {
+      const int t = lane + 32 * i;
+      l[i] = t < cols ? ul[t0 + t] : 0.f;
+      tr[i] = t < cols ? ut[t0 + t] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBurstPerLane; ++i) {
+      const int t = lane + 32 * i;
+      if (t < cols)
+        f[t] = static_cast<uint8_t>((l[i] >= c.loss_good) | ((l[i] >= c.loss_bad) << 1) |
+                                    ((tr[i] < c.p_gb) << 2) | ((tr[i] >= c.p_bg) << 3));
+    }
+    __syncwarp();
+    // The chunk into registers, then folded into one map.  Keep the reads
+    // out of the fold's loop: read inside it, the kernel took 3.42 us a
+    // call on the H100 against 2.04 (R 1 x N 164, PERF.md section 6).
+    unsigned bits[kBurstPerLane];
+#pragma unroll
+    for (int i = 0; i < kBurstPerLane; ++i) bits[i] = i < n ? f[lo + i] : 0u;
+    unsigned m = kIdentity;
+#pragma unroll
+    for (int i = 0; i < kBurstPerLane; ++i)
+      if (i < n) m = then(m, (bits[i] >> 2) & 3u);
+    // Inclusive scan: lane l ends with lanes 0..l's maps in order.
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned prev = __shfl_up_sync(kFullMask, m, o);
+      if (lane >= o) m = then(prev, m);
+    }
+    const unsigned up = __shfl_up_sync(kFullMask, m, 1);
+    const unsigned last = __shfl_sync(kFullMask, m, 31);
+    unsigned s = ((lane == 0 ? kIdentity : up) >> bad) & 1u;
+#pragma unroll
+    for (int i = 0; i < kBurstPerLane; ++i) {
+      if (i < n) {
+        const unsigned keep = s ? (bits[i] >> 1) & 1u : bits[i] & 1u;
+        s = s ? (bits[i] >> 3) & 1u : (bits[i] >> 2) & 1u;
+        f[lo + i] = static_cast<uint8_t>(keep);
       }
     }
-    __syncthreads();
-    if (tid < rows) {
-      uint8_t* f = flags + tid * kChunkPitch;
-      for (int t = 0; t < cols; ++t) {
-        const unsigned bits = f[t];
-        const unsigned keep = bad ? (bits >> 1) & 1u : bits & 1u;
-        bad = bad ? (bits >> 3) & 1u : (bits >> 2) & 1u;
-        f[t] = static_cast<uint8_t>(bits | (keep << 4));
-      }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kBurstPerLane; ++i) {
+      const int t = lane + 32 * i;
+      if (t < cols) dst[t0 + t] = f[t] ? 1.0f : 0.0f;
     }
-    __syncthreads();
-    for (int k = tid; k < rows * kChunk; k += kBurstThreads) {
-      const int r = k / kChunk;
-      const int t = k % kChunk;
-      if (t < cols) {
-        out[static_cast<int64_t>(row0 + r) * N + t0 + t] = (flags[r * kChunkPitch + t] >> 4) & 1 ? 1.0f : 0.0f;
-      }
-    }
-    __syncthreads();
+    __syncwarp();  // the next tile's staging overwrites f
+    bad = (last >> bad) & 1u;
   }
 }
 
@@ -163,8 +211,9 @@ extern "C" int burst_mask_launch(const void* u_init, const void* u_loss, const v
                                  float loss_bad, void* stream) {
   if (R <= 0 || N <= 0) return kUnsupported;
   const BurstConsts c{pi_b, p_gb, p_bg, loss_good, loss_bad};
-  const int blocks = (R + kRows - 1) / kRows;
-  burst_mask_kernel<<<blocks, kBurstThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (R + kBurstWarps - 1) / kBurstWarps;
+  const int threads = 32 * (R < kBurstWarps ? R : kBurstWarps);
+  burst_mask_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(u_init), static_cast<const float*>(u_loss),
       static_cast<const float*>(u_tr), static_cast<float*>(out), R, N, c);
   return static_cast<int>(cudaGetLastError());

@@ -1,9 +1,10 @@
 """ctypes binding and launch wrappers of ``csrc/lossy_link.cu``.
 
 The library is built with ``nvcc`` at first use (``kernels/nvcc.py``).
-``lossy_link_egress`` and ``burst_mask`` check device, dtype, shape and
-contiguity, allocate the output with ``torch.empty``, launch on PyTorch's
-current stream and raise if the launch reports an error.
+``lossy_link_egress`` and ``burst_mask`` refuse inputs that require grad
+(``runtime.forbid_grad``), check device, dtype, shape and contiguity,
+allocate the output with ``torch.empty``, launch on PyTorch's current
+stream and raise if the launch reports an error.
 ``egress_launch_count`` and ``burst_launch_count`` count each wrapper's
 launches and nothing else, so a run can show that it went through the
 kernel.
@@ -16,7 +17,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, runtime
 from repro_torch.kernels.lossy_link.torch_ref import egress_constants, f32
 
 LIB_NAME = "lossy_link"
@@ -68,6 +69,7 @@ def lossy_link_egress(
     """Fused quantize -> keep if ``u >= p`` -> dequantize -> ``1/(1-p)`` on
     the card; returns (T, D) in x's dtype."""
     global egress_launch_count
+    runtime.forbid_grad("lossy_link_egress", x, u, s_min, s_max)
     _check(x.dim() == 2, f"x must be (T, D), got {tuple(x.shape)}")
     t, d = x.shape
     _check_common((x, u, s_min, s_max), x)
@@ -102,6 +104,7 @@ def burst_mask(
     chain per row; the thresholds are rounded to f32 on the host (``pi_b``
     worked out in double first), as the reference's scan rounds them."""
     global burst_launch_count
+    runtime.forbid_grad("burst_mask", u_init, u_loss, u_tr)
     _check(u_loss.dim() == 2, f"u_loss must be (R, N), got {tuple(u_loss.shape)}")
     r, n = u_loss.shape
     _check_common((u_init, u_loss, u_tr), u_loss)

@@ -14,6 +14,10 @@ the last bit, and the kernel divides.
 reference's defers to its own.  Both are the CPU path of ``dispatch`` and
 the plain versions the CUDA kernels are held against, bit for bit, on the
 card.
+
+``burst_mask_scan_ref`` is the plain version of the CUDA burst mask's own
+arithmetic (a warp scan of per-packet state maps, ``csrc/lossy_link.cu``):
+the tests hold it to ``burst_mask_ref`` bit for bit; nothing else calls it.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.net.channels import gilbert_elliott_scan
 
@@ -59,3 +64,56 @@ def burst_mask_ref(u_init: torch.Tensor, u_loss: torch.Tensor, u_tr: torch.Tenso
     """(R, N) f32 0/1 Gilbert–Elliott packet keep masks from ``u_init`` (R,)
     and ``u_loss``, ``u_tr`` (R, N): one independent chain per row."""
     return gilbert_elliott_scan(u_init.float(), u_loss.float(), u_tr.float(), p_gb, p_bg, loss_good, loss_bad)
+
+
+BURST_TILE = 256     # packets a warp stages per pass (lossy_link.cu kBurstTile)
+WARP = 32            # lanes a warp: one contiguous chunk of a tile each
+IDENTITY = 0b10      # the map G -> G, B -> B
+
+
+def _then(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Map ``f`` followed by map ``g``; a map {G,B} -> {G,B} is 2 bits, bit 0
+    the image of G and bit 1 the image of B (1 = bad)."""
+    return ((g >> (f & 1)) & 1) | (((g >> ((f >> 1) & 1)) & 1) << 1)
+
+
+def burst_mask_scan_ref(u_init: torch.Tensor, u_loss: torch.Tensor, u_tr: torch.Tensor, *,
+                        p_gb: float, p_bg: float, loss_good: float, loss_bad: float) -> torch.Tensor:
+    """:func:`burst_mask_ref` computed as the CUDA kernel computes it.  Per
+    tile of ``BURST_TILE`` packets: each of 32 lanes folds its contiguous
+    chunk of ``ceil(cols / 32)`` per-packet maps (``bad' = bad ? u_tr >=
+    p_bg : u_tr < p_gb``) into one map; an inclusive scan of the lanes' maps
+    in 5 ``shfl_up`` steps, applied to the state entering the tile, gives
+    the state entering each chunk and, from lane 31, the next tile; each
+    lane walks its chunk again from there, keeping a packet if ``u_loss >=
+    loss_{good,bad}``."""
+    r, n = u_loss.shape
+    pi_b = p_gb / max(p_gb + p_bg, 1e-12)
+    keep_good = (u_loss >= f32(loss_good)).long()
+    keep_bad = (u_loss >= f32(loss_bad)).long()
+    maps = (u_tr < f32(p_gb)).long() | ((u_tr >= f32(p_bg)).long() << 1)
+    bad = (u_init < f32(pi_b)).long()                                     # (R,)
+    lane = torch.arange(WARP, device=u_loss.device)
+    out = torch.empty((r, n), dtype=torch.float32, device=u_loss.device)
+    for t0 in range(0, n, BURST_TILE):
+        cols = min(BURST_TILE, n - t0)
+        chunk = -(-cols // WARP)
+        lanes = lambda a, fill: F.pad(a[:, t0:t0 + cols], (0, WARP * chunk - cols), value=fill).reshape(
+            r, WARP, chunk)
+        tile_maps, kg, kb = lanes(maps, IDENTITY), lanes(keep_good, 0), lanes(keep_bad, 0)
+        m = torch.full((r, WARP), IDENTITY, dtype=torch.long, device=u_loss.device)
+        for i in range(chunk):
+            m = _then(m, tile_maps[:, :, i])
+        for o in (1, 2, 4, 8, 16):
+            prev = torch.cat([m[:, :o], m[:, :-o]], dim=1)                # shfl_up: lane l reads l - o
+            m = torch.where(lane >= o, _then(prev, m), m)
+        before = torch.cat([torch.full((r, 1), IDENTITY, dtype=torch.long, device=m.device), m[:, :-1]], dim=1)
+        s = (before >> bad[:, None]) & 1                                  # (R, 32) state entering each chunk
+        keep = torch.empty((r, WARP, chunk), dtype=torch.long, device=m.device)
+        for i in range(chunk):
+            step = tile_maps[:, :, i]
+            keep[:, :, i] = torch.where(s == 1, kb[:, :, i], kg[:, :, i])
+            s = torch.where(s == 1, (step >> 1) & 1, step & 1)
+        out[:, t0:t0 + cols] = keep.reshape(r, WARP * chunk)[:, :cols].float()
+        bad = (m[:, -1] >> bad) & 1
+    return out

@@ -9,6 +9,12 @@ One rule, decided by the tensor a wrapper is handed:
 
 There is no switch that sends a CUDA tensor to the plain version: on the
 card a kernel runs or the call fails.
+
+No kernel has a backward yet, and a wrapper's output, filled through
+``ctypes``, carries no ``grad_fn``.  So each wrapper first calls
+``forbid_grad``: with grad enabled, an input that requires grad raises
+instead of losing its gradient without a word.  The plain versions stay
+differentiable.
 """
 
 from __future__ import annotations
@@ -32,6 +38,18 @@ def use_kernel(t: torch.Tensor) -> bool:
             f"capability {tuple(cap)}"
         )
     raise RuntimeError(f"no kernel for tensors on {t.device}")
+
+
+def forbid_grad(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when grad is enabled and any of ``tensors``
+    (``None`` entries skipped) requires grad: kernel ``name`` has no
+    backward, so its output would drop the gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but this kernel's gradient is not ported "
+            f"(ROADMAP A9); call it under torch.no_grad() or torch.inference_mode(), "
+            f"or use its plain version"
+        )
 
 
 def resolve_device(device="cuda") -> torch.device:

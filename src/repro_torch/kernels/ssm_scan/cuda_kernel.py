@@ -1,9 +1,10 @@
 """ctypes binding and launch wrapper of ``csrc/ssm_scan.cu``.
 
 The library is built with ``nvcc`` at first use (``kernels/nvcc.py``).
-``ssm_scan`` checks device, dtype, shape and contiguity, allocates the
-output with ``torch.empty``, launches on PyTorch's current stream and
-raises if the launch reports an error.  ``launch_count`` counts its
+``ssm_scan`` refuses inputs that require grad (``runtime.forbid_grad``),
+checks device, dtype, shape and contiguity, allocates the output with
+``torch.empty``, launches on PyTorch's current stream and raises if the
+launch reports an error.  ``launch_count`` counts its
 launches and nothing else, so a run can show that it went through the
 kernel.
 """
@@ -15,7 +16,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, runtime
 
 LIB_NAME = "ssm_scan"
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu",)
@@ -48,6 +49,7 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor
     """a, b: (B, T, D) bf16/f32; h0: (B, D) bf16/f32 -> all prefix states
     (B, T, D) f32, on the card."""
     global launch_count
+    runtime.forbid_grad("ssm_scan", a, b, h0)
     _check(a.dim() == 3 and h0.dim() == 2, f"a {tuple(a.shape)} / h0 {tuple(h0.shape)}: want (B, T, D) / (B, D)")
     bsz, t, d = a.shape
     _check(tuple(b.shape) == (bsz, t, d) and tuple(h0.shape) == (bsz, d),

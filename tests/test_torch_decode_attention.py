@@ -127,7 +127,9 @@ def test_split_ref_matches_reference(jref, nsplit, quantized, softcap):
     (16, 4096, 16),       # B 1 x KV 16 at 4096 rows
     (64, 63, 1),          # fewer rows than one split's minimum
     (4, 100, 1),          # 100 rows: one split of at least 64
-    (4, 200, 2),          # 200 rows: two 128-row splits, the last ragged
+    (4, 200, 1),          # under SPLIT_FROM_ROWS: one split, no merge
+    (4, 300, 3),          # 300 rows: three 128-row splits, the last ragged
+    (128, 160, 1),        # the engine's 8 slots x 16 KV heads, 160 rows
     (1024, 4096, 1),      # the grid already fills a wave
 ])
 def test_split_plan(blocks, rows, want):

@@ -11,7 +11,9 @@ Bars:
     (``tests/test_kernels.py``), values compared in f32; in bf16 an f32
     difference that small can round to the neighbouring bf16 value, so bf16
     outputs also take one bf16 ulp (``rtol=2**-7``);
-  * burst masks (0/1 from comparisons only) are exact;
+  * burst masks (0/1 from comparisons only) are exact, and so is the plain
+    version of the CUDA kernel's warp scan of state maps
+    (``burst_mask_scan_ref``);
   * the Gilbert–Elliott link with the burst-mask kernel equals the link
     without it bit for bit (the same keys, the same comparisons);
   * at reduced size, the prefill-plus-decode loop through
@@ -35,11 +37,13 @@ from repro_torch.core.compression import QuantSpec as TQuantSpec  # noqa: E402
 from repro_torch.kernels.lossy_link import (  # noqa: E402
     burst_mask,
     burst_mask_ref,
+    burst_mask_scan_ref,
     cuda_kernel,
     dispatch,
     lossy_link_egress,
     lossy_link_egress_ref,
 )
+from repro_torch.net.channels import make_channel  # noqa: E402
 
 KERNEL_TOL = {"float32": dict(rtol=0, atol=1e-5), "bfloat16": dict(rtol=2.0 ** -7, atol=1e-5)}
 GE = dict(p_gb=0.1, p_bg=0.3, loss_good=0.02, loss_bad=0.8)
@@ -129,6 +133,28 @@ def test_burst_mask_ref_matches_reference(J, shape):
     jargs = tuple(J.jnp.asarray(a) for a in (ui, ul, ut))
     _bits_equal(J.ref.burst_mask_ref(*jargs, **GE), got)
     _bits_equal(J.kernel.burst_mask_kernel(*jargs, **GE, interpret=True), got)
+
+
+# The main path's channel: GE at loss 0.1 as ``make_channel`` builds it
+# (mean burst 4 packets, a lossless good state, a lossy bad state).
+MAIN_GE = dataclasses.asdict(make_channel("ge", loss_rate=0.1))
+
+
+@pytest.mark.parametrize("r", [1, 5, 32])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 164, 1000, 4097])
+@pytest.mark.parametrize("channel", ["main", "leaky"])
+def test_burst_mask_scan_ref_matches_reference(J, r, n, channel):
+    """The CUDA kernel's arithmetic (per-lane chunk maps, their scan over 32
+    lanes, the re-walk, the carry across 256-packet tiles) gives the
+    sequential chain's masks bit for bit: against the port's
+    ``burst_mask_ref`` and the reference's.  N 31 / 32 / 33 leave lanes
+    without packets; 1000 and 4097 carry across tiles."""
+    kw = MAIN_GE if channel == "main" else GE
+    rng = np.random.default_rng(r * 10007 + n)
+    ui, ul, ut = (rng.random(s, dtype=np.float32) for s in ((r,), (r, n), (r, n)))
+    got = burst_mask_scan_ref(torch.tensor(ui), torch.tensor(ul), torch.tensor(ut), **kw)
+    assert torch.equal(got, burst_mask_ref(torch.tensor(ui), torch.tensor(ul), torch.tensor(ut), **kw))
+    _bits_equal(J.ref.burst_mask_ref(*(J.jnp.asarray(a) for a in (ui, ul, ut)), **kw), got)
 
 
 @pytest.mark.parametrize("shape", [(4, 1, 64), (3, 200), (1, 1, 1024)])
@@ -413,12 +439,14 @@ def test_cuda_egress_matches_plain(dtype):
 @pytest.mark.usefixtures("hopper")
 def test_cuda_burst_mask_matches_plain():
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for r, n in ((1, 164), (32, 164), (17, 256), (5, 130), (1, 1), (40, 600)):
+    for r, n in ((1, 164), (32, 164), (17, 256), (5, 130), (1, 1), (40, 600), (3, 31), (1, 33), (2, 4097)):
         ui, ul, ut = (torch.rand(s, generator=gen, device="cuda") for s in ((r,), (r, n), (r, n)))
-        got = cuda_kernel.burst_mask(ui, ul, ut, **GE)
-        want = burst_mask_ref(ui, ul, ut, **GE)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), (r, n)
+        for kw in (GE, MAIN_GE):
+            got = cuda_kernel.burst_mask(ui, ul, ut, **kw)
+            want = burst_mask_ref(ui, ul, ut, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (r, n, kw)
+            assert torch.equal(got, burst_mask_scan_ref(ui, ul, ut, **kw)), (r, n, kw)
 
 
 @pytest.mark.usefixtures("hopper")
