@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one H100: builds the kernels,
-holds each of the six against its plain PyTorch version on the card, serves
+holds each (the six kernels, flash attention's three bodies among them)
+against its plain PyTorch version on the card, serves
 the full-width qwen1.5-0.5b split LM through ``generate_reference``, through
 the continuous-batching engine (contiguous and paged pools), through
 ``lm.forward`` with the link kernels (``LinkSpec(use_kernel=True)``) and
@@ -9,11 +10,12 @@ the SSM scan through its entry point, and times the kernels and the paths.
 
     python3 chip_smoke.py            # everything (needs one sm_90 card)
     python3 chip_smoke.py --quick    # build + kernel checks only
+    python3 chip_smoke.py --link-round   # one link round, timed and traced
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one nvcc each, started together), and
-     print the split-decode, merge, burst-mask and wgmma kernels' registers
-     and spills;
+     print the split-decode, merge, egress, burst-mask, wgmma and tf32x3
+     kernels' registers and spills;
   2. flash decode vs ``flash_decode_ref`` at the main path's head shapes
      (B 4, KV 16, G 1, hd 64, C 64 and 1024), gemma3's (KV 8, G 2, hd 256)
      and B 1 at C 4096, bf16 / int8 / f32 caches, softcap 0 and 30; caches
@@ -28,9 +30,11 @@ Phases (any failure raises and the script exits non-zero):
      n_valid at 0, 1, the block edges, the split edges and full, each case
      equal bit for bit to the contiguous kernel on the gathered rows; then
      the link kernels, bit for
-     bit (``torch.equal``): the fused egress vs ``lossy_link_egress_ref``
-     at T 4 / 1 / 8 x D 1024 and (257, 513), bf16 and f32, bits 8 / 1 / 16,
-     p 0.1 / 0 / 0.8, the model's calibrated range and +-3 ranges; the
+     bit (``torch.equal``): the fused egress, which draws its own uniforms
+     from the key, vs ``lossy_link_egress_keyed_ref`` at T 4 / 1 / 8 x D
+     1024 and (257, 513), bf16 and f32, bits 8 / 1 / 16, p 0.1 / 0 / 0.8,
+     the model's calibrated range and +-3 ranges, each draw on the card
+     equal to the CPU's; the
      Gilbert–Elliott burst mask (a warp scan of state maps) vs
      ``burst_mask_ref`` and ``burst_mask_scan_ref`` at R x N = 1 x 164 (a
      decode round), 32 x 164, 17 x 256, 5 x 130, 1 x 1, N 31 / 32 / 33, 5 x
@@ -40,7 +44,8 @@ Phases (any failure raises and the script exits non-zero):
      a causal ragged hd 128, GQA G 1 and 2, softcap 0 and 30, f32 (atol
      2e-5) and bf16 (2e-2, and one bf16 ulp of the f32 plain value), each
      case on the body ``body_for`` names (bf16 at hd 64 / 128 / 256 on the
-     tensor cores, the rest on the CUDA cores; per-body counters); the
+     wgmma body, f32 at hd a multiple of 8 on the 3xTF32 body, the rest on
+     the CUDA cores; per-body counters, every body given cases); the
      SSM scan vs ``ssm_scan_ref`` bit for bit at T 1 / 100 / 300 x D 1 /
      130 / 512;
   3. threefry link masks (iid, Gilbert–Elliott) drawn on the card equal
@@ -87,10 +92,13 @@ Phases (any failure raises and the script exits non-zero):
      (counts zeroed just before each); one slot-wise decode link of 8 rows
      equals 8 batch-1 rounds (8 launches); one link round and decode rounds
      with and without the kernels, timed in turns (plain, kernel, kernel,
-     plain);
+     plain); one i.i.d. link round with and without the kernels, timed in
+     turns and traced, in a process of its own (``--link-round``): its
+     device kernels a round;
  10. both link kernels' times (graph replay and eager), their plain
-     versions' and their bytes bounds at the main path's shapes (the burst
-     mask at R 1 and R 32 x N 164, with its walk's dependent steps);
+     versions' (the egress's: ``prng.uniform`` then the plain egress) and
+     their bounds at the main path's shapes (the burst mask at R 1 and R 32
+     x N 164, with its walk's dependent steps);
  11. the long-prompt slice: full-width qwen1.5-0.5b, loss 0.1, iid, prompts
      past ``attn_block_q`` (512): ``generate_reference`` (batch 2, prompt
      1000, 16 tokens) with f32 tokens equal to the naive oracle's and 24
@@ -98,18 +106,23 @@ Phases (any failure raises and the script exits non-zero):
      max_prompt 1024) on prompts 1000 / 700 / 300 / 61, f32, tokens equal to
      the per-request ``generate_reference``, 24 launches per admission in
      bucket 1024 and none for the two short ones, TTFT and prefill seconds
-     per admission, all on the CUDA-core body; bf16 teacher-forced logits
-     within twice the bf16 noise, its prefill 24 launches on the
-     tensor-core body;
+     per admission, all on the 3xTF32 body; bf16 teacher-forced logits
+     within twice the bf16 noise, its prefill 24 launches on the wgmma
+     body;
  12. the SSM scan through its entry point at a jamba mamba layer's state
-     (1 x 512 x 131,072 f32), equal to the plain version; flash-attention
-     times at the slice's shape (B 2, H 16, hd 64, S 1000, causal, bf16)
-     and gemma3's local layer (KV 8, G 2, hd 256, S 2048, window 1024)
-     beside SDPA (both on the tensor-core body), the scan's time, plain
-     times and bounds.
+     (1 x 512 x 131,072 f32), equal to the plain version; the CUDA-core
+     body through the flash-attention entry point (bf16, hd 32: no model
+     has a head dim the tensor-core bodies refuse); flash-attention times
+     beside SDPA at the slice's shape (B 2, H 16, hd 64, S 1000, causal) in
+     bf16 (wgmma body) and f32 (3xTF32 body, with the CUDA-core body's
+     time by a direct launch and the bound at both the 3xTF32 and the
+     CUDA-core rate), at hd 32 (CUDA-core body) and at gemma3's local layer
+     (KV 8, G 2, hd 256, S 2048, window 1024), the scan's time, plain times
+     and bounds.
 Phases 9-12 run after phase 3, ahead of the profiled phases 5 and 7.
 
-The line before the last is the kernels' JSON record; the last line is
+The card's name and power limit are printed first and again before the
+kernels' JSON record, which is the line before the last; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -126,7 +139,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# Dense peaks (NVIDIA data sheet, SXM, 700 W).  "tf32x3" is f32-accurate
+# tensor-core arithmetic: three TF32 products (hi*hi + hi*lo + lo*hi) for
+# every f32 one, so a third of the 494.7 TFLOP/s TF32 rate.
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12, "tf32x3": 494.7e12 / 3}
 TOKENS, PROMPT, BATCH, LOSS = 32, 32, 4, 0.1
 
 
@@ -907,33 +923,41 @@ def _ranges(gen, d, kind):
 
 
 def check_lossy_link_egress() -> float:
-    """Egress kernel vs ``lossy_link_egress_ref`` on the card, bit for bit
-    (``torch.equal``): the main shape (T 4, D 1024, bf16, 8 bits, p 0.1),
-    T 1 and 8, f32 input, (257, 513), p 0 and 0.8, bits 1 and 16, under the
-    model's calibrated range and +-3 ranges."""
+    """Keyed egress kernel (it draws its own uniforms) vs
+    ``lossy_link_egress_keyed_ref`` (``prng.uniform`` then the plain
+    egress) on the card, bit for bit (``torch.equal``): the main shape (T
+    4, D 1024, bf16, 8 bits, p 0.1), T 1 and 8, f32 input, (257, 513), p 0
+    and 0.8, bits 1 and 16, under the model's calibrated range and +-3
+    ranges, a fresh key a case; each case's draw on the card also equals
+    the same draw on the CPU."""
     import torch
 
-    from repro_torch.kernels.lossy_link import cuda_kernel, lossy_link_egress_ref
+    from repro_torch import prng
+    from repro_torch.kernels.lossy_link import cuda_kernel, lossy_link_egress_keyed_ref
 
     gen = torch.Generator(device="cuda").manual_seed(4)
+    root = prng.PRNGKey(4, "cuda")
     n_cases = 0
     for t, d in ((4, 1024), (1, 1024), (8, 1024), (257, 513)):
         for kind in (("model", "pm3") if d == 1024 else ("pm3",)):
             s_min, s_max = _ranges(gen, d, kind)
             for dt in (torch.bfloat16, torch.float32):
                 x = (torch.randn((t, d), generator=gen, device="cuda") * 3).to(dt)
-                u = torch.rand((t, d), generator=gen, device="cuda")
                 for bits in (8, 1, 16):
                     for p in (LOSS, 0.0, 0.8):
-                        got = cuda_kernel.lossy_link_egress(x, u, s_min, s_max, bits=bits, loss_rate=p)
-                        want = lossy_link_egress_ref(x, u, s_min, s_max, bits=bits, loss_rate=p)
+                        key = prng.fold_in(root, n_cases)
+                        assert torch.equal(prng.uniform(key, (t, d)).cpu(), prng.uniform(key.cpu(), (t, d))), \
+                            f"egress {(t, d)}: the draw on the card differs from the CPU's"
+                        got = cuda_kernel.lossy_link_egress(key, x, s_min, s_max, bits=bits, loss_rate=p)
+                        want = lossy_link_egress_keyed_ref(key, x, s_min, s_max, bits=bits, loss_rate=p)
                         torch.cuda.synchronize()
                         if not torch.equal(got, want):
                             err = float((got.float() - want.float()).abs().max())
                             raise AssertionError(f"egress {(t, d, str(dt), kind, bits, p)}: kernel differs from "
                                                  f"the plain version (max |err| {err:.3e})")
                         n_cases += 1
-    log(f"[kernel] lossy_link_egress vs lossy_link_egress_ref: {n_cases} cases bit for bit")
+    log(f"[kernel] lossy_link_egress (keyed) vs lossy_link_egress_keyed_ref: {n_cases} cases bit for bit, each "
+        f"draw on the card equal to the CPU's")
     return 0.0
 
 
@@ -1006,17 +1030,17 @@ def spec_loop(model, cfg, prompts, key, spec, decode_link=None):
 
 def plain_egress_link(model, cfg):
     """The decode round's link with the plain egress on the kernel's draws:
-    ``uniform(sub, (T, D))`` into ``lossy_link_egress_ref``."""
-    from repro_torch import prng
-    from repro_torch.kernels.lossy_link import lossy_link_egress_ref
+    ``lossy_link_egress_keyed_ref`` (``uniform(sub, (T, D))`` into the plain
+    egress)."""
+    from repro_torch.kernels.lossy_link import lossy_link_egress_keyed_ref
 
     q = model.link.compressor(cfg).quant
 
     def build(sub):
         def fn(x):
             flat = x.reshape(-1, x.shape[-1])
-            u = prng.uniform(sub, tuple(flat.shape))
-            return lossy_link_egress_ref(flat, u, q.s_min, q.s_max, bits=q.bits, loss_rate=LOSS).reshape(x.shape)
+            return lossy_link_egress_keyed_ref(sub, flat, q.s_min, q.s_max, bits=q.bits,
+                                               loss_rate=LOSS).reshape(x.shape)
         return fn
 
     return build
@@ -1030,7 +1054,7 @@ def _zero_counts():
 
     fd.launch_count = fd.paged_launch_count = ll.egress_launch_count = ll.burst_launch_count = 0
     fa.launch_count = ss.launch_count = 0
-    fa.body_launch_count.update(wgmma=0, simt=0)
+    fa.body_launch_count.update(wgmma=0, tf32x3=0, simt=0)
 
 
 def _counts() -> dict:
@@ -1157,11 +1181,79 @@ def run_link_kernels(report) -> dict:
     return main_launches
 
 
+def link_round() -> dict:
+    """Phase 9's traced part, run in a process of its own (``--link-round``,
+    started by the main run after its phase 9) so that no earlier trace in
+    the process bends the count: one i.i.d. link round at the main path's
+    shape (a (4, 1, 1024) bf16 activation, 8 bits, loss 0.1, the model's
+    calibrated range), with the link kernels and without: its time in turns
+    (plain, kernel, kernel, plain; CUDA events over eager calls) and its
+    device kernels under the profiler.  The trace does not always show a
+    kernel launched through the port's own libraries, so the egress
+    launches are counted by the wrapper and added for those it missed."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.core import comtune
+    from repro_torch.core.compression import Compressor, QuantSpec
+    from repro_torch.kernels.lossy_link import cuda_kernel as ll
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    s_min, s_max = _ranges(gen, 1024, "model")
+    x = (torch.randn((BATCH, 1, 1024), generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    key = prng.PRNGKey(12, "cuda")
+    quant = Compressor(kind="quant", quant=QuantSpec(8, s_min, s_max))
+    specs = {k: comtune.LinkSpec(loss_rate=LOSS, channel="iid", use_kernel=k, compressor=quant) for k in (False, True)}
+    call = lambda k: comtune.emulate_link(key, x, specs[k], "serve")
+    out = {}
+    with torch.inference_mode():
+        samples = {}
+        for kernel in (False, True, True, False):
+            samples.setdefault(kernel, []).append(time_events(lambda: call(kernel), iters=20, warmup=3))
+        for kernel in (False, True):
+            name = "kernel" if kernel else "plain"
+            call(kernel)
+            torch.cuda.synchronize()
+            before = ll.egress_launch_count
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call(kernel)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+            traced_egress = sum("egress_kernel" in n for n in names)
+            launched = ll.egress_launch_count - before
+            out[name] = dict(ms=float(np.median(samples[kernel])), ms_samples=samples[kernel],
+                             traced_kernels=len(names), egress_launches=launched,
+                             device_kernels=len(names) - traced_egress + launched)
+    return out
+
+
+def run_link_round(report) -> None:
+    """``link_round`` in a process of its own; logs and records its result."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--link-round"], capture_output=True,
+                          text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("LINK_ROUND ")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"--link-round failed (exit {proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                           f"{proc.stderr[-4000:]}")
+    out = json.loads(lines[-1].split(" ", 1)[1])
+    report["link_kernels"]["iid_round"] = out
+    log(f"[link-kernels] one i.i.d. link round (a process of its own): plain {out['plain']['ms'] * 1e3:.1f} us, "
+        f"{out['plain']['device_kernels']} device kernels; with the link kernels {out['kernel']['ms'] * 1e3:.1f} us, "
+        f"{out['kernel']['device_kernels']} device kernels ({out['kernel']['traced_kernels']} traced, "
+        f"{out['kernel']['egress_launches']} egress launch)")
+
+
 # ---------------------------------------------------------------------------
 # Phase 10: link-kernel timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
 EGRESS_OPS_PER_ELEMENT = 14      # clip 2, range 2, code 4, dequantize 3, keep, compensate, select
+# The keyed egress's draw: 2 key adds, 20 rounds of add / rotate / xor, 5
+# injections of 2 adds, the words' xor, and the uniform's shift, or and
+# subtract (32-bit integer and f32 operations, counted at the f32 rate).
+THREEFRY_OPS_PER_ELEMENT = 76
 BURST_OPS_PER_PACKET = 6         # 4 threshold comparisons, 2 selects
 
 
@@ -1179,30 +1271,34 @@ def burst_chain_depth(n: int, tile: int = 256, lanes: int = 32) -> int:
 
 def time_lossy_link() -> dict:
     """Kernel (CUDA-graph replay and eager), plain (CUDA events, eager) and
-    bound times of both link kernels at the main path's shapes: the egress
-    on a decode round's (4, 1024) bf16 activation, 8 bits, p 0.1, under the
-    model's calibrated range; the burst mask on one row of 164 packets
+    bound times of both link kernels at the main path's shapes: the keyed
+    egress on a decode round's (4, 1024) bf16 activation, 8 bits, p 0.1,
+    under the model's calibrated range (its plain version draws with
+    ``prng.uniform`` first; its bytes are x, out, the ranges and the key,
+    its operations the draw's and the egress's); the burst mask on one row
+    of 164 packets
     (every GE round) and on 32 rows of 164 under the main path's GE
     channel, with the walk's dependent steps beside the bytes bound.  No
     single PyTorch call computes either function, so there is no library
     time."""
     import torch
 
-    from repro_torch.kernels.lossy_link import burst_mask_ref, cuda_kernel, lossy_link_egress_ref
+    from repro_torch import prng
+    from repro_torch.kernels.lossy_link import burst_mask_ref, cuda_kernel, lossy_link_egress_keyed_ref
     from repro_torch.net import channels
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     t, d = BATCH, 1024
     x = (torch.randn((t, d), generator=gen, device="cuda") * 3).to(torch.bfloat16)
-    u = torch.rand((t, d), generator=gen, device="cuda")
+    key = prng.PRNGKey(6, "cuda")
     s_min, s_max = _ranges(gen, d, "model")
     kw = dict(bits=8, loss_rate=LOSS)
-    call = lambda: cuda_kernel.lossy_link_egress(x, u, s_min, s_max, **kw)
-    nbytes = t * d * (2 + 4 + 2) + 2 * d * 4
-    ops = EGRESS_OPS_PER_ELEMENT * t * d
+    call = lambda: cuda_kernel.lossy_link_egress(key, x, s_min, s_max, **kw)
+    nbytes = t * d * (2 + 2) + 2 * d * 4 + 2 * 8
+    ops = (EGRESS_OPS_PER_ELEMENT + THREEFRY_OPS_PER_ELEMENT) * t * d
     bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["float32"])
     egress = dict(shape=dict(T=t, D=d, x="bfloat16", bits=8, p=LOSS), ms=time_graph(call), ms_eager=time_events(call),
-                  plain_ms=time_events(lambda: lossy_link_egress_ref(x, u, s_min, s_max, **kw), iters=50),
+                  plain_ms=time_events(lambda: lossy_link_egress_keyed_ref(key, x, s_min, s_max, **kw), iters=50),
                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes, ops=ops)
     ge = channels.make_channel("ge", loss_rate=LOSS)
     gkw = dict(p_gb=ge.p_gb, p_bg=ge.p_bg, loss_good=ge.loss_good, loss_bad=ge.loss_bad)
@@ -1250,7 +1346,7 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:89 and
 BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5               # one bf16 ulp of the f32 value, f32 noise
 
 
-def check_flash_attention() -> float:
+def check_flash_attention() -> dict:
     """Flash-attention kernel vs ``flash_attention_ref`` on the card over the
     reference test's grid (decode-shaped Sq 1 at q_offset 383, a window,
     non-causal, ragged 200), the slice's 1000-token prompt and hd 256, GQA
@@ -1262,8 +1358,10 @@ def check_flash_attention() -> float:
     it may sit at most one bf16 ulp (<= 2**-7 relative) from that value,
     plus ``BF16_ABS`` for f32 noise where an output cancels to near 0.
     Each case must run on the body ``body_for`` names (bf16 at hd 64 / 128 /
-    256 on the tensor cores, the rest on the CUDA cores): its per-body
-    launch counter moves by one, the other's not at all."""
+    256 on the wgmma body, f32 at every hd here, multiples of 8, on the
+    3xTF32 body, bf16 at hd 32 on the CUDA cores): its per-body launch
+    counter moves by one, the others' not at all, and every body gets
+    cases.  Returns each body's worst absolute error."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel, gqa_flash_attention_ref
@@ -1272,7 +1370,8 @@ def check_flash_attention() -> float:
     worst = {"float32": 0.0, "bfloat16": 0.0}
     worst_rel = 0.0      # bf16 error over BF16_REL * |f32 value| + BF16_ABS; must stay <= 1
     n_cases = 0
-    per_body = {"wgmma": 0, "simt": 0}
+    per_body = {"wgmma": 0, "tf32x3": 0, "simt": 0}
+    body_err = {"wgmma": 0.0, "tf32x3": 0.0, "simt": 0.0}
     for sq, skv, hd, causal, window, q_offset in FLASH_GRID:
         for g in (1, 2):
             for dname, tol in FLASH_TOL.items():
@@ -1292,7 +1391,9 @@ def check_flash_attention() -> float:
                     assert got.dtype == dt and got.shape == q.shape
                     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol,
                                                msg=lambda m: f"{(sq, skv, hd, causal, window, q_offset, g, dname, softcap)}: {m}")
-                    worst[dname] = max(worst[dname], float((got.float() - want.float()).abs().max()))
+                    err = float((got.float() - want.float()).abs().max())
+                    worst[dname] = max(worst[dname], err)
+                    body_err[body] = max(body_err[body], err)
                     if dt == torch.bfloat16:
                         want32 = gqa_flash_attention_ref(q.float(), k.float(), v.float(), **kw)
                         ratio = float(((got.float() - want32).abs() / (BF16_REL * want32.abs() + BF16_ABS)).max())
@@ -1300,12 +1401,12 @@ def check_flash_attention() -> float:
                                               f"off the f32 plain value by {ratio:.2f} of one bf16 ulp + {BF16_ABS}")
                         worst_rel = max(worst_rel, ratio)
                     n_cases += 1
-    assert per_body["wgmma"] > 0 and per_body["simt"] > 0
+    assert all(n > 0 for n in per_body.values()), f"a body got no case: {per_body}"
     log(f"[kernel] flash_attention vs flash_attention_ref: {n_cases} cases agree ({per_body['wgmma']} on the "
-        f"wgmma body, {per_body['simt']} on the CUDA-core body), max |err| f32 "
-        f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}; bf16 vs the f32 plain value at most "
-        f"{worst_rel:.3f} of (one bf16 ulp + {BF16_ABS})")
-    return max(worst.values())
+        f"wgmma body, {per_body['tf32x3']} on the 3xTF32 body, {per_body['simt']} on the CUDA-core body), max "
+        f"|err| f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}, by body {body_err}; bf16 vs the f32 "
+        f"plain value at most {worst_rel:.3f} of (one bf16 ulp + {BF16_ABS})")
+    return body_err
 
 
 def check_ssm_scan() -> float:
@@ -1356,8 +1457,8 @@ def run_long_prefill(report) -> dict:
     64, so two admissions take the kernel (24 launches each) and two the
     naive branch; served tokens equal the per-request ``generate_reference``.
     The f32 reference run and the engine run are this slice's main path
-    on the CUDA-core body, the bf16 teacher-forced run on the tensor-core
-    body: the counts are zeroed just before each and read just after.
+    on the 3xTF32 body, the bf16 teacher-forced run on the wgmma body: the
+    counts are zeroed just before each and read just after.
     Returns the f32 engine run's launches and the bf16 run's."""
     import numpy as np
     import torch
@@ -1384,7 +1485,8 @@ def run_long_prefill(report) -> dict:
     want = dict(flash_decode=n_layers * LONG_TOKENS, paged_flash_decode=0, lossy_link_egress=0, burst_mask=0,
                 flash_attention=n_layers, ssm_scan=0)
     assert launches == want, f"long generate_reference: launches {launches}, want {want}"
-    assert fa.body_launch_count == {"wgmma": 0, "simt": n_layers}, f"f32 prefill bodies {fa.body_launch_count}"
+    assert fa.body_launch_count == {"wgmma": 0, "tf32x3": n_layers, "simt": 0}, \
+        f"f32 prefill bodies {fa.body_launch_count}"
     assert toks.shape == (LONG_BATCH, LONG_TOKENS) and int(toks.min()) >= 0 and int(toks.max()) < base.vocab_size
     naive, ntimings = generate_reference(model32, cfg32.with_updates(attn_impl="naive"), prompts, LONG_TOKENS,
                                          loss_rate=LOSS, key=key, channel="iid")
@@ -1416,7 +1518,8 @@ def run_long_prefill(report) -> dict:
     want = dict(flash_decode=0, paged_flash_decode=n_layers * eng.steps, lossy_link_egress=0, burst_mask=0,
                 flash_attention=n_layers * n_long, ssm_scan=0)
     assert engine_launches == want, f"long engine: launches {engine_launches}, want {want}"
-    assert fa.body_launch_count == {"wgmma": 0, "simt": n_layers * n_long}, f"bodies {fa.body_launch_count}"
+    assert fa.body_launch_count == {"wgmma": 0, "tf32x3": n_layers * n_long, "simt": 0}, \
+        f"bodies {fa.body_launch_count}"
     etoks = np.stack([r.tokens for r in reqs])
     refs = np.stack([generate_reference(model32, cfg32, torch.from_numpy(p).cuda()[None], LONG_TOKENS, key=k)[0]
                      .cpu().numpy()[0] for p, k in zip(eprompts, ekeys)])
@@ -1441,9 +1544,10 @@ def run_long_prefill(report) -> dict:
     ref32.load_state_dict({k: v.float() for k, v in model16.state_dict().items()})
     _zero_counts()
     lk = forced_logits(model16, cfg16, prompts, forced, key)
-    # The one bf16 prefill of 1000 tokens: a launch a layer, all on the tensor-core body.
+    # The one bf16 prefill of 1000 tokens: a launch a layer, all on the wgmma body.
     bf16_launches = _counts()
-    assert fa.body_launch_count == {"wgmma": n_layers, "simt": 0}, f"bf16 prefill bodies {fa.body_launch_count}"
+    assert fa.body_launch_count == {"wgmma": n_layers, "tf32x3": 0, "simt": 0}, \
+        f"bf16 prefill bodies {fa.body_launch_count}"
     assert bf16_launches["flash_attention"] == n_layers, f"bf16 long run: launches {bf16_launches}"
     ln = forced_logits(model16, cfg16.with_updates(attn_impl="naive"), prompts, forced, key)
     lf = forced_logits(ref32, cfg32.with_updates(attn_impl="naive"), prompts, forced, key)
@@ -1499,6 +1603,39 @@ def run_ssm_scan_path() -> int:
     return launches
 
 
+# The CUDA-core body's run: a head dim neither tensor-core body takes.  No
+# model of the repository has one, so its launch is shown through the
+# flash-attention entry point at the long prefill's shape with hd 32, bf16.
+SIMT_HD = 32
+
+
+def run_simt_entry_point() -> int:
+    """The flash-attention entry point (``repro_torch.kernels.flash_attention
+    .flash_attention``) on bf16 operands at hd 32 (B 2, S 1000, H = KV = 16,
+    causal), the CUDA-core body's case: counts zeroed just before and read
+    just after; the output is finite, of the right shape, and within the
+    bf16 ``atol`` of the plain version."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda_kernel, flash_attention, gqa_flash_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn((LONG_BATCH, LONG_PROMPT, 16, SIMT_HD), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    _zero_counts()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    launches = _counts()["flash_attention"]
+    assert launches == 1 and cuda_kernel.body_launch_count == {"wgmma": 0, "tf32x3": 0, "simt": 1}, \
+        f"entry point at hd {SIMT_HD}: {launches} launches, bodies {cuda_kernel.body_launch_count}"
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), gqa_flash_attention_ref(q, k, v).float(), rtol=0,
+                               atol=FLASH_TOL["bfloat16"])
+    log(f"[simt] flash_attention entry point at (B {LONG_BATCH}, S {LONG_PROMPT}, H 16, hd {SIMT_HD}) bf16: "
+        f"{launches} launch on the CUDA-core body, within the bf16 atol of the plain version")
+    return launches
+
+
 def _visible_pairs(sq, skv, causal, window, q_offset=0) -> int:
     """(query, key) pairs the mask lets through: the work this input needs."""
     total = 0
@@ -1510,16 +1647,45 @@ def _visible_pairs(sq, skv, causal, window, q_offset=0) -> int:
     return total
 
 
+def _simt_body_call(q, k, v, window):
+    """A timing-only launch of the CUDA-core body (``flash_attention.cu``)
+    on any operands, past ``body_for`` and the wrapper's launch counts: it
+    times the body f32 took before the tf32x3 body, in the same call."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda_kernel
+
+    lib = cuda_kernel._library()
+    b, sq, h, hd = q.shape
+    out = torch.empty_like(q)
+
+    def call():
+        err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1],
+                                         h, k.shape[2], hd, cuda_kernel.DTYPES[q.dtype], 1, window, 0, 0.0,
+                                         torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA-core body launch failed (code {err})")
+        return out
+
+    return call
+
+
 def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
     """Kernel (graph replay and eager), plain and library times of causal
     prefill attention, and the bound: bytes (q, k, v read once, out written
     once) over 3.35 TB/s against 4 * hd flops per visible pair over the
-    card's peak for the operands' type.  For bf16 operands that is the bf16
-    tensor-core rate: a bf16 product accumulated in f32 is exact, as the
-    kernel's upcast f32 FMAs are, so the f32 CUDA-core rate the kernel runs
-    at is its choice, not the function's floor.  The library time is
-    SDPA on the (B, H, S, hd) layout: ``is_causal`` without a window, a
-    boolean window mask with one."""
+    card's peak for f32-accurate arithmetic on the operands' type.  For
+    bf16 operands that is the bf16 tensor-core rate: a bf16 product
+    accumulated in f32 is exact.  For f32 operands it is the 3xTF32 rate
+    (``PEAK_OPS["tf32x3"]``, a third of TF32's): one TF32 product keeps
+    only ~11 bits (errors ~1e-3 against the f32 bar of 2e-5), but the
+    split x = hi + lo with hi*hi + hi*lo + lo*hi, summed in f32, keeps f32
+    accuracy (errors ~7e-7 at this shape, as plain f32's), so the f32
+    CUDA-core rate (67 TFLOP/s, logged beside it) is not the function's
+    floor.  f32 also times the CUDA-core body by a direct launch (the body
+    f32 ran on before the tf32x3 body), in the same call.  The library
+    time is SDPA on the (B, H, S, hd) layout: ``is_causal`` without a
+    window, a boolean window mask with one."""
     import torch
     import torch.nn.functional as F
 
@@ -1536,6 +1702,7 @@ def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
     ms_eager = time_events(call, iters=20, warmup=3)
     cuda_kernel.launch_count = saved[0]
     cuda_kernel.body_launch_count.update(saved[1])
+    simt_ms = time_graph(_simt_body_call(q, k, v, window), iters=20) if dt == torch.float32 else None
     plain_ms = time_events(lambda: gqa_flash_attention_ref(q, k, v, **kw), iters=5, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     if window:
@@ -1548,14 +1715,19 @@ def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
     elem = 2 if dt == torch.bfloat16 else 4
     nbytes = (2 * b * s * h * hd + 2 * b * s * kvh * hd) * elem
     ops = 4 * hd * b * h * _visible_pairs(s, s, True, window)
-    bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS[dname])
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["tf32x3" if dt == torch.float32 else dname])
     rec = dict(shape=dict(B=b, S=s, H=h, KV=kvh, hd=hd, causal=True, window=window, dtype=dname), ms=ms,
                ms_eager=ms_eager, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
                bytes=nbytes, ops=ops, body=cuda_kernel.body_for(dt, hd))
+    extra = ""
+    if dt == torch.float32:
+        rec.update(simt_ms=simt_ms, bound_cuda_core_ms=_bound(nbytes, ops, PEAK_OPS["float32"])[0])
+        extra = (f", CUDA-core body {simt_ms * 1e3:.1f} us (graph); bound at the f32 CUDA-core rate "
+                 f"{rec['bound_cuda_core_ms'] * 1e3:.2f} us")
     log(f"[time] flash_attention {rec['shape']} ({rec['body']} body): kernel {ms * 1e3:.1f} us (graph) / "
         f"{ms_eager * 1e3:.1f} us (eager), "
         f"plain {plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.1f} us (graph), bound {bound_ms * 1e3:.2f} us "
-        f"({bound_by}, {ops / 1e9:.3f} GFLOP, {nbytes} B)")
+        f"({bound_by}, {ops / 1e9:.3f} GFLOP, {nbytes} B){extra}")
     return rec
 
 
@@ -1589,6 +1761,8 @@ def time_ssm_scan() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
+    ap.add_argument("--link-round", action="store_true",
+                    help="time and trace one i.i.d. link round only (phase 9's traced part)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1601,6 +1775,14 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import nvcc
+
+    if args.link_round:
+        from repro_torch.kernels.lossy_link import cuda_kernel as link_kernel
+
+        nvcc.build_libraries([(link_kernel.LIB_NAME, link_kernel.SOURCES)])
+        print("LINK_ROUND " + json.dumps(link_round()))
+        log(f"[card] {card_line()}")
+        return 0
 
     t0 = time.perf_counter()
     card = card_line()
@@ -1626,8 +1808,9 @@ def main(argv=None) -> int:
         if regs:
             log(f"[build] {path.name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
                 f"spill stores up to {max(spills or [0])} B, static smem up to {max(smem or [0])} B")
-        for name, line in kernel_resources(text, ("flash_attention_wgmma_kernel", "split_decode_kernel",
-                                                  "merge_splits_kernel", "burst_mask_kernel")):
+        for name, line in kernel_resources(text, ("flash_attention_wgmma_kernel", "flash_attention_tf32x3_kernel",
+                                                  "split_decode_kernel", "merge_splits_kernel", "egress_kernel",
+                                                  "burst_mask_kernel")):
             log(f"[build]   {name}: {line}")
 
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -1645,12 +1828,18 @@ def main(argv=None) -> int:
                          replaces="src/repro/kernels/lossy_link/kernel.py:140", max_abs_err=check_lossy_link_egress())
     burst_record = dict(name="burst_mask", route="cuda", source=link_source,
                         replaces="src/repro/kernels/lossy_link/kernel.py:94", max_abs_err=check_burst_mask())
-    # Flash attention's record is its bf16 body's (timed in phase 12, launched
-    # by phase 11's bf16 run); the f32 body's launches are in the report.
-    flash_record = dict(name="flash_attention", route="cuda",
-                        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
-                        replaces="src/repro/kernels/flash_attention/kernel.py:106",
-                        max_abs_err=check_flash_attention())
+    # Flash attention has a record a body: wgmma (bf16, timed in phase 12,
+    # launched by phase 11's bf16 run), tf32x3 (f32, timed in phase 12,
+    # launched by phase 11's f32 engine run) and the CUDA-core body
+    # (launched by its entry-point run, timed at that run's shape).
+    flash_dir = "src/repro_torch/kernels/flash_attention/csrc/"
+    flash_err = check_flash_attention()
+    flash_records = {body: dict(name=name, route="cuda", source=flash_dir + src,
+                                replaces="src/repro/kernels/flash_attention/kernel.py:106",
+                                max_abs_err=flash_err[body])
+                     for body, name, src in (("wgmma", "flash_attention", "flash_attention_wgmma.cu"),
+                                             ("tf32x3", "flash_attention_tf32x3", "flash_attention_tf32x3.cu"),
+                                             ("simt", "flash_attention_simt", "flash_attention.cu"))}
     ssm_record = dict(name="ssm_scan", route="cuda", source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                       replaces="src/repro/kernels/ssm_scan/kernel.py:55", max_abs_err=check_ssm_scan())
     if not args.quick:
@@ -1658,6 +1847,7 @@ def main(argv=None) -> int:
         # Phases 9-12 run ahead of the profiled phases, so that their
         # host-clock times are taken before any profiler trace.
         link_launches = run_link_kernels(report)
+        run_link_round(report)
         link_times = time_lossy_link()
         report["link_kernel_times"] = link_times
         for rec, channel in ((egress_record, "iid"), (burst_record, "ge")):
@@ -1666,12 +1856,17 @@ def main(argv=None) -> int:
                        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
         long_launches, long_bf16_launches = run_long_prefill(report)
         ssm_launches = run_ssm_scan_path()
-        ftiming = time_flash_attention(LONG_BATCH, 16, 16, 64, LONG_PROMPT, 0)
-        report["flash_attention_times"] = [ftiming, time_flash_attention(1, 16, 8, 256, 2048, 1024)]
-        report["long_prefill"]["f32_engine_launches_cuda_core_body"] = long_launches["flash_attention"]
-        flash_record.update(launches=long_bf16_launches["flash_attention"], ms=ftiming["ms"],
-                            plain_ms=ftiming["plain_ms"], bound_ms=ftiming["bound_ms"],
-                            bound_by=ftiming["bound_by"], library_ms=ftiming["library_ms"])
+        simt_launches = run_simt_entry_point()
+        timings = {"wgmma": time_flash_attention(LONG_BATCH, 16, 16, 64, LONG_PROMPT, 0),
+                   "tf32x3": time_flash_attention(LONG_BATCH, 16, 16, 64, LONG_PROMPT, 0, "float32"),
+                   "simt": time_flash_attention(LONG_BATCH, 16, 16, SIMT_HD, LONG_PROMPT, 0)}
+        report["flash_attention_times"] = list(timings.values()) + [time_flash_attention(1, 16, 8, 256, 2048, 1024)]
+        report["long_prefill"]["f32_engine_launches_tf32x3_body"] = long_launches["flash_attention"]
+        for body, n in (("wgmma", long_bf16_launches["flash_attention"]), ("tf32x3", long_launches["flash_attention"]),
+                        ("simt", simt_launches)):
+            t = timings[body]
+            flash_records[body].update(launches=n, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                                       bound_by=t["bound_by"], library_ms=t["library_ms"])
         stiming = time_ssm_scan()
         report["ssm_scan_times"] = stiming
         ssm_record.update(launches=ssm_launches, ms=stiming["ms"], plain_ms=stiming["plain_ms"],
@@ -1698,7 +1893,7 @@ def main(argv=None) -> int:
         paged_record.update(launches=paged_launches, ms=ptiming["ms"], plain_ms=ptiming["plain_ms"],
                             bound_ms=ptiming["bound_ms"], bound_by=ptiming["bound_by"],
                             library_ms=ptiming["library_ms"])
-    report["kernels"] = [record, paged_record, egress_record, burst_record, flash_record, ssm_record]
+    report["kernels"] = [record, paged_record, egress_record, burst_record, *flash_records.values(), ssm_record]
     for rec in report["kernels"]:
         if rec.get("library_ms") is not None and rec["library_ms"] < rec["bound_ms"]:
             log(f"[bound] WARNING {rec['name']}: the library call ({rec['library_ms'] * 1e3:.2f} us) beats the "
@@ -1710,6 +1905,7 @@ def main(argv=None) -> int:
     if args.quick:
         log("[quick] kernel checks passed; no result line in --quick mode")
         return 0
+    log(f"[card] {card}")
     print(json.dumps({"kernels": report["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 // Flash attention forward for Hopper (sm_90a) on the CUDA cores: causal /
 // sliding-window / full attention of a whole query sequence with an online
 // softmax, as the prefill of prompts longer than ``attn_block_q`` runs it.
-// This is the body for f32 operands and for head dims other than 64, 128
-// and 256; bf16 at those head dims takes the tensor-core body in
-// flash_attention_wgmma.cu (cuda_kernel.body_for picks).
+// This is the body for what neither tensor-core body takes: bf16 at head
+// dims other than 64, 128 and 256 (flash_attention_wgmma.cu takes those),
+// f32 at head dims that are not a multiple of 8 (flash_attention_tf32x3.cu
+// takes the rest).  cuda_kernel.body_for picks.
 //
 // Replaces the Pallas TPU kernel flash_attention_kernel
 // (repro/kernels/flash_attention/kernel.py:106, body _flash_kernel), and on
@@ -22,13 +23,15 @@
 //
 // Bound: the larger of bytes (q, k, v read once, out written once, over
 // 3.35 TB/s) and operations (4 * hd flops per visible (query, key) pair)
-// over the peak for the operands' type.  For f32 operands that is the
-// CUDA-core f32 rate (67 TFLOP/s: TF32 would not keep f32 parity).  For
-// bf16 operands it is the bf16 tensor-core rate (989 TFLOP/s), because a
-// bf16 product accumulated in f32 is exact; at the long prefill's shape the
-// bytes bound it.  This body's f32 FMAs are its choice, not the function's
-// floor: it runs bf16 at a few per cent of that bound, which is why bf16 at
-// hd 64 / 128 / 256 has its own body.
+// over the peak of f32-accurate arithmetic on the operands' type.  For bf16
+// operands that is the bf16 tensor-core rate (989 TFLOP/s), because a bf16
+// product accumulated in f32 is exact.  For f32 operands it is the 3xTF32
+// rate (494.7 / 3 TFLOP/s): one TF32 product keeps ~11 bits (errors ~1e-3,
+// 50x the f32 bar of 2e-5), but splitting each operand as hi + lo and
+// summing hi*hi + hi*lo + lo*hi in f32 keeps plain f32's error (~1e-6).
+// This body's f32 FMAs are its choice, not the function's floor, which is
+// why bf16 at hd 64 / 128 / 256 and f32 at hd a multiple of 8 have bodies
+// of their own.
 //
 // Design (simple first):
 //   * one block of 256 threads per (b * H + h, 64-row query tile); the

@@ -1,11 +1,21 @@
-"""ctypes binding and launch wrapper of the two flash-attention bodies.
+"""ctypes binding and launch wrapper of the three flash-attention bodies.
 
-``csrc/flash_attention_wgmma.cu`` runs bf16 operands at head dims 64, 128
-and 256 on the tensor cores (wgmma, K/V fed by TMA); ``csrc/flash_attention.cu``
-runs everything else on the CUDA cores (f32 operands, where TF32 would
-break f32 parity, and other head dims).  ``body_for`` picks from the dtype
-and head dim alone; nothing retries on the other body.  Both build into one
-library with ``nvcc`` at first use (``kernels/nvcc.py``).
+``body_for`` picks from the dtype and head dim alone; nothing retries on
+another body:
+
+* ``"wgmma"`` -- ``csrc/flash_attention_wgmma.cu``: bf16 at head dims 64,
+  128 and 256 on the tensor cores (wgmma, K/V fed by TMA);
+* ``"tf32x3"`` -- ``csrc/flash_attention_tf32x3.cu``: f32 at head dims
+  that are multiples of 8 up to 256 on the tensor cores (mma.sync) in
+  error-compensated TF32.  One TF32 product keeps ~11 bits and misses the
+  f32 bar (``atol`` 2e-5) by ~50x; splitting each operand as hi + lo and
+  summing hi*hi + hi*lo + lo*hi in f32 keeps plain f32's error (~7e-7
+  against ~1e-3 at the long prefill's shape);
+* ``"simt"`` -- ``csrc/flash_attention.cu``: the rest (other head dims, or
+  dtypes neither takes) on the CUDA cores in f32 FMAs.
+
+All three build into one library with ``nvcc`` at first use
+(``kernels/nvcc.py``).
 
 ``flash_attention`` refuses inputs that require grad
 (``runtime.forbid_grad``), checks device, dtype, shape, contiguity and
@@ -26,14 +36,14 @@ from repro_torch.kernels import nvcc, runtime
 
 LIB_NAME = "flash_attention"
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu")
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu", _CSRC / "flash_attention_tf32x3.cu")
 DTYPES = {torch.bfloat16: 1, torch.float32: 2}
 WGMMA_HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = 256
 MAX_GRID_Y = 65535
 
 launch_count: int = 0
-body_launch_count: dict = {"wgmma": 0, "simt": 0}
+body_launch_count: dict = {"wgmma": 0, "tf32x3": 0, "simt": 0}
 _lib = None
 
 
@@ -42,9 +52,14 @@ def flash_attention_launch_count() -> int:
 
 
 def body_for(dtype: torch.dtype, hd: int) -> str:
-    """The body a call takes: ``"wgmma"`` (tensor cores) for bf16 at head
-    dim 64, 128 or 256, else ``"simt"`` (CUDA cores, f32 arithmetic)."""
-    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "simt"
+    """The body a call takes: ``"wgmma"`` for bf16 at head dim 64, 128 or
+    256, ``"tf32x3"`` for f32 at a head dim that is a multiple of 8 up to
+    256 (both on the tensor cores), else ``"simt"`` (CUDA cores)."""
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if dtype == torch.float32 and hd % 8 == 0 and hd <= MAX_HEAD_DIM:
+        return "tf32x3"
+    return "simt"
 
 
 def _library():
@@ -54,11 +69,12 @@ def _library():
         # (q, k, v, out, B, Sq, Skv, H, KV, hd, [dtype,] causal, window, q_offset, softcap, stream)
         lib.flash_attention_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-        lib.flash_attention_wgmma_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-        for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch):
+        for fn in (lib.flash_attention_wgmma_launch, lib.flash_attention_tf32x3_launch):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch, lib.flash_attention_tf32x3_launch):
             fn.restype = ctypes.c_int
-        for fn in (lib.flash_attention_error_string, lib.flash_attention_wgmma_error_string):
+        for fn in (lib.flash_attention_error_string, lib.flash_attention_wgmma_error_string,
+                   lib.flash_attention_tf32x3_error_string):
             fn.argtypes = [ctypes.c_int]
             fn.restype = ctypes.c_char_p
         _lib = lib
@@ -105,12 +121,12 @@ def flash_attention(
     lib = _library()
     flags = (int(bool(causal)), int(window), int(q_offset), float(softcap),
              torch.cuda.current_stream(q.device).cuda_stream)
-    if body == "wgmma":
-        # TMA reads the tensors in place: every base must be 16-byte aligned.
-        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)), "bf16 inputs must be 16-byte aligned")
-        err = lib.flash_attention_wgmma_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                               b, sq, skv, h, kvh, hd, *flags)
-        what = lib.flash_attention_wgmma_error_string
+    if body in ("wgmma", "tf32x3"):
+        # TMA / cp.async read the tensors in place, 16 bytes at a time.
+        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)), f"{body} body: inputs must be 16-byte aligned")
+        launch, what = ((lib.flash_attention_wgmma_launch, lib.flash_attention_wgmma_error_string) if body == "wgmma"
+                        else (lib.flash_attention_tf32x3_launch, lib.flash_attention_tf32x3_error_string))
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, hd, *flags)
     else:
         err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                          b, sq, skv, h, kvh, hd, DTYPES[q.dtype], *flags)

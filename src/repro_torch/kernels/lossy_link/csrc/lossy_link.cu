@@ -8,11 +8,24 @@
 //   * burst_mask_kernel (kernel.py:94, body _burst_mask_kernel :57) -- one
 //     two-state Markov chain per row: stationary initial state, keep a
 //     packet if u_loss >= loss_{good,bad}, then step the state on u_tr.
-// The uniforms are drawn outside (threefry, bit-equal to jax.random) and
-// streamed in, as the TPU kernels take them, so both kernels are held to
-// their plain PyTorch versions bit for bit.
+// The egress draws its own uniforms from the key, in registers, bit-equal
+// to jax.random.uniform(key, (T, D)) (the op the reference calls before its
+// kernel, repro/kernels/lossy_link/ops.py); the burst mask takes its
+// uniforms drawn outside (threefry, bit-equal to jax.random), as the TPU
+// kernel takes them.  Both are held to their plain PyTorch versions bit for
+// bit.
 //
-// Egress.  Bound: HBM bytes (~12 flops per 10-14 bytes of x, u and out).
+// Egress.  Element i of the (T, D) flattening takes u from one Threefry-2x32
+// block of its own linear index: (w0, w1) = threefry2x32(key, (i >> 32,
+// i & 0xffffffff)), bits = w0 ^ w1, u = float((bits >> 9) | 0x3f800000) - 1
+// -- jax's partitionable scheme, repro_torch/prng.py:random_bits and
+// uniform, with prng.py's rotations, key schedule and round injections.  So
+// the (T, D) uniform tensor is never written or read, and the ~150 eager
+// int64 launches that drew it are gone: the launch reads the key's two
+// words from the device (no host sync), x, s_min, s_max, and writes out.
+// Bound: HBM bytes (x read and out written, 4-8 bytes an element) against
+// ~90 32-bit operations an element (the threefry block and the egress's
+// 14), both far under the launch's own floor at the DI round's (4, 1024).
 // One element a thread in a grid-stride loop; s_min / s_max are read per
 // element (they stay in L1/L2: D floats).  The arithmetic is f32 in the
 // reference's order, written with __fsub_rn / __fdiv_rn / __fmul_rn /
@@ -72,13 +85,46 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void put(float* p, int64_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, int64_t i, float v) { p[i] = __float2bfloat16_rn(v); }
 
+// Threefry-2x32, 20 rounds (repro_torch/prng.py:threefry2x32).
+__device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1) {
+  constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      x0 += x1;
+      x1 = __funnelshift_l(x1, x1, kRot[i % 2][r]);
+      x1 ^= x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+  return make_uint2(x0, x1);
+}
+
+// jax.random.uniform's value at linear index i of a draw under key
+// (k0, k1), partitionable scheme: the top 23 bits of one threefry block of
+// i's (high, low) words become the mantissa of a float in [1, 2), minus 1.
+__device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1, int64_t i) {
+  const uint2 w = threefry2x32(k0, k1, static_cast<uint32_t>(static_cast<uint64_t>(i) >> 32),
+                               static_cast<uint32_t>(i));
+  return __fsub_rn(__uint_as_float(((w.x ^ w.y) >> 9) | 0x3F800000u), 1.0f);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kEgressThreads)
-    egress_kernel(const T* __restrict__ x, const float* __restrict__ u,
+    egress_kernel(const int64_t* __restrict__ key, const T* __restrict__ x,
                   const float* __restrict__ s_min, const float* __restrict__ s_max,
                   T* __restrict__ out, int64_t n, int D, EgressConsts c) {
+  // A key is two uint32 words held in int64 (repro_torch/prng.py).
+  const uint32_t k0 = static_cast<uint32_t>(key[0]);
+  const uint32_t k1 = static_cast<uint32_t>(key[1]);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const float u = uniform_at(k0, k1, i);
     const int col = static_cast<int>(i % D);
     const float lo = s_min[col];
     const float hi = s_max[col];
@@ -86,7 +132,7 @@ __global__ void __launch_bounds__(kEgressThreads)
     const float clipped = fminf(fmaxf(to_f32(x[i]), lo), hi);
     const float code = rintf(__fmul_rn(__fdiv_rn(__fsub_rn(clipped, lo), rng), c.levels));
     const float deq = __fadd_rn(__fmul_rn(__fdiv_rn(code, c.levels), rng), lo);
-    put(out, i, u[i] >= c.p ? __fmul_rn(deq, c.comp) : 0.0f);
+    put(out, i, u >= c.p ? __fmul_rn(deq, c.comp) : 0.0f);
   }
 }
 
@@ -171,24 +217,24 @@ __global__ void __launch_bounds__(kBurstWarps * 32)
 }
 
 template <typename T>
-int launch_egress(const void* x, const void* u, const void* s_min, const void* s_max, void* out,
+int launch_egress(const void* key, const void* x, const void* s_min, const void* s_max, void* out,
                   int64_t n, int D, EgressConsts c, cudaStream_t stream) {
   const int64_t want = (n + kEgressThreads - 1) / kEgressThreads;
   const int blocks = static_cast<int>(want < kEgressMaxBlocks ? want : kEgressMaxBlocks);
   egress_kernel<T><<<blocks, kEgressThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(u), static_cast<const float*>(s_min),
+      static_cast<const int64_t*>(key), static_cast<const T*>(x), static_cast<const float*>(s_min),
       static_cast<const float*>(s_max), static_cast<T*>(out), n, D, c);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Egress: x, out (T, D) of x_type (1 = bf16, 2 = f32); u (T, D) f32;
-// s_min, s_max (D,) f32; all contiguous.  Burst mask: u_init (R,), u_loss,
+// Egress: key (2,) int64 (two uint32 words); x, out (T, D) of x_type (1 =
+// bf16, 2 = f32); s_min, s_max (D,) f32; all contiguous.  Burst mask: u_init (R,), u_loss,
 // u_tr, out (R, N) f32, contiguous.  Each returns 0, a cudaError_t from the
 // launch, or -1 for arguments the kernel does not take; each launches on
 // `stream`, does not synchronise and allocates nothing.
-extern "C" int lossy_link_egress_launch(const void* x, const void* u, const void* s_min,
+extern "C" int lossy_link_egress_launch(const void* key, const void* x, const void* s_min,
                                         const void* s_max, void* out, long long T, int D,
                                         int x_type, float levels, float p, float comp,
                                         float rng_floor, void* stream) {
@@ -198,9 +244,9 @@ extern "C" int lossy_link_egress_launch(const void* x, const void* u, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x_type) {
     case 1:
-      return launch_egress<__nv_bfloat16>(x, u, s_min, s_max, out, n, D, c, s);
+      return launch_egress<__nv_bfloat16>(key, x, s_min, s_max, out, n, D, c, s);
     case 2:
-      return launch_egress<float>(x, u, s_min, s_max, out, n, D, c, s);
+      return launch_egress<float>(key, x, s_min, s_max, out, n, D, c, s);
     default:
       return kUnsupported;
   }

@@ -1,7 +1,11 @@
 """ctypes binding and launch wrappers of ``csrc/lossy_link.cu``.
 
 The library is built with ``nvcc`` at first use (``kernels/nvcc.py``).
-``lossy_link_egress`` and ``burst_mask`` refuse inputs that require grad
+The egress kernel draws its own uniforms: it takes the key, and each thread
+computes its element's ``prng.uniform(key, (T, D))`` value from one threefry
+block of the element's linear index (the partitionable scheme,
+``prng.DEFAULT_PARTITIONABLE``), so no ``(T, D)`` uniform tensor is drawn
+or read.  ``lossy_link_egress`` and ``burst_mask`` refuse inputs that require grad
 (``runtime.forbid_grad``), check device, dtype, shape and contiguity,
 allocate the output with ``torch.empty``, launch on PyTorch's current
 stream and raise if the launch reports an error.
@@ -17,6 +21,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import nvcc, runtime
 from repro_torch.kernels.lossy_link.torch_ref import egress_constants, f32
 
@@ -58,23 +63,28 @@ def _check_common(tensors, first: torch.Tensor) -> None:
 
 
 def lossy_link_egress(
+    key: torch.Tensor,                   # (2,) int64: two uint32 words
     x: torch.Tensor,                     # (T, D) bf16/f32
-    u: torch.Tensor,                     # (T, D) f32 uniforms in [0, 1)
     s_min: torch.Tensor,                 # (D,) f32
     s_max: torch.Tensor,                 # (D,) f32
     *,
     bits: int,
     loss_rate: float,
 ) -> torch.Tensor:
-    """Fused quantize -> keep if ``u >= p`` -> dequantize -> ``1/(1-p)`` on
-    the card; returns (T, D) in x's dtype."""
+    """Fused draw -> quantize -> keep if ``u >= p`` -> dequantize ->
+    ``1/(1-p)`` on the card, ``u = prng.uniform(key, (T, D))`` computed in
+    the kernel; returns (T, D) in x's dtype."""
     global egress_launch_count
-    runtime.forbid_grad("lossy_link_egress", x, u, s_min, s_max)
+    runtime.forbid_grad("lossy_link_egress", x, s_min, s_max)
+    if not prng.DEFAULT_PARTITIONABLE:
+        raise RuntimeError("lossy_link_egress: the kernel draws with the partitionable threefry scheme, but "
+                           "prng.DEFAULT_PARTITIONABLE is False")
     _check(x.dim() == 2, f"x must be (T, D), got {tuple(x.shape)}")
     t, d = x.shape
-    _check_common((x, u, s_min, s_max), x)
+    _check_common((key, x, s_min, s_max), x)
     _check(x.dtype in X_TYPES, f"x dtype {x.dtype} not in {list(X_TYPES)}")
-    _check(u.dtype == torch.float32 and tuple(u.shape) == (t, d), f"u must be {(t, d)} float32")
+    _check(key.dtype == torch.int64 and tuple(key.shape) == (2,), f"key must be (2,) int64, got {tuple(key.shape)} "
+           f"{key.dtype}")
     _check(all(s.dtype == torch.float32 and tuple(s.shape) == (d,) for s in (s_min, s_max)),
            f"s_min, s_max must be ({d},) float32")
     _check(bits >= 1 and d <= INT32_MAX, f"bits {bits} / D {d} unsupported")
@@ -83,7 +93,7 @@ def lossy_link_egress(
         return out
     levels, p, comp, rng_floor = egress_constants(bits, loss_rate)
     err = _library().lossy_link_egress_launch(
-        x.data_ptr(), u.data_ptr(), s_min.data_ptr(), s_max.data_ptr(), out.data_ptr(),
+        key.data_ptr(), x.data_ptr(), s_min.data_ptr(), s_max.data_ptr(), out.data_ptr(),
         t, d, X_TYPES[x.dtype], levels, p, comp, rng_floor, _stream(x))
     _raise_on(err, "lossy_link_egress")
     egress_launch_count += 1

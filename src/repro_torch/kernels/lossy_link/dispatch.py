@@ -1,10 +1,12 @@
 """Split-point link entry points: the port's twin of
 ``repro/kernels/lossy_link/ops.py``.
 
-The uniforms are drawn from ``repro_torch.prng`` on the key's device with
-the reference's key use, so they are bit-equal to its ``jax.random`` draws.
-A CUDA tensor goes to the hand kernel (or the call raises); a CPU tensor
-goes to the plain version.
+The uniforms follow the reference's key use, so they are bit-equal to its
+``jax.random`` draws.  A CUDA tensor goes to the hand kernel (or the call
+raises); a CPU tensor goes to the plain version.  The egress kernel draws
+its own uniforms from the key in registers (no ``prng.uniform`` call on
+that path); its plain version draws them with ``prng.uniform`` first.  The
+burst mask's three draws are made here for both.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from repro_torch import prng
 from repro_torch.core.compression import QuantSpec
 from repro_torch.kernels import runtime
 from repro_torch.kernels.lossy_link import cuda_kernel
-from repro_torch.kernels.lossy_link.torch_ref import burst_mask_ref, lossy_link_egress_ref
+from repro_torch.kernels.lossy_link.torch_ref import burst_mask_ref, lossy_link_egress_keyed_ref
 
 
 def lossy_link_egress(key: torch.Tensor, x: torch.Tensor, quant: QuantSpec, loss_rate: float) -> torch.Tensor:
@@ -24,13 +26,13 @@ def lossy_link_egress(key: torch.Tensor, x: torch.Tensor, quant: QuantSpec, loss
     ``(T, D)`` flattening."""
     shape = x.shape
     flat = x.reshape(-1, shape[-1])
-    u = prng.uniform(key, tuple(flat.shape))
     s_min, s_max = quant.s_min.float(), quant.s_max.float()
     kw = dict(bits=quant.bits, loss_rate=float(loss_rate))
     if runtime.use_kernel(flat):
-        out = cuda_kernel.lossy_link_egress(flat.contiguous(), u, s_min.contiguous(), s_max.contiguous(), **kw)
+        out = cuda_kernel.lossy_link_egress(key.contiguous(), flat.contiguous(), s_min.contiguous(),
+                                            s_max.contiguous(), **kw)
     else:
-        out = lossy_link_egress_ref(flat, u, s_min, s_max, **kw)
+        out = lossy_link_egress_keyed_ref(key, flat, s_min, s_max, **kw)
     return out.reshape(shape)
 
 

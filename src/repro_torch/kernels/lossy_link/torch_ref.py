@@ -10,6 +10,10 @@ host as the reference fixes them (``egress_constants``).  ``levels`` is a
 host scalar multiplies by its reciprocal, which can differ from ``/`` in
 the last bit, and the kernel divides.
 
+``lossy_link_egress_keyed_ref`` is the function the CUDA egress computes:
+the draw ``prng.uniform(key, (T, D))``, then ``lossy_link_egress_ref`` on
+it (the reference's ``ops.lossy_link_egress`` on a flat activation).
+
 ``burst_mask_ref`` defers to the port's Gilbert–Elliott scan, as the
 reference's defers to its own.  Both are the CPU path of ``dispatch`` and
 the plain versions the CUDA kernels are held against, bit for bit, on the
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.net.channels import gilbert_elliott_scan
 
 
@@ -57,6 +62,14 @@ def lossy_link_egress_ref(x: torch.Tensor, u: torch.Tensor, s_min: torch.Tensor,
     deq = code / lv * rng + s_min
     keep = u.float() >= p
     return torch.where(keep, deq * comp, 0.0).to(x.dtype)
+
+
+def lossy_link_egress_keyed_ref(key: torch.Tensor, x: torch.Tensor, s_min: torch.Tensor, s_max: torch.Tensor, *,
+                                bits: int, loss_rate: float) -> torch.Tensor:
+    """``lossy_link_egress_ref`` on ``u = prng.uniform(key, (T, D))``: the
+    fused kernel's function of ``(key, x)``, x (T, D)."""
+    u = prng.uniform(key, tuple(x.shape))
+    return lossy_link_egress_ref(x, u, s_min, s_max, bits=bits, loss_rate=loss_rate)
 
 
 def burst_mask_ref(u_init: torch.Tensor, u_loss: torch.Tensor, u_tr: torch.Tensor, *,

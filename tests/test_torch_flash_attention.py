@@ -15,6 +15,10 @@ Bars (the reference's own, ``tests/test_kernels.py``):
     XLA's ``tanh`` differ) can round a probability to the neighbouring
     bf16 value before the PV product, so bf16 takes one bf16 ulp of a
     unit-scale output (``atol=2**-8``, ``rtol=2**-7``);
+  * the f32 tensor-core body's arithmetic (3xTF32: each operand split into
+    TF32 hi and lo parts, hi*hi + hi*lo + lo*hi summed in f32), emulated
+    here, against the plain version and the reference's ops at the f32
+    ``atol=2e-5``; one TF32 product alone misses it by more than 10x;
   * on the card, the kernel against ``flash_attention_ref``: ``atol=2e-5``
     in f32 and ``2e-2`` in bf16.
 """
@@ -145,11 +149,17 @@ def test_blockwise_equals_kernel_function():
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256, 36, 264])
 def test_body_for(dtype, hd):
-    """bf16 at head dims 64, 128 and 256 takes the tensor-core body; f32
-    (TF32 would break f32 parity) and every other head dim the CUDA cores."""
-    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128, 256) else "simt"
+    """Three bodies: bf16 at head dims 64, 128 and 256 takes the wgmma
+    body; f32 at a head dim that is a multiple of 8 up to 256 the 3xTF32
+    tensor-core body; everything else the CUDA cores."""
+    if dtype == "bfloat16" and hd in (64, 128, 256):
+        want = "wgmma"
+    elif dtype == "float32" and hd % 8 == 0 and hd <= 256:
+        want = "tf32x3"
+    else:
+        want = "simt"
     assert cuda_kernel.body_for(getattr(torch, dtype), hd) == want
 
 
@@ -236,6 +246,117 @@ def test_wgmma_body_needs_p_lo():
     assert _ulp_ratio(_emulate_wgmma_body(q, k, v, p_lo=False, **kw), want32) > 4.0
 
 
+def _tf32(x):
+    """Round f32 to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does: add half of the dropped
+    13 bits' unit to the magnitude and clear them."""
+    a = np.ascontiguousarray(x.numpy()).view(np.uint32)
+    return torch.from_numpy(((a + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def _mm3(a, b, lo_terms=True):
+    """``a @ b`` as the body forms it: hi*hi + hi*lo + lo*hi of the TF32
+    splits, summed in f32 (``lo_terms=False``: one TF32 product)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    out = a_hi @ b_hi
+    if lo_terms:
+        out = out + a_hi @ _tf32(b - b_hi) + _tf32(a - a_hi) @ b_hi
+    return out
+
+
+def _emulate_tf32x3_body(q, k, v, *, causal, window, q_offset, softcap, lo_terms=True):
+    """The f32 tensor-core body's arithmetic in torch on the CPU: S = Q K^T
+    in 3xTF32 over KV tiles of the body's keys (32 at hd <= 64, 16 above),
+    scale, softcap and mask, the online softmax in f32, P V in 3xTF32,
+    ``acc / max(l, 1e-20)``.  exp is taken in f64 and rounded to f32, so no
+    f32 ``torch.exp`` runs here (ROADMAP fault C2)."""
+    b, sq, h, hd = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    bkv = 32 if hd <= 64 else 16
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+    scale = np.float32(1.0 / np.sqrt(np.float32(hd)))
+    exp = lambda x: torch.exp(x.double()).float()
+    m = torch.full((b, h, sq), -1e30)
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, hd))
+    qp = q_offset + torch.arange(sq)
+    for k0 in range(0, skv, bkv):
+        kp = torch.arange(k0, min(k0 + bkv, skv))
+        s = _mm3(qf, kf[:, :, k0:k0 + bkv].transpose(-1, -2), lo_terms) * scale
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        ok = torch.ones((sq, kp.numel()), dtype=torch.bool)
+        if causal:
+            ok &= kp[None] <= qp[:, None]
+        if window > 0:
+            ok &= qp[:, None] - kp[None] < window
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(ok, exp(s - m_new[..., None]), 0.0)
+        corr = exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _mm3(p, vf[:, :, k0:k0 + bkv], lo_terms)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-20)[..., None]).transpose(1, 2)
+
+
+def _f32_case(seed, sq, skv, hd, g):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((2, sq, 2 * g, hd), generator=gen), torch.randn((2, skv, 2, hd), generator=gen),
+            torch.randn((2, skv, 2, hd), generator=gen))
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    """``_tf32`` keeps 10 mantissa bits and rounds a tie away from zero."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1.0 + ulp / 2, -(1.0 + ulp / 2), 1.0 + ulp / 2 - 2.0 ** -23, 1.0 + 1.5 * ulp, 3.0e-3],
+                     dtype=torch.float32)
+    got = _tf32(x)
+    assert got[:5].tolist() == [1.0, 1.0 + ulp, -(1.0 + ulp), 1.0, 1.0 + 2 * ulp]
+    assert (got.numpy().view(np.uint32) & 0x1FFF == 0).all() and abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2 ** -11
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("sq,skv,hd,causal,window,q_offset", [c for c in CHIP_GRID if c[2] in (64, 128, 256)])
+def test_tf32x3_body_arithmetic_meets_the_f32_bar(sq, skv, hd, causal, window, q_offset, g):
+    """The design shown on the CPU: the 3xTF32 body's arithmetic on f32
+    inputs sits within the f32 ``atol`` 2e-5 of the plain version, the bar
+    phase 2 of chip_smoke.py holds the kernel to."""
+    q, k, v = _f32_case(sq + skv + hd + g, sq, skv, hd, g)
+    for softcap in (0.0, 30.0):
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        got = _emulate_tf32x3_body(q, k, v, **kw)
+        np.testing.assert_allclose(got.numpy(), gqa_flash_attention_ref(q, k, v, **kw).numpy(), rtol=0,
+                                   atol=TOL["float32"], err_msg=str(softcap))
+
+
+@pytest.mark.parametrize("s,kv,g,hd,window,softcap", [
+    (256, 2, 1, 64, 64, 0.0),     # the reference test's windowed case
+    (200, 2, 2, 128, 0, 30.0),    # ragged tiles, GQA, softcap
+    (128, 1, 2, 256, 0, 0.0),     # gemma3's head dim
+])
+def test_tf32x3_body_matches_reference_ops(J, s, kv, g, hd, window, softcap):
+    """The same arithmetic against the reference's ``ops.flash_attention``
+    (its Pallas kernel in interpret mode on the CPU), ``atol=2e-5``."""
+    q, k, v = _f32_case(s + hd, s, s, hd, g)
+    q = q[:, :, :kv * g]
+    k, v = k[:, :, :kv], v[:, :, :kv]
+    kw = dict(window=window, softcap=softcap)
+    want = J.ops.flash_attention(*(J.jnp.asarray(x.numpy()) for x in (q, k, v)), block_q=64, block_kv=64, **kw)
+    got = _emulate_tf32x3_body(q, k, v, causal=True, q_offset=0, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL["float32"])
+
+
+def test_tf32x3_needs_the_lo_terms():
+    """The check has teeth: one TF32 product (hi*hi alone) misses the f32
+    bar by more than 10x on the same inputs; with the lo terms it holds."""
+    q, k, v = _f32_case(3, 256, 256, 64, 1)
+    kw = dict(causal=True, window=0, q_offset=0, softcap=0.0)
+    want = gqa_flash_attention_ref(q, k, v, **kw)
+    assert float((_emulate_tf32x3_body(q, k, v, **kw) - want).abs().max()) <= TOL["float32"]
+    assert float((_emulate_tf32x3_body(q, k, v, lo_terms=False, **kw) - want).abs().max()) > 10 * TOL["float32"]
+
+
 def test_wrapper_rejects_cpu_and_bad_shapes():
     """The CUDA wrapper takes CUDA tensors only and checks its inputs
     before anything is built or launched."""
@@ -299,8 +420,8 @@ def test_cuda_model_prefill_takes_the_kernel():
 @pytest.mark.usefixtures("hopper")
 @pytest.mark.parametrize("hd", [64, 128, 256])
 def test_cuda_wgmma_body_matches_plain(hd):
-    """bf16 at hd 64 / 128 / 256 runs on the tensor-core body (its counter
-    moves, the CUDA-core body's does not) and stays within one bf16 ulp +
+    """bf16 at hd 64 / 128 / 256 runs on the wgmma body (its counter moves,
+    no other does) and stays within one bf16 ulp +
     1e-5 of the plain version computed in f32: causal ragged, windowed with
     softcap, decode-shaped, non-causal, GQA."""
     gen = torch.Generator(device="cuda").manual_seed(hd)
@@ -311,21 +432,42 @@ def test_cuda_wgmma_body_matches_plain(hd):
         kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
         before = dict(cuda_kernel.body_launch_count)
         got = flash_attention(q, k, v, **kw)
-        assert cuda_kernel.body_launch_count == {"wgmma": before["wgmma"] + 1, "simt": before["simt"]}
+        assert cuda_kernel.body_launch_count == {**before, "wgmma": before["wgmma"] + 1}
         want32 = gqa_flash_attention_ref(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
         assert _ulp_ratio(got, want32) <= 1.0, (sq, skv, g, kw)
 
 
 @pytest.mark.usefixtures("hopper")
-@pytest.mark.parametrize("dtype,hd", [("float32", 64), ("float32", 256), ("bfloat16", 32)])
+@pytest.mark.parametrize("hd", [8, 32, 64, 96, 128, 256])
+def test_cuda_tf32x3_body_matches_plain(hd):
+    """f32 at head dims that are multiples of 8 runs on the 3xTF32 body
+    (its counter moves, no other does) and stays within the f32 ``atol``
+    2e-5 of the plain version: causal ragged, windowed with softcap,
+    decode-shaped, non-causal, GQA, a 1000-token prompt."""
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    for sq, skv, g, causal, window, q_offset, softcap in (
+            (300, 300, 2, True, 0, 0, 0.0), (300, 300, 1, True, 128, 0, 30.0), (1, 384, 2, True, 128, 383, 0.0),
+            (130, 130, 1, False, 0, 0, 0.0), (1000, 1000, 2, True, 0, 0, 0.0)):
+        q, k, v = _cuda_case(gen, 2, sq, skv, 2 * g, 2, hd, torch.float32)
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        before = dict(cuda_kernel.body_launch_count)
+        got = flash_attention(q, k, v, **kw)
+        assert cuda_kernel.body_launch_count == {**before, "tf32x3": before["tf32x3"] + 1}
+        want = gqa_flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=TOL["float32"], msg=lambda m: f"{(sq, skv, g, kw)}: {m}")
+
+
+@pytest.mark.usefixtures("hopper")
+@pytest.mark.parametrize("dtype,hd", [("float32", 36), ("float32", 20), ("bfloat16", 32)])
 def test_cuda_simt_body_takes_the_rest(dtype, hd):
-    """f32 operands and other head dims run on the CUDA-core body."""
+    """Head dims neither tensor-core body takes run on the CUDA-core body."""
     gen = torch.Generator(device="cuda").manual_seed(hd)
     q, k, v = _cuda_case(gen, 2, 200, 200, 4, 2, hd, getattr(torch, dtype))
     before = dict(cuda_kernel.body_launch_count)
     got = flash_attention(q, k, v)
-    assert cuda_kernel.body_launch_count == {"wgmma": before["wgmma"], "simt": before["simt"] + 1}
+    assert cuda_kernel.body_launch_count == {**before, "simt": before["simt"] + 1}
     want = gqa_flash_attention_ref(q, k, v)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[dtype])

@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import prng  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.decode_attention import cuda_kernel as decode_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import flash_decode_ref  # noqa: E402
@@ -39,7 +40,7 @@ def _paged_flash_decode(grad):
 
 def _lossy_link_egress(grad):
     x = torch.randn(4, 16, requires_grad=grad)
-    args = (x, torch.rand(4, 16), torch.full((16,), -3.0), torch.full((16,), 3.0))
+    args = (prng.PRNGKey(0), x, torch.full((16,), -3.0), torch.full((16,), 3.0))
     return link_kernel.lossy_link_egress, args, dict(bits=8, loss_rate=0.1)
 
 

@@ -4,6 +4,11 @@ on inputs made from a seed with numpy; and, on an sm_90 card only, the CUDA
 kernels against their plain versions.
 
 Bars:
+  * the egress kernel draws its own uniforms: what one of its threads
+    computes for element ``i`` (one threefry block of ``i``'s words, in
+    plain Python ints here) equals ``prng.uniform(key, (T, D))`` at ``i``
+    bit for bit, and the keyed plain egress equals the reference's
+    ``ops.lossy_link_egress`` as the keyless one does;
   * the plain egress equals the reference's ``ref.py`` bit for bit; the
     reference's own interpret-mode Pallas kernel differs from its ``ref.py``
     by up to ~2.4e-6 in f32, so the port is held to that kernel at the
@@ -41,6 +46,7 @@ from repro_torch.kernels.lossy_link import (  # noqa: E402
     cuda_kernel,
     dispatch,
     lossy_link_egress,
+    lossy_link_egress_keyed_ref,
     lossy_link_egress_ref,
 )
 from repro_torch.net.channels import make_channel  # noqa: E402
@@ -181,6 +187,104 @@ def test_dispatch_egress_matches_ops(J, shape, dtype):
                                    **KERNEL_TOL[dtype])
 
 
+M32 = 0xFFFFFFFF
+
+
+def _threefry_words(key, i):
+    """What one thread of the CUDA egress computes for element ``i`` of a
+    draw under ``key``, in plain Python ints: Threefry-2x32 (20 rounds) of
+    the counter ``(i >> 32, i & 0xffffffff)``; returns ``w0 ^ w1``."""
+    k0, k1 = int(key[0]) & M32, int(key[1]) & M32
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = ((i >> 32) + ks[0]) & M32, ((i & M32) + ks[1]) & M32
+    for rnd in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[rnd % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & M32
+            x1 ^= x0
+        x0 = (x0 + ks[(rnd + 1) % 3]) & M32
+        x1 = (x1 + ks[(rnd + 2) % 3] + rnd + 1) & M32
+    return x0 ^ x1
+
+
+def _uniform_at(key, i):
+    """The thread's uniform: the top 23 bits as the mantissa of a float in
+    [1, 2), minus 1, in f32."""
+    one = np.array([(_threefry_words(key, i) >> 9) | 0x3F800000], np.uint32).view(np.float32)[0]
+    return np.float32(one - np.float32(1.0))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 7), (4, 1024), (5, 33), (257, 513), (1, 4097)])
+def test_egress_thread_uniform_equals_prng_uniform(shape):
+    """Scattered elements (the first, the last, the middle, random ones) of
+    ``prng.uniform(key, (T, D))`` are what one egress thread computes, bit
+    for bit, under fresh and split keys."""
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(n)
+    idx = sorted({0, n - 1, n // 2, *rng.integers(0, n, size=min(n, 40)).tolist()})
+    for key in (prng.PRNGKey(0), prng.PRNGKey(2 ** 32 - 3), *prng.split(prng.PRNGKey(7), 2)):
+        u = prng.uniform(key, shape).reshape(-1).numpy()
+        got = np.array([_uniform_at(key, i) for i in idx], np.float32)
+        np.testing.assert_array_equal(got.view(np.uint32), u[idx].view(np.uint32))
+
+
+def test_egress_thread_counter_high_word():
+    """Past 2**32 elements the counter's high word is ``i >> 32``, as
+    ``prng.random_bits`` forms it: the thread's words equal
+    ``prng.threefry2x32`` on ``(i >> 32, i & 0xffffffff)``."""
+    key = prng.split(prng.PRNGKey(5))[1]
+    idx = torch.tensor([0, 2 ** 32 - 1, 2 ** 32, 2 ** 32 + 5, 3 * 2 ** 40 + 17], dtype=torch.int64)
+    w0, w1 = prng.threefry2x32(key[0], key[1], idx >> 32, idx & M32)
+    assert (w0 ^ w1).tolist() == [_threefry_words(key, int(i)) for i in idx]
+
+
+@pytest.mark.parametrize("shape", [(4, 1024), (3, 200), (257, 513)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_keyed_egress_ref_matches_ops(J, shape, dtype):
+    """``lossy_link_egress_keyed_ref(key, x, ...)``, the keyed kernel's
+    plain version, against the reference's ``ops.lossy_link_egress``: its
+    ref on ``jax.random.uniform(key, (T, D))`` bit for bit, its kernel
+    within 1e-5."""
+    t, d = shape
+    x, _, smin, smax = _egress_inputs(t * 7 + d, t, d)
+    jq = J.QuantSpec(8, J.jnp.asarray(smin), J.jnp.asarray(smax))
+    jx = J.jnp.asarray(x).astype(getattr(J.jnp, dtype))
+    for seed in SEEDS:
+        jkey = J.jax.random.PRNGKey(seed)
+        got = lossy_link_egress_keyed_ref(prng.PRNGKey(seed), torch.tensor(x).to(_tdtype(dtype)),
+                                          torch.tensor(smin), torch.tensor(smax), bits=8, loss_rate=0.3)
+        u = J.jax.random.uniform(jkey, (t, d), J.jnp.float32)
+        _bits_equal(_as_f32(J.ref.lossy_link_egress_ref(jx, u, jq.s_min, jq.s_max, bits=8, loss_rate=0.3)),
+                    _as_f32(got))
+        np.testing.assert_allclose(_as_f32(got), _as_f32(J.ops.lossy_link_egress(jkey, jx, jq, 0.3)),
+                                   **KERNEL_TOL[dtype])
+
+
+def test_kernel_path_draws_no_uniforms(monkeypatch):
+    """The dispatch's kernel path hands the key itself to the wrapper and
+    never calls ``prng.uniform``; the CPU path draws and defers to the
+    keyed plain version."""
+    calls = []
+    monkeypatch.setattr(dispatch.runtime, "use_kernel", lambda t: True)
+    monkeypatch.setattr(dispatch.cuda_kernel, "lossy_link_egress", lambda *a, **kw: calls.append((a, kw)) or a[1])
+    monkeypatch.setattr(prng, "uniform", lambda *a, **kw: pytest.fail("prng.uniform on the kernel path"))
+    key = prng.PRNGKey(4)
+    q = TQuantSpec(8, torch.full((16,), -3.0), torch.full((16,), 3.0))
+    lossy_link_egress(key, torch.randn(2, 1, 16), q, 0.1)
+    (args, kw), = calls
+    assert torch.equal(args[0], key) and tuple(args[1].shape) == (2, 16) and kw == dict(bits=8, loss_rate=0.1)
+
+
+def test_egress_wrapper_refuses_non_partitionable(monkeypatch):
+    """The kernel implements the partitionable threefry scheme only: with
+    ``prng.DEFAULT_PARTITIONABLE`` False the wrapper raises, before any
+    device check."""
+    monkeypatch.setattr(prng, "DEFAULT_PARTITIONABLE", False)
+    x = torch.zeros(2, 8)
+    with pytest.raises(RuntimeError, match="partitionable"):
+        cuda_kernel.lossy_link_egress(prng.PRNGKey(0), x, torch.zeros(8), torch.ones(8), bits=8, loss_rate=0.1)
+
+
 @pytest.mark.parametrize("shape", [(1, 164), (4, 130), (17, 33)])
 def test_dispatch_burst_mask_matches_ops(J, shape):
     """``burst_mask(key, R, N)``: the three draws of ``split(key, 3)`` are
@@ -208,7 +312,7 @@ def test_cpu_tensors_take_the_plain_versions():
 def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.zeros(2, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_kernel.lossy_link_egress(x, x, torch.zeros(8), torch.ones(8), bits=8, loss_rate=0.1)
+        cuda_kernel.lossy_link_egress(prng.PRNGKey(0), x, torch.zeros(8), torch.ones(8), bits=8, loss_rate=0.1)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_kernel.burst_mask(torch.zeros(2), x, x, **GE)
 
@@ -422,18 +526,21 @@ def test_slotwise_link_fn_matches_reference(J, channel, loss_rate):
 @pytest.mark.usefixtures("hopper")
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_egress_matches_plain(dtype):
+    """The keyed kernel equals ``lossy_link_egress_keyed_ref`` bit for bit,
+    and the draw on the card equals the draw on the CPU."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (t, d), bits, loss in (((4, 1024), 8, 0.1), ((257, 513), 4, 0.8), ((1, 7), 1, 0.0), ((8, 1024), 16, 0.3)):
+        key = prng.fold_in(prng.PRNGKey(5, "cuda"), t * d)
         x = (torch.randn((t, d), generator=gen, device="cuda") * 3).to(_tdtype(dtype))
-        u = torch.rand((t, d), generator=gen, device="cuda")
         smin = torch.full((d,), -4.0, device="cuda") + torch.rand((d,), generator=gen, device="cuda") * 0.2
         smax = torch.full((d,), 4.0, device="cuda")
         before = cuda_kernel.egress_launch_count
-        got = cuda_kernel.lossy_link_egress(x, u, smin, smax, bits=bits, loss_rate=loss)
-        want = lossy_link_egress_ref(x, u, smin, smax, bits=bits, loss_rate=loss)
+        got = cuda_kernel.lossy_link_egress(key, x, smin, smax, bits=bits, loss_rate=loss)
+        want = lossy_link_egress_keyed_ref(key, x, smin, smax, bits=bits, loss_rate=loss)
         torch.cuda.synchronize()
         assert cuda_kernel.egress_launch_count == before + 1
         assert torch.equal(got, want), (t, d, bits, loss)
+        assert torch.equal(prng.uniform(key, (t, d)).cpu(), prng.uniform(key.cpu(), (t, d)))
 
 
 @pytest.mark.usefixtures("hopper")
