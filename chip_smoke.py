@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one H100: builds the kernels,
-holds each (the six kernels, flash attention's three bodies among them)
-against its plain PyTorch version on the card, serves
+holds each (the six kernels, flash attention's three bodies and its
+backward among them) against its plain PyTorch version on the card, serves
 the full-width qwen1.5-0.5b split LM through ``generate_reference``, through
 the continuous-batching engine (contiguous and paged pools), through
 ``lm.forward`` with the link kernels (``LinkSpec(use_kernel=True)``) and
 with prompts past ``attn_block_q`` (the flash-attention prefill), drives
-the SSM scan through its entry point, and times the kernels and the paths.
+the SSM scan through its entry point, fine-tunes it with the COMtune link
+(``launch.train``, sequences past ``attn_block_q``: the flash-attention
+forward and backward kernels), and times the kernels and the paths.
 
     python3 chip_smoke.py            # everything (needs one sm_90 card)
     python3 chip_smoke.py --quick    # build + kernel checks only
     python3 chip_smoke.py --link-round   # one link round, timed and traced
 
 Phases (any failure raises and the script exits non-zero):
-  1. build every kernel library (one nvcc each, started together), and
-     print the split-decode, merge, egress, burst-mask, wgmma and tf32x3
-     kernels' registers and spills;
+  1. build every kernel library (one ``nvcc -c`` a source, all started
+     together, then a link a library), and print the split-decode, merge,
+     egress, burst-mask, wgmma, tf32x3 and the backward's three kernels'
+     registers and spills;
   2. flash decode vs ``flash_decode_ref`` at the main path's head shapes
      (B 4, KV 16, G 1, hd 64, C 64 and 1024), gemma3's (KV 8, G 2, hd 256)
      and B 1 at C 4096, bf16 / int8 / f32 caches, softcap 0 and 30; caches
@@ -38,7 +41,9 @@ Phases (any failure raises and the script exits non-zero):
      Gilbert–Elliott burst mask (a warp scan of state maps) vs
      ``burst_mask_ref`` and ``burst_mask_scan_ref`` at R x N = 1 x 164 (a
      decode round), 32 x 164, 17 x 256, 5 x 130, 1 x 1, N 31 / 32 / 33, 5 x
-     1000 and 2 x 4097 (tiles carried); flash attention
+     1000 and 2 x 4097 (tiles carried), and 1 x 167,773 (the training
+     message of 4 x 1024 x 1024 elements) against the scan's plain version;
+     flash attention
      vs ``flash_attention_ref`` over the reference test's grid (Sq 1 at
      q_offset 383, a window, non-causal, ragged 200), Sq 1000, hd 256 and
      a causal ragged hd 128, GQA G 1 and 2, softcap 0 and 30, f32 (atol
@@ -46,8 +51,11 @@ Phases (any failure raises and the script exits non-zero):
      case on the body ``body_for`` names (bf16 at hd 64 / 128 / 256 on the
      wgmma body, f32 at hd a multiple of 8 on the 3xTF32 body, the rest on
      the CUDA cores; per-body counters, every body given cases); the
-     SSM scan vs ``ssm_scan_ref`` bit for bit at T 1 / 100 / 300 x D 1 /
-     130 / 512;
+     flash-attention backward vs ``flash_attention_bwd_ref`` over the same
+     grid (dQ, dK, dV each; f32 within ``BWD_F32_FACTOR`` x the plain
+     backward's own f32-vs-f64 error, bf16 within one bf16 ulp of the plain
+     backward in f32); the SSM scan vs ``ssm_scan_ref`` bit for bit at T 1
+     / 100 / 300 x D 1 / 130 / 512;
   3. threefry link masks (iid, Gilbert–Elliott) drawn on the card equal
      the same draws on the CPU;
   4. full-width qwen1.5-0.5b (random weights from a seed), batch 4, prompt
@@ -118,8 +126,17 @@ Phases (any failure raises and the script exits non-zero):
      time by a direct launch and the bound at both the 3xTF32 and the
      CUDA-core rate), at hd 32 (CUDA-core body) and at gemma3's local layer
      (KV 8, G 2, hd 256, S 2048, window 1024), the scan's time, plain times
-     and bounds.
-Phases 9-12 run after phase 3, ahead of the profiled phases 5 and 7.
+     and bounds;
+ 13. COMtune fine-tuning of full-width qwen1.5-0.5b (``run_training``):
+     ``launch.train.train`` in bf16 (batch 4 x seq 1024, dropout 0.2, the
+     8-bit STE, 8 steps; 24 x 8 forward and 24 x 8 backward flash-attention
+     launches); the f32 oracle check against naive attention in f32 and f64
+     (batch 2: gradients of step 1 and per-token losses of 4 steps); the
+     Gilbert–Elliott train link through the burst-mask kernel (3 steps, a
+     launch a step); a step's time and its forward / backward / optimizer /
+     link split; the backward kernel's time at the training shape (bf16 and
+     f32) beside SDPA's backward, its plain version and its bound.
+Phases 9-13 run after phase 3, ahead of the profiled phases 5 and 7.
 
 The card's name and power limit are printed first and again before the
 kernels' JSON record, which is the line before the last; the last line is
@@ -963,6 +980,10 @@ def check_lossy_link_egress() -> float:
 
 BURST_SHAPES = ((1, 164), (32, 164), (17, 256), (5, 130), (1, 1), (1, 31), (3, 32), (1, 33), (5, 1000),
                 (2, 4097))
+# The GE training link's message: batch 4 x seq 1024 x d 1024 in one row of
+# 25-element packets (checked against the scan's plain version only; the
+# channel's per-packet walk would take one launch a packet).
+TRAIN_PACKETS = -(-4 * 1024 * 1024 // 25)
 
 
 def check_burst_mask() -> float:
@@ -992,7 +1013,15 @@ def check_burst_mask() -> float:
             assert torch.equal(got, want), f"burst_mask {(r, n, kw)}: kernel differs from the plain version"
             assert torch.equal(got, scan), f"burst_mask {(r, n, kw)}: kernel differs from the scan's plain version"
             n_cases += 1
-    log(f"[kernel] burst_mask vs burst_mask_ref and burst_mask_scan_ref: {n_cases} cases exact")
+    ui, ul, ut = (torch.rand(s, generator=gen, device="cuda") for s in ((1,), (1, TRAIN_PACKETS), (1, TRAIN_PACKETS)))
+    for kw in params:
+        got = cuda_kernel.burst_mask(ui, ul, ut, **kw)
+        scan = burst_mask_scan_ref(ui, ul, ut, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, scan), f"burst_mask (1, {TRAIN_PACKETS}, {kw}): kernel differs from the scan's plain version"
+        n_cases += 1
+    log(f"[kernel] burst_mask vs burst_mask_ref and burst_mask_scan_ref: {n_cases} cases exact (R 1 x N "
+        f"{TRAIN_PACKETS}, the training message, against the scan's plain version)")
     return 0.0
 
 
@@ -1053,7 +1082,7 @@ def _zero_counts():
     from repro_torch.kernels.ssm_scan import cuda_kernel as ss
 
     fd.launch_count = fd.paged_launch_count = ll.egress_launch_count = ll.burst_launch_count = 0
-    fa.launch_count = ss.launch_count = 0
+    fa.launch_count = fa.bwd_launch_count = ss.launch_count = 0
     fa.body_launch_count.update(wgmma=0, tf32x3=0, simt=0)
 
 
@@ -1065,7 +1094,8 @@ def _counts() -> dict:
 
     return dict(flash_decode=fd.launch_count, paged_flash_decode=fd.paged_launch_count,
                 lossy_link_egress=ll.egress_launch_count, burst_mask=ll.burst_launch_count,
-                flash_attention=fa.flash_attention_launch_count(), ssm_scan=ss.launch_count)
+                flash_attention=fa.flash_attention_launch_count(), flash_attention_bwd=fa.bwd_launch_count,
+                ssm_scan=ss.launch_count)
 
 
 def run_link_kernels(report) -> dict:
@@ -1097,9 +1127,9 @@ def run_link_kernels(report) -> dict:
     prompts = prng.randint(key, (BATCH, PROMPT), 0, base.vocab_size)
     spec = lambda channel, kernel=True: LinkSpec(loss_rate=LOSS, channel=channel, use_kernel=kernel)
     want = {"iid": dict(flash_decode=per_run, paged_flash_decode=0, lossy_link_egress=TOKENS, burst_mask=0,
-                        flash_attention=0, ssm_scan=0),
+                        flash_attention=0, flash_attention_bwd=0, ssm_scan=0),
             "ge": dict(flash_decode=per_run, paged_flash_decode=0, lossy_link_egress=0, burst_mask=PROMPT + TOKENS,
-                       flash_attention=0, ssm_scan=0)}
+                       flash_attention=0, flash_attention_bwd=0, ssm_scan=0)}
     out = {}
     main_launches = {}
     for dtype in ("float32", "bfloat16"):
@@ -1409,6 +1439,71 @@ def check_flash_attention() -> dict:
     return body_err
 
 
+# The backward's bars.  f32: each gradient's max error against the plain
+# backward in f64 within BWD_F32_FACTOR times the plain backward's own f32
+# max error on the same case (the kernel sums in another order: over the
+# group's heads and the tiles of a row).  The ratio of two max errors over
+# a small gradient is heavy-tailed: the kernel's arithmetic, emulated on the
+# CPU at Sq 1 over 384 keys, passes 4x for some of 40 seeds while its
+# median stays near 1 (tests/test_torch_flash_attention_bwd.py::
+# test_bwd_kernel_arithmetic_meets_the_f32_bar), so a 4x bar would reject
+# correct f32 arithmetic; 8x.
+# bf16: within one bf16 ulp (BF16_REL) of the plain backward computed in
+# f32 on the same bf16-valued inputs, as the forward's bf16 bar, plus that
+# f32 noise term for elements that cancel to near 0.
+BWD_F32_FACTOR = 8.0
+
+
+def check_flash_attention_bwd() -> float:
+    """Flash-attention backward kernel vs ``flash_attention_bwd_ref`` on the
+    card over the forward's grid (``FLASH_GRID``: Sq 1 at q_offset 383, a
+    window, non-causal, ragged 200, Sq 1000, hd 32 / 64 / 128 / 256), GQA G
+    1 and 2, softcap 0 and 30, f32 and bf16; dQ, dK and dV each held to the
+    bars above.  ``out`` is the forward kernel's output on the same inputs
+    (as ``FlashAttentionFunction`` saves it).  Returns the worst f32 error."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda_kernel, flash_attention_bwd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    worst_f32, worst_ratio, n_cases = 0.0, 0.0, 0
+    for sq, skv, hd, causal, window, q_offset in FLASH_GRID:
+        for g in (1, 2):
+            for dname in ("float32", "bfloat16"):
+                dt = getattr(torch, dname)
+                mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+                q, k, v, dout = mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd), mk(2, sq, 2 * g, hd)
+                for softcap in (0.0, 30.0):
+                    kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+                    with torch.no_grad():
+                        out = cuda_kernel.flash_attention(q, k, v, **kw)
+                    before = cuda_kernel.bwd_launch_count
+                    got = cuda_kernel.flash_attention_bwd(q, k, v, out, dout, **kw)
+                    assert cuda_kernel.bwd_launch_count == before + 1
+                    want32 = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out, dout)), **kw)
+                    want64 = flash_attention_bwd_ref(*(t.double() for t in (q, k, v, out, dout)), **kw)
+                    torch.cuda.synchronize()
+                    case = (sq, skv, hd, causal, window, q_offset, g, dname, softcap)
+                    for name, a, w32, w64 in zip(("dq", "dk", "dv"), got, want32, want64):
+                        assert a.dtype == dt and a.shape == w32.shape, f"{case} {name}: {a.dtype} {tuple(a.shape)}"
+                        noise = float((w32.double() - w64).abs().max())
+                        if dt == torch.float32:
+                            err = float((a.double() - w64).abs().max())
+                            assert err <= BWD_F32_FACTOR * noise, (
+                                f"{case} {name}: |kernel - plain f64| {err:.3e} > {BWD_F32_FACTOR} x the plain f32 "
+                                f"noise {noise:.3e}")
+                            worst_f32 = max(worst_f32, err)
+                            worst_ratio = max(worst_ratio, err / max(noise, 1e-30))
+                        else:
+                            bar = BF16_REL * w32.abs() + BWD_F32_FACTOR * noise
+                            ratio = float(((a.float() - w32).abs() / bar).max())
+                            assert ratio <= 1.0, f"{case} {name}: bf16 gradient off the f32 plain value by {ratio:.2f} of its bar"
+                    n_cases += 1
+    log(f"[kernel] flash_attention_bwd vs flash_attention_bwd_ref: {n_cases} cases agree (dQ, dK, dV each); f32 max "
+        f"|err| {worst_f32:.3e}, at most {worst_ratio:.2f} x the plain f32-vs-f64 noise (bar {BWD_F32_FACTOR})")
+    return worst_f32
+
+
 def check_ssm_scan() -> float:
     """SSM-scan kernel vs ``ssm_scan_ref`` on the card, bit for bit
     (``torch.equal``): T 1, 100, 300 x D 1, 130, 512 (130 ragged against a
@@ -1483,7 +1578,7 @@ def run_long_prefill(report) -> dict:
     toks, timings = generate_reference(model32, cfg32, prompts, LONG_TOKENS, loss_rate=LOSS, key=key, channel="iid")
     launches = _counts()
     want = dict(flash_decode=n_layers * LONG_TOKENS, paged_flash_decode=0, lossy_link_egress=0, burst_mask=0,
-                flash_attention=n_layers, ssm_scan=0)
+                flash_attention=n_layers, flash_attention_bwd=0, ssm_scan=0)
     assert launches == want, f"long generate_reference: launches {launches}, want {want}"
     assert fa.body_launch_count == {"wgmma": 0, "tf32x3": n_layers, "simt": 0}, \
         f"f32 prefill bodies {fa.body_launch_count}"
@@ -1516,7 +1611,7 @@ def run_long_prefill(report) -> dict:
     n_long = sum(r.bucket > base.attn_block_q for r in reqs)
     assert [r.bucket for r in reqs] == [1024, 1024, 512, 64] and n_long == 2
     want = dict(flash_decode=0, paged_flash_decode=n_layers * eng.steps, lossy_link_egress=0, burst_mask=0,
-                flash_attention=n_layers * n_long, ssm_scan=0)
+                flash_attention=n_layers * n_long, flash_attention_bwd=0, ssm_scan=0)
     assert engine_launches == want, f"long engine: launches {engine_launches}, want {want}"
     assert fa.body_launch_count == {"wgmma": 0, "tf32x3": n_layers * n_long, "simt": 0}, \
         f"bodies {fa.body_launch_count}"
@@ -1758,6 +1853,333 @@ def time_ssm_scan() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: COMtune fine-tuning at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, GRAD_BATCH, TRAJ_STEPS, GE_STEPS = 4, 1024, 8, 2, 4, 3
+# The f32 oracle's bars, as multiples of the naive path's f32 distance from
+# f64.  The backward kernel (under the plain forward): 2x.  The whole kernel
+# path: its f32 forward body is 3xTF32, whose operands keep ~22 of f32's 24
+# bits (hi + lo TF32 parts, lo x lo dropped), a unit error of 2**-22, 4x
+# f32's 2**-24; so 2 x 4 = 8x.  Both ratios are logged, worst and median.
+BWD_PATH_FACTOR, F32_PATH_FACTOR = 2.0, 8.0
+# The backward's least work a visible (query, key) pair: S again, dP, dV, dK
+# and dQ (2.5x the forward's 4 hd flops) plus the statistics pass's S.
+BWD_FLOPS_PER_PAIR_HD = 12
+
+
+def _train_batches(cfg, batch, steps, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (steps, batch, TRAIN_SEQ), generator=gen, device="cuda")
+
+
+def _oracle_run(model, cfg, tokens, key, steps):
+    """``steps`` fine-tuning steps (dropout link, the trainer's Adam) with
+    each step's per-token NLL; the first step's gradient as a dict."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamConfig, adam_update, init_adam
+
+    params = dict(model.named_parameters())
+    adam_cfg = AdamConfig(lr=3e-4, grad_clip_norm=1.0)
+    opt = init_adam(params, adam_cfg)
+    nlls, first = [], None
+    for t in range(steps):
+        key, sub = prng.split(key)
+        logits, _, aux = lm.forward(model, tokens[t], cfg, link_key=sub, link_mode="train")
+        nll = lm.token_nll(logits, tokens[t])
+        loss = nll.mean() + cfg.router_aux_coef * aux
+        del logits
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), grads)}
+        if first is None:
+            first = {n: g.detach().double() for n, g in grads.items()}
+        adam_update(grads, params, opt, adam_cfg)
+        nlls.append(nll.detach().double())
+        del grads, loss, nll
+    return torch.stack(nlls), first
+
+
+def run_training(report) -> dict:
+    """Full-width qwen1.5-0.5b (random weights from a seed) fine-tuned with
+    the COMtune link at the split (Eq. 8), sequences of 1024 tokens, past
+    ``attn_block_q`` (two 512-row query tiles), so every attention layer
+    runs the flash-attention forward and backward kernels.
+
+    1. The default run: ``train(arch, full_size=True)`` in bf16, batch 4,
+       the paper's dropout link (r 0.2, the 8-bit STE), 8 steps, counts
+       zeroed just before: 24 x 8 forward and 24 x 8 backward launches,
+       nothing else; finite losses.
+    2. The f32 oracle check, batch 2: the kernel path and the same weights,
+       data and key through naive attention (``attn_block_q`` raised past
+       the sequence) in plain autograd, in f32 and in f64 (the model cast
+       with ``.double()``).  Every gradient leaf of step 1, and the per-token
+       losses (2 x 1023) of 4 steps, of the kernel path within
+       ``F32_PATH_FACTOR`` times the naive path's f32 distance from f64 (max
+       over the tensor); and every gradient leaf with the backward kernel
+       under the plain forward (a comparison run) within
+       ``BWD_PATH_FACTOR``.  A scalar mean loss against one f32 sample of
+       noise would be a ratio of two single rounding errors, so the losses
+       are held per token; the means are printed.
+    3. The Gilbert–Elliott channel link through the burst-mask kernel
+       (``LinkSpec(train_link="channel", channel="ge", use_kernel=True)``),
+       batch 4, 3 steps of ``make_train_step``: one burst-mask launch a step
+       (1 x 167,773 packets), 24 forward and 24 backward launches a step,
+       finite losses.
+    Returns the default run's backward launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.comtune import LinkSpec
+    from repro_torch.kernels.flash_attention import cuda_kernel as fa
+    from repro_torch.kernels.flash_attention import gqa_flash_attention_ref
+    from repro_torch.launch import train as t_train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamConfig, init_adam
+
+    torch.cuda.empty_cache()
+    base = get_config("qwen1.5-0.5b")
+    n_layers = base.num_layers
+    assert TRAIN_SEQ > base.attn_block_q and base.attn_impl in ("blockwise", "flash_decode")
+    out = {}
+
+    # 1. the default run (this slice's main path)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, losses, cfg = t_train.train("qwen1.5-0.5b", steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                       full_size=True, log_every=10 ** 6, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = dict(flash_decode=0, paged_flash_decode=0, lossy_link_egress=0, burst_mask=0,
+                flash_attention=n_layers * TRAIN_STEPS, flash_attention_bwd=n_layers * TRAIN_STEPS, ssm_scan=0)
+    assert launches == want, f"training run: launches {launches}, want {want}"
+    assert fa.body_launch_count == {"wgmma": n_layers * TRAIN_STEPS, "tf32x3": 0, "simt": 0}, fa.body_launch_count
+    assert cfg.dtype == "bfloat16" and len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses
+    out["default"] = dict(dtype=cfg.dtype, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
+                          wall_s_with_setup=wall, launches=launches,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"[train] bf16 default run ({TRAIN_BATCH} x {TRAIN_SEQ}, dropout 0.2, 8-bit STE): losses "
+        f"{[round(x, 4) for x in losses]}; {wall:.1f} s with set-up; launches {launches}; peak "
+        f"{out['default']['peak_gib']:.1f} GiB")
+    out["times"] = time_training_step(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+
+    # 2. the f32 oracle check
+    cfg32 = base.with_updates(dtype="float32")
+    naive = cfg32.with_updates(attn_block_q=2 * TRAIN_SEQ)
+    tokens = _train_batches(cfg32, GRAD_BATCH, TRAJ_STEPS, seed=21)
+    key = prng.PRNGKey(22, "cuda")
+    model32 = lm.init_lm(cfg32, seed=1, device="cuda").requires_grad_(True)
+    model64 = copy.deepcopy(model32).double()
+    init = {n: p.detach().clone() for n, p in model32.named_parameters()}
+
+    def reset():
+        with torch.no_grad():
+            for n, p in model32.named_parameters():
+                p.copy_(init[n])
+
+    _zero_counts()
+    k_nll, k_grad = _oracle_run(model32, cfg32, tokens, key, TRAJ_STEPS)
+    kl = _counts()
+    assert (kl["flash_attention"], kl["flash_attention_bwd"]) == (n_layers * TRAJ_STEPS,) * 2, kl
+    assert fa.body_launch_count["tf32x3"] == n_layers * TRAJ_STEPS, fa.body_launch_count
+    # The comparison run: the plain forward in the kernel's place, the
+    # backward kernel as on the path.
+    kernel_fwd = fa.flash_attention
+    fa.flash_attention = lambda q, k, v, **kw: gqa_flash_attention_ref(q, k, v, **kw).contiguous()
+    try:
+        reset()
+        _, b_grad = _oracle_run(model32, cfg32, tokens, key, 1)
+    finally:
+        fa.flash_attention = kernel_fwd
+    reset()
+    _zero_counts()
+    n32_nll, n32_grad = _oracle_run(model32, naive, tokens, key, TRAJ_STEPS)
+    assert _counts()["flash_attention"] == 0, "the naive oracle reached the kernel"
+    del model32
+    torch.cuda.empty_cache()
+    n64_nll, n64_grad = _oracle_run(model64, naive, tokens, key, TRAJ_STEPS)
+    del model64
+    torch.cuda.empty_cache()
+    worst = {"path": (0.0, ""), "bwd": (0.0, "")}
+    ratios = {"path": [], "bwd": []}
+    for name in n64_grad:
+        noise = float((n32_grad[name] - n64_grad[name]).abs().max())
+        for tag, grads, bar in (("path", k_grad, F32_PATH_FACTOR), ("bwd", b_grad, BWD_PATH_FACTOR)):
+            err = float((grads[name] - n64_grad[name]).abs().max())
+            assert err <= bar * noise, (f"gradient {name} ({tag}): {err:.3e} from f64, > {bar} x the naive "
+                                        f"path's f32 noise {noise:.3e}")
+            if noise > 0:
+                ratios[tag].append(err / noise)
+                if err / noise > worst[tag][0]:
+                    worst[tag] = (err / noise, name)
+    median = {tag: float(np.median(r)) for tag, r in ratios.items()}
+    step_ratio = []
+    for t in range(TRAJ_STEPS):
+        err = float((k_nll[t] - n64_nll[t]).abs().max())
+        noise = float((n32_nll[t] - n64_nll[t]).abs().max())
+        assert err <= F32_PATH_FACTOR * noise, (f"step {t + 1} per-token losses: kernel path {err:.3e} from f64, "
+                                                f"> {F32_PATH_FACTOR} x {noise:.3e}")
+        step_ratio.append(err / noise)
+    means = [[float(x[t].mean()) for t in range(TRAJ_STEPS)] for x in (k_nll, n32_nll, n64_nll)]
+    out["f32_check"] = dict(batch=GRAD_BATCH, leaves=len(n64_grad), worst_grad_ratio=worst["path"][0],
+                            worst_grad_leaf=worst["path"][1], median_grad_ratio=median["path"],
+                            worst_bwd_kernel_ratio=worst["bwd"][0], worst_bwd_kernel_leaf=worst["bwd"][1],
+                            median_bwd_kernel_ratio=median["bwd"], nll_ratio_by_step=step_ratio,
+                            mean_loss_kernel=means[0], mean_loss_naive32=means[1], mean_loss_naive64=means[2])
+    log(f"[train] f32 kernel path vs naive f32/f64 (batch {GRAD_BATCH}), {len(n64_grad)} gradient leaves: the path "
+        f"at most {worst['path'][0]:.3f} x the f32 noise ({worst['path'][1]}; median {median['path']:.3f}; bar "
+        f"{F32_PATH_FACTOR}), the backward kernel under the plain forward {worst['bwd'][0]:.3f} x "
+        f"({worst['bwd'][1]}; median {median['bwd']:.3f}; bar {BWD_PATH_FACTOR}); "
+        f"per-token losses of {TRAJ_STEPS} steps at {[round(r, 3) for r in step_ratio]} x; mean losses kernel "
+        f"{means[0]}, naive f32 {means[1]}, f64 {means[2]}")
+    del k_grad, b_grad, n32_grad, n64_grad
+    torch.cuda.empty_cache()
+
+    # 3. the Gilbert-Elliott train link through the burst-mask kernel
+    spec = lm.link_spec_from_config(base, train_link="channel", channel="ge", use_kernel=True)
+    assert isinstance(spec, LinkSpec) and spec.channel == "ge"
+    model = lm.init_lm(base, seed=2, device="cuda").requires_grad_(True)
+    adam_cfg = AdamConfig(lr=3e-4, grad_clip_norm=1.0)
+    opt = init_adam(dict(model.named_parameters()), adam_cfg)
+    step = make_train_step(base, adam_cfg, link_spec=spec)
+    tokens = _train_batches(base, TRAIN_BATCH, GE_STEPS, seed=23)
+    key, ge_losses = prng.PRNGKey(24, "cuda"), []
+    _zero_counts()
+    for t in range(GE_STEPS):
+        key, sub = prng.split(key)
+        model, opt, metrics = step(model, opt, {"tokens": tokens[t]}, sub)
+        ge_losses.append(float(metrics["loss"]))
+    gl = _counts()
+    want = dict(want, flash_attention=n_layers * GE_STEPS, flash_attention_bwd=n_layers * GE_STEPS,
+                burst_mask=GE_STEPS)
+    assert gl == want, f"GE training: launches {gl}, want {want}"
+    assert np.isfinite(ge_losses).all(), ge_losses
+    out["ge"] = dict(losses=ge_losses, launches=gl, packets=-(-TRAIN_BATCH * TRAIN_SEQ * base.d_model // 25))
+    log(f"[train] GE channel link (use_kernel) {GE_STEPS} steps: losses {[round(x, 4) for x in ge_losses]}, "
+        f"launches {gl}")
+    del model, opt
+    torch.cuda.empty_cache()
+    report["training"] = out
+    return launches["flash_attention_bwd"]
+
+
+def time_training_step(model, cfg) -> dict:
+    """One bf16 training step of the default run's shape by the host clock
+    (ending in a synchronize), and its parts by CUDA events with no
+    profiler: forward (through the loss), backward, the optimizer, and the
+    dropout link alone on the split activation."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core import comtune
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamConfig, adam_update, init_adam
+
+    params = dict(model.named_parameters())
+    adam_cfg = AdamConfig(lr=3e-4, grad_clip_norm=1.0)
+    opt = init_adam(params, adam_cfg)
+    tokens = _train_batches(cfg, TRAIN_BATCH, 4, seed=31)
+    key = prng.PRNGKey(32, "cuda")
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    walls = []
+    for t in range(4):
+        key, sub = prng.split(key)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = [ev() for _ in range(4)]
+        e[0].record()
+        logits, _, aux = lm.forward(model, tokens[t], cfg, link_key=sub, link_mode="train")
+        loss = lm.lm_loss(logits, tokens[t], aux, cfg.router_aux_coef)
+        e[1].record()
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), grads)}
+        e[2].record()
+        adam_update(grads, params, opt, adam_cfg)
+        e[3].record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        for i, name in enumerate(parts):
+            parts[name].append(e[i].elapsed_time(e[i + 1]))
+        del logits, loss, grads
+    spec = lm._calibrated_spec(cfg, model, None, None)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), device="cuda").to(torch.bfloat16)
+    link_ms = time_events(lambda: comtune.emulate_link(key, x, spec, "train"), iters=20, warmup=3)
+    # Step 1 pays first-use costs; the steady steps are 2-4.
+    steady = lambda xs: sum(xs[1:]) / len(xs[1:])
+    rec = dict(step_s=steady(walls), step_s_all=walls, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady(walls),
+               link_ms=link_ms, **{f"{k}_ms": steady(v) for k, v in parts.items()})
+    log(f"[time] training step (bf16, {TRAIN_BATCH} x {TRAIN_SEQ}): {rec['step_s'] * 1e3:.1f} ms "
+        f"({rec['tokens_per_s']:.0f} tokens/s; steps {[round(w * 1e3, 1) for w in walls]} ms): forward "
+        f"{rec['forward_ms']:.1f} ms, backward {rec['backward_ms']:.1f} ms, optimizer {rec['optimizer_ms']:.1f} ms; "
+        f"the dropout link alone {link_ms:.3f} ms")
+    return rec
+
+
+def time_flash_attention_bwd(b, h, hd, s, dname) -> dict:
+    """The backward kernel (graph replay and eager) at the training shape,
+    causal, beside its plain version, SDPA's backward (``is_causal``; its
+    forward + backward less its forward, eager, in the same call) and the
+    bound: bytes (q, k, v, out, dout read once, dq, dk, dv written once)
+    over 3.35 TB/s against ``BWD_FLOPS_PER_PAIR_HD`` x hd flops per visible
+    pair at the peak of f32-accurate arithmetic on the operands' type."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import cuda_kernel, flash_attention_bwd_ref
+
+    dt = getattr(torch, dname)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    mk = lambda: torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
+    q, k, v, dout = mk(), mk(), mk(), mk()
+    with torch.no_grad():
+        out = cuda_kernel.flash_attention(q, k, v)
+    saved = (cuda_kernel.launch_count, cuda_kernel.bwd_launch_count, dict(cuda_kernel.body_launch_count))
+    call = lambda: cuda_kernel.flash_attention_bwd(q, k, v, out, dout)
+    ms = time_graph(call, iters=10)
+    ms_eager = time_events(call, iters=10, warmup=2)
+    cuda_kernel.launch_count, cuda_kernel.bwd_launch_count = saved[0], saved[1]
+    cuda_kernel.body_launch_count.update(saved[2])
+    plain_ms = time_events(lambda: flash_attention_bwd_ref(q, k, v, out, dout), iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    dt_ = dout.transpose(1, 2).contiguous()
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.backward(F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), dt_)
+
+    fwd_ms = time_events(sdpa_fwd, iters=20, warmup=3)
+    both_ms = time_events(sdpa_fwd_bwd, iters=20, warmup=3)
+    lib_ms = both_ms - fwd_ms
+    elem = 2 if dt == torch.bfloat16 else 4
+    nbytes = 8 * b * s * h * hd * elem
+    ops = BWD_FLOPS_PER_PAIR_HD * hd * b * h * _visible_pairs(s, s, True, 0)
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["tf32x3" if dt == torch.float32 else dname])
+    rec = dict(shape=dict(B=b, S=s, H=h, hd=hd, causal=True, dtype=dname), ms=ms, ms_eager=ms_eager,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms, sdpa_fwd_ms=fwd_ms,
+               sdpa_fwd_bwd_ms=both_ms, bytes=nbytes, ops=ops)
+    log(f"[time] flash_attention_bwd {rec['shape']}: kernel {ms * 1e3:.1f} us (graph) / {ms_eager * 1e3:.1f} us "
+        f"(eager), plain {plain_ms * 1e3:.1f} us, sdpa backward {lib_ms * 1e3:.1f} us (fwd+bwd {both_ms * 1e3:.1f} - "
+        f"fwd {fwd_ms * 1e3:.1f}, eager), bound {bound_ms * 1e3:.2f} us ({bound_by}, {ops / 1e9:.2f} GFLOP, "
+        f"{nbytes} B)")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
@@ -1799,7 +2221,8 @@ def main(argv=None) -> int:
 
     wrappers = (decode_kernel, link_kernel, flash_kernel, scan_kernel)
     libs = nvcc.build_libraries([(m.LIB_NAME, m.SOURCES) for m in wrappers])
-    log(f"[build] {len(libs)} librar{'y' if len(libs) == 1 else 'ies'} in {time.perf_counter() - t_build:.1f} s")
+    build_s = time.perf_counter() - t_build
+    log(f"[build] {len(libs)} librar{'y' if len(libs) == 1 else 'ies'} in {build_s:.1f} s")
     for path in libs.values():
         text = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
@@ -1810,10 +2233,11 @@ def main(argv=None) -> int:
                 f"spill stores up to {max(spills or [0])} B, static smem up to {max(smem or [0])} B")
         for name, line in kernel_resources(text, ("flash_attention_wgmma_kernel", "flash_attention_tf32x3_kernel",
                                                   "split_decode_kernel", "merge_splits_kernel", "egress_kernel",
-                                                  "burst_mask_kernel")):
+                                                  "burst_mask_kernel", "fa_bwd_stats_kernel", "fa_bwd_dkdv_kernel",
+                                                  "fa_bwd_dq_kernel")):
             log(f"[build]   {name}: {line}")
 
-    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s}
     max_err = check_flash_decode()
     record = dict(name="flash_decode", route="cuda",
                   source="src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu",
@@ -1840,11 +2264,14 @@ def main(argv=None) -> int:
                      for body, name, src in (("wgmma", "flash_attention", "flash_attention_wgmma.cu"),
                                              ("tf32x3", "flash_attention_tf32x3", "flash_attention_tf32x3.cu"),
                                              ("simt", "flash_attention_simt", "flash_attention.cu"))}
+    bwd_record = dict(name="flash_attention_bwd", route="cuda", source=flash_dir + "flash_attention_bwd.cu",
+                      replaces="src/repro/models/attention.py:162 (the gradient of _blockwise_attn, by autodiff)",
+                      max_abs_err=check_flash_attention_bwd())
     ssm_record = dict(name="ssm_scan", route="cuda", source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                       replaces="src/repro/kernels/ssm_scan/kernel.py:55", max_abs_err=check_ssm_scan())
     if not args.quick:
         check_masks()
-        # Phases 9-12 run ahead of the profiled phases, so that their
+        # Phases 9-13 run ahead of the profiled phases, so that their
         # host-clock times are taken before any profiler trace.
         link_launches = run_link_kernels(report)
         run_link_round(report)
@@ -1871,6 +2298,12 @@ def main(argv=None) -> int:
         report["ssm_scan_times"] = stiming
         ssm_record.update(launches=ssm_launches, ms=stiming["ms"], plain_ms=stiming["plain_ms"],
                           bound_ms=stiming["bound_ms"], bound_by=stiming["bound_by"], library_ms=None)
+        bwd_launches = run_training(report)
+        btimes = [time_flash_attention_bwd(TRAIN_BATCH, 16, 64, TRAIN_SEQ, d) for d in ("bfloat16", "float32")]
+        report["flash_attention_bwd_times"] = btimes
+        bwd_record.update(launches=bwd_launches, ms=btimes[0]["ms"], plain_ms=btimes[0]["plain_ms"],
+                          bound_ms=btimes[0]["bound_ms"], bound_by=btimes[0]["bound_by"],
+                          library_ms=btimes[0]["library_ms"])
         launches = run_slice(report)
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [
@@ -1893,7 +2326,8 @@ def main(argv=None) -> int:
         paged_record.update(launches=paged_launches, ms=ptiming["ms"], plain_ms=ptiming["plain_ms"],
                             bound_ms=ptiming["bound_ms"], bound_by=ptiming["bound_by"],
                             library_ms=ptiming["library_ms"])
-    report["kernels"] = [record, paged_record, egress_record, burst_record, *flash_records.values(), ssm_record]
+    report["kernels"] = [record, paged_record, egress_record, burst_record, *flash_records.values(), bwd_record,
+                         ssm_record]
     for rec in report["kernels"]:
         if rec.get("library_ms") is not None and rec["library_ms"] < rec["bound_ms"]:
             log(f"[bound] WARNING {rec['name']}: the library call ({rec['library_ms'] * 1e3:.2f} us) beats the "

@@ -1,13 +1,13 @@
 """Lossy activation compression (paper Appendix A) — the port's twin of
-``repro/core/compression.py`` for the serving path.
+``repro/core/compression.py``.
 
 * Quantization (Eq. 13-15): clip to the calibrated per-element
   ``[s_min, s_max]``, round to an ``n``-bit integer code (round half to
   even, as ``jnp.round``); the code is what crosses the channel.
 * PCA (Eq. 18-19): transmit ``w a``, reconstruct ``w^T a' + b``.
-
-The straight-through training roundtrip waits for the fine-tuning port
-(ROADMAP A9).
+* The fine-tuning graph's roundtrip (``Compressor.roundtrip_train``):
+  quantize-dequantize with a straight-through gradient
+  (``fake_quantize_ste``), PCA as the linear map it is.
 """
 
 from __future__ import annotations
@@ -48,6 +48,14 @@ def dequantize(code: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     levels = float(2 ** spec.bits - 1)
     s_min, _, rng = _range(spec, code)
     return code / levels * rng + s_min
+
+
+def fake_quantize_ste(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Quantize + dequantize in the forward, identity in the backward (the
+    reference's ``x + stop_gradient(y - x)``): the COMtune fine-tuning
+    graph's quantizer.  No gradient reaches ``s_min`` / ``s_max``."""
+    y = dequantize(quantize(x, spec), spec)
+    return x + (y - x).detach()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +105,17 @@ class Compressor:
             return dequantize(z, self.quant)
         if self.kind == "pca":
             return pca_decompress(z, self.pca)
+        raise ValueError(self.kind)
+
+    def roundtrip_train(self, x: torch.Tensor) -> torch.Tensor:
+        """Differentiable compress-decompress of the fine-tuning graph (STE
+        for quantization; PCA is linear already)."""
+        if self.kind == "identity":
+            return x
+        if self.kind == "quant":
+            return fake_quantize_ste(x, self.quant)
+        if self.kind == "pca":
+            return pca_decompress(pca_compress(x, self.pca), self.pca)
         raise ValueError(self.kind)
 
     def message_elements(self, feature_dim: int) -> int:

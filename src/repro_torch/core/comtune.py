@@ -1,15 +1,24 @@
-"""COMtune's link at the split point — the port's twin of the serving half
-of ``repro/core/comtune.py``.
+"""COMtune's link at the split point — the port's twin of
+``repro/core/comtune.py``.
 
-The distributed-inference graph (paper Eq. 12):
-    y = f_out ∘ f_dec ∘ (1/(1-p) · f_c(p)) ∘ f_cmp ∘ f_in
-``emulate_link`` is the one entry point, in the modes ``serve`` (compress,
-channel, compensate, decompress), ``clean`` (compression only) and ``off``.
-``LinkSpec(use_kernel=True)`` takes the serving link through the hand
-kernels of ``kernels/lossy_link``: the fused egress for the plain i.i.d.
-quantized link, the burst-mask kernel for Gilbert–Elliott channels.  The
-fine-tuning graph (``train``), FEC protection and adaptive compensation are
-not ported yet.
+Two compositions over a split model ``f = f_out ∘ f_in``:
+
+* the fine-tuning graph (paper Eq. 8),
+      f_trn = f_out ∘ f_dec ∘ f_d(r) ∘ f_cmp ∘ f_in,
+  where ``f_d`` is the paper's inverted dropout at rate ``r`` (Eq. 7), or,
+  under ``LinkSpec(train_link="channel")``, the serving channel with its
+  masks and compensation out of the gradient (identity on the mask);
+* the distributed-inference graph (Eq. 12),
+      y = f_out ∘ f_dec ∘ (1/(1-p) · f_c(p)) ∘ f_cmp ∘ f_in.
+
+``emulate_link`` is the one entry point, in the modes ``train`` (the STE
+compression roundtrip, then the emulation ``spec.train_link`` names),
+``serve`` (compress, channel, compensate, decompress), ``clean``
+(compression only) and ``off``.  ``LinkSpec(use_kernel=True)`` takes the
+link through the hand kernels of ``kernels/lossy_link``: the fused egress
+for the plain i.i.d. quantized serving link, the burst-mask kernel for
+Gilbert–Elliott channels in either mode.  FEC protection and adaptive
+compensation are not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -29,9 +38,17 @@ from repro_torch.kernels.lossy_link import dispatch as link_kernels
 @dataclasses.dataclass(frozen=True)
 class LinkSpec:
     """Configuration of the emulated IoT link at the split point (the
-    serving fields of the reference's ``LinkSpec``)."""
+    reference's ``LinkSpec`` without its FEC code and adaptive
+    compensation).  ``dropout_rate`` / ``loss_rate`` may be 0-d f32 tensors
+    (the per-step curriculum's rate)."""
 
+    dropout_rate: float = 0.0          # r used during COMtune fine-tuning
     loss_rate: float = 0.0             # p used during DI serving
+    # What emulates the channel in the fine-tuning graph (Eq. 8):
+    #   "dropout" -- the paper's Eq. 7 inverted dropout at dropout_rate;
+    #   "channel" -- the serving channel at loss_rate, its masks and
+    #                compensation out of the gradient.
+    train_link: str = "dropout"
     compressor: Compressor = dataclasses.field(default_factory=Compressor)
     granularity: str = "element"       # "element" (Eq. 1) or "packet" (Eq. 2-3)
     elements_per_packet: int = 25      # 100 B packets / 4 B floats
@@ -46,6 +63,20 @@ class LinkSpec:
         that would shadow it."""
         params = tuple((k, v) for k, v in self.channel_params if k != "loss_rate")
         return dataclasses.replace(self, loss_rate=rate, channel_params=params)
+
+    def with_dropout_rate(self, r: float) -> "LinkSpec":
+        return dataclasses.replace(self, dropout_rate=r)
+
+    def with_train_link(self, kind: str) -> "LinkSpec":
+        return dataclasses.replace(self, train_link=kind)
+
+    def with_train_rate(self, rate: float) -> "LinkSpec":
+        """Set the rate the fine-tuning emulation draws at: the dropout rate
+        under ``train_link="dropout"``, the (authoritative) channel loss
+        rate under ``"channel"`` (the curriculum's ramp)."""
+        if self.train_link == "channel":
+            return self.with_channel_loss_rate(rate)
+        return dataclasses.replace(self, dropout_rate=rate)
 
     @property
     def uses_net_path(self) -> bool:
@@ -62,6 +93,29 @@ class LinkSpec:
         params = dict(self.channel_params)
         loss_rate = params.pop("loss_rate", self.loss_rate)
         return net_channels.make_channel(self.channel or "iid", loss_rate=loss_rate, **params)
+
+
+def dropout_link(key: torch.Tensor, x: torch.Tensor, rate) -> torch.Tensor:
+    """Eq. (7): inverted dropout, the paper's channel emulation layer.
+
+    Compensation is a multiply by the f32 reciprocal of ``1 - rate`` (as
+    rounded to x's dtype), taken in f32 and rounded once: what the jitted
+    reference computes for a static rate, where XLA folds its division by
+    the constant into that multiply.  ``rate`` may be a 0-d tensor (the
+    per-step curriculum): it draws the same Bernoulli bits (``uniform < 1 -
+    r``) and gives the same values as the equal Python float.  (The
+    reference divides by a traced rate instead, one ulp off in ~1 element
+    of 16.)  Only a Python zero takes the shortcut."""
+    if not torch.is_tensor(rate) and rate <= 0.0:
+        return x
+    keep = prng.bernoulli(key, 1.0 - rate, tuple(x.shape)).to(x.device)
+    if torch.is_tensor(rate):
+        c = (1.0 - rate.to(device=x.device, dtype=torch.float32)).to(x.dtype)
+    else:
+        c = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    scaled = (x.to(acc) * (1.0 / c.to(acc))).to(x.dtype)
+    return torch.where(keep, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _not_ported(spec: LinkSpec) -> None:
@@ -87,11 +141,16 @@ def _stateful_channel_mask(key: torch.Tensor, x: torch.Tensor, spec: LinkSpec):
 
 
 def channel_link(key: torch.Tensor, x: torch.Tensor, spec: LinkSpec) -> torch.Tensor:
-    """Eq. (10)-(11): channel + compensation on the compressed message."""
+    """Eq. (10)-(11): channel + compensation on the compressed message (the
+    serving graph), or on the STE roundtrip's activation when the
+    fine-tuning graph emulates the deployment channel; the masks and the
+    compensation carry no gradient, so the gradient is identity on the
+    mask.  The i.i.d. rate may be a 0-d tensor; only a Python zero takes
+    the shortcut."""
     _not_ported(spec)
     if spec.channel in ("", "iid"):
         loss_rate = dict(spec.channel_params).get("loss_rate", spec.loss_rate)
-        if loss_rate <= 0.0:
+        if not torch.is_tensor(loss_rate) and loss_rate <= 0.0:
             return x
         return link_lib.apply_channel(
             key, x, loss_rate, granularity=spec.granularity,
@@ -114,13 +173,31 @@ def streamed_channel_link(key: torch.Tensor, msg: torch.Tensor, spec: LinkSpec) 
 
 
 def emulate_link(key: Optional[torch.Tensor], x: torch.Tensor, spec: LinkSpec, mode: str) -> torch.Tensor:
-    """The link-emulation entry point (modes serve / clean / off)."""
+    """The link-emulation entry point, shared by the fine-tuning graph (Eq.
+    8) and the serving graph (Eq. 12).
+
+    mode:
+      "train" -> the STE compression roundtrip, then ``spec.train_link``:
+                 "dropout" (Eq. 7 at ``dropout_rate``) or "channel" (the
+                 serving channel at ``loss_rate``, identity-on-mask
+                 gradients);
+      "serve" -> compress, channel(p), 1/(1-p), decompress; a (B, S, F)
+                 message streams as S per-token rounds; the fused egress
+                 kernel under ``use_kernel`` for the plain i.i.d. link;
+      "clean" -> the compression roundtrip only;
+      "off"   -> identity.
+    """
     if mode == "off":
         return x
     if mode == "clean":
         return spec.compressor.decompress(spec.compressor.compress(x))
     if mode == "train":
-        raise NotImplementedError("the COMtune fine-tuning link (train mode) is not ported yet (ROADMAP A9)")
+        a = spec.compressor.roundtrip_train(x)
+        if spec.train_link == "dropout":
+            return dropout_link(key, a, spec.dropout_rate)
+        if spec.train_link == "channel":
+            return channel_link(key, a, spec)
+        raise ValueError(f"unknown train_link: {spec.train_link!r}")
     if mode == "serve":
         if x.dim() == 3 and x.shape[1] > 1:
             msg = streamed_channel_link(key, spec.compressor.compress(x), spec)
@@ -133,6 +210,22 @@ def emulate_link(key: Optional[torch.Tensor], x: torch.Tensor, spec: LinkSpec, m
         msg = channel_link(key, spec.compressor.compress(x), spec)
         return spec.compressor.decompress(msg)
     raise ValueError(f"unknown link mode: {mode!r}")
+
+
+def comtune_forward(f_in, f_out, params_in, params_out, x: torch.Tensor, key: torch.Tensor, spec: LinkSpec,
+                    train: bool = True) -> torch.Tensor:
+    """Eq. (8): the fine-tuning graph over ``f_in(params_in, x)`` and
+    ``f_out(params_out, a)``; ``train=False`` gives the compression
+    roundtrip alone (``clean``)."""
+    a = f_in(params_in, x)
+    return f_out(params_out, emulate_link(key, a, spec, "train" if train else "clean"))
+
+
+def distributed_inference(f_in, f_out, params_in, params_out, x: torch.Tensor, key: torch.Tensor,
+                          spec: LinkSpec) -> torch.Tensor:
+    """Eq. (12): the DI serving graph, ``f_out(f_dec(f_c(f_cmp(f_in(x)))
+    / (1 - p)))``."""
+    return f_out(params_out, emulate_link(key, f_in(params_in, x), spec, "serve"))
 
 
 def message_bytes(spec: LinkSpec, feature_dim: int) -> float:

@@ -42,8 +42,9 @@ class ChannelConfig:
         return self.packet_bytes * 8.0 / self.throughput_bps
 
 
-def element_loss_mask(key: torch.Tensor, shape, loss_rate: float) -> torch.Tensor:
-    """Eq. (1): i.i.d. Bernoulli keep mask with E[m] = 1 - p (float32 0/1)."""
+def element_loss_mask(key: torch.Tensor, shape, loss_rate) -> torch.Tensor:
+    """Eq. (1): i.i.d. Bernoulli keep mask with E[m] = 1 - p (float32 0/1);
+    a 0-d tensor rate draws the same bits as the equal Python float."""
     return prng.bernoulli(key, 1.0 - loss_rate, tuple(shape)).to(torch.float32)
 
 
@@ -64,7 +65,7 @@ def element_mask_from_packets(
 
 
 def packet_loss_mask(
-    key: torch.Tensor, num_elements: int, loss_rate: float,
+    key: torch.Tensor, num_elements: int, loss_rate,
     elements_per_packet: int, shuffle: bool = True,
 ) -> torch.Tensor:
     """Eq. (2)-(3): whole packets of ``s`` consecutive (post-shuffle)
@@ -83,12 +84,14 @@ def scalar_as(value: float, dtype: torch.dtype) -> float:
 
 
 def apply_channel(
-    key: torch.Tensor, x: torch.Tensor, loss_rate: float, *,
+    key: torch.Tensor, x: torch.Tensor, loss_rate, *,
     granularity: str = "element", elements_per_packet: int = 25,
     shuffle: bool = True, compensate: bool = True,
 ) -> torch.Tensor:
     """Transmit ``x`` through the lossy link (Eq. 1/10) and apply the
-    receiver's ``1/(1-p)`` compensation (Eq. 11), as a reciprocal multiply."""
+    receiver's ``1/(1-p)`` compensation (Eq. 11), as a reciprocal multiply.
+    ``loss_rate`` may be a 0-d tensor (the per-step curriculum): the same
+    masks and the same f32 reciprocal as the equal Python float."""
     if granularity == "element":
         mask = element_loss_mask(key, x.shape, loss_rate)
     elif granularity == "packet":
@@ -97,6 +100,9 @@ def apply_channel(
         raise ValueError(f"unknown granularity: {granularity!r}")
     y = x * mask.to(x.dtype)
     if compensate:
+        if torch.is_tensor(loss_rate):
+            keep = torch.clamp(1.0 - loss_rate.to(device=x.device, dtype=torch.float32), min=MIN_KEEP_FRACTION)
+            return y * (1.0 / keep).to(x.dtype)
         keep = np.maximum(np.float32(1.0) - np.float32(loss_rate), np.float32(MIN_KEEP_FRACTION))
         y = y * scalar_as(np.float32(1.0) / keep, x.dtype)
     return y

@@ -1,4 +1,5 @@
-"""ctypes binding and launch wrapper of the three flash-attention bodies.
+"""ctypes binding and launch wrappers of the three flash-attention forward
+bodies and of the backward (``csrc/flash_attention_bwd.cu``).
 
 ``body_for`` picks from the dtype and head dim alone; nothing retries on
 another body:
@@ -14,8 +15,8 @@ another body:
 * ``"simt"`` -- ``csrc/flash_attention.cu``: the rest (other head dims, or
   dtypes neither takes) on the CUDA cores in f32 FMAs.
 
-All three build into one library with ``nvcc`` at first use
-(``kernels/nvcc.py``).
+All three and the backward build into one library with ``nvcc`` at
+first use (``kernels/nvcc.py``).
 
 ``flash_attention`` refuses inputs that require grad
 (``runtime.forbid_grad``), checks device, dtype, shape, contiguity and
@@ -23,6 +24,11 @@ alignment, allocates the output with ``torch.empty``, launches on PyTorch's
 current stream and raises if the launch reports an error.  ``launch_count`` counts
 its launches and nothing else, so a run can show that it went through the
 kernel; ``body_launch_count`` splits the same count by body.
+
+``flash_attention_bwd`` takes the forward's inputs, its output and the
+output's gradient and returns dQ, dK and dV (three device kernels: row
+statistics, dK/dV summed over each KV head's group, dQ), with the same
+checks and guard; ``bwd_launch_count`` counts its calls.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from repro_torch.kernels import nvcc, runtime
 
 LIB_NAME = "flash_attention"
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu", _CSRC / "flash_attention_tf32x3.cu")
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu", _CSRC / "flash_attention_tf32x3.cu",
+           _CSRC / "flash_attention_bwd.cu")
 DTYPES = {torch.bfloat16: 1, torch.float32: 2}
 WGMMA_HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = 256
@@ -44,6 +51,7 @@ MAX_GRID_Y = 65535
 
 launch_count: int = 0
 body_launch_count: dict = {"wgmma": 0, "tf32x3": 0, "simt": 0}
+bwd_launch_count: int = 0
 _lib = None
 
 
@@ -71,10 +79,15 @@ def _library():
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
         for fn in (lib.flash_attention_wgmma_launch, lib.flash_attention_tf32x3_launch):
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-        for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch, lib.flash_attention_tf32x3_launch):
+        # (q, k, v, o, dout, dq, dk, dv, stats, B, Sq, Skv, H, KV, hd, dtype, causal, window,
+        #  q_offset, softcap, stream)
+        lib.flash_attention_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+        for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch, lib.flash_attention_tf32x3_launch,
+                   lib.flash_attention_bwd_launch):
             fn.restype = ctypes.c_int
         for fn in (lib.flash_attention_error_string, lib.flash_attention_wgmma_error_string,
-                   lib.flash_attention_tf32x3_error_string):
+                   lib.flash_attention_tf32x3_error_string, lib.flash_attention_bwd_error_string):
             fn.argtypes = [ctypes.c_int]
             fn.restype = ctypes.c_char_p
         _lib = lib
@@ -84,6 +97,27 @@ def _library():
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"flash_attention: {msg}")
+
+
+def _check_inputs(q, k, v, *others, q_offset: int, window: int) -> None:
+    """The checks both wrappers make: one CUDA device, contiguous, one
+    dtype, (B, Sq, H, hd) queries (and ``others``, the output and its
+    gradient) against (B, Skv, KV, hd) keys and values."""
+    _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "q, k, v must be 4-d")
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    _check(all(t.is_cuda and t.device == q.device for t in (q, k, v, *others)), "all inputs must be on one CUDA device")
+    _check(all(t.is_contiguous() for t in (q, k, v, *others)), "inputs must be contiguous")
+    _check(q.dtype in DTYPES and all(t.dtype == q.dtype for t in (k, v, *others)),
+           f"dtypes {[str(t.dtype) for t in (q, k, v, *others)]}: all must share one of {list(DTYPES)}")
+    _check(tuple(k.shape) == (b, skv, kvh, hd) and tuple(v.shape) == (b, skv, kvh, hd),
+           f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
+    _check(all(tuple(t.shape) == tuple(q.shape) for t in others),
+           f"output / gradient shapes {[tuple(t.shape) for t in others]} vs q {tuple(q.shape)}")
+    _check(kvh >= 1 and h % kvh == 0, f"{h} query heads are not a multiple of {kvh} KV heads")
+    _check(1 <= hd <= MAX_HEAD_DIM, f"head_dim {hd} outside [1, {MAX_HEAD_DIM}]")
+    _check(b * h <= MAX_GRID_Y, f"B * H = {b * h} > {MAX_GRID_Y}")
+    _check(q_offset >= 0 and window >= 0, f"q_offset {q_offset} / window {window} must be >= 0")
 
 
 def flash_attention(
@@ -101,19 +135,9 @@ def flash_attention(
     (B, Sq, H, hd) in q's dtype."""
     global launch_count
     runtime.forbid_grad("flash_attention", q, k, v)
-    _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "q, k, v must be 4-d")
+    _check_inputs(q, k, v, q_offset=q_offset, window=window)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    _check(all(t.is_cuda and t.device == q.device for t in (q, k, v)), "all inputs must be on one CUDA device")
-    _check(all(t.is_contiguous() for t in (q, k, v)), "inputs must be contiguous")
-    _check(q.dtype in DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
-           f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: q, k, v must share one of {list(DTYPES)}")
-    _check(tuple(k.shape) == (b, skv, kvh, hd) and tuple(v.shape) == (b, skv, kvh, hd),
-           f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
-    _check(kvh >= 1 and h % kvh == 0, f"{h} query heads are not a multiple of {kvh} KV heads")
-    _check(1 <= hd <= MAX_HEAD_DIM, f"head_dim {hd} outside [1, {MAX_HEAD_DIM}]")
-    _check(b * h <= MAX_GRID_Y, f"B * H = {b * h} > {MAX_GRID_Y}")
-    _check(q_offset >= 0 and window >= 0, f"q_offset {q_offset} / window {window} must be >= 0")
     body = body_for(q.dtype, hd)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -136,3 +160,38 @@ def flash_attention(
     launch_count += 1
     body_launch_count[body] += 1
     return out
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,          # (B, Sq, H, hd) bf16/f32
+    k: torch.Tensor,          # (B, Skv, KV, hd)
+    v: torch.Tensor,
+    out: torch.Tensor,        # (B, Sq, H, hd): the forward's output
+    dout: torch.Tensor,       # (B, Sq, H, hd): its gradient
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    softcap: float = 0.0,
+):
+    """dQ, dK and dV of ``flash_attention`` on the card, each in q's dtype;
+    dK and dV of KV head ``kv`` sum over its query heads in the kernel."""
+    global bwd_launch_count
+    runtime.forbid_grad("flash_attention_bwd", q, k, v, out, dout)
+    _check_inputs(q, k, v, out, dout, q_offset=q_offset, window=window)
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    stats = torch.empty((3, b * h * sq), dtype=torch.float32, device=q.device)   # row max, row sum, D
+    lib = _library()
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), stats.data_ptr(), b, sq, skv, h, kvh, hd, DTYPES[q.dtype],
+        int(bool(causal)), int(window), int(q_offset), float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: {lib.flash_attention_bwd_error_string(err).decode()} "
+                           f"(code {err})")
+    bwd_launch_count += 1
+    return dq, dk, dv

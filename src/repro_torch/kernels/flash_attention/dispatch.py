@@ -4,19 +4,52 @@
 ``flash_attention`` takes ``(B, Sq, H, hd)`` queries and ``(B, Skv, KV,
 hd)`` keys and values; ``grouped_flash_attention`` takes the model's grouped
 query layout ``(B, S, KV, G, hd)`` (the same memory, ``h = kv * G + g``).
-A CUDA tensor goes to the hand kernel, which reads KV head ``h // G`` in
-place; a CPU tensor goes to the plain version, which repeats the KV heads
-as the reference's ``ops.py`` does.  There is no block size to pass: the reference's
-``block_q`` / ``block_kv`` tile the TPU kernel, not the function.
+Both go through ``FlashAttentionFunction``: a CUDA tensor runs the hand
+forward kernel and, for the gradient, the hand backward kernel, which read
+KV head ``h // G`` in place; a CPU tensor runs the plain versions, which
+repeat the KV heads as the reference's ``ops.py`` does.  There is no block
+size to pass: the reference's ``block_q`` / ``block_kv`` tile the TPU
+kernel, not the function.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention import cuda_kernel
-from repro_torch.kernels.flash_attention.torch_ref import gqa_flash_attention_ref
+from repro_torch.kernels.flash_attention.torch_ref import flash_attention_bwd_ref, gqa_flash_attention_ref
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with its gradient: the forward and backward kernels on the
+    card, ``gqa_flash_attention_ref`` and ``flash_attention_bwd_ref`` on the
+    CPU.  The raw kernel wrappers refuse inputs that require grad; here the
+    forward runs under autograd's own no-grad and saves q, k, v and the
+    output for the backward.  Double backward raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int, softcap: float):
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        if runtime.use_kernel(q):
+            out = cuda_kernel.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+        else:
+            out = gqa_flash_attention_ref(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if runtime.use_kernel(q):
+            grads = cuda_kernel.flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), out,
+                                                    dout.contiguous(), **ctx.kw)
+        else:
+            grads = flash_attention_bwd_ref(q, k, v, out, dout, **ctx.kw)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention(
@@ -30,11 +63,8 @@ def flash_attention(
     softcap: float = 0.0,
 ) -> torch.Tensor:
     """GQA attention over the whole sequence; returns (B, Sq, H, hd) in
-    q's dtype."""
-    kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
-    if runtime.use_kernel(q):
-        return cuda_kernel.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
-    return gqa_flash_attention_ref(q, k, v, **kw)
+    q's dtype, differentiable in q, k and v."""
+    return FlashAttentionFunction.apply(q, k, v, bool(causal), int(window), int(q_offset), float(softcap))
 
 
 def grouped_flash_attention(

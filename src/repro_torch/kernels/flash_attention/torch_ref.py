@@ -9,7 +9,16 @@ dispatch's ``(B, S, H, hd)`` / ``(B, S, KV, hd)`` layout, with the
 reference's GQA expansion (``repeat_interleave``, as ``ops.py``'s
 ``jnp.repeat``) and ``(B, H)`` fold.  They are the CPU path of ``dispatch``
 and the plain version the CUDA kernel (``csrc/flash_attention.cu``) is held
-against on the card.
+against on the card.  They compute in f32 (f64 for f64 inputs, so that
+``torch.autograd.gradcheck`` can run through them).
+
+``flash_attention_bwd_ref`` is the plain backward on the dispatch's layout,
+the version ``csrc/flash_attention_bwd.cu`` is held against: it recomputes
+P as the forward does and forms dV = P^T dO, dP = dO V^T,
+dS = P * (dP - rowsum(dO * O)) (times tanh's derivative under a softcap,
+and only where the mask lets a score through), dQ = dS K / sqrt(hd) and
+dK = dS^T Q / sqrt(hd), with dK and dV summed over the G query heads of
+each KV head.
 """
 
 from __future__ import annotations
@@ -31,20 +40,30 @@ def flash_attention_ref(
 ) -> torch.Tensor:
     sq, skv = q.shape[1], k.shape[1]
     hd = q.shape[-1]
-    s = torch.einsum("bqh,bkh->bqk", q.float(), k.float())
+    acc = _acc_dtype(q)
+    s = torch.einsum("bqh,bkh->bqk", q.to(acc), k.to(acc))
     s = s / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32, device=q.device))
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
-    q_pos = q_offset + torch.arange(sq, device=q.device)
-    k_pos = torch.arange(skv, device=q.device)
-    msk = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    s = torch.where(_mask(sq, skv, causal, window, q_offset, q.device)[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkh->bqh", p, v.to(acc)).to(q.dtype)
+
+
+def _acc_dtype(q: torch.Tensor) -> torch.dtype:
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
+def _mask(sq: int, skv: int, causal: bool, window: int, q_offset: int, device) -> torch.Tensor:
+    """(Sq, Skv) bool: the keys each query sees."""
+    q_pos = q_offset + torch.arange(sq, device=device)
+    k_pos = torch.arange(skv, device=device)
+    msk = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:
         msk &= k_pos[None, :] <= q_pos[:, None]
     if window > 0:
         msk &= q_pos[:, None] - k_pos[None, :] < window
-    s = torch.where(msk[None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkh->bqh", p, v.float()).to(q.dtype)
+    return msk
 
 
 def gqa_flash_attention_ref(
@@ -63,3 +82,43 @@ def gqa_flash_attention_ref(
         v = v.repeat_interleave(g, dim=2)
     fold = lambda x: x.transpose(1, 2).reshape(b * h, -1, hd)
     return flash_attention_ref(fold(q), fold(k), fold(v), **kw).reshape(b, h, sq, hd).transpose(1, 2)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,     # (B, Sq, H, hd)
+    k: torch.Tensor,     # (B, Skv, KV, hd), H % KV == 0
+    v: torch.Tensor,
+    out: torch.Tensor,   # (B, Sq, H, hd): the forward's output
+    dout: torch.Tensor,  # (B, Sq, H, hd): its gradient
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    softcap: float = 0.0,
+):
+    """(dQ, dK, dV) of ``gqa_flash_attention_ref``, each in its input's
+    dtype, computed in f32 (f64 for f64 inputs)."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    acc = _acc_dtype(q)
+    grouped = lambda x: x.to(acc).reshape(b, sq, kvh, g, hd)
+    qf, of, dof = grouped(q), grouped(out), grouped(dout)
+    kf, vf = k.to(acc), v.to(acc)
+    sqrt_hd = torch.sqrt(torch.tensor(float(hd), dtype=torch.float32, device=q.device))
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf) / sqrt_hd
+    if softcap > 0.0:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+    msk = _mask(sq, skv, causal, window, q_offset, q.device)
+    p = torch.softmax(torch.where(msk, s, NEG_INF), dim=-1)                      # (B, KV, G, Sq, Skv)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dof)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)
+    rowsum = torch.einsum("bqkgh,bqkgh->bkgq", dof, of)
+    ds = torch.where(msk, p * (dp - rowsum[..., None]), 0.0)
+    if softcap > 0.0:
+        ds = ds * (1.0 - t * t)
+    ds = ds / sqrt_hd
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf).reshape(b, sq, h, hd)
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

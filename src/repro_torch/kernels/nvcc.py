@@ -4,8 +4,9 @@ seconds).
 
 Libraries land in ``kernels/_build/`` (git-ignored), named by a hash of
 their sources and flags, so a source change rebuilds and an unchanged one
-is reused.  ``build_libraries`` starts one ``nvcc`` per library, all at
-once, and waits for all of them.  The compiler's report (``-Xptxas -v``:
+is reused.  ``build_libraries`` starts one ``nvcc -c`` per source of every
+library it has to build, all at once, waits for all of them, then links
+each library from its objects.  The compiler's report (``-Xptxas -v``:
 registers, shared memory, spills) is kept beside each library as ``.log``.
 A failed build raises.
 """
@@ -23,7 +24,7 @@ from typing import Dict, Sequence, Tuple
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
@@ -44,28 +45,48 @@ def library_path(name: str, sources: Sequence[Path]) -> Path:
 
 
 def build_libraries(specs: Sequence[Tuple[str, Sequence[Path]]]) -> Dict[str, Path]:
-    """Build every ``(name, sources)`` library that is not built yet, one
-    ``nvcc`` process each, all started together."""
+    """Build every ``(name, sources)`` library that is not built yet: one
+    ``nvcc -c`` process per source, all started together, then one link
+    per library."""
     out = {name: library_path(name, srcs) for name, srcs in specs}
     todo = [(name, srcs) for name, srcs in specs if not out[name].exists()]
     if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
+    tag = f"{os.getpid()}.tmp"
     procs = []
     for name, srcs in todo:
-        tmp = out[name].with_name(f"{out[name].name}.{os.getpid()}.tmp")
-        log = open(out[name].with_suffix(".log"), "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in srcs)]
-        procs.append((name, tmp, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+        for i, src in enumerate(srcs):
+            obj = out[name].with_name(f"{out[name].stem}.{i}.{tag}.o")
+            log = open(obj.with_suffix(".log"), "w")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((name, obj, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
     failed = []
-    for name, tmp, log, proc in procs:
+    objs: Dict[str, list] = {name: [] for name, _ in todo}
+    logs: Dict[str, list] = {name: [] for name, _ in todo}
+    for name, obj, log, proc in procs:
         rc = proc.wait()
         log.close()
+        text = Path(log.name).read_text()
+        os.remove(log.name)
+        logs[name].append(text)
+        objs[name].append(obj)
         if rc != 0:
-            failed.append(f"{name} (nvcc exit {rc}):\n{Path(log.name).read_text()}")
-        else:
+            failed.append(f"{name} (nvcc exit {rc}):\n{text}")
+    if not failed:
+        for name, _ in todo:
+            tmp = out[name].with_name(f"{out[name].name}.{tag}")
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs[name])],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                failed.append(f"{name} (link exit {link.returncode}):\n{link.stdout}{link.stderr}")
+                continue
+            out[name].with_suffix(".log").write_text("".join(logs[name]))
             os.replace(tmp, out[name])
+    for name, _ in todo:
+        for obj in objs[name]:
+            obj.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("CUDA build failed: " + "\n".join(failed))
     return out

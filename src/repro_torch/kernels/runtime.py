@@ -10,11 +10,13 @@ One rule, decided by the tensor a wrapper is handed:
 There is no switch that sends a CUDA tensor to the plain version: on the
 card a kernel runs or the call fails.
 
-No kernel has a backward yet, and a wrapper's output, filled through
-``ctypes``, carries no ``grad_fn``.  So each wrapper first calls
-``forbid_grad``: with grad enabled, an input that requires grad raises
-instead of losing its gradient without a word.  The plain versions stay
-differentiable.
+A wrapper's output, filled through ``ctypes``, carries no ``grad_fn``.  So
+each wrapper first calls ``forbid_grad``: with grad enabled, an input that
+requires grad raises instead of losing its gradient without a word.  Flash
+attention's gradient runs through ``kernels.flash_attention.dispatch.
+FlashAttentionFunction``, whose backward is a kernel too; the link kernels'
+masks carry no gradient in the fine-tuning graph, and no other kernel is
+on a path that differentiates.  The plain versions stay differentiable.
 """
 
 from __future__ import annotations
@@ -46,9 +48,9 @@ def forbid_grad(name: str, *tensors) -> None:
     backward, so its output would drop the gradient."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: an input requires grad, but this kernel's gradient is not ported "
-            f"(ROADMAP A9); call it under torch.no_grad() or torch.inference_mode(), "
-            f"or use its plain version"
+            f"{name}: an input requires grad, but this kernel's gradient is not ported; "
+            f"call it under torch.no_grad() or torch.inference_mode(), use its plain version, "
+            f"or, for flash attention, FlashAttentionFunction (forward and backward kernels)"
         )
 
 

@@ -9,13 +9,15 @@ Decode (one new token against the cache) runs, by ``cfg.attn_impl``:
 * ``naive`` — the oracle: the valid prefix dequantized to the model dtype
   and a full softmax.
 
-Prefill runs naive causal attention up to ``cfg.attn_block_q`` tokens.
-Past it (``blockwise`` / ``flash_decode``) it runs the online softmax over
-KV blocks: ``_blockwise_attn``, the reference's recurrence op for op, on a
-CPU tensor, and the hand CUDA flash-attention kernel
-(``kernels.flash_attention``) on the card.  Windowed layers keep a rotating
-cache of ``window`` slots; RoPE is applied at write time, and writes land at
-``index % C``, so the live slots are always the prefix ``[0, min(index+1, C))``.
+Prefill and training run naive causal attention up to ``cfg.attn_block_q``
+tokens.  Past it (``blockwise`` / ``flash_decode``) they run the online
+softmax over KV blocks: ``_blockwise_attn``, the reference's recurrence op
+for op, under autograd, on a CPU tensor, and the hand CUDA flash-attention
+kernels (``kernels.flash_attention``: the forward, and for a training
+step's gradient the backward, through ``FlashAttentionFunction``) on the
+card.  Windowed layers keep a rotating cache of ``window`` slots; RoPE is
+applied at write time, and writes land at ``index % C``, so the live slots
+are always the prefix ``[0, min(index+1, C))``.
 
 ``cache_index`` is an int (every row at the same length), a ``(B,)`` int32
 tensor of per-row lengths (the continuous engine's slot pool: each row
@@ -41,7 +43,7 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
 from repro_torch.kernels.flash_attention import grouped_flash_attention
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.common import dense_std, frozen, trunc_normal_
+from repro_torch.models.common import acc_dtype, dense_std, frozen, trunc_normal_
 
 NEG_INF = -1.0e30
 Cache = Dict[str, torch.Tensor]
@@ -106,7 +108,7 @@ def _naive_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.T
                 softcap: float) -> torch.Tensor:
     """q (B, Sq, KV, G, hd), k/v (B, Skv, KV, hd), mask broadcastable to
     (B, KV, G, Sq, Skv): materialized f32 scores, softmax, probs in q's dtype."""
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float()
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).to(acc_dtype(q))
     scores = scores / _sqrt_f32(q.shape[-1])
     if softcap > 0.0:
         scores = torch.tanh(scores / softcap) * softcap

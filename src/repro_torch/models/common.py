@@ -16,8 +16,16 @@ def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+def acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype the reference's f32 upcasts compute in: f32, or f64 for an
+    f64 tensor (a model cast with ``.double()``, the gradient oracle)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def frozen(shape, dtype, device) -> nn.Parameter:
-    """An uninitialized inference-only parameter."""
+    """An uninitialized parameter, built without grad: the serving paths
+    never differentiate the weights, and the trainer turns grad on
+    (``launch/steps.py``, ``model.requires_grad_(True)``)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
@@ -47,10 +55,10 @@ class RMSNorm(nn.Module):
         nn.init.zeros_(self.scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
+        x32 = x.to(acc_dtype(x))
         var = (x32 * x32).mean(dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + 1e-6)
-        return (y * (1.0 + self.scale.float())).to(x.dtype)
+        return (y * (1.0 + self.scale.to(x32.dtype))).to(x.dtype)
 
 
 def activation(name: str):

@@ -1,5 +1,6 @@
 """Causal LM with the COMtune link at the split point — the port's twin of
-``repro/models/lm.py`` (init, ``make_link_fn`` and ``forward``).
+``repro/models/lm.py`` (init, ``make_link_fn``, ``forward`` and
+``lm_loss``).
 
 ``LM`` holds the weights in the reference's layout (``state_dict`` keys
 ``embed``, ``stack.layers.{i}.{norm1,mix,norm2,ffn}.*``, ``final_norm.scale``,
@@ -25,7 +26,7 @@ from repro_torch.core.link import scalar_as
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.attention import Cache, Index, PagedIndex
-from repro_torch.models.common import RMSNorm, dtype_of, frozen, trunc_normal_
+from repro_torch.models.common import RMSNorm, acc_dtype, dtype_of, frozen, trunc_normal_
 from repro_torch.models.transformer import Stack
 
 
@@ -99,7 +100,7 @@ class LM(nn.Module):
             positions = rope_lib.default_positions(b, s, offset=cache_index or 0, device=tokens.device)
         x = self.stack(x, cfg, positions, cache=cache, cache_index=cache_index, link_fn=link_fn)
         x = self.final_norm(x)
-        return (x @ self.embed.T).float()
+        return (x @ self.embed.T).to(acc_dtype(x))
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
@@ -116,9 +117,13 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
 
 
 def link_spec_from_config(cfg: ModelConfig, loss_rate: Optional[float] = None, **overrides) -> comtune.LinkSpec:
+    """The ``LinkSpec`` a model config implies (compressor left at its
+    default: the calibrated one lives in ``model.link``)."""
     link = cfg.link
     kw = dict(
+        dropout_rate=link.dropout_rate,
         loss_rate=link.loss_rate if loss_rate is None else loss_rate,
+        train_link=link.train_link,
         channel=link.channel,
         channel_params=tuple(link.channel_params),
         shuffle=link.shuffle,
@@ -129,13 +134,19 @@ def link_spec_from_config(cfg: ModelConfig, loss_rate: Optional[float] = None, *
 
 
 def make_link_fn(cfg: ModelConfig, model: LM, key: Optional[torch.Tensor], mode: str,
-                 loss_rate: Optional[float] = None, link_spec: Optional[comtune.LinkSpec] = None):
+                 loss_rate: Optional[float] = None, link_spec: Optional[comtune.LinkSpec] = None,
+                 link_rate=None):
     """The function applied at the split point: ``emulate_link`` under the
-    calibrated compressor held in ``model.link``.  mode: serve / clean / off
-    (train waits for ROADMAP A9)."""
+    calibrated compressor held in ``model.link``.  mode: train (Eq. 8) /
+    serve (Eq. 12) / clean / off.  ``link_rate`` (a float or a 0-d tensor,
+    the per-step curriculum's rate) overrides the current mode's emulation
+    rate: the train emulation's (``with_train_rate``) in train mode, the
+    channel loss rate otherwise."""
     if mode == "off":
         return None
     spec = _calibrated_spec(cfg, model, loss_rate, link_spec)
+    if link_rate is not None:
+        spec = spec.with_train_rate(link_rate) if mode == "train" else spec.with_channel_loss_rate(link_rate)
 
     def fn(x):
         return comtune.emulate_link(key, x, spec, mode)
@@ -175,11 +186,33 @@ def make_slotwise_link_fn(cfg: ModelConfig, model: LM, keys: torch.Tensor, mode:
 
 def forward(model: LM, tokens: torch.Tensor, cfg: Optional[ModelConfig] = None, *,
             positions=None, cache=None, cache_index=None, link_key=None, link_mode: str = "off",
-            loss_rate: Optional[float] = None, link_spec=None, link_fn=None):
+            loss_rate: Optional[float] = None, link_spec=None, link_rate=None, link_fn=None):
     """``repro.models.lm.forward``'s signature: returns (logits f32, cache, aux)
-    with ``aux`` the zero MoE auxiliary loss."""
+    with ``aux`` the zero MoE auxiliary loss.  ``link_mode="train"`` is the
+    fine-tuning graph; ``link_rate`` as in :func:`make_link_fn`.  (The
+    reference's ``mode`` argument only switches its rematerialisation in
+    training, which the port does not do: the card holds the activations.)"""
     cfg = cfg or model.cfg
     if link_fn is None:
-        link_fn = make_link_fn(cfg, model, link_key, link_mode, loss_rate=loss_rate, link_spec=link_spec)
+        link_fn = make_link_fn(cfg, model, link_key, link_mode, loss_rate=loss_rate, link_spec=link_spec,
+                               link_rate=link_rate)
     logits = model(tokens, cfg, positions=positions, cache=cache, cache_index=cache_index, link_fn=link_fn)
     return logits, cache, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S - 1) next-token negative log-likelihoods, as the reference's
+    ``lm_loss`` forms them: f32 logsumexp around the stop-gradient row
+    max, minus the target logit (the reference's one-hot contraction, here
+    a gather, which gives the same f32 value)."""
+    targets = tokens[:, 1:].long()
+    lg = logits[:, :-1].to(acc_dtype(logits))
+    m = lg.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lg - m), dim=-1)) + m[..., 0]
+    return lse - torch.gather(lg, -1, targets[..., None])[..., 0]
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, aux: torch.Tensor, aux_coef: float) -> torch.Tensor:
+    """Next-token cross entropy (shift by one) plus the MoE load-balance
+    term (twin of ``repro.models.lm.lm_loss``)."""
+    return token_nll(logits, tokens).mean() + aux_coef * aux

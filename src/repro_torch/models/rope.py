@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.common import acc_dtype
+
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     """(head_dim/2,) inverse frequencies, in f32."""
@@ -14,14 +16,15 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, sections=()) -> torch.Tensor:
-    """Rotate x (B, S, N, head_dim) by positions (B, S); math in f32."""
+    """Rotate x (B, S, N, head_dim) by positions (B, S); math in f32 (the
+    rotation of an f64 tensor in f64, by the same f32 angles)."""
     if sections:
         raise NotImplementedError("M-RoPE is not ported yet (ROADMAP A12)")
     head_dim = x.shape[-1]
     ang = positions.float()[..., None] * rope_frequencies(head_dim, theta, x.device)[None, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(acc_dtype(x)), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 

@@ -107,6 +107,18 @@ def gilbert_elliott_scan(u_init: torch.Tensor, u_loss: torch.Tensor, u_tr: torch
     return torch.where(bad_seq, keep_if_bad, keep_if_good).to(torch.float32)
 
 
+def supports_target_rate(name: str, params=()) -> bool:
+    """True when ``make_channel(name, loss_rate=p, **params)`` hits the
+    target stationary rate ``p``, so a loss-rate curriculum over it means
+    something: the i.i.d. channel, and a GE channel not pinned by explicit
+    ``p_gb`` / ``p_bg``."""
+    key = name.lower()
+    if key in ("ge", "gilbert_elliott"):
+        pd = dict(params)
+        return "p_gb" not in pd and "p_bg" not in pd
+    return key == "iid"
+
+
 CHANNELS = {
     "iid": IIDChannel,
     "gilbert_elliott": GilbertElliottChannel,

@@ -1,0 +1,9 @@
+from repro_torch.optim.adam import (  # noqa: F401
+    AdamConfig,
+    AdamState,
+    adam_update,
+    clip_by_global_norm,
+    global_norm,
+    init_adam,
+)
+from repro_torch.optim import schedule  # noqa: F401

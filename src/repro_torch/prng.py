@@ -121,10 +121,14 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (), *,
     return one.to(torch.int32).view(torch.float32) - 1.0
 
 
-def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int] = (), *,
+def bernoulli(key: torch.Tensor, p, shape: Sequence[int] = (), *,
               partitionable: Optional[bool] = None) -> torch.Tensor:
-    """``jax.random.bernoulli(key, p, shape)``: ``uniform < float32(p)``."""
-    return uniform(key, shape, partitionable=partitionable) < float(np.float32(p))
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < float32(p)``;
+    ``p`` a Python number or a 0-d tensor (compared in f32)."""
+    u = uniform(key, shape, partitionable=partitionable)
+    if torch.is_tensor(p):
+        return u < p.to(device=u.device, dtype=torch.float32)
+    return u < float(np.float32(p))
 
 
 def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

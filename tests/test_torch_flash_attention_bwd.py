@@ -1,0 +1,261 @@
+"""The flash-attention backward: the plain version
+(``flash_attention_bwd_ref``) against ``jax.vjp`` of the reference's
+``repro.kernels.flash_attention.ref.flash_attention_ref`` and against
+torch autograd of the plain forward in f64, the plumbing of
+``FlashAttentionFunction`` by ``torch.autograd.gradcheck`` in f64, and, on
+an sm_90 card only, the CUDA backward kernel against its plain version.
+
+Bars:
+  * against the reference's gradient in f32, ``atol=2e-5`` (the forward's
+    own f32 bar, ``tests/test_kernels.py``); the differences are sums in
+    another order, ~1e-6 of gradients of magnitude ~1-10;
+  * against torch autograd in f64, ``atol=1e-12`` (one function, two
+    orders of f64 operations);
+  * on the card, each gradient within 8x the plain backward's own f32
+    max error against f64 (``chip_smoke.py``'s ``BWD_F32_FACTOR``), and
+    bf16 within one bf16 ulp of the plain backward in f32.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttentionFunction,
+    cuda_kernel,
+    flash_attention,
+    flash_attention_bwd_ref,
+    gqa_flash_attention_ref,
+)
+
+# (sq, skv, hd, causal, window, q_offset): the forward tests' grid.
+GRID = [
+    (256, 256, 64, True, 0, 0),
+    (256, 256, 64, True, 64, 0),
+    (200, 200, 32, True, 0, 0),
+    (1, 384, 64, True, 0, 383),      # decode
+    (1, 384, 64, True, 128, 383),    # windowed decode
+    (128, 128, 128, False, 0, 0),
+]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run this module's torch ops on one thread, and restore the count
+    after: its steps are many small ops, which torch's per-process thread
+    pool makes slower, not faster, when several test workers share the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def J():
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention import ref
+
+    return dataclasses.make_dataclass("J", ["jax", "jnp", "ref"])(jax, jnp, ref)
+
+
+@pytest.fixture
+def hopper():
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs an sm_90 CUDA device (the kernels are built for sm_90a)")
+
+
+def _case(seed, b, sq, skv, h, kvh, hd):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, sq, h, hd), (b, skv, kvh, hd), (b, skv, kvh, hd), (b, sq, h, hd))]
+
+
+def _jax_gqa(J, q, k, v, kw):
+    """The reference's ref on the (B, S, H, hd) layout, KV heads repeated
+    (as ``ops.py``), so its vjp sums dK and dV over each group."""
+    b, sq, h, hd = q.shape
+    g = h // k.shape[2]
+    k, v = J.jnp.repeat(k, g, axis=2), J.jnp.repeat(v, g, axis=2)
+    fold = lambda x: J.jnp.transpose(x, (0, 2, 1, 3)).reshape(b * h, -1, hd)
+    out = J.ref.flash_attention_ref(fold(q), fold(k), fold(v), **kw)
+    return J.jnp.transpose(out.reshape(b, h, sq, hd), (0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("sq,skv,hd,causal,window,q_offset", GRID)
+def test_bwd_ref_matches_reference_grad(J, sq, skv, hd, causal, window, q_offset, softcap, g):
+    q, k, v, do = _case(sq + hd + g, 2, sq, skv, 2 * g, 2, hd)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+    _, vjp = J.jax.vjp(lambda a, b, c: _jax_gqa(J, a, b, c, kw), *(J.jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(J.jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    got = flash_attention_bwd_ref(tq, tk, tv, gqa_flash_attention_ref(tq, tk, tv, **kw), tdo, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and tuple(a.shape) == w.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=0, atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("sq,skv,hd,causal,window,q_offset,g", [
+    (40, 40, 16, True, 0, 0, 2),
+    (24, 40, 8, True, 12, 16, 1),     # q_offset, window, ragged against Skv
+    (33, 17, 8, False, 0, 0, 3),
+])
+def test_bwd_ref_matches_autograd_f64(sq, skv, hd, causal, window, q_offset, g, softcap):
+    q, k, v, do = (torch.tensor(x, dtype=torch.float64) for x in _case(sq * skv, 2, sq, skv, 2 * g, 2, hd))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = gqa_flash_attention_ref(*leaves, **kw)
+    want = torch.autograd.grad(out, leaves, do)
+    got = flash_attention_bwd_ref(q, k, v, out.detach(), do, **kw)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("kw,g", [
+    (dict(causal=True), 2),
+    (dict(causal=True, window=3, q_offset=4, softcap=5.0), 1),
+    (dict(causal=False, softcap=2.0), 3),
+])
+def test_function_gradcheck_f64(kw, g):
+    """``FlashAttentionFunction`` on the CPU: its backward is
+    ``flash_attention_bwd_ref``, held to finite differences."""
+    gen = torch.Generator().manual_seed(g)
+    mk = lambda *s: torch.randn(s, generator=gen, dtype=torch.float64, requires_grad=True)
+    q, k, v = mk(2, 6, 2 * g, 4), mk(2, 7, 2, 4), mk(2, 7, 2, 4)
+    assert torch.autograd.gradcheck(lambda a, b, c: flash_attention(a, b, c, **kw), (q, k, v))
+
+
+def test_function_double_backward_raises():
+    q, k, v = (torch.randn(1, 5, 2, 4, dtype=torch.float64, requires_grad=True) for _ in range(3))
+    out = FlashAttentionFunction.apply(q, k, v, True, 0, 0, 0.0)
+    # square(): the output's gradient depends on q, so the graph goes on.
+    (gq,) = torch.autograd.grad(out.square().sum(), q, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        gq.sum().backward()
+
+
+def _emulate_kernel_dq(q, k, v, o, do, *, q_offset, window, softcap, tile):
+    """One head's dQ as ``csrc/flash_attention_bwd.cu`` computes it, in f32:
+    dot products as one FMA chain over hd, the row max and sum over 64-key
+    tiles, p = exp(s - m) / l, D = dO . O, and dQ summed over ``tile``
+    keys apart before each tile's sum joins the running one."""
+    hd = q.shape[-1]
+    chain = lambda a, b: sum((a[:, d:d + 1] * b[None, :, d] for d in range(1, hd)), a[:, :1] * b[None, :, 0])
+    scale = torch.tensor(1.0 / np.sqrt(np.float32(hd)), dtype=torch.float32)
+    x = chain(q, k) * scale
+    t = torch.tanh(x / softcap)
+    s = t * softcap
+    qp, kp = q_offset + torch.arange(q.shape[0])[:, None], torch.arange(k.shape[0])[None, :]
+    ok = (kp <= qp) & (qp - kp < window)
+    s = torch.where(ok, s, torch.tensor(-1e30))
+    m = torch.full((q.shape[0], 1), -1e30)
+    l = torch.zeros((q.shape[0], 1))
+    for c0 in range(0, k.shape[0], 64):
+        blk = s[:, c0:c0 + 64]
+        m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.where(ok[:, c0:c0 + 64], torch.exp(blk - m_new), 0.0).sum(-1, keepdim=True)
+        m = m_new
+    p = torch.where(ok, torch.exp(s - m) / l, 0.0)
+    ds = p * (chain(do, v) - (do * o).sum(-1, keepdim=True)) * (1 - t * t)
+    acc = torch.zeros_like(q)
+    for c0 in range(0, k.shape[0], tile):
+        part = torch.zeros_like(q)
+        for c in range(c0, min(c0 + tile, k.shape[0])):
+            part = part + ds[:, c:c + 1] * k[c]
+        acc = acc + part
+    return acc * scale
+
+
+def test_bwd_kernel_arithmetic_meets_the_f32_bar():
+    """The card's f32 bar for the backward (``chip_smoke.py``: each gradient
+    within 8x the plain backward's own f32 max error against f64), on the
+    kernel's dQ arithmetic emulated here at the decode-shaped grid case
+    (Sq 1 over 384 keys, window 128, softcap 30) over 40 seeds.  Two
+    maxima over 64 elements make a heavy-tailed ratio: correct f32
+    arithmetic passes 4x somewhere among the seeds, so the bar is 8x; and
+    the tiled sums keep the median near the plain backward's, where one
+    FMA chain over the row's keys does not."""
+    kw = dict(causal=True, window=128, q_offset=383, softcap=30.0)
+    ratios = {64: [], 384: []}
+    for seed in range(40):
+        q, k, v, do = (torch.tensor(x)[0, :, 0] for x in _case(seed, 1, 1, 384, 1, 1, 64))
+        Q, K, V, DO = (x[None, :, None, :] for x in (q, k, v, do))
+        o = gqa_flash_attention_ref(Q, K, V, **kw)
+        g32 = flash_attention_bwd_ref(Q, K, V, o, DO, **kw)[0][0, :, 0].double()
+        g64 = flash_attention_bwd_ref(*(x.double() for x in (Q, K, V, o, DO)), **kw)[0][0, :, 0]
+        noise = float((g32 - g64).abs().max())
+        for tile in ratios:
+            got = _emulate_kernel_dq(q, k, v, o[0, :, 0], do, q_offset=383, window=128, softcap=30.0, tile=tile)
+            ratios[tile].append(float((got.double() - g64).abs().max()) / noise)
+    tiled, chained = np.asarray(ratios[64]), np.asarray(ratios[384])
+    assert tiled.max() <= 8.0 and np.median(tiled) <= 1.5
+    assert tiled.max() > 4.0
+    assert np.median(chained) > np.median(tiled)
+
+
+def test_bwd_wrapper_rejects_cpu_and_bad_shapes():
+    """The backward wrapper takes CUDA tensors only, checks the output and
+    its gradient against q, and keeps the autograd guard."""
+    q, k = torch.zeros((1, 4, 4, 32)), torch.zeros((1, 4, 2, 32))
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_kernel.flash_attention_bwd(q, k, k, q, q)
+    with pytest.raises(ValueError, match="4-d"):
+        cuda_kernel.flash_attention_bwd(q[0], k, k, q, q)
+    with pytest.raises(RuntimeError, match="^flash_attention_bwd: .*gradient is not ported; "):
+        cuda_kernel.flash_attention_bwd(q, k, k, q, q.clone().requires_grad_(True))
+
+
+# ---------------------------------------------------------------------------
+# On the card: the backward kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.usefixtures("hopper")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bwd_kernel_matches_plain(dtype):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tdt = getattr(torch, dtype)
+    cases = [(sq, skv, hd, 1, c, w, o) for sq, skv, hd, c, w, o in GRID]
+    cases += [(1000, 1000, 64, 2, True, 0, 0), (300, 300, 256, 2, True, 128, 0), (130, 130, 256, 1, False, 0, 0)]
+    for sq, skv, hd, g, causal, window, q_offset in cases:
+        mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(tdt)
+        q, k, v, do = mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd), mk(2, sq, 2 * g, hd)
+        for softcap in (0.0, 30.0):
+            kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+            with torch.no_grad():
+                out = cuda_kernel.flash_attention(q, k, v, **kw)
+            before = cuda_kernel.bwd_launch_count
+            got = cuda_kernel.flash_attention_bwd(q, k, v, out, do, **kw)
+            assert cuda_kernel.bwd_launch_count == before + 1
+            w32 = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out, do)), **kw)
+            w64 = flash_attention_bwd_ref(*(t.double() for t in (q, k, v, out, do)), **kw)
+            for a, x32, x64 in zip(got, w32, w64):
+                noise = float((x32.double() - x64).abs().max())
+                assert a.dtype == tdt
+                if tdt == torch.float32:
+                    assert float((a.double() - x64).abs().max()) <= 8.0 * noise, (sq, skv, hd, g, kw)
+                else:
+                    bar = 2.0 ** -7 * x32.abs() + 8.0 * noise
+                    assert bool(((a.float() - x32).abs() <= bar).all()), (sq, skv, hd, g, kw)
+
+
+@pytest.mark.usefixtures("hopper")
+def test_cuda_function_runs_both_kernels():
+    """A sequence that requires grad on the card runs the forward and the
+    backward kernel through ``FlashAttentionFunction``, one launch each."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn((2, 600, 4, 64), generator=gen, device="cuda", requires_grad=True) for _ in range(3))
+    fwd, bwd = cuda_kernel.launch_count, cuda_kernel.bwd_launch_count
+    out = flash_attention(q, k, v)
+    out.square().sum().backward()
+    assert (cuda_kernel.launch_count - fwd, cuda_kernel.bwd_launch_count - bwd) == (1, 1)
+    assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))

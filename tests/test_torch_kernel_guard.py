@@ -1,9 +1,10 @@
 """The autograd guard of the port's kernel wrappers (``runtime.forbid_grad``).
 
-No CUDA kernel of the port has a backward, and a wrapper fills its output
-through ``ctypes``, so an output would carry no ``grad_fn`` and a gradient
-would be lost without a word.  Each of the six ``cuda_kernel`` wrappers
-therefore raises first when grad is enabled and an input requires grad.
+A wrapper fills its output through ``ctypes``, so an output would carry
+no ``grad_fn`` and a gradient would be lost without a word.  Each of the
+six ``cuda_kernel`` wrappers therefore raises first when grad is enabled
+and an input requires grad (flash attention's gradient goes through
+``FlashAttentionFunction`` instead).
 Here, on CPU tensors, that error comes before the wrapper's device check;
 under ``torch.no_grad()`` the same call reaches the device check instead
 (``ValueError``: the wrappers take CUDA tensors only).  The plain versions
@@ -75,7 +76,7 @@ def test_wrapper_refuses_inputs_that_require_grad(name):
     """An input that requires grad raises the guard's error, naming the
     kernel, before any device check."""
     fn, args, kw = WRAPPERS[name](True)
-    with pytest.raises(RuntimeError, match=rf"^{name}: .*gradient is not ported \(ROADMAP A9\)"):
+    with pytest.raises(RuntimeError, match=rf"^{name}: .*gradient is not ported; "):
         fn(*args, **kw)
 
 
