@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one H100: builds the kernels,
-holds each (the six kernels, flash attention's three bodies and its
-backward among them) against its plain PyTorch version on the card, serves
+holds each (the six kernels, flash attention's three bodies and its two
+backward bodies among them) against its plain PyTorch version on the card, serves
 the full-width qwen1.5-0.5b split LM through ``generate_reference``, through
 the continuous-batching engine (contiguous and paged pools), through
 ``lm.forward`` with the link kernels (``LinkSpec(use_kernel=True)``) and
@@ -13,11 +13,13 @@ forward and backward kernels), and times the kernels and the paths.
     python3 chip_smoke.py            # everything (needs one sm_90 card)
     python3 chip_smoke.py --quick    # build + kernel checks only
     python3 chip_smoke.py --link-round   # one link round, timed and traced
+    python3 chip_smoke.py --bwd-split    # the wgmma backward's two kernels, traced
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
      together, then a link a library), and print the split-decode, merge,
-     egress, burst-mask, wgmma, tf32x3 and the backward's three kernels'
+     egress, burst-mask, wgmma (with and without row statistics), tf32x3,
+     the CUDA-core backward's three and the wgmma backward's two kernels'
      registers and spills;
   2. flash decode vs ``flash_decode_ref`` at the main path's head shapes
      (B 4, KV 16, G 1, hd 64, C 64 and 1024), gemma3's (KV 8, G 2, hd 256)
@@ -54,8 +56,12 @@ Phases (any failure raises and the script exits non-zero):
      flash-attention backward vs ``flash_attention_bwd_ref`` over the same
      grid (dQ, dK, dV each; f32 within ``BWD_F32_FACTOR`` x the plain
      backward's own f32-vs-f64 error, bf16 within one bf16 ulp of the plain
-     backward in f32); the SSM scan vs ``ssm_scan_ref`` bit for bit at T 1
-     / 100 / 300 x D 1 / 130 / 512;
+     backward in f32 plus that factor x its noise), each case on the body
+     ``bwd_body_for`` names (bf16 at hd 64 / 128 / 256 on the wgmma
+     backward, fed the forward kernel's row statistics; the rest on the
+     CUDA cores; per-body counters) and equal bit for bit on a second call;
+     the SSM scan vs ``ssm_scan_ref`` bit for bit at T 1 / 100 / 300 x D 1
+     / 130 / 512;
   3. threefry link masks (iid, Gilbert–Elliott) drawn on the card equal
      the same draws on the CPU;
   4. full-width qwen1.5-0.5b (random weights from a seed), batch 4, prompt
@@ -130,13 +136,18 @@ Phases (any failure raises and the script exits non-zero):
  13. COMtune fine-tuning of full-width qwen1.5-0.5b (``run_training``):
      ``launch.train.train`` in bf16 (batch 4 x seq 1024, dropout 0.2, the
      8-bit STE, 8 steps; 24 x 8 forward and 24 x 8 backward flash-attention
-     launches); the f32 oracle check against naive attention in f32 and f64
-     (batch 2: gradients of step 1 and per-token losses of 4 steps); the
+     launches, the backward all on the wgmma body); the f32 oracle check
+     against naive attention in f32 and f64 (batch 2: gradients of step 1
+     and per-token losses of 4 steps; the CUDA-core backward); the
      Gilbert–Elliott train link through the burst-mask kernel (3 steps, a
      launch a step); a step's time and its forward / backward / optimizer /
-     link split; the backward kernel's time at the training shape (bf16 and
-     f32) beside SDPA's backward, its plain version and its bound.
-Phases 9-13 run after phase 3, ahead of the profiled phases 5 and 7.
+     link split; the backward's time at the training shape (bf16 on the
+     wgmma body, with the CUDA-core body's by a direct launch; f32 on the
+     CUDA cores) beside SDPA's backward (graph replay), its plain version
+     and its bound (10 hd flops a visible pair).
+Phases 9-13 run after phase 3, ahead of the profiled phases 5 and 7; last,
+a torch.profiler trace in a process of its own (``--bwd-split``) splits the
+wgmma backward's time at the training shape between its two kernels.
 
 The card's name and power limit are printed first and again before the
 kernels' JSON record, which is the line before the last; the last line is
@@ -1084,6 +1095,7 @@ def _zero_counts():
     fd.launch_count = fd.paged_launch_count = ll.egress_launch_count = ll.burst_launch_count = 0
     fa.launch_count = fa.bwd_launch_count = ss.launch_count = 0
     fa.body_launch_count.update(wgmma=0, tf32x3=0, simt=0)
+    fa.bwd_body_launch_count.update(wgmma=0, simt=0)
 
 
 def _counts() -> dict:
@@ -1454,39 +1466,58 @@ def check_flash_attention() -> dict:
 BWD_F32_FACTOR = 8.0
 
 
-def check_flash_attention_bwd() -> float:
-    """Flash-attention backward kernel vs ``flash_attention_bwd_ref`` on the
+def check_flash_attention_bwd() -> dict:
+    """Flash-attention backward kernels vs ``flash_attention_bwd_ref`` on the
     card over the forward's grid (``FLASH_GRID``: Sq 1 at q_offset 383, a
     window, non-causal, ragged 200, Sq 1000, hd 32 / 64 / 128 / 256), GQA G
     1 and 2, softcap 0 and 30, f32 and bf16; dQ, dK and dV each held to the
-    bars above.  ``out`` is the forward kernel's output on the same inputs
-    (as ``FlashAttentionFunction`` saves it).  Returns the worst f32 error."""
+    bars above.  ``out`` is the forward kernel's output on the same inputs,
+    and for the wgmma backward (bf16 at hd 64 / 128 / 256) ``stats`` is the
+    forward kernel's row statistics, both as ``FlashAttentionFunction``
+    saves them; the plain backward recomputes its own.  Each case must run
+    on the body ``bwd_body_for`` names (its per-body counter moves by one,
+    the other's not at all; both bodies get cases), and a second call on
+    the same inputs must give the same bits (no atomics).  Returns each
+    body's worst absolute error against the plain backward in f32."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel, flash_attention_bwd_ref
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     worst_f32, worst_ratio, n_cases = 0.0, 0.0, 0
+    worst_bf16 = 0.0     # bf16 error over its bar; must stay <= 1
+    per_body = {"wgmma": 0, "simt": 0}
+    body_err = {"wgmma": 0.0, "simt": 0.0}
     for sq, skv, hd, causal, window, q_offset in FLASH_GRID:
         for g in (1, 2):
             for dname in ("float32", "bfloat16"):
                 dt = getattr(torch, dname)
                 mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
                 q, k, v, dout = mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd), mk(2, sq, 2 * g, hd)
+                body = cuda_kernel.bwd_body_for(dt, hd)
                 for softcap in (0.0, 30.0):
                     kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+                    stats = None
                     with torch.no_grad():
-                        out = cuda_kernel.flash_attention(q, k, v, **kw)
-                    before = cuda_kernel.bwd_launch_count
-                    got = cuda_kernel.flash_attention_bwd(q, k, v, out, dout, **kw)
-                    assert cuda_kernel.bwd_launch_count == before + 1
+                        if body == "wgmma":
+                            out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True, **kw)
+                        else:
+                            out = cuda_kernel.flash_attention(q, k, v, **kw)
+                    before = dict(cuda_kernel.bwd_body_launch_count)
+                    got = cuda_kernel.flash_attention_bwd(q, k, v, out, dout, stats=stats, **kw)
+                    moved = {n: cuda_kernel.bwd_body_launch_count[n] - before[n] for n in before}
+                    assert moved == {n: int(n == body) for n in before}, f"{(hd, dname)}: bodies {moved}, want {body}"
+                    again = cuda_kernel.flash_attention_bwd(q, k, v, out, dout, stats=stats, **kw)
+                    per_body[body] += 1
                     want32 = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out, dout)), **kw)
                     want64 = flash_attention_bwd_ref(*(t.double() for t in (q, k, v, out, dout)), **kw)
                     torch.cuda.synchronize()
                     case = (sq, skv, hd, causal, window, q_offset, g, dname, softcap)
+                    assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{case}: two calls differ"
                     for name, a, w32, w64 in zip(("dq", "dk", "dv"), got, want32, want64):
                         assert a.dtype == dt and a.shape == w32.shape, f"{case} {name}: {a.dtype} {tuple(a.shape)}"
                         noise = float((w32.double() - w64).abs().max())
+                        body_err[body] = max(body_err[body], float((a.float() - w32).abs().max()))
                         if dt == torch.float32:
                             err = float((a.double() - w64).abs().max())
                             assert err <= BWD_F32_FACTOR * noise, (
@@ -1498,10 +1529,15 @@ def check_flash_attention_bwd() -> float:
                             bar = BF16_REL * w32.abs() + BWD_F32_FACTOR * noise
                             ratio = float(((a.float() - w32).abs() / bar).max())
                             assert ratio <= 1.0, f"{case} {name}: bf16 gradient off the f32 plain value by {ratio:.2f} of its bar"
+                            worst_bf16 = max(worst_bf16, ratio)
                     n_cases += 1
-    log(f"[kernel] flash_attention_bwd vs flash_attention_bwd_ref: {n_cases} cases agree (dQ, dK, dV each); f32 max "
-        f"|err| {worst_f32:.3e}, at most {worst_ratio:.2f} x the plain f32-vs-f64 noise (bar {BWD_F32_FACTOR})")
-    return worst_f32
+    assert all(n > 0 for n in per_body.values()), f"a backward body got no case: {per_body}"
+    log(f"[kernel] flash_attention_bwd vs flash_attention_bwd_ref: {n_cases} cases agree (dQ, dK, dV each; "
+        f"{per_body['wgmma']} on the wgmma body with the forward's statistics, {per_body['simt']} on the CUDA-core "
+        f"body), each equal bit for bit on a second call; f32 max |err| {worst_f32:.3e}, at most {worst_ratio:.2f} x "
+        f"the plain f32-vs-f64 noise (bar {BWD_F32_FACTOR}); bf16 at most {worst_bf16:.3f} of its bar; by body "
+        f"{body_err}")
+    return body_err
 
 
 def check_ssm_scan() -> float:
@@ -1865,8 +1901,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, GRAD_BATCH, TRAJ_STEPS, GE_STEPS = 4, 1024,
 # f32's 2**-24; so 2 x 4 = 8x.  Both ratios are logged, worst and median.
 BWD_PATH_FACTOR, F32_PATH_FACTOR = 2.0, 8.0
 # The backward's least work a visible (query, key) pair: S again, dP, dV, dK
-# and dQ (2.5x the forward's 4 hd flops) plus the statistics pass's S.
-BWD_FLOPS_PER_PAIR_HD = 12
+# and dQ, 2 hd flops each (2.5x the forward's 4 hd).  A statistics pass or
+# a recomputed S belongs to a design, not to the function.
+BWD_FLOPS_PER_PAIR_HD = 10
 
 
 def _train_batches(cfg, batch, steps, seed):
@@ -1913,8 +1950,9 @@ def run_training(report) -> dict:
 
     1. The default run: ``train(arch, full_size=True)`` in bf16, batch 4,
        the paper's dropout link (r 0.2, the 8-bit STE), 8 steps, counts
-       zeroed just before: 24 x 8 forward and 24 x 8 backward launches,
-       nothing else; finite losses.
+       zeroed just before: 24 x 8 forward launches on the wgmma body and
+       24 x 8 backward launches on the wgmma backward, nothing else; finite
+       losses.
     2. The f32 oracle check, batch 2: the kernel path and the same weights,
        data and key through naive attention (``attn_block_q`` raised past
        the sequence) in plain autograd, in f32 and in f64 (the model cast
@@ -1931,7 +1969,9 @@ def run_training(report) -> dict:
        batch 4, 3 steps of ``make_train_step``: one burst-mask launch a step
        (1 x 167,773 packets), 24 forward and 24 backward launches a step,
        finite losses.
-    Returns the default run's backward launches."""
+    The f32 runs take the CUDA-core backward (24 x 4 launches on the kernel
+    path).  Returns the backward launches by body: the default run's
+    (wgmma) and the f32 oracle's kernel path (CUDA cores)."""
     import copy
 
     import numpy as np
@@ -1967,9 +2007,10 @@ def run_training(report) -> dict:
                 flash_attention=n_layers * TRAIN_STEPS, flash_attention_bwd=n_layers * TRAIN_STEPS, ssm_scan=0)
     assert launches == want, f"training run: launches {launches}, want {want}"
     assert fa.body_launch_count == {"wgmma": n_layers * TRAIN_STEPS, "tf32x3": 0, "simt": 0}, fa.body_launch_count
+    assert fa.bwd_body_launch_count == {"wgmma": n_layers * TRAIN_STEPS, "simt": 0}, fa.bwd_body_launch_count
     assert cfg.dtype == "bfloat16" and len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses
     out["default"] = dict(dtype=cfg.dtype, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
-                          wall_s_with_setup=wall, launches=launches,
+                          wall_s_with_setup=wall, launches=launches, bwd_bodies=dict(fa.bwd_body_launch_count),
                           peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"[train] bf16 default run ({TRAIN_BATCH} x {TRAIN_SEQ}, dropout 0.2, 8-bit STE): losses "
         f"{[round(x, 4) for x in losses]}; {wall:.1f} s with set-up; launches {launches}; peak "
@@ -1997,6 +2038,7 @@ def run_training(report) -> dict:
     kl = _counts()
     assert (kl["flash_attention"], kl["flash_attention_bwd"]) == (n_layers * TRAJ_STEPS,) * 2, kl
     assert fa.body_launch_count["tf32x3"] == n_layers * TRAJ_STEPS, fa.body_launch_count
+    assert fa.bwd_body_launch_count == {"wgmma": 0, "simt": n_layers * TRAJ_STEPS}, fa.bwd_body_launch_count
     # The comparison run: the plain forward in the kernel's place, the
     # backward kernel as on the path.
     kernel_fwd = fa.flash_attention
@@ -2068,6 +2110,7 @@ def run_training(report) -> dict:
     want = dict(want, flash_attention=n_layers * GE_STEPS, flash_attention_bwd=n_layers * GE_STEPS,
                 burst_mask=GE_STEPS)
     assert gl == want, f"GE training: launches {gl}, want {want}"
+    assert fa.bwd_body_launch_count == {"wgmma": n_layers * GE_STEPS, "simt": 0}, fa.bwd_body_launch_count
     assert np.isfinite(ge_losses).all(), ge_losses
     out["ge"] = dict(losses=ge_losses, launches=gl, packets=-(-TRAIN_BATCH * TRAIN_SEQ * base.d_model // 25))
     log(f"[train] GE channel link (use_kernel) {GE_STEPS} steps: losses {[round(x, 4) for x in ge_losses]}, "
@@ -2075,7 +2118,7 @@ def run_training(report) -> dict:
     del model, opt
     torch.cuda.empty_cache()
     report["training"] = out
-    return launches["flash_attention_bwd"]
+    return {"wgmma": launches["flash_attention_bwd"], "simt": kl["flash_attention_bwd"]}
 
 
 def time_training_step(model, cfg) -> dict:
@@ -2131,13 +2174,45 @@ def time_training_step(model, cfg) -> dict:
     return rec
 
 
+def _simt_bwd_call(q, k, v, out, dout):
+    """A timing-only launch of the CUDA-core backward (``flash_attention_bwd
+    .cu``: its statistics pass, dK/dV, dQ) on any operands, past
+    ``bwd_body_for`` and the wrapper's launch counts: it times the body bf16
+    took before the wgmma backward, in the same call."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda_kernel
+
+    lib = cuda_kernel._library()
+    b, sq, h, hd = q.shape
+    scratch = torch.empty((3, b * h * sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+    def call():
+        err = lib.flash_attention_bwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                                             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, sq,
+                                             k.shape[1], h, k.shape[2], hd, cuda_kernel.DTYPES[q.dtype], 1, 0, 0, 0.0,
+                                             torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA-core backward launch failed (code {err})")
+        return dq
+
+    return call
+
+
 def time_flash_attention_bwd(b, h, hd, s, dname) -> dict:
-    """The backward kernel (graph replay and eager) at the training shape,
-    causal, beside its plain version, SDPA's backward (``is_causal``; its
-    forward + backward less its forward, eager, in the same call) and the
+    """The backward at the training shape, causal: the body ``bwd_body_for``
+    names (graph replay and eager; the wgmma body reads the forward kernel's
+    row statistics, as ``FlashAttentionFunction`` feeds it) and, for bf16,
+    the CUDA-core body by a direct launch (graph replay), beside the plain
+    version, SDPA's backward (``is_causal``: its forward + backward, by
+    ``torch.autograd.grad``, captured in one CUDA graph, less its forward
+    captured alone; the eager difference is logged beside it) and the
     bound: bytes (q, k, v, out, dout read once, dq, dk, dv written once)
     over 3.35 TB/s against ``BWD_FLOPS_PER_PAIR_HD`` x hd flops per visible
-    pair at the peak of f32-accurate arithmetic on the operands' type."""
+    pair at the peak of f32-accurate arithmetic on the operands' type.  For
+    bf16 it logs the kernel's gradients and SDPA's against phase 2's bf16
+    bar (SDPA rounds P and dS to bf16 once)."""
     import torch
     import torch.nn.functional as F
 
@@ -2147,37 +2222,103 @@ def time_flash_attention_bwd(b, h, hd, s, dname) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(12)
     mk = lambda: torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
     q, k, v, dout = mk(), mk(), mk(), mk()
+    body = cuda_kernel.bwd_body_for(dt, hd)
+    saved = (cuda_kernel.launch_count, cuda_kernel.bwd_launch_count, dict(cuda_kernel.body_launch_count),
+             dict(cuda_kernel.bwd_body_launch_count))
+    stats = None
     with torch.no_grad():
-        out = cuda_kernel.flash_attention(q, k, v)
-    saved = (cuda_kernel.launch_count, cuda_kernel.bwd_launch_count, dict(cuda_kernel.body_launch_count))
-    call = lambda: cuda_kernel.flash_attention_bwd(q, k, v, out, dout)
+        if body == "wgmma":
+            out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True)
+        else:
+            out = cuda_kernel.flash_attention(q, k, v)
+    call = lambda: cuda_kernel.flash_attention_bwd(q, k, v, out, dout, stats=stats)
     ms = time_graph(call, iters=10)
     ms_eager = time_events(call, iters=10, warmup=2)
     cuda_kernel.launch_count, cuda_kernel.bwd_launch_count = saved[0], saved[1]
     cuda_kernel.body_launch_count.update(saved[2])
+    cuda_kernel.bwd_body_launch_count.update(saved[3])
+    simt_ms = time_graph(_simt_bwd_call(q, k, v, out, dout), iters=10) if body == "wgmma" else None
     plain_ms = time_events(lambda: flash_attention_bwd_ref(q, k, v, out, dout), iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     dt_ = dout.transpose(1, 2).contiguous()
     sdpa_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
-    def sdpa_fwd_bwd():
-        torch.autograd.backward(F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), dt_)
-
-    fwd_ms = time_events(sdpa_fwd, iters=20, warmup=3)
-    both_ms = time_events(sdpa_fwd_bwd, iters=20, warmup=3)
+    sdpa_fwd_bwd = lambda: torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                                               (qt, kt, vt), dt_)
+    fwd_ms = time_graph(sdpa_fwd, iters=10)
+    both_ms = time_graph(sdpa_fwd_bwd, iters=10)
     lib_ms = both_ms - fwd_ms
+    lib_eager_ms = time_events(sdpa_fwd_bwd, iters=20, warmup=3) - time_events(sdpa_fwd, iters=20, warmup=3)
+    bar_ratio = {}
+    if dt == torch.bfloat16:
+        # The bf16 bar of phase 2 at this shape, for the kernel and for SDPA
+        # (which rounds P and dS to bf16 once): logged, not asserted.
+        w32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out, dout)))
+        w64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, dout)))
+        noise = [float((x32.double() - x64).abs().max()) for x32, x64 in zip(w32, w64)]
+        bars = [BF16_REL * x32.abs() + BWD_F32_FACTOR * n for x32, n in zip(w32, noise)]
+        del w64
+        for name, grads in (("kernel", call()), ("sdpa", [x.transpose(1, 2) for x in sdpa_fwd_bwd()])):
+            bar_ratio[name] = [float(((a.float() - x32).abs() / bar).max()) for a, x32, bar in zip(grads, w32, bars)]
+        cuda_kernel.launch_count, cuda_kernel.bwd_launch_count = saved[0], saved[1]
+        cuda_kernel.body_launch_count.update(saved[2])
+        cuda_kernel.bwd_body_launch_count.update(saved[3])
+        del w32, bars
     elem = 2 if dt == torch.bfloat16 else 4
     nbytes = 8 * b * s * h * hd * elem
     ops = BWD_FLOPS_PER_PAIR_HD * hd * b * h * _visible_pairs(s, s, True, 0)
     bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["tf32x3" if dt == torch.float32 else dname])
-    rec = dict(shape=dict(B=b, S=s, H=h, hd=hd, causal=True, dtype=dname), ms=ms, ms_eager=ms_eager,
-               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms, sdpa_fwd_ms=fwd_ms,
-               sdpa_fwd_bwd_ms=both_ms, bytes=nbytes, ops=ops)
-    log(f"[time] flash_attention_bwd {rec['shape']}: kernel {ms * 1e3:.1f} us (graph) / {ms_eager * 1e3:.1f} us "
-        f"(eager), plain {plain_ms * 1e3:.1f} us, sdpa backward {lib_ms * 1e3:.1f} us (fwd+bwd {both_ms * 1e3:.1f} - "
-        f"fwd {fwd_ms * 1e3:.1f}, eager), bound {bound_ms * 1e3:.2f} us ({bound_by}, {ops / 1e9:.2f} GFLOP, "
-        f"{nbytes} B)")
+    rec = dict(shape=dict(B=b, S=s, H=h, hd=hd, causal=True, dtype=dname), body=body, ms=ms, ms_eager=ms_eager,
+               simt_ms=simt_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+               library_eager_ms=lib_eager_ms, sdpa_fwd_ms=fwd_ms, sdpa_fwd_bwd_ms=both_ms, bytes=nbytes, ops=ops,
+               bar_ratio_dq_dk_dv=bar_ratio)
+    extra = f", CUDA-core body {simt_ms * 1e3:.1f} us (graph)" if simt_ms is not None else ""
+    if bar_ratio:
+        extra += (f"; against the bf16 bar (dQ, dK, dV): kernel {[round(r, 3) for r in bar_ratio['kernel']]}, sdpa "
+                  f"{[round(r, 1) for r in bar_ratio['sdpa']]}")
+    log(f"[time] flash_attention_bwd {rec['shape']} ({body} body): kernel {ms * 1e3:.1f} us (graph) / "
+        f"{ms_eager * 1e3:.1f} us (eager){extra}, plain {plain_ms * 1e3:.1f} us, sdpa backward {lib_ms * 1e3:.1f} us "
+        f"(graph: fwd+bwd {both_ms * 1e3:.1f} - fwd {fwd_ms * 1e3:.1f}; eager difference {lib_eager_ms * 1e3:.1f}), "
+        f"bound {bound_ms * 1e3:.2f} us ({bound_by}, {ops / 1e9:.2f} GFLOP, {nbytes} B)")
     return rec
+
+
+def bwd_kernel_split(b, h, hd, s) -> dict:
+    """The wgmma backward's device time at the training shape split between
+    its two kernels (dQ, dK/dV): a torch.profiler trace of 10 calls (run in
+    a process of its own, ``--bwd-split``: a trace taken after the other
+    phases' traces in one process lost most of its kernel time)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, dout = (torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16() for _ in range(4))
+    saved = (cuda_kernel.launch_count, cuda_kernel.bwd_launch_count, dict(cuda_kernel.body_launch_count),
+             dict(cuda_kernel.bwd_body_launch_count))
+    with torch.no_grad():
+        out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True)
+    call = lambda: cuda_kernel.flash_attention_bwd(q, k, v, out, dout, stats=stats)
+    call()
+    prof = device_profile(lambda: [call() for _ in range(10)])
+    cuda_kernel.launch_count, cuda_kernel.bwd_launch_count = saved[0], saved[1]
+    cuda_kernel.body_launch_count.update(saved[2])
+    cuda_kernel.bwd_body_launch_count.update(saved[3])
+    return {name.split("::")[-1].split("<")[0]: t / 10 * 1e3 for name, t in prof.get("top_kernels_ms", {}).items()
+            if "fa_bwd" in name}
+
+
+def run_bwd_kernel_split(report) -> None:
+    """``bwd_kernel_split`` at the training shape in a process of its own."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--bwd-split"], capture_output=True,
+                          text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("BWD_SPLIT ")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"--bwd-split failed (exit {proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                           f"{proc.stderr[-4000:]}")
+    split = json.loads(lines[-1].split(" ", 1)[1])
+    report["flash_attention_bwd_split_us"] = split
+    log(f"[time] flash_attention_bwd (wgmma body, B {TRAIN_BATCH}, S {TRAIN_SEQ}, H 16, hd 64) by kernel "
+        f"(profiler, 10 calls, a process of its own): {({k: round(t, 1) for k, t in split.items()})} us")
 
 
 def main(argv=None) -> int:
@@ -2185,6 +2326,8 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
     ap.add_argument("--link-round", action="store_true",
                     help="time and trace one i.i.d. link round only (phase 9's traced part)")
+    ap.add_argument("--bwd-split", action="store_true",
+                    help="trace the wgmma backward at the training shape only (its two kernels' device times)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2204,6 +2347,12 @@ def main(argv=None) -> int:
         nvcc.build_libraries([(link_kernel.LIB_NAME, link_kernel.SOURCES)])
         print("LINK_ROUND " + json.dumps(link_round()))
         log(f"[card] {card_line()}")
+        return 0
+    if args.bwd_split:
+        from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
+
+        nvcc.build_libraries([(flash_kernel.LIB_NAME, flash_kernel.SOURCES)])
+        print("BWD_SPLIT " + json.dumps(bwd_kernel_split(TRAIN_BATCH, 16, 64, TRAIN_SEQ)))
         return 0
 
     t0 = time.perf_counter()
@@ -2234,7 +2383,8 @@ def main(argv=None) -> int:
         for name, line in kernel_resources(text, ("flash_attention_wgmma_kernel", "flash_attention_tf32x3_kernel",
                                                   "split_decode_kernel", "merge_splits_kernel", "egress_kernel",
                                                   "burst_mask_kernel", "fa_bwd_stats_kernel", "fa_bwd_dkdv_kernel",
-                                                  "fa_bwd_dq_kernel")):
+                                                  "fa_bwd_dq_kernel", "fa_bwd_dq_wgmma_kernel",
+                                                  "fa_bwd_dkdv_wgmma_kernel")):
             log(f"[build]   {name}: {line}")
 
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s}
@@ -2264,9 +2414,16 @@ def main(argv=None) -> int:
                      for body, name, src in (("wgmma", "flash_attention", "flash_attention_wgmma.cu"),
                                              ("tf32x3", "flash_attention_tf32x3", "flash_attention_tf32x3.cu"),
                                              ("simt", "flash_attention_simt", "flash_attention.cu"))}
-    bwd_record = dict(name="flash_attention_bwd", route="cuda", source=flash_dir + "flash_attention_bwd.cu",
-                      replaces="src/repro/models/attention.py:162 (the gradient of _blockwise_attn, by autodiff)",
-                      max_abs_err=check_flash_attention_bwd())
+    # The backward has a record a body: wgmma (bf16 at hd 64 / 128 / 256,
+    # launched and timed by phase 13's bf16 run) and the CUDA-core body
+    # (launched by phase 13's f32 oracle run, timed at the training shape
+    # in f32).
+    bwd_err = check_flash_attention_bwd()
+    bwd_records = {body: dict(name=name, route="cuda", source=flash_dir + src,
+                              replaces="src/repro/models/attention.py:162 (the gradient of _blockwise_attn, by autodiff)",
+                              max_abs_err=bwd_err[body])
+                   for body, name, src in (("wgmma", "flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma.cu"),
+                                           ("simt", "flash_attention_bwd", "flash_attention_bwd.cu"))}
     ssm_record = dict(name="ssm_scan", route="cuda", source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                       replaces="src/repro/kernels/ssm_scan/kernel.py:55", max_abs_err=check_ssm_scan())
     if not args.quick:
@@ -2299,11 +2456,12 @@ def main(argv=None) -> int:
         ssm_record.update(launches=ssm_launches, ms=stiming["ms"], plain_ms=stiming["plain_ms"],
                           bound_ms=stiming["bound_ms"], bound_by=stiming["bound_by"], library_ms=None)
         bwd_launches = run_training(report)
-        btimes = [time_flash_attention_bwd(TRAIN_BATCH, 16, 64, TRAIN_SEQ, d) for d in ("bfloat16", "float32")]
-        report["flash_attention_bwd_times"] = btimes
-        bwd_record.update(launches=bwd_launches, ms=btimes[0]["ms"], plain_ms=btimes[0]["plain_ms"],
-                          bound_ms=btimes[0]["bound_ms"], bound_by=btimes[0]["bound_by"],
-                          library_ms=btimes[0]["library_ms"])
+        btimes = {body: time_flash_attention_bwd(TRAIN_BATCH, 16, 64, TRAIN_SEQ, d)
+                  for body, d in (("wgmma", "bfloat16"), ("simt", "float32"))}
+        report["flash_attention_bwd_times"] = list(btimes.values())
+        for body, t in btimes.items():
+            bwd_records[body].update(launches=bwd_launches[body], ms=t["ms"], plain_ms=t["plain_ms"],
+                                     bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"])
         launches = run_slice(report)
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [
@@ -2326,8 +2484,9 @@ def main(argv=None) -> int:
         paged_record.update(launches=paged_launches, ms=ptiming["ms"], plain_ms=ptiming["plain_ms"],
                             bound_ms=ptiming["bound_ms"], bound_by=ptiming["bound_by"],
                             library_ms=ptiming["library_ms"])
-    report["kernels"] = [record, paged_record, egress_record, burst_record, *flash_records.values(), bwd_record,
-                         ssm_record]
+        run_bwd_kernel_split(report)
+    report["kernels"] = [record, paged_record, egress_record, burst_record, *flash_records.values(),
+                         *bwd_records.values(), ssm_record]
     for rec in report["kernels"]:
         if rec.get("library_ms") is not None and rec["library_ms"] < rec["bound_ms"]:
             log(f"[bound] WARNING {rec['name']}: the library call ({rec['library_ms'] * 1e3:.2f} us) beats the "

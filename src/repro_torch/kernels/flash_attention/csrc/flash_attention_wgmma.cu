@@ -62,23 +62,21 @@
 //     products and f32 sums -- the TPU kernel multiplies f32 p by v, and
 //     the output must stay within one bf16 ulp of that f32 value;
 //   * the epilogue divides by max(l, 1e-20), rounds once to bf16 and stores
-//     a lane's two neighbouring columns at a time.
+//     a lane's two neighbouring columns at a time;
+//   * asked for them (a non-null `stats`, the kStats instance: the serving
+//     call passes null and runs the kernel as it was), the epilogue also
+//     writes each row's final max m and sum l for the backward
+//     (flash_attention_bwd_wgmma.cu), f32 (2, B * H * Sq), row b * H * Sq +
+//     h * Sq + q: m in log2 units, as the online softmax keeps it (the
+//     scaled score times log2(e), or the capped one's; -inf for a row that
+//     sees no key), l = sum exp2(x - m) clamped to 1e-20, the value the
+//     output is divided by.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "wgmma_common.cuh"
 
 namespace {
-
-constexpr int kUnsupported = -1;
-constexpr int kNoEncoder = -2;     // no cuTensorMapEncodeTiled entry point
-constexpr int kEncodeFailed = -3;  // cuTensorMapEncodeTiled refused a tensor map
-// A wait on a barrier that never completes would hang the card; past this
-// many cycles (seconds) the kernel traps instead, and the launch reports it.
-constexpr long long kHangCycles = 20000000000LL;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Two consumer warpgroups beside one producer warpgroup: a CTA of 384
 // threads gets at most 168 registers a thread (ptxas sizes a wgmma kernel by
@@ -118,168 +116,6 @@ struct Smem {
   static constexpr uint32_t kBytes = 1024 + kQBytes + Cfg<HD>::kStages * 2 * kTileBytes + kBarBytes;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Wait for the phase of parity `parity` to complete.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > kHangCycles) __trap();
-  }
-}
-
-// One TMA box of a rank-4 map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
-                                         int c3, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands: SBO
-// = 1024 bytes between 8-row groups, LBO unused (1).  MN-major (V): LBO =
-// bytes between 64-column chunks, SBO = 1024 bytes between 8-row groups.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes) {
-  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
-  d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-// Wait until at most N committed groups are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Keep the compiler from moving reads or writes of wgmma's registers across
-// the asynchronous window between issue and wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// wgmma.mma_async m64nNk16, f32 += bf16 x bf16.  ss (S = Q K^T, N 64): A
-// and B from shared memory, both K-major (scale_d 0 overwrites the
-// accumulator).  rs (O += P V, N 64 or 128): A from registers, B MN-major
-// from shared memory (transpose bit set), accumulating.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-struct Wgmma;
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int s) { wgmma_ss_n64(d, a, b, s); }
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n64(d, a, b); }
-};
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n128(d, a, b); }
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
 
 // O += P_hi V + P_lo V over the tile's kBKV / 16 key slabs, for OD columns
 // of V from sV on: the MN-major B operand, its 64-column chunks kBKV * 128
@@ -412,11 +248,12 @@ __device__ __forceinline__ void attend_tile(float (&o)[Smem<HD>::kOD / 2], float
     }
 }
 
-template <int HD, bool kSoftcap>
+template <int HD, bool kSoftcap, bool kStats>
 __global__ void __launch_bounds__(Smem<HD>::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                             const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int Sq,
-                             int Skv, int H, int KV, int causal, int window, int q_offset, float softcap) {
+                             const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ stats, int Sq, int Skv, int H, int KV, int causal, int window,
+                             int q_offset, float softcap) {
   constexpr int kStages = Cfg<HD>::kStages;
   constexpr int kBQ = Smem<HD>::kBQ;
   constexpr int kChunks = HD / 64;
@@ -556,6 +393,21 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __gri
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       l[r] = fmaxf(l[r], 1e-20f);
     }
+    if constexpr (kStats) {
+      // m is the same in the 4 lanes of a row; one lane of the first
+      // column half writes the row's m and l.
+      if (dh == 0 && col2 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+          if (row < Sq) {
+            const size_t at = static_cast<size_t>(bh) * Sq + row;
+            stats[at] = m[r];
+            stats[static_cast<size_t>(gridDim.x) * Sq + at] = l[r];
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
@@ -573,49 +425,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __gri
 }
 
 // ---------------------------------------------------------------------------
-// Host side: tensor maps encoded through cudaGetDriverEntryPointByVersion
-// (the library links only the CUDA runtime), then the launch.
+// Host side: the launch (tensor maps encoded as wgmma_common.cuh does)
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    return (err == cudaSuccess && status == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
-                                                                         : nullptr;
-  }();
-  return fn;
-}
-
-// (B, S, heads, hd) bf16, boxes of 64 columns x 1 head x `rows` positions.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 2, static_cast<cuuint64_t>(heads) * hd * 2,
-                                 static_cast<cuuint64_t>(S) * heads * hd * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed;
-}
 
 struct Args {
   const void* q;
   const void* k;
   const void* v;
   void* out;
+  float* stats;
   int B, Sq, Skv, H, KV, causal, window, q_offset;
   float softcap;
   cudaStream_t stream;
@@ -633,29 +451,34 @@ int launch(const Args& a) {
   if (err != 0) return err;
   const int n_qt = (a.Sq + kBQ - 1) / kBQ;
   if (n_qt > 65535) return kUnsupported;
-  auto* kernel = a.softcap > 0.f ? flash_attention_wgmma_kernel<HD, true> : flash_attention_wgmma_kernel<HD, false>;
+  auto* kernel = a.stats != nullptr
+                     ? (a.softcap > 0.f ? flash_attention_wgmma_kernel<HD, true, true>
+                                        : flash_attention_wgmma_kernel<HD, false, true>)
+                     : (a.softcap > 0.f ? flash_attention_wgmma_kernel<HD, true, false>
+                                        : flash_attention_wgmma_kernel<HD, false, false>);
   cudaError_t cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           static_cast<int>(Smem<HD>::kBytes));
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid(a.B * a.H, n_qt);
   kernel<<<grid, Smem<HD>::kThreads, Smem<HD>::kBytes, a.stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), a.Sq, a.Skv, a.H, a.KV, a.causal, a.window, a.q_offset,
-      a.softcap);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), a.stats, a.Sq, a.Skv, a.H, a.KV, a.causal, a.window,
+      a.q_offset, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 q, k, v, out; hd 64, 128 or 256; every pointer 16-byte aligned.
-// Returns 0, a cudaError_t from the launch, -1 for arguments the body does
-// not take, -2 / -3 when no cuTensorMapEncodeTiled is found / it refuses a
-// map.  Launches on `stream`, does not synchronise, allocates nothing.
-extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                                            int Skv, int H, int KV, int hd, int causal, int window, int q_offset,
-                                            float softcap, void* stream) {
+// bf16 q, k, v, out; hd 64, 128 or 256; every pointer 16-byte aligned;
+// stats null, or f32 (2, B * H * Sq) for each row's m and l.  Returns 0, a
+// cudaError_t from the launch, -1 for arguments the body does not take, -2
+// / -3 when no cuTensorMapEncodeTiled is found / it refuses a map.
+// Launches on `stream`, does not synchronise, allocates nothing.
+extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* out, float* stats,
+                                            int B, int Sq, int Skv, int H, int KV, int hd, int causal, int window,
+                                            int q_offset, float softcap, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H <= 0 || H % KV != 0 || q_offset < 0 || window < 0)
     return kUnsupported;
-  const Args a{q, k, v, out, B, Sq, Skv, H, KV, causal, window, q_offset, softcap,
+  const Args a{q, k, v, out, stats, B, Sq, Skv, H, KV, causal, window, q_offset, softcap,
                static_cast<cudaStream_t>(stream)};
   switch (hd) {
     case 64:

@@ -27,26 +27,35 @@ class FlashAttentionFunction(torch.autograd.Function):
     card, ``gqa_flash_attention_ref`` and ``flash_attention_bwd_ref`` on the
     CPU.  The raw kernel wrappers refuse inputs that require grad; here the
     forward runs under autograd's own no-grad and saves q, k, v and the
-    output for the backward.  Double backward raises."""
+    output for the backward, and, where the backward runs the wgmma body
+    and a gradient is wanted, the forward kernel's row statistics (m, l),
+    which that body reads instead of recomputing them.  A forward whose
+    inputs need no gradient (serving) asks for no statistics.  Double
+    backward raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int, softcap: float):
         kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        stats = None
         if runtime.use_kernel(q):
-            out = cuda_kernel.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+            qkv = (q.contiguous(), k.contiguous(), v.contiguous())
+            if any(ctx.needs_input_grad[:3]) and cuda_kernel.bwd_body_for(q.dtype, q.shape[-1]) == "wgmma":
+                out, stats = cuda_kernel.flash_attention(*qkv, **kw, return_stats=True)
+            else:
+                out = cuda_kernel.flash_attention(*qkv, **kw)
         else:
             out = gqa_flash_attention_ref(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, stats)
         ctx.kw = kw
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, stats = ctx.saved_tensors
         if runtime.use_kernel(q):
             grads = cuda_kernel.flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), out,
-                                                    dout.contiguous(), **ctx.kw)
+                                                    dout.contiguous(), stats=stats, **ctx.kw)
         else:
             grads = flash_attention_bwd_ref(q, k, v, out, dout, **ctx.kw)
         return (*grads, None, None, None, None)

@@ -18,7 +18,10 @@ P as the forward does and forms dV = P^T dO, dP = dO V^T,
 dS = P * (dP - rowsum(dO * O)) (times tanh's derivative under a softcap,
 and only where the mask lets a score through), dQ = dS K / sqrt(hd) and
 dK = dS^T Q / sqrt(hd), with dK and dV summed over the G query heads of
-each KV head.
+each KV head.  Given the forward's row statistics (``stats``: each row's
+max m in log2 units and sum l, as the wgmma forward writes them and the
+wgmma backward reads them), it forms p = exp2(s log2(e) - m) / l from them
+instead of a softmax; the two agree to f32 rounding.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1.0e30
+LOG2E = 1.4426950408889634
 
 
 def flash_attention_ref(
@@ -91,13 +95,15 @@ def flash_attention_bwd_ref(
     out: torch.Tensor,   # (B, Sq, H, hd): the forward's output
     dout: torch.Tensor,  # (B, Sq, H, hd): its gradient
     *,
+    stats: torch.Tensor | None = None,   # (2, B * H * Sq): the forward's m (log2 units) and l
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
     softcap: float = 0.0,
 ):
     """(dQ, dK, dV) of ``gqa_flash_attention_ref``, each in its input's
-    dtype, computed in f32 (f64 for f64 inputs)."""
+    dtype, computed in f32 (f64 for f64 inputs), P from ``stats`` where
+    given."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -111,7 +117,11 @@ def flash_attention_bwd_ref(
         t = torch.tanh(s / softcap)
         s = t * softcap
     msk = _mask(sq, skv, causal, window, q_offset, q.device)
-    p = torch.softmax(torch.where(msk, s, NEG_INF), dim=-1)                      # (B, KV, G, Sq, Skv)
+    if stats is None:
+        p = torch.softmax(torch.where(msk, s, NEG_INF), dim=-1)                  # (B, KV, G, Sq, Skv)
+    else:
+        m, l = (x[..., None] for x in stats.to(acc).reshape(2, b, kvh, g, sq))
+        p = torch.where(msk, torch.exp2(s * LOG2E - torch.where(msk, m, 0.0)) / l, 0.0)
     dv = torch.einsum("bkgqs,bqkgh->bskh", p, dof)
     dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)
     rowsum = torch.einsum("bqkgh,bqkgh->bkgq", dof, of)

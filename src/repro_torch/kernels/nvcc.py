@@ -3,9 +3,10 @@ interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).
 
 Libraries land in ``kernels/_build/`` (git-ignored), named by a hash of
-their sources and flags, so a source change rebuilds and an unchanged one
-is reused.  ``build_libraries`` starts one ``nvcc -c`` per source of every
-library it has to build, all at once, waits for all of them, then links
+their sources, the ``*.cuh`` headers beside them and the flags, so a
+source or header change rebuilds and an unchanged one is reused.
+``build_libraries`` starts one ``nvcc -c`` per source of every library it
+has to build, all at once, waits for all of them, then links
 each library from its objects.  The compiler's report (``-Xptxas -v``:
 registers, shared memory, spills) is kept beside each library as ``.log``.
 A failed build raises.
@@ -39,7 +40,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str, sources: Sequence[Path]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted({hdr for src in sources for hdr in Path(src).parent.glob("*.cuh")})
+    for src in [*sources, *headers]:
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

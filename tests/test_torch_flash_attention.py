@@ -174,12 +174,15 @@ CHIP_GRID = GRID + [
 BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5   # one bf16 ulp of the f32 value, f32 noise
 
 
-def _emulate_wgmma_body(q, k, v, *, causal, window, q_offset, softcap, p_lo=True):
+def _emulate_wgmma_body(q, k, v, *, causal, window, q_offset, softcap, p_lo=True, stats=False):
     """The tensor-core body's arithmetic in torch on the CPU: bf16 Q K^T
     summed in f32 over KV tiles of the body's 64 keys, scale, softcap and
     mask, the online softmax in f32, P split into bf16 hi and lo parts
     (``p_lo=False`` drops lo), both multiplied by bf16 V and summed in f32,
-    ``acc / max(l, 1e-20)`` rounded once to bf16."""
+    ``acc / max(l, 1e-20)`` rounded once to bf16.  ``stats=True`` also
+    returns the rows' statistics as the body writes them for the backward:
+    f32 (2, B * H * Sq), m in log2 units (-inf for a row that sees no key)
+    and l clamped to 1e-20."""
     b, sq, h, hd = q.shape
     skv, g = k.shape[1], h // k.shape[2]
     bkv = 64
@@ -208,7 +211,11 @@ def _emulate_wgmma_body(q, k, v, *, causal, window, q_offset, softcap, p_lo=True
         lo = (p - hi).bfloat16().float() if p_lo else torch.zeros_like(p)
         acc = acc * corr[..., None] + hi @ vf[:, :, k0:k0 + bkv] + lo @ vf[:, :, k0:k0 + bkv]
         m = m_new
-    return (acc / torch.clamp(l, min=1e-20)[..., None]).transpose(1, 2).bfloat16()
+    out = (acc / torch.clamp(l, min=1e-20)[..., None]).transpose(1, 2).bfloat16()
+    if not stats:
+        return out
+    m2 = torch.where(m <= -1e30, -torch.inf, m * np.float32(np.log2(np.e)))
+    return out, torch.stack([m2.reshape(-1), torch.clamp(l, min=1e-20).reshape(-1)])
 
 
 def _ulp_ratio(got, want32):

@@ -13,7 +13,13 @@ Bars:
     orders of f64 operations);
   * on the card, each gradient within 8x the plain backward's own f32
     max error against f64 (``chip_smoke.py``'s ``BWD_F32_FACTOR``), and
-    bf16 within one bf16 ulp of the plain backward in f32.
+    bf16 within one bf16 ulp of the plain backward in f32 plus 8x that
+    noise; the bf16 tensor-core body's arithmetic (bf16 operands, exact
+    products summed in f32, P and dS as bf16 hi + lo, the forward's m and
+    l), emulated here, meets that bf16 bar, and without the lo terms
+    misses it;
+  * the plain backward fed the forward's statistics equals it without, to
+    f32 rounding (``atol`` 2e-5, the f32 bar above).
 """
 
 import dataclasses
@@ -30,6 +36,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_ref,
     gqa_flash_attention_ref,
 )
+from test_torch_flash_attention import BF16_REL, CHIP_GRID, _emulate_wgmma_body  # noqa: E402
 
 # (sq, skv, hd, causal, window, q_offset): the forward tests' grid.
 GRID = [
@@ -216,8 +223,162 @@ def test_bwd_wrapper_rejects_cpu_and_bad_shapes():
 
 
 # ---------------------------------------------------------------------------
+# The bf16 tensor-core backward (csrc/flash_attention_bwd_wgmma.cu), emulated
+# ---------------------------------------------------------------------------
+
+BWD_F32_FACTOR = 8.0   # chip_smoke.py's: the bf16 bar's noise multiple
+
+
+def _hi_lo(x, lo=True):
+    """x as bf16 hi + lo (lo = bf16(x - hi)), as the body's fragments hold
+    P and dS; ``lo=False`` keeps hi alone."""
+    hi = x.bfloat16().float()
+    return hi, ((x - hi).bfloat16().float() if lo else torch.zeros_like(x))
+
+
+def _emulate_wgmma_bwd(q, k, v, out, dout, stats, *, causal, window, q_offset, softcap, lo=True):
+    """The wgmma backward's arithmetic in torch on the CPU: bf16 operands,
+    their products exact and summed in f32; p = exp2(x - m) * (1 / l) from
+    the forward's statistics with the forward's score arithmetic (x = s *
+    scale * log2(e), or tanh(s * scale / cap) * cap * log2(e)); D =
+    rowsum(dO * O) in f32; dS = p (dP - D) (1 - t^2); dV, dK and dQ each
+    from P or dS as bf16 hi + lo (``lo=False`` drops lo), dK and dV summed
+    over the group, scale applied to dK and dQ, each rounded once to bf16."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    f = lambda x: x.float().transpose(1, 2)                                   # (B, heads, S, hd)
+    qf, of, dof = f(q), f(out), f(dout)
+    kf, vf = f(k).repeat_interleave(g, 1), f(v).repeat_interleave(g, 1)
+    scale = np.float32(1.0 / np.sqrt(np.float32(hd)))
+    s = qf @ kf.transpose(-1, -2)
+    t = torch.tanh(s * scale / softcap) if softcap > 0 else torch.zeros_like(s)
+    x = t * softcap * np.float32(np.log2(np.e)) if softcap > 0 else s * (scale * np.float32(np.log2(np.e)))
+    m, l = (y.reshape(b, h, sq, 1) for y in stats)
+    qp = q_offset + torch.arange(sq)[:, None]
+    kp = torch.arange(skv)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        ok &= kp <= qp
+    if window > 0:
+        ok &= qp - kp < window
+    p = torch.where(ok, torch.exp2(x - torch.where(ok, m, 0.0)) * (1.0 / l), 0.0)
+    d = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - d) * (1 - t * t)
+    p_hi, p_lo = _hi_lo(p, lo)
+    ds_hi, ds_lo = _hi_lo(ds, lo)
+    dv = p_hi.transpose(-1, -2) @ dof + p_lo.transpose(-1, -2) @ dof
+    dk = (ds_hi.transpose(-1, -2) @ qf + ds_lo.transpose(-1, -2) @ qf) * scale
+    dq = (ds_hi @ kf + ds_lo @ kf) * scale
+    group = lambda y: y.reshape(b, kvh, g, skv, hd).sum(2).transpose(1, 2).bfloat16()
+    return dq.transpose(1, 2).bfloat16(), group(dk), group(dv)
+
+
+def _bwd_bar_ratio(got, q, k, v, out, dout, kw):
+    """Each gradient's worst |got - plain f32| over the bf16 bar (one bf16
+    ulp of the plain f32 value + ``BWD_F32_FACTOR`` x the plain f32's max
+    error against f64), as chip_smoke.py holds the kernel."""
+    w32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out, dout)), **kw)
+    w64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, dout)), **kw)
+    ratios = []
+    for a, x32, x64 in zip(got, w32, w64):
+        noise = float((x32.double() - x64).abs().max())
+        ratios.append(float(((a.float() - x32).abs() / (BF16_REL * x32.abs() + BWD_F32_FACTOR * noise)).max()))
+    return ratios
+
+
+def _bf16_case(seed, sq, skv, hd, g):
+    gen = torch.Generator().manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen).bfloat16()
+    return mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd), mk(2, sq, 2 * g, hd)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("sq,skv,hd,causal,window,q_offset", [c for c in CHIP_GRID if c[2] in (64, 128, 256)])
+def test_wgmma_bwd_arithmetic_meets_the_bf16_bar(sq, skv, hd, causal, window, q_offset, g):
+    """The design shown on the CPU: the wgmma backward's arithmetic, fed
+    the wgmma forward's output and statistics (both emulated), keeps dQ,
+    dK and dV within the bf16 bar phase 2 of chip_smoke.py holds the
+    kernel to, over phase 2's grid at the body's head dims, G 1 and 2,
+    softcap 0 and 30."""
+    q, k, v, do = _bf16_case(sq + skv + hd + g, sq, skv, hd, g)
+    for softcap in (0.0, 30.0):
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        out, stats = _emulate_wgmma_body(q, k, v, stats=True, **kw)
+        got = _emulate_wgmma_bwd(q, k, v, out, do, stats, **kw)
+        ratios = _bwd_bar_ratio(got, q, k, v, out, do, kw)
+        assert max(ratios) <= 1.0, (softcap, ratios)
+
+
+def test_wgmma_bwd_needs_the_lo_terms():
+    """The check has teeth: with P and dS rounded once to bf16 (no lo
+    parts) the same arithmetic misses the bar by far."""
+    q, k, v, do = _bf16_case(5, 256, 256, 64, 1)
+    kw = dict(causal=True, window=0, q_offset=0, softcap=0.0)
+    out, stats = _emulate_wgmma_body(q, k, v, stats=True, **kw)
+    assert max(_bwd_bar_ratio(_emulate_wgmma_bwd(q, k, v, out, do, stats, **kw), q, k, v, out, do, kw)) <= 1.0
+    assert max(_bwd_bar_ratio(_emulate_wgmma_bwd(q, k, v, out, do, stats, lo=False, **kw), q, k, v, out, do,
+                              kw)) > 4.0
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("sq,skv,hd,causal,window,q_offset,g", [
+    (256, 256, 64, True, 64, 0, 2),
+    (1, 384, 64, True, 128, 383, 1),
+    (130, 130, 128, False, 0, 0, 1),
+])
+def test_bwd_ref_with_the_forwards_stats(sq, skv, hd, causal, window, q_offset, g, softcap):
+    """``flash_attention_bwd_ref`` fed the wgmma forward's statistics
+    (emulated: m in log2 units, l) equals it without, to f32 rounding."""
+    q, k, v, do = (x.float() for x in _bf16_case(sq * g + hd, sq, skv, hd, g))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+    out, stats = _emulate_wgmma_body(q.bfloat16(), k.bfloat16(), v.bfloat16(), stats=True, **kw)
+    out = out.float()
+    assert stats.dtype == torch.float32 and tuple(stats.shape) == (2, 2 * 2 * g * sq)
+    want = flash_attention_bwd_ref(q, k, v, out, do, **kw)
+    got = flash_attention_bwd_ref(q, k, v, out, do, stats=stats, **kw)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256, 36])
+def test_bwd_body_for(dtype, hd):
+    """Two backward bodies: bf16 at head dims 64, 128 and 256 takes the
+    wgmma body (the forward's wgmma body writes its statistics); every
+    other case the CUDA cores."""
+    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128, 256) else "simt"
+    assert cuda_kernel.bwd_body_for(getattr(torch, dtype), hd) == want
+    assert set(cuda_kernel.bwd_body_launch_count) == {"wgmma", "simt"}
+
+
+def test_function_cpu_saves_no_stats():
+    """On the CPU ``FlashAttentionFunction`` runs the plain versions: the
+    backward recomputes P by a softmax (no statistics saved) and matches
+    autograd of the plain forward."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn((1, 70, 2, 64), generator=gen, requires_grad=True) for _ in range(3))
+    out = flash_attention(q, k, v, window=16)
+    assert out.grad_fn.saved_tensors[4] is None
+    gq, gk, gv = torch.autograd.grad(out.square().sum(), (q, k, v))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(gqa_flash_attention_ref(*leaves, window=16).square().sum(), leaves)
+    for a, w in zip((gq, gk, gv), want):
+        torch.testing.assert_close(a, w, rtol=0, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
 # On the card: the backward kernel against its plain version
 # ---------------------------------------------------------------------------
+
+def _forward_for_bwd(q, k, v, kw):
+    """The forward kernel's output and, where the backward runs the wgmma
+    body, its row statistics, as ``FlashAttentionFunction`` saves them."""
+    with torch.no_grad():
+        if cuda_kernel.bwd_body_for(q.dtype, q.shape[-1]) == "wgmma":
+            return cuda_kernel.flash_attention(q, k, v, return_stats=True, **kw)
+        return cuda_kernel.flash_attention(q, k, v, **kw), None
+
 
 @pytest.mark.usefixtures("hopper")
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -231,10 +392,9 @@ def test_cuda_bwd_kernel_matches_plain(dtype):
         q, k, v, do = mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd), mk(2, sq, 2 * g, hd)
         for softcap in (0.0, 30.0):
             kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
-            with torch.no_grad():
-                out = cuda_kernel.flash_attention(q, k, v, **kw)
+            out, stats = _forward_for_bwd(q, k, v, kw)
             before = cuda_kernel.bwd_launch_count
-            got = cuda_kernel.flash_attention_bwd(q, k, v, out, do, **kw)
+            got = cuda_kernel.flash_attention_bwd(q, k, v, out, do, stats=stats, **kw)
             assert cuda_kernel.bwd_launch_count == before + 1
             w32 = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out, do)), **kw)
             w64 = flash_attention_bwd_ref(*(t.double() for t in (q, k, v, out, do)), **kw)
@@ -259,3 +419,79 @@ def test_cuda_function_runs_both_kernels():
     out.square().sum().backward()
     assert (cuda_kernel.launch_count - fwd, cuda_kernel.bwd_launch_count - bwd) == (1, 1)
     assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+
+
+@pytest.mark.usefixtures("hopper")
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_cuda_wgmma_bwd_matches_plain(hd):
+    """bf16 at hd 64 / 128 / 256 runs the wgmma backward (its counter
+    moves, the CUDA-core body's does not) on the forward's statistics, and
+    dQ, dK, dV stay within the bf16 bar of the plain backward in f32:
+    causal ragged, windowed with softcap, decode-shaped, non-causal, GQA,
+    a 1000-token prompt, a q_offset past Skv's reach."""
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    for sq, skv, g, causal, window, q_offset, softcap in (
+            (300, 300, 2, True, 0, 0, 0.0), (300, 300, 1, True, 128, 0, 30.0), (1, 384, 2, True, 128, 383, 0.0),
+            (130, 130, 1, False, 0, 0, 0.0), (1000, 1000, 2, True, 0, 0, 0.0), (70, 200, 1, True, 40, 100, 0.0)):
+        mk = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+        q, k, v, do = mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd), mk(2, sq, 2 * g, hd)
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        out, stats = _forward_for_bwd(q, k, v, kw)
+        assert stats.shape == (2, 2 * 2 * g * sq) and bool(torch.isfinite(stats[1]).all())
+        before = dict(cuda_kernel.bwd_body_launch_count)
+        got = cuda_kernel.flash_attention_bwd(q, k, v, out, do, stats=stats, **kw)
+        assert cuda_kernel.bwd_body_launch_count == {**before, "wgmma": before["wgmma"] + 1}
+        torch.cuda.synchronize()
+        ratios = _bwd_bar_ratio(got, q, k, v, out, do, kw)
+        assert max(ratios) <= 1.0, (sq, skv, g, kw, ratios)
+
+
+@pytest.mark.usefixtures("hopper")
+def test_cuda_wgmma_bwd_is_deterministic():
+    """No atomics: two calls on the same inputs give the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    q, k, v, do = mk(2, 700, 4, 64), mk(2, 700, 2, 64), mk(2, 700, 2, 64), mk(2, 700, 4, 64)
+    out, stats = _forward_for_bwd(q, k, v, {})
+    first = cuda_kernel.flash_attention_bwd(q, k, v, out, do, stats=stats)
+    second = cuda_kernel.flash_attention_bwd(q, k, v, out, do, stats=stats)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.usefixtures("hopper")
+def test_cuda_wgmma_forward_stats_match_plain():
+    """The wgmma forward's m (log2 units) and l against the same row
+    statistics of the plain scores in f32; serving (no statistics) gives
+    the same output bits."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    q, k, v = mk(2, 300, 4, 64), mk(2, 300, 2, 64), mk(2, 300, 2, 64)
+    kw = dict(causal=True, window=100)
+    out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True, **kw)
+    assert torch.equal(out, cuda_kernel.flash_attention(q, k, v, **kw))
+    qf, kf = q.float().transpose(1, 2), k.float().repeat_interleave(2, 2).transpose(1, 2)
+    pos = torch.arange(300, device="cuda")
+    ok = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < 100)
+    x = torch.where(ok, qf @ kf.transpose(-1, -2) / 8.0 * np.log2(np.e), -torch.inf)
+    m = x.amax(-1)
+    l = torch.exp2(x - m[..., None]).sum(-1)
+    torch.testing.assert_close(stats[0], m.reshape(-1), rtol=0, atol=1e-4)
+    torch.testing.assert_close(stats[1], l.reshape(-1), rtol=1e-4, atol=0)
+
+
+@pytest.mark.usefixtures("hopper")
+def test_cuda_function_bf16_uses_the_forwards_stats():
+    """A bf16 sequence that requires grad runs the wgmma forward with
+    statistics and the wgmma backward through ``FlashAttentionFunction``;
+    under no_grad the forward writes none."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((2, 600, 4, 64), generator=gen, device="cuda").bfloat16().requires_grad_(True)
+               for _ in range(3))
+    before = dict(cuda_kernel.bwd_body_launch_count)
+    out = flash_attention(q, k, v)
+    assert out.grad_fn.saved_tensors[4].shape == (2, 2 * 4 * 600)
+    out.float().square().sum().backward()
+    assert cuda_kernel.bwd_body_launch_count == {**before, "wgmma": before["wgmma"] + 1}
+    assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
