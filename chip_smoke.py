@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one H100: builds the kernels,
-holds each (the six kernels, flash attention's three bodies and its two
+holds each (the six kernels, flash attention's three bodies and its three
 backward bodies among them) against its plain PyTorch version on the card, serves
 the full-width qwen1.5-0.5b split LM through ``generate_reference``, through
 the continuous-batching engine (contiguous and paged pools), through
@@ -13,13 +13,14 @@ forward and backward kernels), and times the kernels and the paths.
     python3 chip_smoke.py            # everything (needs one sm_90 card)
     python3 chip_smoke.py --quick    # build + kernel checks only
     python3 chip_smoke.py --link-round   # one link round, timed and traced
-    python3 chip_smoke.py --bwd-split    # the wgmma backward's two kernels, traced
+    python3 chip_smoke.py --bwd-split [bfloat16|float32]   # a tensor-core backward's kernels, traced
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
      together, then a link a library), and print the split-decode, merge,
      egress, burst-mask, wgmma (with and without row statistics), tf32x3,
-     the CUDA-core backward's three and the wgmma backward's two kernels'
+     the CUDA-core backward's three and the tensor-core backward's four
+     kernels' (dQ and dK/dV of both modes, the f32 split and statistics)
      registers and spills;
   2. flash decode vs ``flash_decode_ref`` at the main path's head shapes
      (B 4, KV 16, G 1, hd 64, C 64 and 1024), gemma3's (KV 8, G 2, hd 256)
@@ -47,19 +48,22 @@ Phases (any failure raises and the script exits non-zero):
      message of 4 x 1024 x 1024 elements) against the scan's plain version;
      flash attention
      vs ``flash_attention_ref`` over the reference test's grid (Sq 1 at
-     q_offset 383, a window, non-causal, ragged 200), Sq 1000, hd 256 and
-     a causal ragged hd 128, GQA G 1 and 2, softcap 0 and 30, f32 (atol
-     2e-5) and bf16 (2e-2, and one bf16 ulp of the f32 plain value), each
-     case on the body ``body_for`` names (bf16 at hd 64 / 128 / 256 on the
-     wgmma body, f32 at hd a multiple of 8 on the 3xTF32 body, the rest on
-     the CUDA cores; per-body counters, every body given cases); the
-     flash-attention backward vs ``flash_attention_bwd_ref`` over the same
-     grid (dQ, dK, dV each; f32 within ``BWD_F32_FACTOR`` x the plain
-     backward's own f32-vs-f64 error, bf16 within one bf16 ulp of the plain
-     backward in f32 plus that factor x its noise), each case on the body
-     ``bwd_body_for`` names (bf16 at hd 64 / 128 / 256 on the wgmma
-     backward, fed the forward kernel's row statistics; the rest on the
-     CUDA cores; per-body counters) and equal bit for bit on a second call;
+     q_offset 383, a window, non-causal, ragged 200 at hd 32), Sq 1000, hd
+     256, a causal ragged hd 128, kimi-k2's hd 112 and hd 36, GQA G 1 and 2,
+     softcap 0 and 30, f32 (atol 2e-5) and bf16 (2e-2, and one bf16 ulp of
+     the f32 plain value), each case on the body ``body_for`` names (at hd
+     a multiple of 8, bf16 on the wgmma body -- hd 32 and 112 zero-filled
+     to 64 and 128 -- and f32 on the 3xTF32 body; hd 36 on the CUDA cores;
+     per-body counters, every body given cases); the flash-attention
+     backward vs ``flash_attention_bwd_ref`` over the same grid (dQ, dK, dV
+     each; f32 within ``BWD_F32_FACTOR`` x the plain backward's own
+     f32-vs-f64 error, bf16 within one bf16 ulp of the plain backward in
+     f32 plus that factor x its noise), each case on the body
+     ``bwd_body_for`` names (at hd a multiple of 8, bf16 on the wgmma
+     backward, fed the forward kernel's row statistics, and f32 up to hd
+     128 on the same body in six bf16 products a product, "bf16x6"; f32 at
+     hd 256 and hd 36 on the CUDA cores; per-body counters) and equal bit
+     for bit on a second call;
      the SSM scan vs ``ssm_scan_ref`` bit for bit at T 1 / 100 / 300 x D 1
      / 130 / 512;
   3. threefry link masks (iid, Gilbert–Elliott) drawn on the card equal
@@ -124,30 +128,38 @@ Phases (any failure raises and the script exits non-zero):
      within twice the bf16 noise, its prefill 24 launches on the wgmma
      body;
  12. the SSM scan through its entry point at a jamba mamba layer's state
-     (1 x 512 x 131,072 f32), equal to the plain version; the CUDA-core
-     body through the flash-attention entry point (bf16, hd 32: no model
-     has a head dim the tensor-core bodies refuse); flash-attention times
-     beside SDPA at the slice's shape (B 2, H 16, hd 64, S 1000, causal) in
-     bf16 (wgmma body) and f32 (3xTF32 body, with the CUDA-core body's
-     time by a direct launch and the bound at both the 3xTF32 and the
-     CUDA-core rate), at hd 32 (CUDA-core body) and at gemma3's local layer
-     (KV 8, G 2, hd 256, S 2048, window 1024), the scan's time, plain times
-     and bounds;
+     (1 x 512 x 131,072 f32), equal to the plain version; the
+     flash-attention entry point forward and backward (bf16, B 2, S 1000,
+     gradients through ``FlashAttentionFunction``): hd 32 and kimi-k2's hd
+     112 (H 64, KV 8) on the wgmma bodies, hd 36 on the CUDA-core bodies
+     (no model has a head dim the tensor-core bodies refuse), each held to
+     the plain versions; flash-attention times beside SDPA at the slice's
+     shape (B 2, H 16, hd 64, S 1000, causal) in bf16 (wgmma body) and f32
+     (3xTF32 body, the bound at both the 3xTF32 and the CUDA-core rate), at
+     hd 36 (CUDA-core body), at gemma3's local layer (KV 8, G 2, hd 256, S
+     2048, window 1024), at hd 32 and at kimi-k2's heads (hd 112, and hd
+     128 beside it) -- each tensor-core body with the CUDA-core body's time
+     by a direct launch --, the scan's time, plain times and bounds;
  13. COMtune fine-tuning of full-width qwen1.5-0.5b (``run_training``):
      ``launch.train.train`` in bf16 (batch 4 x seq 1024, dropout 0.2, the
      8-bit STE, 8 steps; 24 x 8 forward and 24 x 8 backward flash-attention
      launches, the backward all on the wgmma body); the f32 oracle check
      against naive attention in f32 and f64 (batch 2: gradients of step 1
-     and per-token losses of 4 steps; the CUDA-core backward); the
+     and per-token losses of 4 steps; 24 x 4 backward launches on the f32
+     tensor-core body, bf16x6, and an f32 step of that shape timed); the
      Gilbert–Elliott train link through the burst-mask kernel (3 steps, a
-     launch a step); a step's time and its forward / backward / optimizer /
-     link split; the backward's time at the training shape (bf16 on the
-     wgmma body, with the CUDA-core body's by a direct launch; f32 on the
-     CUDA cores) beside SDPA's backward (graph replay), its plain version
-     and its bound (10 hd flops a visible pair).
+     launch a step); a bf16 step's time and its forward / backward /
+     optimizer / link split; the backward's time at the training shape
+     (bf16 on the wgmma body, f32 on the bf16x6 body, each with the
+     CUDA-core body's by a direct launch; f32 logs the kernel's and SDPA's
+     gradients in units of the naive f32 noise), at hd 36 (CUDA cores), at
+     bf16 hd 32 and at kimi-k2's heads (hd 112 and 128, S 1024) beside
+     SDPA's backward (graph replay), its plain version and its bound (10 hd
+     flops a visible pair).
 Phases 9-13 run after phase 3, ahead of the profiled phases 5 and 7; last,
-a torch.profiler trace in a process of its own (``--bwd-split``) splits the
-wgmma backward's time at the training shape between its two kernels.
+torch.profiler traces, each in a process of its own (``--bwd-split``),
+split the tensor-core backward's time at the training shape between its
+kernels, bf16 and f32.
 
 The card's name and power limit are printed first and again before the
 kernels' JSON record, which is the line before the last; the last line is
@@ -1095,7 +1107,7 @@ def _zero_counts():
     fd.launch_count = fd.paged_launch_count = ll.egress_launch_count = ll.burst_launch_count = 0
     fa.launch_count = fa.bwd_launch_count = ss.launch_count = 0
     fa.body_launch_count.update(wgmma=0, tf32x3=0, simt=0)
-    fa.bwd_body_launch_count.update(wgmma=0, simt=0)
+    fa.bwd_body_launch_count.update(wgmma=0, bf16x6=0, simt=0)
 
 
 def _counts() -> dict:
@@ -1383,6 +1395,8 @@ FLASH_GRID = [
     (300, 300, 256, True, 128, 0),
     (200, 200, 256, False, 0, 0),
     (300, 300, 128, True, 0, 0),
+    (300, 300, 112, True, 0, 0),     # kimi-k2's head dim: the tensor-core bodies zero-filled to 128
+    (100, 100, 36, True, 0, 0),      # not a multiple of 8: the CUDA-core bodies
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:89 and :101
 BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5               # one bf16 ulp of the f32 value, f32 noise
@@ -1399,11 +1413,12 @@ def check_flash_attention() -> dict:
     (bf16-valued) inputs: the kernel accumulates in f32 and rounds once, so
     it may sit at most one bf16 ulp (<= 2**-7 relative) from that value,
     plus ``BF16_ABS`` for f32 noise where an output cancels to near 0.
-    Each case must run on the body ``body_for`` names (bf16 at hd 64 / 128 /
-    256 on the wgmma body, f32 at every hd here, multiples of 8, on the
-    3xTF32 body, bf16 at hd 32 on the CUDA cores): its per-body launch
-    counter moves by one, the others' not at all, and every body gets
-    cases.  Returns each body's worst absolute error."""
+    Each case must run on the body ``body_for`` names (at a head dim that
+    is a multiple of 8, bf16 on the wgmma body -- hd 32 and 112 zero-filled
+    to widths 64 and 128 -- and f32 on the 3xTF32 body; hd 36 on the CUDA
+    cores): its per-body launch counter moves by one, the others' not at
+    all, and every body gets cases.  Returns each body's worst absolute
+    error."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel, gqa_flash_attention_ref
@@ -1469,16 +1484,19 @@ BWD_F32_FACTOR = 8.0
 def check_flash_attention_bwd() -> dict:
     """Flash-attention backward kernels vs ``flash_attention_bwd_ref`` on the
     card over the forward's grid (``FLASH_GRID``: Sq 1 at q_offset 383, a
-    window, non-causal, ragged 200, Sq 1000, hd 32 / 64 / 128 / 256), GQA G
-    1 and 2, softcap 0 and 30, f32 and bf16; dQ, dK and dV each held to the
-    bars above.  ``out`` is the forward kernel's output on the same inputs,
-    and for the wgmma backward (bf16 at hd 64 / 128 / 256) ``stats`` is the
-    forward kernel's row statistics, both as ``FlashAttentionFunction``
-    saves them; the plain backward recomputes its own.  Each case must run
-    on the body ``bwd_body_for`` names (its per-body counter moves by one,
-    the other's not at all; both bodies get cases), and a second call on
-    the same inputs must give the same bits (no atomics).  Returns each
-    body's worst absolute error against the plain backward in f32."""
+    window, non-causal, ragged 200, Sq 1000, hd 32 / 36 / 64 / 112 / 128 /
+    256), GQA G 1 and 2, softcap 0 and 30, f32 and bf16; dQ, dK and dV each
+    held to the bars above.  ``out`` is the forward kernel's output on the
+    same inputs, and for the wgmma backward (bf16 at a head dim that is a
+    multiple of 8) ``stats`` is the forward kernel's row statistics, both
+    as ``FlashAttentionFunction`` saves them; the plain backward, the
+    bf16x6 body (f32 at a multiple of 8 up to 128, six bf16 products a
+    product) and the CUDA-core body (f32 at hd 256, hd 36) make their own.
+    Each case must run on the body ``bwd_body_for`` names (its per-body
+    counter moves by one, the others' not at all; every body gets cases),
+    and a second call on the same inputs must give the same bits (no
+    atomics).  Returns each body's worst absolute error against the plain
+    backward in f32, and the f32 bodies' worst ratio to the f32 noise."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel, flash_attention_bwd_ref
@@ -1486,8 +1504,9 @@ def check_flash_attention_bwd() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(17)
     worst_f32, worst_ratio, n_cases = 0.0, 0.0, 0
     worst_bf16 = 0.0     # bf16 error over its bar; must stay <= 1
-    per_body = {"wgmma": 0, "simt": 0}
-    body_err = {"wgmma": 0.0, "simt": 0.0}
+    per_body = {"wgmma": 0, "bf16x6": 0, "simt": 0}
+    body_err = {"wgmma": 0.0, "bf16x6": 0.0, "simt": 0.0}
+    body_ratio = {"bf16x6": 0.0, "simt": 0.0}   # f32: error over the plain f32 noise
     for sq, skv, hd, causal, window, q_offset in FLASH_GRID:
         for g in (1, 2):
             for dname in ("float32", "bfloat16"):
@@ -1525,6 +1544,7 @@ def check_flash_attention_bwd() -> dict:
                                 f"noise {noise:.3e}")
                             worst_f32 = max(worst_f32, err)
                             worst_ratio = max(worst_ratio, err / max(noise, 1e-30))
+                            body_ratio[body] = max(body_ratio[body], err / max(noise, 1e-30))
                         else:
                             bar = BF16_REL * w32.abs() + BWD_F32_FACTOR * noise
                             ratio = float(((a.float() - w32).abs() / bar).max())
@@ -1533,10 +1553,10 @@ def check_flash_attention_bwd() -> dict:
                     n_cases += 1
     assert all(n > 0 for n in per_body.values()), f"a backward body got no case: {per_body}"
     log(f"[kernel] flash_attention_bwd vs flash_attention_bwd_ref: {n_cases} cases agree (dQ, dK, dV each; "
-        f"{per_body['wgmma']} on the wgmma body with the forward's statistics, {per_body['simt']} on the CUDA-core "
-        f"body), each equal bit for bit on a second call; f32 max |err| {worst_f32:.3e}, at most {worst_ratio:.2f} x "
-        f"the plain f32-vs-f64 noise (bar {BWD_F32_FACTOR}); bf16 at most {worst_bf16:.3f} of its bar; by body "
-        f"{body_err}")
+        f"{per_body['wgmma']} on the wgmma body with the forward's statistics, {per_body['bf16x6']} on the f32 "
+        f"tensor-core body, {per_body['simt']} on the CUDA-core body), each equal bit for bit on a second call; f32 "
+        f"max |err| {worst_f32:.3e}, at most {worst_ratio:.2f} x the plain f32-vs-f64 noise (bar {BWD_F32_FACTOR}; "
+        f"by body {body_ratio}); bf16 at most {worst_bf16:.3f} of its bar; by body {body_err}")
     return body_err
 
 
@@ -1734,37 +1754,64 @@ def run_ssm_scan_path() -> int:
     return launches
 
 
-# The CUDA-core body's run: a head dim neither tensor-core body takes.  No
-# model of the repository has one, so its launch is shown through the
-# flash-attention entry point at the long prefill's shape with hd 32, bf16.
-SIMT_HD = 32
+# The entry point's runs past the main paths.  bf16 at a head dim that is a
+# multiple of 8 runs the tensor-core bodies zero-filled to their next width:
+# hd 32 (H = KV = 16) and kimi-k2's 112 (d_model 7168 over 64 heads, 8 KV
+# heads; src/repro/configs/kimi_k2_1t_a32b.py).  A head dim that is not
+# (36; no model has one) is the CUDA-core bodies' case.
+ZERO_FILL_CASES = ((32, 16, 16), (112, 64, 8))   # (hd, H, KV)
+SIMT_HD = 36
 
 
-def run_simt_entry_point() -> int:
+def run_simt_entry_point(report) -> dict:
     """The flash-attention entry point (``repro_torch.kernels.flash_attention
-    .flash_attention``) on bf16 operands at hd 32 (B 2, S 1000, H = KV = 16,
-    causal), the CUDA-core body's case: counts zeroed just before and read
-    just after; the output is finite, of the right shape, and within the
-    bf16 ``atol`` of the plain version."""
+    .flash_attention``) forward and backward (``FlashAttentionFunction``,
+    bf16 operands that require grad) at the long prefill's shape (B 2, S
+    1000, causal), counts zeroed just before each run and read just after:
+    hd 32 and kimi-k2's hd 112 (H 64, KV 8) run the wgmma forward and
+    backward (one launch each, none on the CUDA cores), hd 36 the CUDA-core
+    forward and backward.  The output is finite, of the right shape and
+    within the bf16 atol of the plain version; dQ, dK and dV within phase
+    2's bf16 bar of the plain backward in f32.  Returns each run's bodies'
+    launches."""
     import torch
 
-    from repro_torch.kernels.flash_attention import cuda_kernel, flash_attention, gqa_flash_attention_ref
+    from repro_torch.kernels.flash_attention import (cuda_kernel, flash_attention, flash_attention_bwd_ref,
+                                                      gqa_flash_attention_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(13)
-    q, k, v = (torch.randn((LONG_BATCH, LONG_PROMPT, 16, SIMT_HD), generator=gen, device="cuda").bfloat16()
-               for _ in range(3))
-    _zero_counts()
-    out = flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    launches = _counts()["flash_attention"]
-    assert launches == 1 and cuda_kernel.body_launch_count == {"wgmma": 0, "tf32x3": 0, "simt": 1}, \
-        f"entry point at hd {SIMT_HD}: {launches} launches, bodies {cuda_kernel.body_launch_count}"
-    assert out.shape == q.shape and out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
-    torch.testing.assert_close(out.float(), gqa_flash_attention_ref(q, k, v).float(), rtol=0,
-                               atol=FLASH_TOL["bfloat16"])
-    log(f"[simt] flash_attention entry point at (B {LONG_BATCH}, S {LONG_PROMPT}, H 16, hd {SIMT_HD}) bf16: "
-        f"{launches} launch on the CUDA-core body, within the bf16 atol of the plain version")
-    return launches
+    runs = {}
+    for hd, h, kvh in (*ZERO_FILL_CASES, (SIMT_HD, 16, 16)):
+        mk = lambda heads: torch.randn((LONG_BATCH, LONG_PROMPT, heads, hd), generator=gen, device="cuda").bfloat16()
+        q, k, v, dout = mk(h), mk(kvh), mk(kvh), mk(h)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        _zero_counts()
+        out = flash_attention(*leaves)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        body = "simt" if hd == SIMT_HD else "wgmma"
+        launches = _counts()
+        fwd, bwd = dict(cuda_kernel.body_launch_count), dict(cuda_kernel.bwd_body_launch_count)
+        assert (launches["flash_attention"], launches["flash_attention_bwd"]) == (1, 1), launches
+        assert fwd == {n: int(n == body) for n in fwd} and bwd == {n: int(n == body) for n in bwd}, \
+            f"entry point at hd {hd}: forward bodies {fwd}, backward bodies {bwd}, want {body}"
+        out = out.detach()
+        assert out.shape == q.shape and out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out.float(), gqa_flash_attention_ref(q, k, v).float(), rtol=0,
+                                   atol=FLASH_TOL["bfloat16"])
+        w32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out, dout)))
+        w64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, dout)))
+        ratio = [float(((a.grad.float() - x32).abs() / (BF16_REL * x32.abs() + BWD_F32_FACTOR
+                                                        * float((x32.double() - x64).abs().max()))).max())
+                 for a, x32, x64 in zip(leaves, w32, w64)]
+        del w32, w64
+        assert max(ratio) <= 1.0, f"entry point at hd {hd}: gradients at {ratio} of the bf16 bar"
+        runs[hd] = dict(H=h, KV=kvh, body=body, forward_bodies=fwd, backward_bodies=bwd, grad_bar_ratio=ratio)
+        log(f"[entry] flash_attention at (B {LONG_BATCH}, S {LONG_PROMPT}, H {h}, KV {kvh}, hd {hd}) bf16, forward and "
+            f"backward: one launch each on the {body} bodies (forward {fwd}, backward {bwd}); output within the bf16 "
+            f"atol of the plain version, dQ / dK / dV at {[round(r, 3) for r in ratio]} of the bf16 bar")
+    report["entry_point_runs"] = runs
+    return runs
 
 
 def _visible_pairs(sq, skv, causal, window, q_offset=0) -> int:
@@ -1781,7 +1828,8 @@ def _visible_pairs(sq, skv, causal, window, q_offset=0) -> int:
 def _simt_body_call(q, k, v, window):
     """A timing-only launch of the CUDA-core body (``flash_attention.cu``)
     on any operands, past ``body_for`` and the wrapper's launch counts: it
-    times the body f32 took before the tf32x3 body, in the same call."""
+    times the body f32 took before the tf32x3 body, and bf16 at hd 32 and
+    112 before the wgmma body took them, in the same call."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel
@@ -1813,10 +1861,11 @@ def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
     split x = hi + lo with hi*hi + hi*lo + lo*hi, summed in f32, keeps f32
     accuracy (errors ~7e-7 at this shape, as plain f32's), so the f32
     CUDA-core rate (67 TFLOP/s, logged beside it) is not the function's
-    floor.  f32 also times the CUDA-core body by a direct launch (the body
-    f32 ran on before the tf32x3 body), in the same call.  The library
-    time is SDPA on the (B, H, S, hd) layout: ``is_causal`` without a
-    window, a boolean window mask with one."""
+    floor.  A tensor-core body's call also times the CUDA-core body by a
+    direct launch (the body f32, and bf16 at hd 32 and 112, ran on before),
+    in the same call.  The library time is SDPA on the (B, H, S, hd)
+    layout: ``is_causal`` without a window, a boolean window mask with
+    one."""
     import torch
     import torch.nn.functional as F
 
@@ -1833,7 +1882,8 @@ def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
     ms_eager = time_events(call, iters=20, warmup=3)
     cuda_kernel.launch_count = saved[0]
     cuda_kernel.body_launch_count.update(saved[1])
-    simt_ms = time_graph(_simt_body_call(q, k, v, window), iters=20) if dt == torch.float32 else None
+    body = cuda_kernel.body_for(dt, hd)
+    simt_ms = time_graph(_simt_body_call(q, k, v, window), iters=20) if body != "simt" else None
     plain_ms = time_events(lambda: gqa_flash_attention_ref(q, k, v, **kw), iters=5, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     if window:
@@ -1849,12 +1899,11 @@ def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
     bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["tf32x3" if dt == torch.float32 else dname])
     rec = dict(shape=dict(B=b, S=s, H=h, KV=kvh, hd=hd, causal=True, window=window, dtype=dname), ms=ms,
                ms_eager=ms_eager, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-               bytes=nbytes, ops=ops, body=cuda_kernel.body_for(dt, hd))
-    extra = ""
+               bytes=nbytes, ops=ops, body=body, simt_ms=simt_ms)
+    extra = f", CUDA-core body {simt_ms * 1e3:.1f} us (graph)" if simt_ms is not None else ""
     if dt == torch.float32:
-        rec.update(simt_ms=simt_ms, bound_cuda_core_ms=_bound(nbytes, ops, PEAK_OPS["float32"])[0])
-        extra = (f", CUDA-core body {simt_ms * 1e3:.1f} us (graph); bound at the f32 CUDA-core rate "
-                 f"{rec['bound_cuda_core_ms'] * 1e3:.2f} us")
+        rec.update(bound_cuda_core_ms=_bound(nbytes, ops, PEAK_OPS["float32"])[0])
+        extra += f"; bound at the f32 CUDA-core rate {rec['bound_cuda_core_ms'] * 1e3:.2f} us"
     log(f"[time] flash_attention {rec['shape']} ({rec['body']} body): kernel {ms * 1e3:.1f} us (graph) / "
         f"{ms_eager * 1e3:.1f} us (eager), "
         f"plain {plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.1f} us (graph), bound {bound_ms * 1e3:.2f} us "
@@ -1969,9 +2018,11 @@ def run_training(report) -> dict:
        batch 4, 3 steps of ``make_train_step``: one burst-mask launch a step
        (1 x 167,773 packets), 24 forward and 24 backward launches a step,
        finite losses.
-    The f32 runs take the CUDA-core backward (24 x 4 launches on the kernel
-    path).  Returns the backward launches by body: the default run's
-    (wgmma) and the f32 oracle's kernel path (CUDA cores)."""
+    The f32 runs take the f32 tensor-core backward (``"bf16x6"``: 24 x 4
+    launches on the kernel path, none on the CUDA cores); an f32 step of
+    the oracle's shape is timed as the bf16 one is.  Returns the backward
+    launches by body: the default run's (wgmma) and the f32 oracle's kernel
+    path (bf16x6)."""
     import copy
 
     import numpy as np
@@ -2007,7 +2058,8 @@ def run_training(report) -> dict:
                 flash_attention=n_layers * TRAIN_STEPS, flash_attention_bwd=n_layers * TRAIN_STEPS, ssm_scan=0)
     assert launches == want, f"training run: launches {launches}, want {want}"
     assert fa.body_launch_count == {"wgmma": n_layers * TRAIN_STEPS, "tf32x3": 0, "simt": 0}, fa.body_launch_count
-    assert fa.bwd_body_launch_count == {"wgmma": n_layers * TRAIN_STEPS, "simt": 0}, fa.bwd_body_launch_count
+    assert fa.bwd_body_launch_count == {"wgmma": n_layers * TRAIN_STEPS, "bf16x6": 0, "simt": 0}, \
+        fa.bwd_body_launch_count
     assert cfg.dtype == "bfloat16" and len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses
     out["default"] = dict(dtype=cfg.dtype, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
                           wall_s_with_setup=wall, launches=launches, bwd_bodies=dict(fa.bwd_body_launch_count),
@@ -2038,7 +2090,9 @@ def run_training(report) -> dict:
     kl = _counts()
     assert (kl["flash_attention"], kl["flash_attention_bwd"]) == (n_layers * TRAJ_STEPS,) * 2, kl
     assert fa.body_launch_count["tf32x3"] == n_layers * TRAJ_STEPS, fa.body_launch_count
-    assert fa.bwd_body_launch_count == {"wgmma": 0, "simt": n_layers * TRAJ_STEPS}, fa.bwd_body_launch_count
+    assert fa.bwd_body_launch_count == {"wgmma": 0, "bf16x6": n_layers * TRAJ_STEPS, "simt": 0}, \
+        fa.bwd_body_launch_count
+    out["f32_times"] = time_training_step(model32, cfg32, GRAD_BATCH)
     # The comparison run: the plain forward in the kernel's place, the
     # backward kernel as on the path.
     kernel_fwd = fa.flash_attention
@@ -2110,7 +2164,8 @@ def run_training(report) -> dict:
     want = dict(want, flash_attention=n_layers * GE_STEPS, flash_attention_bwd=n_layers * GE_STEPS,
                 burst_mask=GE_STEPS)
     assert gl == want, f"GE training: launches {gl}, want {want}"
-    assert fa.bwd_body_launch_count == {"wgmma": n_layers * GE_STEPS, "simt": 0}, fa.bwd_body_launch_count
+    assert fa.bwd_body_launch_count == {"wgmma": n_layers * GE_STEPS, "bf16x6": 0, "simt": 0}, \
+        fa.bwd_body_launch_count
     assert np.isfinite(ge_losses).all(), ge_losses
     out["ge"] = dict(losses=ge_losses, launches=gl, packets=-(-TRAIN_BATCH * TRAIN_SEQ * base.d_model // 25))
     log(f"[train] GE channel link (use_kernel) {GE_STEPS} steps: losses {[round(x, 4) for x in ge_losses]}, "
@@ -2118,14 +2173,14 @@ def run_training(report) -> dict:
     del model, opt
     torch.cuda.empty_cache()
     report["training"] = out
-    return {"wgmma": launches["flash_attention_bwd"], "simt": kl["flash_attention_bwd"]}
+    return {"wgmma": launches["flash_attention_bwd"], "bf16x6": kl["flash_attention_bwd"]}
 
 
-def time_training_step(model, cfg) -> dict:
-    """One bf16 training step of the default run's shape by the host clock
-    (ending in a synchronize), and its parts by CUDA events with no
-    profiler: forward (through the loss), backward, the optimizer, and the
-    dropout link alone on the split activation."""
+def time_training_step(model, cfg, batch=TRAIN_BATCH) -> dict:
+    """One training step of ``batch`` x ``TRAIN_SEQ`` in the model's dtype
+    by the host clock (ending in a synchronize), and its parts by CUDA
+    events with no profiler: forward (through the loss), backward, the
+    optimizer, and the dropout link alone on the split activation."""
     import torch
 
     from repro_torch import prng
@@ -2136,7 +2191,7 @@ def time_training_step(model, cfg) -> dict:
     params = dict(model.named_parameters())
     adam_cfg = AdamConfig(lr=3e-4, grad_clip_norm=1.0)
     opt = init_adam(params, adam_cfg)
-    tokens = _train_batches(cfg, TRAIN_BATCH, 4, seed=31)
+    tokens = _train_batches(cfg, batch, 4, seed=31)
     key = prng.PRNGKey(32, "cuda")
     ev = lambda: torch.cuda.Event(enable_timing=True)
     parts = {"forward": [], "backward": [], "optimizer": []}
@@ -2161,13 +2216,14 @@ def time_training_step(model, cfg) -> dict:
             parts[name].append(e[i].elapsed_time(e[i + 1]))
         del logits, loss, grads
     spec = lm._calibrated_spec(cfg, model, None, None)
-    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), device="cuda").to(torch.bfloat16)
+    x = torch.randn((batch, TRAIN_SEQ, cfg.d_model), device="cuda").to(getattr(torch, cfg.dtype))
     link_ms = time_events(lambda: comtune.emulate_link(key, x, spec, "train"), iters=20, warmup=3)
     # Step 1 pays first-use costs; the steady steps are 2-4.
     steady = lambda xs: sum(xs[1:]) / len(xs[1:])
-    rec = dict(step_s=steady(walls), step_s_all=walls, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady(walls),
-               link_ms=link_ms, **{f"{k}_ms": steady(v) for k, v in parts.items()})
-    log(f"[time] training step (bf16, {TRAIN_BATCH} x {TRAIN_SEQ}): {rec['step_s'] * 1e3:.1f} ms "
+    rec = dict(dtype=cfg.dtype, batch=batch, step_s=steady(walls), step_s_all=walls,
+               tokens_per_s=batch * TRAIN_SEQ / steady(walls), link_ms=link_ms,
+               **{f"{k}_ms": steady(v) for k, v in parts.items()})
+    log(f"[time] training step ({cfg.dtype}, {batch} x {TRAIN_SEQ}): {rec['step_s'] * 1e3:.1f} ms "
         f"({rec['tokens_per_s']:.0f} tokens/s; steps {[round(w * 1e3, 1) for w in walls]} ms): forward "
         f"{rec['forward_ms']:.1f} ms, backward {rec['backward_ms']:.1f} ms, optimizer {rec['optimizer_ms']:.1f} ms; "
         f"the dropout link alone {link_ms:.3f} ms")
@@ -2177,8 +2233,9 @@ def time_training_step(model, cfg) -> dict:
 def _simt_bwd_call(q, k, v, out, dout):
     """A timing-only launch of the CUDA-core backward (``flash_attention_bwd
     .cu``: its statistics pass, dK/dV, dQ) on any operands, past
-    ``bwd_body_for`` and the wrapper's launch counts: it times the body bf16
-    took before the wgmma backward, in the same call."""
+    ``bwd_body_for`` and the wrapper's launch counts: it times the body f32,
+    and bf16 at hd 32 and 112, took before the tensor-core backwards, in the
+    same call."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel
@@ -2200,19 +2257,24 @@ def _simt_bwd_call(q, k, v, out, dout):
     return call
 
 
-def time_flash_attention_bwd(b, h, hd, s, dname) -> dict:
-    """The backward at the training shape, causal: the body ``bwd_body_for``
-    names (graph replay and eager; the wgmma body reads the forward kernel's
-    row statistics, as ``FlashAttentionFunction`` feeds it) and, for bf16,
-    the CUDA-core body by a direct launch (graph replay), beside the plain
-    version, SDPA's backward (``is_causal``: its forward + backward, by
-    ``torch.autograd.grad``, captured in one CUDA graph, less its forward
-    captured alone; the eager difference is logged beside it) and the
-    bound: bytes (q, k, v, out, dout read once, dq, dk, dv written once)
-    over 3.35 TB/s against ``BWD_FLOPS_PER_PAIR_HD`` x hd flops per visible
-    pair at the peak of f32-accurate arithmetic on the operands' type.  For
-    bf16 it logs the kernel's gradients and SDPA's against phase 2's bf16
-    bar (SDPA rounds P and dS to bf16 once)."""
+def time_flash_attention_bwd(b, h, kvh, hd, s, dname) -> dict:
+    """The backward of causal attention (B ``b``, S ``s``, ``h`` query over
+    ``kvh`` KV heads): the body ``bwd_body_for`` names (graph replay and
+    eager; the wgmma body reads the forward kernel's row statistics, as
+    ``FlashAttentionFunction`` feeds it) and, for a tensor-core body, the
+    CUDA-core body by a direct launch (graph replay), beside the plain
+    version, SDPA's backward (``is_causal``, ``enable_gqa``: its forward +
+    backward, by ``torch.autograd.grad``, captured in one CUDA graph, less
+    its forward captured alone; the eager difference is logged beside it)
+    and the bound: bytes (q, k, v, out, dout read once, dq, dk, dv written
+    once) over 3.35 TB/s against ``BWD_FLOPS_PER_PAIR_HD`` x hd flops per
+    visible pair at the peak of f32-accurate arithmetic on the operands'
+    type.  The f32 body's split writes q, k, v and dout as three bf16
+    planes and reads them back: those bytes are logged beside the bound,
+    and its time includes them.  For bf16 it logs the kernel's gradients
+    and SDPA's against phase 2's bf16 bar (SDPA rounds P and dS to bf16
+    once); for f32, each one's max distance from the plain backward in f64
+    in units of the plain f32 backward's own (the naive f32 noise)."""
     import torch
     import torch.nn.functional as F
 
@@ -2220,8 +2282,8 @@ def time_flash_attention_bwd(b, h, hd, s, dname) -> dict:
 
     dt = getattr(torch, dname)
     gen = torch.Generator(device="cuda").manual_seed(12)
-    mk = lambda: torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
-    q, k, v, dout = mk(), mk(), mk(), mk()
+    mk = lambda heads: torch.randn((b, s, heads, hd), generator=gen, device="cuda").to(dt)
+    q, k, v, dout = mk(h), mk(kvh), mk(kvh), mk(h)
     body = cuda_kernel.bwd_body_for(dt, hd)
     saved = (cuda_kernel.launch_count, cuda_kernel.bwd_launch_count, dict(cuda_kernel.body_launch_count),
              dict(cuda_kernel.bwd_body_launch_count))
@@ -2234,91 +2296,101 @@ def time_flash_attention_bwd(b, h, hd, s, dname) -> dict:
     call = lambda: cuda_kernel.flash_attention_bwd(q, k, v, out, dout, stats=stats)
     ms = time_graph(call, iters=10)
     ms_eager = time_events(call, iters=10, warmup=2)
-    cuda_kernel.launch_count, cuda_kernel.bwd_launch_count = saved[0], saved[1]
-    cuda_kernel.body_launch_count.update(saved[2])
-    cuda_kernel.bwd_body_launch_count.update(saved[3])
-    simt_ms = time_graph(_simt_bwd_call(q, k, v, out, dout), iters=10) if body == "wgmma" else None
+    simt_ms = time_graph(_simt_bwd_call(q, k, v, out, dout), iters=10) if body != "simt" else None
     plain_ms = time_events(lambda: flash_attention_bwd_ref(q, k, v, out, dout), iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     dt_ = dout.transpose(1, 2).contiguous()
-    sdpa_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    sdpa_fwd_bwd = lambda: torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-                                               (qt, kt, vt), dt_)
+    gqa = kvh != h
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=gqa)
+    sdpa_fwd_bwd = lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=gqa), (qt, kt, vt), dt_)
     fwd_ms = time_graph(sdpa_fwd, iters=10)
     both_ms = time_graph(sdpa_fwd_bwd, iters=10)
     lib_ms = both_ms - fwd_ms
     lib_eager_ms = time_events(sdpa_fwd_bwd, iters=20, warmup=3) - time_events(sdpa_fwd, iters=20, warmup=3)
-    bar_ratio = {}
-    if dt == torch.bfloat16:
-        # The bf16 bar of phase 2 at this shape, for the kernel and for SDPA
-        # (which rounds P and dS to bf16 once): logged, not asserted.
-        w32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out, dout)))
-        w64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, dout)))
-        noise = [float((x32.double() - x64).abs().max()) for x32, x64 in zip(w32, w64)]
-        bars = [BF16_REL * x32.abs() + BWD_F32_FACTOR * n for x32, n in zip(w32, noise)]
-        del w64
-        for name, grads in (("kernel", call()), ("sdpa", [x.transpose(1, 2) for x in sdpa_fwd_bwd()])):
-            bar_ratio[name] = [float(((a.float() - x32).abs() / bar).max()) for a, x32, bar in zip(grads, w32, bars)]
-        cuda_kernel.launch_count, cuda_kernel.bwd_launch_count = saved[0], saved[1]
-        cuda_kernel.body_launch_count.update(saved[2])
-        cuda_kernel.bwd_body_launch_count.update(saved[3])
-        del w32, bars
+    # Held against the plain backward: bf16 by phase 2's bf16 bar, f32 in
+    # units of the naive f32 noise; logged, not asserted.
+    w32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out, dout)))
+    w64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, dout)))
+    noise = [float((x32.double() - x64).abs().max()) for x32, x64 in zip(w32, w64)]
+    quality = {}
+    for name, grads in (("kernel", call()), ("sdpa", [x.transpose(1, 2) for x in sdpa_fwd_bwd()])):
+        if dt == torch.bfloat16:
+            quality[name] = [float(((a.float() - x32).abs() / (BF16_REL * x32.abs() + BWD_F32_FACTOR * n)).max())
+                             for a, x32, n in zip(grads, w32, noise)]
+        else:
+            quality[name] = [float((a.double() - x64).abs().max()) / n for a, x64, n in zip(grads, w64, noise)]
+    del w32, w64
+    cuda_kernel.launch_count, cuda_kernel.bwd_launch_count = saved[0], saved[1]
+    cuda_kernel.body_launch_count.update(saved[2])
+    cuda_kernel.bwd_body_launch_count.update(saved[3])
     elem = 2 if dt == torch.bfloat16 else 4
-    nbytes = 8 * b * s * h * hd * elem
+    nbytes = 4 * b * s * (h + kvh) * hd * elem
+    split_bytes = 2 * 3 * 2 * 2 * b * s * (h + kvh) * hd if body == "bf16x6" else 0   # planes written, read back
     ops = BWD_FLOPS_PER_PAIR_HD * hd * b * h * _visible_pairs(s, s, True, 0)
     bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["tf32x3" if dt == torch.float32 else dname])
-    rec = dict(shape=dict(B=b, S=s, H=h, hd=hd, causal=True, dtype=dname), body=body, ms=ms, ms_eager=ms_eager,
-               simt_ms=simt_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-               library_eager_ms=lib_eager_ms, sdpa_fwd_ms=fwd_ms, sdpa_fwd_bwd_ms=both_ms, bytes=nbytes, ops=ops,
-               bar_ratio_dq_dk_dv=bar_ratio)
+    unit = "of the bf16 bar" if dt == torch.bfloat16 else "x the naive f32 noise"
+    rec = dict(shape=dict(B=b, S=s, H=h, KV=kvh, hd=hd, causal=True, dtype=dname), body=body, ms=ms,
+               ms_eager=ms_eager, simt_ms=simt_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=lib_ms, library_eager_ms=lib_eager_ms, sdpa_fwd_ms=fwd_ms, sdpa_fwd_bwd_ms=both_ms,
+               bytes=nbytes, split_bytes=split_bytes, ops=ops, dq_dk_dv=dict(unit=unit, **quality))
     extra = f", CUDA-core body {simt_ms * 1e3:.1f} us (graph)" if simt_ms is not None else ""
-    if bar_ratio:
-        extra += (f"; against the bf16 bar (dQ, dK, dV): kernel {[round(r, 3) for r in bar_ratio['kernel']]}, sdpa "
-                  f"{[round(r, 1) for r in bar_ratio['sdpa']]}")
+    extra += (f"; dQ, dK, dV {unit}: kernel {[round(r, 3) for r in quality['kernel']]}, sdpa "
+              f"{[round(r, 2) for r in quality['sdpa']]}")
+    split = f"; the split's planes {split_bytes / 1e6:.1f} MB more" if split_bytes else ""
     log(f"[time] flash_attention_bwd {rec['shape']} ({body} body): kernel {ms * 1e3:.1f} us (graph) / "
         f"{ms_eager * 1e3:.1f} us (eager){extra}, plain {plain_ms * 1e3:.1f} us, sdpa backward {lib_ms * 1e3:.1f} us "
         f"(graph: fwd+bwd {both_ms * 1e3:.1f} - fwd {fwd_ms * 1e3:.1f}; eager difference {lib_eager_ms * 1e3:.1f}), "
-        f"bound {bound_ms * 1e3:.2f} us ({bound_by}, {ops / 1e9:.2f} GFLOP, {nbytes} B)")
+        f"bound {bound_ms * 1e3:.2f} us ({bound_by}, {ops / 1e9:.2f} GFLOP, {nbytes} B{split})")
     return rec
 
 
-def bwd_kernel_split(b, h, hd, s) -> dict:
-    """The wgmma backward's device time at the training shape split between
-    its two kernels (dQ, dK/dV): a torch.profiler trace of 10 calls (run in
-    a process of its own, ``--bwd-split``: a trace taken after the other
-    phases' traces in one process lost most of its kernel time)."""
+def bwd_kernel_split(b, h, hd, s, dname) -> dict:
+    """A tensor-core backward's device time at the training shape split
+    between its kernels (bf16: dQ, dK/dV; f32: the split, the statistics,
+    dQ, dK/dV): a torch.profiler trace of 10 calls (run in a process of its
+    own, ``--bwd-split``: a trace taken after the other phases' traces in
+    one process lost most of its kernel time)."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    q, k, v, dout = (torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16() for _ in range(4))
+    q, k, v, dout = (torch.randn((b, s, h, hd), generator=gen, device="cuda").to(getattr(torch, dname))
+                     for _ in range(4))
     saved = (cuda_kernel.launch_count, cuda_kernel.bwd_launch_count, dict(cuda_kernel.body_launch_count),
              dict(cuda_kernel.bwd_body_launch_count))
+    stats = None
     with torch.no_grad():
-        out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True)
+        if cuda_kernel.bwd_body_for(q.dtype, hd) == "wgmma":
+            out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True)
+        else:
+            out = cuda_kernel.flash_attention(q, k, v)
     call = lambda: cuda_kernel.flash_attention_bwd(q, k, v, out, dout, stats=stats)
     call()
     prof = device_profile(lambda: [call() for _ in range(10)])
     cuda_kernel.launch_count, cuda_kernel.bwd_launch_count = saved[0], saved[1]
     cuda_kernel.body_launch_count.update(saved[2])
     cuda_kernel.bwd_body_launch_count.update(saved[3])
-    return {name.split("::")[-1].split("<")[0]: t / 10 * 1e3 for name, t in prof.get("top_kernels_ms", {}).items()
-            if "fa_bwd" in name}
+    return {re.search(r"fa_bwd_\w+", name).group(0): t / 10 * 1e3
+            for name, t in prof.get("top_kernels_ms", {}).items() if "fa_bwd" in name}
 
 
 def run_bwd_kernel_split(report) -> None:
-    """``bwd_kernel_split`` at the training shape in a process of its own."""
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--bwd-split"], capture_output=True,
-                          text=True, timeout=600)
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("BWD_SPLIT ")]
-    if proc.returncode != 0 or not lines:
-        raise RuntimeError(f"--bwd-split failed (exit {proc.returncode}):\n{proc.stdout[-4000:]}\n"
-                           f"{proc.stderr[-4000:]}")
-    split = json.loads(lines[-1].split(" ", 1)[1])
+    """``bwd_kernel_split`` at the training shape, bf16 and f32, each in a
+    process of its own."""
+    split = {}
+    for dname in ("bfloat16", "float32"):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--bwd-split", dname],
+                              capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("BWD_SPLIT ")]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"--bwd-split {dname} failed (exit {proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                               f"{proc.stderr[-4000:]}")
+        split[dname] = json.loads(lines[-1].split(" ", 1)[1])
+        log(f"[time] flash_attention_bwd ({dname}, B {TRAIN_BATCH}, S {TRAIN_SEQ}, H 16, hd 64) by kernel "
+            f"(profiler, 10 calls, a process of its own): {({k: round(t, 1) for k, t in split[dname].items()})} us")
     report["flash_attention_bwd_split_us"] = split
-    log(f"[time] flash_attention_bwd (wgmma body, B {TRAIN_BATCH}, S {TRAIN_SEQ}, H 16, hd 64) by kernel "
-        f"(profiler, 10 calls, a process of its own): {({k: round(t, 1) for k, t in split.items()})} us")
 
 
 def main(argv=None) -> int:
@@ -2326,8 +2398,9 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
     ap.add_argument("--link-round", action="store_true",
                     help="time and trace one i.i.d. link round only (phase 9's traced part)")
-    ap.add_argument("--bwd-split", action="store_true",
-                    help="trace the wgmma backward at the training shape only (its two kernels' device times)")
+    ap.add_argument("--bwd-split", nargs="?", const="bfloat16", choices=("bfloat16", "float32"),
+                    help="trace the tensor-core backward of this dtype at the training shape only (its kernels' "
+                         "device times)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2352,7 +2425,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
 
         nvcc.build_libraries([(flash_kernel.LIB_NAME, flash_kernel.SOURCES)])
-        print("BWD_SPLIT " + json.dumps(bwd_kernel_split(TRAIN_BATCH, 16, 64, TRAIN_SEQ)))
+        print("BWD_SPLIT " + json.dumps(bwd_kernel_split(TRAIN_BATCH, 16, 64, TRAIN_SEQ, args.bwd_split)))
         return 0
 
     t0 = time.perf_counter()
@@ -2384,7 +2457,8 @@ def main(argv=None) -> int:
                                                   "split_decode_kernel", "merge_splits_kernel", "egress_kernel",
                                                   "burst_mask_kernel", "fa_bwd_stats_kernel", "fa_bwd_dkdv_kernel",
                                                   "fa_bwd_dq_kernel", "fa_bwd_dq_wgmma_kernel",
-                                                  "fa_bwd_dkdv_wgmma_kernel")):
+                                                  "fa_bwd_dkdv_wgmma_kernel", "fa_bwd_stats_bf16x6_kernel",
+                                                  "fa_bwd_split_kernel")):
             log(f"[build]   {name}: {line}")
 
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s}
@@ -2405,7 +2479,7 @@ def main(argv=None) -> int:
     # Flash attention has a record a body: wgmma (bf16, timed in phase 12,
     # launched by phase 11's bf16 run), tf32x3 (f32, timed in phase 12,
     # launched by phase 11's f32 engine run) and the CUDA-core body
-    # (launched by its entry-point run, timed at that run's shape).
+    # (launched by its entry-point run at hd 36, timed at that run's shape).
     flash_dir = "src/repro_torch/kernels/flash_attention/csrc/"
     flash_err = check_flash_attention()
     flash_records = {body: dict(name=name, route="cuda", source=flash_dir + src,
@@ -2414,15 +2488,17 @@ def main(argv=None) -> int:
                      for body, name, src in (("wgmma", "flash_attention", "flash_attention_wgmma.cu"),
                                              ("tf32x3", "flash_attention_tf32x3", "flash_attention_tf32x3.cu"),
                                              ("simt", "flash_attention_simt", "flash_attention.cu"))}
-    # The backward has a record a body: wgmma (bf16 at hd 64 / 128 / 256,
-    # launched and timed by phase 13's bf16 run) and the CUDA-core body
-    # (launched by phase 13's f32 oracle run, timed at the training shape
-    # in f32).
+    # The backward has a record a body: wgmma (bf16, launched and timed by
+    # phase 13's bf16 run), bf16x6 (f32 at hd <= 128: launched by phase
+    # 13's f32 oracle run, timed at the training shape in f32) and the
+    # CUDA-core body (launched by the entry-point run at hd 36, timed at
+    # that run's shape).
     bwd_err = check_flash_attention_bwd()
     bwd_records = {body: dict(name=name, route="cuda", source=flash_dir + src,
                               replaces="src/repro/models/attention.py:162 (the gradient of _blockwise_attn, by autodiff)",
                               max_abs_err=bwd_err[body])
                    for body, name, src in (("wgmma", "flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma.cu"),
+                                           ("bf16x6", "flash_attention_bwd_bf16x6", "flash_attention_bwd_wgmma.cu"),
                                            ("simt", "flash_attention_bwd", "flash_attention_bwd.cu"))}
     ssm_record = dict(name="ssm_scan", route="cuda", source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                       replaces="src/repro/kernels/ssm_scan/kernel.py:55", max_abs_err=check_ssm_scan())
@@ -2440,14 +2516,20 @@ def main(argv=None) -> int:
                        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
         long_launches, long_bf16_launches = run_long_prefill(report)
         ssm_launches = run_ssm_scan_path()
-        simt_launches = run_simt_entry_point()
+        entry = run_simt_entry_point(report)
         timings = {"wgmma": time_flash_attention(LONG_BATCH, 16, 16, 64, LONG_PROMPT, 0),
                    "tf32x3": time_flash_attention(LONG_BATCH, 16, 16, 64, LONG_PROMPT, 0, "float32"),
                    "simt": time_flash_attention(LONG_BATCH, 16, 16, SIMT_HD, LONG_PROMPT, 0)}
-        report["flash_attention_times"] = list(timings.values()) + [time_flash_attention(1, 16, 8, 256, 2048, 1024)]
+        # gemma3's local layer; bf16 hd 32 and kimi-k2's hd 112 on the wgmma
+        # body (the CUDA-core body, their body before, in the same call), and
+        # the hd-128 body at kimi-k2's heads.
+        report["flash_attention_times"] = list(timings.values()) + [
+            time_flash_attention(1, 16, 8, 256, 2048, 1024),
+            *(time_flash_attention(LONG_BATCH, h, kvh, hd, LONG_PROMPT, 0) for hd, h, kvh in ZERO_FILL_CASES),
+            time_flash_attention(LONG_BATCH, 64, 8, 128, LONG_PROMPT, 0)]
         report["long_prefill"]["f32_engine_launches_tf32x3_body"] = long_launches["flash_attention"]
         for body, n in (("wgmma", long_bf16_launches["flash_attention"]), ("tf32x3", long_launches["flash_attention"]),
-                        ("simt", simt_launches)):
+                        ("simt", entry[SIMT_HD]["forward_bodies"]["simt"])):
             t = timings[body]
             flash_records[body].update(launches=n, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                                        bound_by=t["bound_by"], library_ms=t["library_ms"])
@@ -2456,9 +2538,16 @@ def main(argv=None) -> int:
         ssm_record.update(launches=ssm_launches, ms=stiming["ms"], plain_ms=stiming["plain_ms"],
                           bound_ms=stiming["bound_ms"], bound_by=stiming["bound_by"], library_ms=None)
         bwd_launches = run_training(report)
-        btimes = {body: time_flash_attention_bwd(TRAIN_BATCH, 16, 64, TRAIN_SEQ, d)
-                  for body, d in (("wgmma", "bfloat16"), ("simt", "float32"))}
-        report["flash_attention_bwd_times"] = list(btimes.values())
+        bwd_launches["simt"] = entry[SIMT_HD]["backward_bodies"]["simt"]
+        btimes = {"wgmma": time_flash_attention_bwd(TRAIN_BATCH, 16, 16, 64, TRAIN_SEQ, "bfloat16"),
+                  "bf16x6": time_flash_attention_bwd(TRAIN_BATCH, 16, 16, 64, TRAIN_SEQ, "float32"),
+                  "simt": time_flash_attention_bwd(LONG_BATCH, 16, 16, SIMT_HD, LONG_PROMPT, "bfloat16")}
+        # bf16 hd 32 (the forward's shape) and kimi-k2's hd 112 on the wgmma
+        # backward, and the hd-128 body at kimi-k2's heads.
+        report["flash_attention_bwd_times"] = list(btimes.values()) + [
+            time_flash_attention_bwd(LONG_BATCH, 16, 16, 32, LONG_PROMPT, "bfloat16"),
+            time_flash_attention_bwd(LONG_BATCH, 64, 8, 112, TRAIN_SEQ, "bfloat16"),
+            time_flash_attention_bwd(LONG_BATCH, 64, 8, 128, TRAIN_SEQ, "bfloat16")]
         for body, t in btimes.items():
             bwd_records[body].update(launches=bwd_launches[body], ms=t["ms"], plain_ms=t["plain_ms"],
                                      bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"])

@@ -1,10 +1,10 @@
 // Flash attention forward for Hopper (sm_90a) on the CUDA cores: causal /
 // sliding-window / full attention of a whole query sequence with an online
 // softmax, as the prefill of prompts longer than ``attn_block_q`` runs it.
-// This is the body for what neither tensor-core body takes: bf16 at head
-// dims other than 64, 128 and 256 (flash_attention_wgmma.cu takes those),
-// f32 at head dims that are not a multiple of 8 (flash_attention_tf32x3.cu
-// takes the rest).  cuda_kernel.body_for picks.
+// This is the body for what neither tensor-core body takes: head dims that
+// are not a multiple of 8 (TMA and the tensor-core fragments need one), in
+// bf16 or f32 (flash_attention_wgmma.cu takes bf16 at the multiples of 8,
+// flash_attention_tf32x3.cu f32).  cuda_kernel.body_for picks.
 //
 // Replaces the Pallas TPU kernel flash_attention_kernel
 // (repro/kernels/flash_attention/kernel.py:106, body _flash_kernel), and on
@@ -30,8 +30,8 @@
 // 50x the f32 bar of 2e-5), but splitting each operand as hi + lo and
 // summing hi*hi + hi*lo + lo*hi in f32 keeps plain f32's error (~1e-6).
 // This body's f32 FMAs are its choice, not the function's floor, which is
-// why bf16 at hd 64 / 128 / 256 and f32 at hd a multiple of 8 have bodies
-// of their own.
+// why head dims that are multiples of 8 have tensor-core bodies of their
+// own.
 //
 // Design (simple first):
 //   * one block of 256 threads per (b * H + h, 64-row query tile); the

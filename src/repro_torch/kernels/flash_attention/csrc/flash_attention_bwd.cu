@@ -3,8 +3,11 @@
 // tensor-core twins), for every shape and option they take -- bf16 and
 // f32, hd 1-256, GQA with H % KV == 0, causal, window, q_offset, ragged
 // tails and softcap.  A training sequence past attn_block_q runs the
-// forward kernel and then this one, through
-// dispatch.FlashAttentionFunction.
+// forward kernel and then a backward body, through
+// dispatch.FlashAttentionFunction; this one takes what the tensor-core
+// backward (flash_attention_bwd_wgmma.cu) does not: head dims that are not
+// multiples of 8, and f32 at hd 136-256 (three bf16 planes of every tile
+// do not fit that body's shared memory there).
 //
 // Replaces the gradient the reference takes by autodiff of its jnp
 // recurrence _blockwise_attn (repro/models/attention.py:162; the Pallas

@@ -1,9 +1,16 @@
 // Flash attention backward for Hopper (sm_90a) on the tensor cores: dQ, dK
-// and dV of the bf16 forward body (flash_attention_wgmma.cu) at hd 64, 128
-// and 256 -- causal, window, q_offset, ragged tails, softcap and GQA with
-// H % KV == 0.  A bf16 training sequence past attn_block_q runs that
-// forward and then this backward, through dispatch.FlashAttentionFunction;
-// f32, and bf16 at other head dims, keep flash_attention_bwd.cu.
+// and dV of the forward bodies' function -- causal, window, q_offset,
+// ragged tails, softcap and GQA with H % KV == 0 -- in two arithmetic
+// modes over one body:
+//   * bf16 (flash_attention_bwd_wgmma_launch): bf16 operands at head dims
+//     that are multiples of 8 up to 256, after the wgmma forward
+//     (flash_attention_wgmma.cu), whose row statistics it reads;
+//   * f32 (flash_attention_bwd_bf16x6_launch): f32 operands at head dims
+//     that are multiples of 8 up to 128, each split into three bf16 planes
+//     (six products a product, below), with row statistics of its own.
+// A training sequence past attn_block_q runs a forward body and then this
+// backward, through dispatch.FlashAttentionFunction; f32 at hd 136-256, and
+// head dims that are not multiples of 8, keep flash_attention_bwd.cu.
 //
 // Replaces the gradient the reference takes by autodiff of its jnp
 // recurrence _blockwise_attn (repro/models/attention.py:162; the Pallas
@@ -18,66 +25,101 @@
 // dK and dV of KV head kv summed over its G = H / KV query heads in f32
 // inside one CTA, rounded once.
 //
-// Row statistics: m and l are the forward's own.  The wgmma forward, asked
-// for them, writes each row's final max m (log2 units: the scaled, capped
-// score times log2(e), as its online softmax keeps it; -inf for a row that
-// sees no key) and its sum l = sum exp2(x - m) (clamped to 1e-20, the
-// value it divides by) into an f32 (2, B * H * Sq) tensor.  This kernel
-// forms x with the forward's arithmetic -- one FFMA x = s * scale2 - m
-// without a softcap, tanhf(s * scale / softcap) * softcap * log2(e) - m
-// with one, exp2 on the SFU -- so p is the forward's p up to the order of
-// the hd-long dot product's sums.  m and l stay apart: one lse = m + log2 l
-// would put its rounding into every p of the row.
+// Head dims: the body is built at widths 64, 128 and 256 (HD); a call runs
+// at the first width >= hd.  The tensor maps carry the true hd as their
+// innermost extent, so TMA zero-fills a box's columns past it; zero
+// columns add exactly 0 to every Q K^T and dO V^T, the scale is the true
+// hd's, and only the true hd columns of dQ, dK and dV are stored.  hd 112
+// runs as two 64-column boxes, the second with 48 valid columns.
+//
+// Row statistics: m (log2 units: the scaled, capped score times log2(e);
+// -inf for a row that sees no key) and l = sum exp2(x - m) (clamped to
+// 1e-20), f32 (2, B * H * Sq).  In bf16 they are the wgmma forward's own,
+// written when it is asked for them.  In f32 the forward is the 3xTF32 body,
+// whose scores keep ~22 of f32's 24 bits; feeding its m and l to an f32
+// backward would bring that error in, so fa_bwd_stats_bf16x6_kernel makes
+// them from the backward's own f32-accurate S (the same products, the
+// same arithmetic as every later p).  Each p is formed with that arithmetic
+// -- one FFMA x = s * scale2 - m without a softcap, tanhf(s * scale /
+// softcap) * softcap * log2(e) - m with one, exp2 on the SFU -- and m and l
+// stay apart: one lse = m + log2 l would put its rounding into every p.
 //
 // Layouts (contiguous, the model's native ones, read in place by TMA):
-//   q, o, dO, dQ   (B, Sq, H, hd)    bf16
-//   k, v, dK, dV   (B, Skv, KV, hd)  bf16; query head h reads KV head h / G
-//   m, l           (2, B * H * Sq)   f32 from the forward
+//   q, o, dO, dQ   (B, Sq, H, hd)    bf16 or f32
+//   k, v, dK, dV   (B, Skv, KV, hd); query head h reads KV head h / G
 //   row records    (B * H, 3, Sq padded to 128) f32 scratch: m, 1 / l, D
+//   f32 only: q, k, v, dO as bf16 planes (3 B, S, heads, hd) -- plane p of
+//   batch b at batch b + p B -- and the statistics, in one scratch buffer.
 //
 // Bound: bytes (q, k, v, o, dO read once, dQ, dK, dV written once) over
 // 3.35 TB/s against the function's least work, 10 hd flops a visible
-// (query, key) pair (S, dP, dV, dK, dQ: 2 hd each) at 989 TFLOP/s (a bf16
-// product summed in f32 is exact).  At the training shape (B 4, H 16, hd
-// 64, S 1024, causal) that is 67.1 MB, 20.0 us, against 21.5 GFLOP,
-// 21.7 us.  The products this body issues: S and dP twice each (once in
-// each kernel) and dV, dK and dQ as hi + lo pairs, 2 + 2 + 4 + 4 (dK/dV
-// kernel) + 2 + 2 + 4 (dQ kernel) = 20 hd a pair, plus the masked halves
-// of the tiles on the causal diagonal.
+// (query, key) pair (S, dP, dV, dK, dQ: 2 hd each), at 989 TFLOP/s for bf16
+// (a bf16 product summed in f32 is exact) and at the f32-accurate
+// tensor-core rate for f32 (chip_smoke.py's PEAK_OPS["tf32x3"], 165
+// TFLOP/s, which six bf16 products an f32 one also give: 989 / 6).  At the
+// training shape (B 4, H 16, hd 64, S 1024, causal), bf16: 67.1 MB, 20.0 us,
+// against 21.5 GFLOP, 21.7 us; f32: 134 MB against 130 us of operations.
+// The products this body issues, a visible pair: bf16 -- S and dP twice
+// each (once in each kernel), dV, dK and dQ as hi + lo pairs: 20 hd; f32 --
+// S three times (the statistics kernel too), dP twice, dV, dK and dQ once,
+// each as six bf16 products: 96 hd.  The f32 split writes 1.5x the
+// operands' f32 bytes as planes and reads them back.
 //
-// Design -- what it does about the three faults of the CUDA-core backward
-// (flash_attention_bwd.cu):
-//   * products on the CUDA cores in f32 FMAs (14 % of the CUDA-core peak):
-//     every product here is a wgmma, bf16 in, f32 accumulate.  S^T = K Q^T
-//     and dP^T = V dO^T (dK/dV kernel), S = Q K^T and dP = dO V^T (dQ
-//     kernel) take both operands from shared memory, K-major; P^T and dS^T
-//     (dS) go from their accumulators straight into register-A fragments,
-//     and dV += P^T dO, dK += dS^T Q, dQ += dS K read dO, Q and K as the
+// Design -- what it does about the faults of the CUDA-core backward
+// (flash_attention_bwd.cu: f32 FMAs fed a scalar from shared memory for
+// about every FMA, a statistics pass, 16 hd flops a pair):
+//   * every product is a wgmma, bf16 in, f32 accumulate.  S^T = K Q^T and
+//     dP^T = V dO^T (dK/dV kernel), S = Q K^T and dP = dO V^T (dQ kernel)
+//     take both operands from shared memory, K-major; P^T and dS^T (dS) go
+//     from their accumulators straight into register-A fragments, and dV
+//     += P^T dO, dK += dS^T Q, dQ += dS K read dO, Q and K as the
 //     transposed (MN-major) B operand, as the forward reads V;
-//   * S three times and dP twice: the forward writes m and l, so no
-//     statistics pass; D = rowsum(dO o O) is bytes, computed in the dQ
-//     kernel's prologue; two launches, S and dP once in each (dQ is summed
-//     in its own kernel so that no sum needs atomics);
-//   * no statistics from the forward: above.
-//   Accuracy: P and dS are f32 values; each product takes them as bf16 hi
-//   + lo (lo = bf16(x - hi)), two wgmmas into one f32 accumulator, so they
-//   keep ~16 bits.  P or dS rounded once to bf16 misses the bar by ~50-200x
-//   (tests/test_torch_flash_attention_bwd.py; SDPA's backward, which does
-//   that, misses it by as much).  Deterministic: no atomics; each output
-//   element is summed in one fixed order.
-//   Latency, not the tensor cores' rate, bounds a warpgroup here: its tile
+//   * bf16: the forward writes m and l, so there is no statistics pass;
+//     D = rowsum(dO * O) is bytes, computed in the dQ kernel's prologue;
+//     two launches, S and dP once in each (dQ is summed in its own kernel
+//     so that no sum needs atomics);
+//   * f32 at f32 accuracy on the tensor cores (kP = 3): a pre-pass splits
+//     each f32 operand x of q, k, v, dO into bf16 planes hi = bf16(x), mid
+//     = bf16(x - hi), lo = bf16(x - hi - mid) (both differences exact), and
+//     each product a b runs as the six wgmmas mid mid + hi lo + lo hi + hi
+//     mid + mid hi + hi hi, accumulated in f32; P and dS, formed in f32
+//     registers, are split the same way into three fragment planes.  The
+//     dropped terms (mid lo, lo mid, lo lo and the split's residual) are of
+//     order 2**-24 relative: plain f32's.  Three products (hi hi, hi mid,
+//     mid hi) drop hi lo, lo hi and mid mid, of order 2**-16, ~250x f32's
+//     error, and 3xTF32 keeps ~22 bits (tests/test_torch_flash_attention
+//     _bwd.py shows both miss the f32 bars); six bf16 products cost what
+//     3xTF32's three TF32 ones do, at 989 / 6 TFLOP/s;
+//   * the tensor core's own accumulation: inside a wgmma the f32 sum is not
+//     rounded as the CUDA cores' FADD is.  So, within a product, the five
+//     small plane pairs go in first over every k-slab, while the sum is
+//     ~2**-8 of its final size, and hi hi last; and each tile's dV, dK and
+//     dQ terms start a fresh accumulator that the CUDA cores add into the
+//     running f32 sum (two-level summation, as flash_attention_bwd.cu sums
+//     tiles): the tensor core never adds into a sum many tiles long.
+//   Accuracy in bf16: P and dS are f32 values; each product takes them as
+//   bf16 hi + lo (lo = bf16(x - hi)), two wgmmas into one f32 accumulator,
+//   so they keep ~16 bits.  P or dS rounded once to bf16 misses the bar by
+//   ~50-200x (tests/test_torch_flash_attention_bwd.py; SDPA's backward,
+//   which does that, misses it by as much).  Deterministic: no atomics;
+//   each output element is summed in one fixed order.
+//   Latency, not the tensor cores' rate, bounds a bf16 warpgroup: its tile
 //   is a chain (products, wait, exp2 and splits, products, wait), so the
-//   design keeps as many warpgroups on an SM as the registers allow.
+//   design keeps as many warpgroups on an SM as the registers allow; the
+//   f32 tile does six times the products for the same chain.
 //   There is no producer warpgroup: one thread issues every TMA copy, so
-//   ptxas sizes a CTA by its consumer warpgroups alone.  Per head dim and
-//   kernel (Cfg): at hd 64 both kernels run one warpgroup a CTA -- the dK/dV
-//   kernel three CTAs an SM at 168 registers (dK and dV, 64; then S^T and
-//   dP^T, 64, each register turning into a fragment word as P and dS are
-//   formed in one pass), the dQ kernel four at ~124 -- over 64-row tiles;
-//   at hd 128 and 256 two warpgroups a CTA share the streamed tiles (32
-//   rows), and at hd 256 they share 64 resident rows, each keeping half of
-//   the accumulator's columns (computing the rows' S and dP twice), as the
-//   forward's kSplit does.
+//   ptxas sizes a CTA by its consumer warpgroups alone.  Per head dim,
+//   kernel and mode (Cfg): bf16 at hd 64 runs one warpgroup a CTA -- the
+//   dK/dV kernel three CTAs an SM at 168 registers (dK and dV, 64; then S^T
+//   and dP^T, 64, each register turning into a fragment word as P and dS
+//   are formed in one pass), the dQ kernel four at ~124 -- over 64-row
+//   tiles; at hd 128 and 256 two warpgroups a CTA share the streamed tiles
+//   (32 rows), and at hd 256 they share 64 resident rows, each keeping half
+//   of the accumulator's columns (computing the rows' S and dP twice), as
+//   the forward's kSplit does.  f32: three planes of every tile fill shared
+//   memory at one CTA an SM; two warpgroups share the streamed tiles at hd
+//   64, and at hd 128 the dK/dV kernel's two share 64 resident keys, each
+//   keeping half of dK and dV's columns.
 //   dQ kernel: one CTA per (b * H + h, query tile), heaviest causal tiles
 //   first; Q, dO, m, 1 / l and D stay; K and V come through a TMA ring.  It
 //   writes each row's m, 1 / l and D (the row records) for the next kernel.
@@ -93,29 +135,44 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "wgmma_common.cuh"
 
 namespace {
 
 enum Kernel { kDq, kDkdv };
 
-// Per head dim and kernel: kWG consumer warpgroups a CTA and kCtas CTAs an
-// SM (kCtas 3 holds a thread to 168 registers); kBN rows of a streamed tile
-// (keys in the dQ kernel, queries in the dK/dV kernel); kSplit warpgroups
-// sharing 64 resident rows, each keeping hd / kSplit accumulator columns;
-// kStages streamed tiles in the ring.  Shared memory in the comments.
-template <int HD, int K>
+// Per head dim, kernel and mode (kP: bf16 planes an operand has, 1 in bf16,
+// 3 in f32): kWG consumer warpgroups a CTA and kCtas CTAs an SM (kCtas 3
+// holds a thread to 168 registers); kBN rows of a streamed tile (keys in
+// the dQ kernel, queries in the dK/dV kernel); kSplit warpgroups sharing 64
+// resident rows, each keeping hd / kSplit accumulator columns; kStages
+// streamed tiles in the ring.  Shared memory in the comments.
+template <int HD, int K, int kP>
 struct Cfg {
   static constexpr int kWG = 2, kCtas = 1, kBN = HD == 64 ? 64 : 32, kSplit = HD == 256 ? 2 : 1;
   static constexpr int kStages = HD == 256 ? 3 : 4;  // hd 128: 131 KB, hd 256: 164 KB
 };
 template <>
-struct Cfg<64, kDq> {
+struct Cfg<64, kDq, 1> {
   static constexpr int kWG = 1, kCtas = 4, kBN = 64, kSplit = 1, kStages = 2;  // 50 KB
 };
 template <>
-struct Cfg<64, kDkdv> {
+struct Cfg<64, kDkdv, 1> {
   static constexpr int kWG = 1, kCtas = 3, kBN = 64, kSplit = 1, kStages = 3;  // 67 KB
+};
+template <int K>
+struct Cfg<64, K, 3> {
+  static constexpr int kWG = 2, kCtas = 1, kBN = 64, kSplit = 1, kStages = 2;  // 195 KB
+};
+template <>
+struct Cfg<128, kDq, 3> {
+  static constexpr int kWG = 1, kCtas = 1, kBN = 32, kSplit = 1, kStages = 2;  // 194 KB
+};
+template <>
+struct Cfg<128, kDkdv, 3> {
+  static constexpr int kWG = 2, kCtas = 1, kBN = 32, kSplit = 2, kStages = 2;  // 195 KB
 };
 
 // Row records: the dQ kernel writes each row's m, 1 / l and D (m = 1 / l =
@@ -125,28 +182,42 @@ constexpr int kRecPad = 128;
 
 __host__ __device__ constexpr int rec_pad(int sq) { return (sq + kRecPad - 1) / kRecPad * kRecPad; }
 
-template <int HD, int K>
+template <int HD, int K, int kP>
 struct Geo {
-  static constexpr int kWG = Cfg<HD, K>::kWG;
-  static constexpr int kSplit = Cfg<HD, K>::kSplit;
+  static_assert(kP == 1 || (kP == 3 && HD <= 128), "the f32 body takes hd <= 128");
+  using C = Cfg<HD, K, kP>;
+  static constexpr int kWG = C::kWG;
+  static constexpr int kSplit = C::kSplit;
   static constexpr int kThreads = kWG * 128;
   static constexpr int kR = 64 * kWG / kSplit;           // resident rows of a CTA
   static constexpr int kOD = HD / kSplit;                // accumulator columns of a warpgroup
-  static constexpr int kBN = Cfg<HD, K>::kBN;
-  static constexpr int kStages = Cfg<HD, K>::kStages;
-  static constexpr uint32_t kResBytes = kR * HD * 2;     // one resident tile
-  static constexpr uint32_t kTileBytes = kBN * HD * 2;   // one streamed tile
-  static constexpr uint32_t kChunkR = kR * 128;          // a 64-column chunk of a resident tile
-  static constexpr uint32_t kChunkN = kBN * 128;         // ... of a streamed tile
-  // A stage: two streamed tiles, and in the dK/dV kernel the tile's row
-  // records (3 x kBN f32) in a 1024-byte slot that keeps the next stage aligned.
+  static constexpr int kBN = C::kBN;
+  static constexpr int kStages = C::kStages;
+  static constexpr uint32_t kResBytes = kR * HD * 2;     // one plane of a resident tile
+  static constexpr uint32_t kTileBytes = kBN * HD * 2;   // one plane of a streamed tile
+  static constexpr uint32_t kChunkR = kR * 128;          // a 64-column chunk of a resident plane
+  static constexpr uint32_t kChunkN = kBN * 128;         // ... of a streamed plane
+  // A stage: two streamed tiles of kP planes, and in the dK/dV kernel the
+  // tile's row records (3 x kBN f32) in a 1024-byte slot that keeps the
+  // next stage aligned.
   static constexpr uint32_t kRecBytes = K == kDkdv ? 3 * kBN * 4 : 0;
-  static constexpr uint32_t kStageBytes = 2 * kTileBytes + (K == kDkdv ? 1024 : 0);
-  static constexpr uint32_t kBarOff = 2 * kResBytes + kStages * kStageBytes;  // full, empty, res
+  static constexpr uint32_t kStageBytes = 2 * kP * kTileBytes + (K == kDkdv ? 1024 : 0);
+  static constexpr uint32_t kBarOff = 2 * kP * kResBytes + kStages * kStageBytes;  // full, empty, res
   static constexpr uint32_t kStatOff = kBarOff + 8 * (2 * kStages + 1);
   static constexpr uint32_t kStatBytes = K == kDq ? 3 * kR * 4 : 0;  // dQ: m, 1 / l, D of the resident rows
   // 1024 bytes of slack align the tiles to the 128-byte swizzle's 1024-byte atom.
   static constexpr uint32_t kBytes = 1024 + kStatOff + kStatBytes;
+};
+
+// The f32 statistics kernel: the dQ kernel's rows and key tiles, Q
+// resident and K alone through a deeper ring.
+template <int HD>
+struct StatsGeo {
+  using G = Geo<HD, kDq, 3>;
+  static constexpr int kStages = 3;
+  static constexpr uint32_t kStageBytes = 3 * G::kTileBytes;
+  static constexpr uint32_t kBarOff = 3 * G::kResBytes + kStages * kStageBytes;
+  static constexpr uint32_t kBytes = 1024 + kBarOff + 8 * (2 * kStages + 1);  // 121 KB
 };
 
 
@@ -159,72 +230,134 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+template <int F, int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[F][N][4]) {
+#pragma unroll
+  for (int p = 0; p < F; ++p) pin(r[p]);
+}
 
+// Fragment planes of P and dS: bf16 hi + lo in bf16, hi + mid + lo in f32.
+template <int kP>
+constexpr int kFrag = kP == 3 ? 3 : 2;
 
-// An accumulator pair (x[idx], x[idx + 1]) as bf16 hi and lo fragment words:
-// hi = bf16(x), lo = bf16(x - hi), both rounded to nearest.
-__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
-  const float2 back = __bfloat1622float2(h2);
-  hi = *reinterpret_cast<const uint32_t*>(&h2);
-  lo = pack_bf16(a - back.x, b - back.y);
+// The plane pairs (A plane, B plane) of a six-product f32 product, small
+// first: mid mid, hi lo, lo hi, hi mid, mid hi; hi hi (0, 0) goes last.
+__host__ __device__ constexpr int pair_a(int t) { return t == 0 ? 1 : t == 2 ? 2 : t == 4 ? 1 : 0; }
+__host__ __device__ constexpr int pair_b(int t) { return t == 0 ? 1 : t == 1 ? 2 : t == 3 ? 1 : 0; }
+
+// An accumulator pair (a, b) as fragment word j of k-slab kk of each of the
+// F planes: plane 0 = bf16(x), each next plane bf16 of what the planes
+// before it leave (x - hi exact in f32, as is x - hi - mid), rounded to
+// nearest.
+template <int F, int S>
+__device__ __forceinline__ void split_into(float a, float b, uint32_t (&f)[F][S][4], int kk, int j) {
+#pragma unroll
+  for (int p = 0; p < F; ++p) {
+    const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
+    f[p][kk][j] = *reinterpret_cast<const uint32_t*>(&h2);
+    if (p + 1 < F) {
+      const float2 back = __bfloat1622float2(h2);
+      a -= back.x;
+      b -= back.y;
+    }
+  }
 }
 
 // An m64 x kBN accumulator as register-A fragments of kBN / 16 k-slabs:
 // fragment word f of slab kk = (row r, block 2kk), (r + 8, 2kk), (r, 2kk +
 // 1), (r + 8, 2kk + 1), as the forward forms P's.
-template <int kBN>
-__device__ __forceinline__ void to_fragments(const float (&x)[kBN / 2], uint32_t (&hi)[kBN / 16][4],
-                                             uint32_t (&lo)[kBN / 16][4]) {
+template <int kBN, int F>
+__device__ __forceinline__ void to_fragments(const float (&x)[kBN / 2], uint32_t (&f)[F][kBN / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const int idx = 4 * (2 * kk + (f >> 1)) + 2 * (f & 1);
-      split_pair(x[idx], x[idx + 1], hi[kk][f], lo[kk][f]);
+    for (int w = 0; w < 4; ++w) {
+      const int idx = 4 * (2 * kk + (w >> 1)) + 2 * (w & 1);
+      split_into(x[idx], x[idx + 1], f, kk, w);
     }
 }
 
-// acc += (hi + lo) B over kBN / 16 k-slabs: B is a streamed tile read
-// MN-major from sB, the first of its 64-column chunks this warpgroup
-// takes (rows = the product's k, columns = its N of kOD).
-template <int kBN, int kOD>
-__device__ __forceinline__ void issue_rs(float (&acc)[kOD / 2], const uint32_t (&hi)[kBN / 16][4],
-                                         const uint32_t (&lo)[kBN / 16][4], uint32_t sB) {
+// The products of a register-A fragment over kBN / 16 k-slabs with B, a
+// streamed tile read MN-major from sB (its planes kPlaneB bytes apart),
+// from the first of its 64-column chunks this warpgroup takes (rows = the
+// product's k, columns = its N of kOD).  bf16 (kP 1): acc += (hi + lo) B.
+// f32 (kP 3): acc = the six plane pairs, small ones first over every
+// k-slab, then hi hi; acc is a fresh tile sum (scale_d 0 on the first).
+template <int kBN, int kOD, int kP, uint32_t kPlaneB>
+__device__ __forceinline__ void issue_rs(float (&acc)[kOD / 2], const uint32_t (&f)[kFrag<kP>][kBN / 16][4],
+                                         uint32_t sB) {
+  auto desc = [&](int kk, int pb) { return sw128_desc(sB + pb * kPlaneB + kk * 16 * 128, kBN * 128, 1024); };
+  if constexpr (kP == 1) {
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    const uint64_t db = sw128_desc(sB + kk * 16 * 128, kBN * 128, 1024);
-    Wgmma<kOD>::rs(acc, hi[kk], db);
-    Wgmma<kOD>::rs(acc, lo[kk], db);
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint64_t db = desc(kk, 0);
+      Wgmma<kOD>::rs(acc, f[0][kk], db);
+      Wgmma<kOD>::rs(acc, f[1][kk], db);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+      for (int t = 0; t < 5; ++t) Wgmma<kOD>::rs(acc, f[pair_a(t)][kk], desc(kk, pair_b(t)), kk > 0 || t > 0);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) Wgmma<kOD>::rs(acc, f[0][kk], desc(kk, 0), 1);
   }
   wgmma_commit();
 }
 
-// acc = A B^T over HD, A = 64 resident rows (K-major, chunks kChunkA apart),
-// B = a streamed tile of kBN rows (K-major, chunks kBN * 128 apart).
-template <int HD, int kBN, uint32_t kChunkA>
+// acc = A B^T over HD, A = 64 resident rows (K-major, chunks kChunkA apart,
+// planes kPlaneA apart), B = a streamed tile of kBN rows (K-major, chunks
+// kBN * 128 apart, planes kPlaneB apart).  bf16: one product a k-slab.
+// f32: the five small plane pairs over every k-slab, then hi hi.
+template <int HD, int kBN, uint32_t kChunkA, int kP, uint32_t kPlaneA, uint32_t kPlaneB>
 __device__ __forceinline__ void issue_ss(float (&acc)[kBN / 2], uint32_t sA, uint32_t sB) {
+  auto one = [&](int kk, int pa, int pb, int scale_d) {
+    const uint64_t da = sw128_desc(sA + pa * kPlaneA + (kk / 4) * kChunkA + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = sw128_desc(sB + pb * kPlaneB + (kk / 4) * (kBN * 128) + (kk % 4) * 32, 16, 1024);
+    Wgmma<kBN>::ss(acc, da, db, scale_d);
+  };
+  if constexpr (kP == 3) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint64_t da = sw128_desc(sA + (kk / 4) * kChunkA + (kk % 4) * 32, 16, 1024);
-    const uint64_t db = sw128_desc(sB + (kk / 4) * (kBN * 128) + (kk % 4) * 32, 16, 1024);
-    Wgmma<kBN>::ss(acc, da, db, kk > 0 ? 1 : 0);
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int t = 0; t < 5; ++t) one(kk, pair_a(t), pair_b(t), kk > 0 || t > 0);
   }
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) one(kk, 0, 0, kP == 3 || kk > 0);
   wgmma_commit();
 }
 
 struct Params {
-  const __nv_bfloat16* o;
-  const __nv_bfloat16* dout;
+  const void* o;       // (B, Sq, H, hd), the operands' type (bf16 or f32)
+  const void* dout;
   const float* m;      // (B * H * Sq) log2 units
   const float* l;      // (B * H * Sq)
   float* rec;          // (B * H, 3, Sq padded to kRecPad): row records, written by the dQ kernel
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
-  int Sq, Skv, H, KV, causal, window, q_offset;
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, Sq, Skv, H, KV, hd, causal, window, q_offset;
   float softcap;
 };
+
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+
+// The scaled, capped score in log2 units, as the forward keeps it.
+template <bool kSoftcap>
+__device__ __forceinline__ float logit2(float s, float scale2, float scale, float softcap) {
+  if constexpr (kSoftcap) {
+    return tanhf(s * scale / softcap) * softcap * kLog2e;
+  } else {
+    return s * scale2;
+  }
+}
 
 // p of one accumulator element from its raw score s and its query's m and
 // 1 / l, with the forward's score arithmetic; dfac gets dS's factor
@@ -247,24 +380,200 @@ __device__ __forceinline__ bool visible(int qp, int kp, int Skv, int causal, int
 }
 
 // ---------------------------------------------------------------------------
-// dQ (and D): one CTA per (b * H + h, query tile of kR rows)
+// f32: the split into bf16 planes, and the row statistics
 // ---------------------------------------------------------------------------
 
+// Up to four f32 tensors of n elements (n a multiple of 8), each into three
+// bf16 planes at dst, dst + n, dst + 2 n: hi, mid, lo.  A thread splits 8
+// elements: two 16-byte loads, a 16-byte store a plane.
+struct SplitArgs {
+  const float* src[4];
+  __nv_bfloat16* dst[4];
+  long long n[4];
+};
+
+__global__ void __launch_bounds__(256) fa_bwd_split_kernel(const SplitArgs a) {
+  // Constant indices: a parameter array indexed by blockIdx.y would be
+  // copied to local memory by every thread.
+  const int t = blockIdx.y;
+  const long long n8 = (t == 0 ? a.n[0] : t == 1 ? a.n[1] : t == 2 ? a.n[2] : a.n[3]) / 8;
+  const float4* src = reinterpret_cast<const float4*>(t == 0 ? a.src[0] : t == 1 ? a.src[1] : t == 2 ? a.src[2]
+                                                                                                     : a.src[3]);
+  uint4* dst = reinterpret_cast<uint4*>(t == 0 ? a.dst[0] : t == 1 ? a.dst[1] : t == 2 ? a.dst[2] : a.dst[3]);
+  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < n8;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    const float4 x = src[2 * i];
+    const float4 y = src[2 * i + 1];
+    uint32_t w[3][1][4];
+    split_into(x.x, x.y, w, 0, 0);
+    split_into(x.z, x.w, w, 0, 1);
+    split_into(y.x, y.y, w, 0, 2);
+    split_into(y.z, y.w, w, 0, 3);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) dst[p * n8 + i] = make_uint4(w[p][0][0], w[p][0][1], w[p][0][2], w[p][0][3]);
+  }
+}
+
+// Each row's m and l from S in six bf16 products, as the forward forms them
+// (online over the dQ kernel's key tiles [lo, hi)): one CTA per (b * H + h,
+// query tile of the dQ kernel's kR rows).  stats as the wgmma forward
+// writes it.
 template <int HD, bool kSoftcap>
-__global__ void __launch_bounds__(Geo<HD, kDq>::kThreads, Cfg<HD, kDq>::kCtas)
-fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-                       const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                       const Params a) {
-  using G = Geo<HD, kDq>;
-  constexpr int kBN = G::kBN, kR = G::kR, kOD = G::kOD, kStages = G::kStages, kWG = G::kWG;
+__global__ void __launch_bounds__(Geo<HD, kDq, 3>::kThreads, 1)
+fa_bwd_stats_bf16x6_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                           const Params a, float* __restrict__ stats) {
+  using G = Geo<HD, kDq, 3>;
+  using SG = StatsGeo<HD>;
+  static_assert(G::kSplit == 1, "one warpgroup a row");
+  constexpr int kBN = G::kBN, kR = G::kR, kWG = G::kWG, kStages = SG::kStages;
   constexpr int kChunks = HD / 64;
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sQ = smem_u32(base);
-  const uint32_t sDO = sQ + G::kResBytes;
-  const uint32_t sRing = sDO + G::kResBytes;  // stage st: K at sRing + st kStageBytes, V after it
-  const uint32_t bars = sQ + G::kBarOff;      // full[kStages], empty[kStages], res
+  const uint32_t sRing = sQ + 3 * G::kResBytes;  // stage st: the K tile's planes
+  const uint32_t bars = sQ + SG::kBarOff;        // full[kStages], empty[kStages], res
+  const uint32_t resbar = bars + 16 * kStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int kvh = h / (a.H / a.KV);
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kR;
+  const int nq = min(kR, a.Sq - q0);
+  const int n_kv = (a.Skv + kBN - 1) / kBN;
+  const int hi = a.causal ? min((a.q_offset + q0 + nq - 1) / kBN + 1, n_kv) : n_kv;
+  const int lo = a.window > 0 ? min(max(a.q_offset + q0 - a.window + 1, 0) / kBN, hi - 1) : 0;
+  const int n_tiles = hi - lo;  // >= 1
+
+  auto issue_k = [&](int j, int st) {
+    const uint32_t sK = sRing + st * SG::kStageBytes;
+    const uint32_t full = bars + 8 * st;
+    mbar_expect_tx(full, SG::kStageBytes);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        tma_load(sK + p * G::kTileBytes + c * G::kChunkN, &tk, 64 * c, kvh, (lo + j) * kBN, b + p * a.B, full);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bars + 8 * st, 1);
+      mbar_init(bars + 8 * (kStages + st), kWG);
+    }
+    mbar_init(resbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(resbar, 3 * G::kResBytes);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        tma_load(sQ + p * G::kResBytes + c * G::kChunkR, &tq, 64 * c, h, q0, b + p * a.B, resbar);
+    for (int j = 0; j < min(kStages, n_tiles); ++j) issue_k(j, j);
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int r0 = 64 * wg + 16 * (tid / 32) + lane / 4;
+  const int col2 = 2 * (lane % 4);
+  const int qa = a.q_offset + q0 + 64 * wg;
+  const int qb = qa + 63;
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.hd));
+  const float scale2 = scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float s[kBN / 2];
+
+  mbar_wait(resbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kStages;
+    const uint32_t sK = sRing + st * SG::kStageBytes;
+    mbar_wait(bars + 8 * st, (j / kStages) & 1);
+    wgmma_fence();
+    issue_ss<HD, kBN, G::kChunkR, 3, G::kResBytes, G::kTileBytes>(s, sQ + 64 * 128 * wg, sK);
+    if constexpr (kWG > 1) {
+      if (threadIdx.x == 0 && j >= 1 && j - 1 + kStages < n_tiles) {
+        const int ps = (j - 1) % kStages;
+        mbar_wait(bars + 8 * (kStages + ps), ((j - 1) / kStages) & 1);
+        issue_k(j - 1 + kStages, ps);
+      }
+      __syncwarp();
+    }
+    wgmma_wait<0>();
+    pin(s);
+    if (tid == 0) mbar_arrive(bars + 8 * (kStages + st));
+    if constexpr (kWG == 1) {
+      if (threadIdx.x == 0 && j + kStages < n_tiles) issue_k(j + kStages, st);
+      __syncwarp();
+    }
+
+    const int k0 = (lo + j) * kBN;
+    const bool edge = k0 + kBN > a.Skv || (a.causal && k0 + kBN - 1 > qa) || (a.window > 0 && qb - k0 >= a.window);
+    uint32_t vis = 0xffffffffu;  // bit x: element x is visible
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < kBN / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(a.q_offset + q0 + r0 + 8 * (e >> 1), k0 + 8 * i + col2 + (e & 1), a.Skv, a.causal, a.window))
+            vis &= ~(1u << (4 * i + e));
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int x = 0; x < kBN / 2; ++x)
+      if ((vis >> x) & 1u) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], logit2<kSoftcap>(s[x], scale2, scale, a.softcap));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      if (m_new != -INFINITY) l[r] *= exp2_approx(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int x = 0; x < kBN / 2; ++x) {
+      float dfac;
+      if ((vis >> x) & 1u) l[(x >> 1) & 1] += prob<kSoftcap>(s[x], m[(x >> 1) & 1], 1.f, scale2, scale, a.softcap, dfac);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + r0 + 8 * r;
+    if (col2 == 0 && row < a.Sq) {
+      const size_t at = static_cast<size_t>(bh) * a.Sq + row;
+      stats[at] = m[r];
+      stats[static_cast<size_t>(gridDim.x) * a.Sq + at] = fmaxf(l[r], 1e-20f);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ (and D): one CTA per (b * H + h, query tile of kR rows)
+// ---------------------------------------------------------------------------
+
+template <int HD, bool kSoftcap, int kP>
+__global__ void __launch_bounds__(Geo<HD, kDq, kP>::kThreads, Cfg<HD, kDq, kP>::kCtas)
+fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                       const Params a) {
+  using G = Geo<HD, kDq, kP>;
+  using T = std::conditional_t<kP == 3, float, __nv_bfloat16>;  // o, dO and the gradients
+  constexpr int kBN = G::kBN, kR = G::kR, kOD = G::kOD, kStages = G::kStages, kWG = G::kWG;
+  constexpr int kChunks = HD / 64;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sQ = smem_u32(base);            // kP planes kResBytes apart
+  const uint32_t sDO = sQ + kP * G::kResBytes;
+  const uint32_t sRing = sDO + kP * G::kResBytes;  // stage st: K's planes at sRing + st kStageBytes, V's after them
+  const uint32_t bars = sQ + G::kBarOff;           // full[kStages], empty[kStages], res
   const uint32_t resbar = bars + 16 * kStages;
   float* sM = reinterpret_cast<float*>(base + G::kStatOff);  // (kR) m, then 1 / l, then D
   float* sIL = sM + kR;
@@ -285,12 +594,15 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   auto issue_kv = [&](int j, int st) {
     const uint32_t sK = sRing + st * G::kStageBytes;
     const uint32_t full = bars + 8 * st;
-    mbar_expect_tx(full, 2 * G::kTileBytes);
+    mbar_expect_tx(full, 2 * kP * G::kTileBytes);
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      tma_load(sK + c * G::kChunkN, &tk, 64 * c, kvh, (lo + j) * kBN, b, full);
-      tma_load(sK + G::kTileBytes + c * G::kChunkN, &tv, 64 * c, kvh, (lo + j) * kBN, b, full);
-    }
+    for (int p = 0; p < kP; ++p)
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(sK + p * G::kTileBytes + c * G::kChunkN, &tk, 64 * c, kvh, (lo + j) * kBN, b + p * a.B, full);
+        tma_load(sK + (kP + p) * G::kTileBytes + c * G::kChunkN, &tv, 64 * c, kvh, (lo + j) * kBN, b + p * a.B,
+                 full);
+      }
   };
 
   if (threadIdx.x == 0) {
@@ -300,34 +612,37 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     }
     mbar_init(resbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(resbar, 2 * G::kResBytes);
+    mbar_expect_tx(resbar, 2 * kP * G::kResBytes);
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      tma_load(sQ + c * G::kChunkR, &tq, 64 * c, h, q0, b, resbar);
-      tma_load(sDO + c * G::kChunkR, &tdo, 64 * c, h, q0, b, resbar);
-    }
+    for (int p = 0; p < kP; ++p)
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(sQ + p * G::kResBytes + c * G::kChunkR, &tq, 64 * c, h, q0, b + p * a.B, resbar);
+        tma_load(sDO + p * G::kResBytes + c * G::kChunkR, &tdo, 64 * c, h, q0, b + p * a.B, resbar);
+      }
     for (int j = 0; j < min(kStages, n_tiles); ++j) issue_kv(j, j);
   }
 
-  // D = rowsum(dO o O) for the CTA's rows (kT threads a row); m, 1 / l and
-  // D of the rows into shared memory and into the row records for the dK/dV
-  // kernel.  A row that sees no key (m = -inf) and a row past Sq get m = 0,
-  // 1 / l = 0: p = 0.
+  // D = rowsum(dO o O) for the CTA's rows (kT threads a row, over the true
+  // hd columns, in the operands' type); m, 1 / l and D of the rows into
+  // shared memory and into the row records for the dK/dV kernel.  A row
+  // that sees no key (m = -inf) and a row past Sq get m = 0, 1 / l = 0: p = 0.
   {
     constexpr int kT = G::kThreads / kR;
     constexpr int kCols = HD / kT;
     const int r = threadIdx.x / kT;
     const int part = threadIdx.x % kT;
     const int q = q0 + r;
+    const int n = min(kCols, a.hd - part * kCols);  // this thread's columns; <= 0 past hd
     float dd = 0.f;
-    if (q < a.Sq) {
-      const size_t off = ((static_cast<size_t>(b) * a.Sq + q) * a.H + h) * HD + part * kCols;
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(a.o + off);
-      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(a.dout + off);
+    if (q < a.Sq && n > 0) {
+      const size_t off = ((static_cast<size_t>(b) * a.Sq + q) * a.H + h) * a.hd + part * kCols;
+      const T* o = static_cast<const T*>(a.o) + off;
+      const T* d = static_cast<const T*>(a.dout) + off;
 #pragma unroll 8
-      for (int c = 0; c < kCols / 2; ++c) {
-        const float2 x = __bfloat1622float2(o2[c]);
-        const float2 y = __bfloat1622float2(d2[c]);
+      for (int c = 0; c < n; c += 2) {
+        const float2 x = load2(o + c);
+        const float2 y = load2(d + c);
         dd = fmaf(x.x, y.x, dd);
         dd = fmaf(x.y, y.y, dd);
       }
@@ -366,7 +681,7 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   const int col2 = 2 * (lane % 4);
   const int qa = a.q_offset + q0 + 64 * rg;  // first query position of the warpgroup
   const int qb = qa + 63;
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.hd));  // the true head dim's
   const float scale2 = scale * kLog2e;
   float rm[2], ril[2], rd[2];
 #pragma unroll
@@ -380,7 +695,7 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
 #pragma unroll
   for (int i = 0; i < kOD / 2; ++i) dq[i] = 0.f;
   float s[kBN / 2], dp[kBN / 2];
-  uint32_t f_hi[kBN / 16][4], f_lo[kBN / 16][4];
+  uint32_t f[kFrag<kP>][kBN / 16][4];
   const uint32_t sQw = sQ + 64 * 128 * rg;
   const uint32_t sDOw = sDO + 64 * 128 * rg;
 
@@ -388,11 +703,11 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % kStages;
     const uint32_t sK = sRing + st * G::kStageBytes;
-    const uint32_t sV = sK + G::kTileBytes;
+    const uint32_t sV = sK + kP * G::kTileBytes;
     mbar_wait(bars + 8 * st, (j / kStages) & 1);
     wgmma_fence();
-    issue_ss<HD, kBN, G::kChunkR>(s, sQw, sK);
-    issue_ss<HD, kBN, G::kChunkR>(dp, sDOw, sV);
+    issue_ss<HD, kBN, G::kChunkR, kP, G::kResBytes, G::kTileBytes>(s, sQw, sK);
+    issue_ss<HD, kBN, G::kChunkR, kP, G::kResBytes, G::kTileBytes>(dp, sDOw, sV);
     if constexpr (kWG > 1) {
       // Refill the slot tile j - 1 used, once every warpgroup is done with
       // it: one tile late, so the refilling thread seldom waits.
@@ -421,13 +736,27 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
           p = 0.f;
         dp[x] = p * (dp[x] - rd[r]) * dfac;
       }
-    to_fragments<kBN>(dp, f_hi, f_lo);
-    wgmma_fence();
-    issue_rs<kBN, kOD>(dq, f_hi, f_lo, sK + dh * (kOD / 64) * G::kChunkN);
-    wgmma_wait<0>();
-    pin(dq);
-    pin(f_hi);
-    pin(f_lo);
+    to_fragments<kBN>(dp, f);
+    const uint32_t sKd = sK + dh * (kOD / 64) * G::kChunkN;
+    if constexpr (kP == 1) {
+      wgmma_fence();
+      issue_rs<kBN, kOD, kP, G::kTileBytes>(dq, f, sKd);
+      wgmma_wait<0>();
+      pin(dq);
+      pin(f);
+    } else {
+      // The tile's dQ terms in a fresh accumulator, added on the CUDA cores.
+      float t[kOD / 2];
+#pragma unroll
+      for (int i = 0; i < kOD / 2; ++i) t[i] = 0.f;
+      wgmma_fence();
+      issue_rs<kBN, kOD, kP, G::kTileBytes>(t, f, sKd);
+      wgmma_wait<0>();
+      pin(t);
+      pin(f);
+#pragma unroll
+      for (int i = 0; i < kOD / 2; ++i) dq[i] += t[i];
+    }
     if (tid == 0) mbar_arrive(bars + 8 * (kStages + st));
     if constexpr (kWG == 1) {
       // One warpgroup: the slot is free now.
@@ -440,11 +769,12 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   for (int e = 0; e < 2; ++e) {
     const int q = q0 + r0 + 8 * e;
     if (q < a.Sq) {
-      __nv_bfloat16* row = a.dq + ((static_cast<size_t>(b) * a.Sq + q) * a.H + h) * HD + kOD * dh + col2;
+      T* row = static_cast<T*>(a.dq) + ((static_cast<size_t>(b) * a.Sq + q) * a.H + h) * a.hd + kOD * dh + col2;
 #pragma unroll
-      for (int i = 0; i < kOD / 8; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(row + 8 * i) =
-            __floats2bfloat162_rn(dq[4 * i + 2 * e] * scale, dq[4 * i + 2 * e + 1] * scale);
+      for (int i = 0; i < kOD / 8; ++i) {
+        if (kOD * dh + 8 * i >= a.hd) break;  // the zero-filled columns past hd are not stored
+        store2(row + 8 * i, dq[4 * i + 2 * e] * scale, dq[4 * i + 2 * e + 1] * scale);
+      }
     }
   }
 }
@@ -453,21 +783,23 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
 // dK and dV: one CTA per (b * KV + kv, key tile of kR rows), summed over the group
 // ---------------------------------------------------------------------------
 
-template <int HD, bool kSoftcap>
-__global__ void __launch_bounds__(Geo<HD, kDkdv>::kThreads, Cfg<HD, kDkdv>::kCtas)
+template <int HD, bool kSoftcap, int kP>
+__global__ void __launch_bounds__(Geo<HD, kDkdv, kP>::kThreads, Cfg<HD, kDkdv, kP>::kCtas)
 fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                          const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap trec, const Params a) {
-  using G = Geo<HD, kDkdv>;
+  using G = Geo<HD, kDkdv, kP>;
+  using T = std::conditional_t<kP == 3, float, __nv_bfloat16>;
   constexpr int kBN = G::kBN, kR = G::kR, kOD = G::kOD, kStages = G::kStages, kWG = G::kWG;
   constexpr int kChunks = HD / 64;
+  constexpr int kF = kFrag<kP>;
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  const uint32_t sK = smem_u32(base);
-  const uint32_t sV = sK + G::kResBytes;
-  const uint32_t sRing = sV + G::kResBytes;  // stage st: Q at sRing + st kStageBytes, dO, the records
-  const uint32_t bars = sK + G::kBarOff;     // full[kStages], empty[kStages], res
+  const uint32_t sK = smem_u32(base);          // kP planes kResBytes apart
+  const uint32_t sV = sK + kP * G::kResBytes;
+  const uint32_t sRing = sV + kP * G::kResBytes;  // stage st: Q's planes, dO's, the records
+  const uint32_t bars = sK + G::kBarOff;          // full[kStages], empty[kStages], res
   const uint32_t resbar = bars + 16 * kStages;
 
   const int b = blockIdx.x / a.KV;
@@ -488,13 +820,15 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
     const int q0 = (t_lo + t % n_qt) * kBN;
     const uint32_t sQ = sRing + st * G::kStageBytes;
     const uint32_t full = bars + 8 * st;
-    mbar_expect_tx(full, 2 * G::kTileBytes + G::kRecBytes);
+    mbar_expect_tx(full, 2 * kP * G::kTileBytes + G::kRecBytes);
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      tma_load(sQ + c * G::kChunkN, &tq, 64 * c, h, q0, b, full);
-      tma_load(sQ + G::kTileBytes + c * G::kChunkN, &tdo, 64 * c, h, q0, b, full);
-    }
-    tma_load_2d(sQ + 2 * G::kTileBytes, &trec, q0, 3 * (b * a.H + h), full);
+    for (int p = 0; p < kP; ++p)
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(sQ + p * G::kTileBytes + c * G::kChunkN, &tq, 64 * c, h, q0, b + p * a.B, full);
+        tma_load(sQ + (kP + p) * G::kTileBytes + c * G::kChunkN, &tdo, 64 * c, h, q0, b + p * a.B, full);
+      }
+    tma_load_2d(sQ + 2 * kP * G::kTileBytes, &trec, q0, 3 * (b * a.H + h), full);
   };
 
   if (threadIdx.x == 0) {
@@ -504,12 +838,14 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
     }
     mbar_init(resbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(resbar, 2 * G::kResBytes);
+    mbar_expect_tx(resbar, 2 * kP * G::kResBytes);
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      tma_load(sK + c * G::kChunkR, &tk, 64 * c, kvh, k0, b, resbar);
-      tma_load(sV + c * G::kChunkR, &tv, 64 * c, kvh, k0, b, resbar);
-    }
+    for (int p = 0; p < kP; ++p)
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(sK + p * G::kResBytes + c * G::kChunkR, &tk, 64 * c, kvh, k0, b + p * a.B, resbar);
+        tma_load(sV + p * G::kResBytes + c * G::kChunkR, &tv, 64 * c, kvh, k0, b + p * a.B, resbar);
+      }
     for (int t = 0; t < min(kStages, n_tiles); ++t) issue_q(t, t);
   }
   __syncthreads();
@@ -525,14 +861,14 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
   const int r0 = 16 * (tid / 32) + lane / 4;
   const int col2 = 2 * (lane % 4);
   const int ka = k0 + 64 * rg;  // first key of the warpgroup
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.hd));  // the true head dim's
   const float scale2 = scale * kLog2e;
 
   float dk[kOD / 2], dv[kOD / 2];
 #pragma unroll
   for (int i = 0; i < kOD / 2; ++i) dk[i] = dv[i] = 0.f;
   float s[kBN / 2], dp[kBN / 2];
-  uint32_t p_hi[kBN / 16][4], p_lo[kBN / 16][4], d_hi[kBN / 16][4], d_lo[kBN / 16][4];
+  uint32_t pf[kF][kBN / 16][4], df[kF][kBN / 16][4];
   const uint32_t sKw = sK + 64 * 128 * rg;
   const uint32_t sVw = sV + 64 * 128 * rg;
 
@@ -541,12 +877,12 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
     const int st = t % kStages;
     const int q0 = (t_lo + t % n_qt) * kBN;
     const uint32_t sQ = sRing + st * G::kStageBytes;
-    const uint32_t sDO = sQ + G::kTileBytes;
-    const float* sst = reinterpret_cast<const float*>(base + (sQ + 2 * G::kTileBytes - smem_u32(base)));
+    const uint32_t sDO = sQ + kP * G::kTileBytes;
+    const float* sst = reinterpret_cast<const float*>(base + (sQ + 2 * kP * G::kTileBytes - smem_u32(base)));
     mbar_wait(bars + 8 * st, (t / kStages) & 1);
     wgmma_fence();
-    issue_ss<HD, kBN, G::kChunkR>(s, sKw, sQ);    // S^T = K Q^T
-    issue_ss<HD, kBN, G::kChunkR>(dp, sVw, sDO);  // dP^T = V dO^T
+    issue_ss<HD, kBN, G::kChunkR, kP, G::kResBytes, G::kTileBytes>(s, sKw, sQ);    // S^T = K Q^T
+    issue_ss<HD, kBN, G::kChunkR, kP, G::kResBytes, G::kTileBytes>(dp, sVw, sDO);  // dP^T = V dO^T
     if constexpr (kWG > 1) {
       // Refill the slot tile t - 1 used, once every warpgroup is done with
       // it: one tile late, so the refilling thread seldom waits.
@@ -566,7 +902,7 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
 
     // P^T and dS^T in one pass, straight into fragments: element pair (4 i +
     // 2 w, + 1) is word 2 (i % 2) + w of slab i / 2 (to_fragments' order),
-    // so each accumulator register dies as its fragment word is made.
+    // so each accumulator register dies as its fragment words are made.
 #pragma unroll
     for (int i = 0; i < kBN / 8; ++i) {
       const float2 mm = *reinterpret_cast<const float2*>(sst + 8 * i + col2);
@@ -583,20 +919,44 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
           if (edge && !visible(qp0 + 8 * i + col2 + c, ka + r0 + 8 * w, a.Skv, a.causal, a.window)) p[c] = 0.f;
           ds[c] = p[c] * (dp[x] - (c ? dd.y : dd.x)) * dfac;
         }
-        split_pair(p[0], p[1], p_hi[i / 2][2 * (i % 2) + w], p_lo[i / 2][2 * (i % 2) + w]);
-        split_pair(ds[0], ds[1], d_hi[i / 2][2 * (i % 2) + w], d_lo[i / 2][2 * (i % 2) + w]);
+        split_into(p[0], p[1], pf, i / 2, 2 * (i % 2) + w);
+        split_into(ds[0], ds[1], df, i / 2, 2 * (i % 2) + w);
       }
     }
-    wgmma_fence();
-    issue_rs<kBN, kOD>(dv, p_hi, p_lo, sDO + dh * (kOD / 64) * G::kChunkN);  // dV += P^T dO
-    issue_rs<kBN, kOD>(dk, d_hi, d_lo, sQ + dh * (kOD / 64) * G::kChunkN);   // dK += dS^T Q
-    wgmma_wait<0>();
-    pin(dk);
-    pin(dv);
-    pin(p_hi);
-    pin(p_lo);
-    pin(d_hi);
-    pin(d_lo);
+    const uint32_t col = dh * (kOD / 64) * G::kChunkN;
+    if constexpr (kP == 1) {
+      wgmma_fence();
+      issue_rs<kBN, kOD, kP, G::kTileBytes>(dv, pf, sDO + col);  // dV += P^T dO
+      issue_rs<kBN, kOD, kP, G::kTileBytes>(dk, df, sQ + col);   // dK += dS^T Q
+      wgmma_wait<0>();
+      pin(dk);
+      pin(dv);
+      pin(pf);
+      pin(df);
+    } else {
+      // Each product's tile terms in a fresh accumulator, added on the CUDA
+      // cores; one accumulator for both, in turn, to spare registers.
+      float tt[kOD / 2];
+#pragma unroll
+      for (int i = 0; i < kOD / 2; ++i) tt[i] = 0.f;
+      wgmma_fence();
+      issue_rs<kBN, kOD, kP, G::kTileBytes>(tt, pf, sDO + col);  // P^T dO
+      wgmma_wait<0>();
+      pin(tt);
+      pin(pf);  // P's fragments may die here, before dS's product
+#pragma unroll
+      for (int i = 0; i < kOD / 2; ++i) {
+        dv[i] += tt[i];
+        tt[i] = 0.f;
+      }
+      wgmma_fence();
+      issue_rs<kBN, kOD, kP, G::kTileBytes>(tt, df, sQ + col);   // dS^T Q
+      wgmma_wait<0>();
+      pin(tt);
+      pin(df);
+#pragma unroll
+      for (int i = 0; i < kOD / 2; ++i) dk[i] += tt[i];
+    }
     if (tid == 0) mbar_arrive(bars + 8 * (kStages + st));
     if constexpr (kWG == 1) {
       // One warpgroup: the slot is free now.
@@ -609,20 +969,19 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
   for (int e = 0; e < 2; ++e) {
     const int key = ka + r0 + 8 * e;
     if (key < a.Skv) {
-      const size_t off = ((static_cast<size_t>(b) * a.Skv + key) * a.KV + kvh) * HD + kOD * dh + col2;
+      const size_t off = ((static_cast<size_t>(b) * a.Skv + key) * a.KV + kvh) * a.hd + kOD * dh + col2;
 #pragma unroll
       for (int i = 0; i < kOD / 8; ++i) {
-        *reinterpret_cast<__nv_bfloat162*>(a.dk + off + 8 * i) =
-            __floats2bfloat162_rn(dk[4 * i + 2 * e] * scale, dk[4 * i + 2 * e + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(a.dv + off + 8 * i) =
-            __floats2bfloat162_rn(dv[4 * i + 2 * e], dv[4 * i + 2 * e + 1]);
+        if (kOD * dh + 8 * i >= a.hd) break;  // the zero-filled columns past hd are not stored
+        store2(static_cast<T*>(a.dk) + off + 8 * i, dk[4 * i + 2 * e] * scale, dk[4 * i + 2 * e + 1] * scale);
+        store2(static_cast<T*>(a.dv) + off + 8 * i, dv[4 * i + 2 * e], dv[4 * i + 2 * e + 1]);
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Host side: the two launches (tensor maps encoded as wgmma_common.cuh does)
+// Host side: the launches (tensor maps encoded as wgmma_common.cuh does)
 // ---------------------------------------------------------------------------
 
 // The row records (B * H * 3 rows of `pad` f32), boxes of `cols` x 3 rows.
@@ -634,33 +993,35 @@ int encode_rec(EncodeTiled fn, CUtensorMap* map, const float* ptr, int rows, int
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed;
+  return r == CUDA_SUCCESS ? 0 : refused(r, 2, dims, strides, box, ptr);
 }
 
+// q, k, v and dout as the body reads them: the bf16 tensors, or the f32
+// ones' bf16 planes (batch b of plane p at batch b + p B).
 struct Args {
   const void *q, *k, *v, *dout;
   Params p;
-  int B;
   cudaStream_t stream;
 };
 
 template <typename Kern, typename... Maps>
-int launch_one(Kern kernel, dim3 grid, int threads, uint32_t smem, const Params& p, cudaStream_t stream,
-               const Maps&... maps) {
+int launch_one(Kern kernel, dim3 grid, int threads, uint32_t smem, cudaStream_t stream, const Maps&... maps_then_args) {
   const cudaError_t cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                 static_cast<int>(smem));
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  kernel<<<grid, threads, smem, stream>>>(maps..., p);
+  kernel<<<grid, threads, smem, stream>>>(maps_then_args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+// The dQ kernel, then the dK/dV kernel.
+template <int HD, int kP>
 int launch(const Args& a) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return kNoEncoder;
-  using Q = Geo<HD, kDq>;
-  using KV = Geo<HD, kDkdv>;
+  EncodeTiled fn;
+  if (const int e = tensor_map_encoder(&fn)) return e;
+  using Q = Geo<HD, kDq, kP>;
+  using KV = Geo<HD, kDkdv, kP>;
   const Params& p = a.p;
+  const int nb = kP * p.B;  // the maps' batch extent: every plane
   const int n_q = (p.Sq + Q::kR - 1) / Q::kR;
   const int n_k = (p.Skv + KV::kR - 1) / KV::kR;
   if (n_q > 65535 || n_k > 65535) return kUnsupported;
@@ -668,68 +1029,146 @@ int launch(const Args& a) {
   // The dQ kernel: Q and dO resident (kR rows), K and V streamed (kBN); it
   // writes D, which the dK/dV kernel, launched after it, reads.
   CUtensorMap tq, tdo, tk, tv;
-  int err = encode(fn, &tq, a.q, a.B, p.Sq, p.H, HD, Q::kR);
-  if (err == 0) err = encode(fn, &tdo, a.dout, a.B, p.Sq, p.H, HD, Q::kR);
-  if (err == 0) err = encode(fn, &tk, a.k, a.B, p.Skv, p.KV, HD, Q::kBN);
-  if (err == 0) err = encode(fn, &tv, a.v, a.B, p.Skv, p.KV, HD, Q::kBN);
+  int err = encode(fn, &tq, a.q, nb, p.Sq, p.H, p.hd, Q::kR);
+  if (err == 0) err = encode(fn, &tdo, a.dout, nb, p.Sq, p.H, p.hd, Q::kR);
+  if (err == 0) err = encode(fn, &tk, a.k, nb, p.Skv, p.KV, p.hd, Q::kBN);
+  if (err == 0) err = encode(fn, &tv, a.v, nb, p.Skv, p.KV, p.hd, Q::kBN);
   if (err != 0) return err;
-  err = launch_one(cap ? fa_bwd_dq_wgmma_kernel<HD, true> : fa_bwd_dq_wgmma_kernel<HD, false>,
-                   dim3(a.B * p.H, n_q), Q::kThreads, Q::kBytes, p, a.stream, tq, tdo, tk, tv);
+  err = launch_one(cap ? fa_bwd_dq_wgmma_kernel<HD, true, kP> : fa_bwd_dq_wgmma_kernel<HD, false, kP>,
+                   dim3(p.B * p.H, n_q), Q::kThreads, Q::kBytes, a.stream, tq, tdo, tk, tv, p);
   if (err != 0) return err;
   // The dK/dV kernel: K and V resident (kR rows), Q, dO and the row
   // records streamed (kBN).
   CUtensorMap trec;
-  err = encode(fn, &tq, a.q, a.B, p.Sq, p.H, HD, KV::kBN);
-  if (err == 0) err = encode(fn, &tdo, a.dout, a.B, p.Sq, p.H, HD, KV::kBN);
-  if (err == 0) err = encode(fn, &tk, a.k, a.B, p.Skv, p.KV, HD, KV::kR);
-  if (err == 0) err = encode(fn, &tv, a.v, a.B, p.Skv, p.KV, HD, KV::kR);
-  if (err == 0) err = encode_rec(fn, &trec, p.rec, 3 * a.B * p.H, rec_pad(p.Sq), KV::kBN);
+  err = encode(fn, &tq, a.q, nb, p.Sq, p.H, p.hd, KV::kBN);
+  if (err == 0) err = encode(fn, &tdo, a.dout, nb, p.Sq, p.H, p.hd, KV::kBN);
+  if (err == 0) err = encode(fn, &tk, a.k, nb, p.Skv, p.KV, p.hd, KV::kR);
+  if (err == 0) err = encode(fn, &tv, a.v, nb, p.Skv, p.KV, p.hd, KV::kR);
+  if (err == 0) err = encode_rec(fn, &trec, p.rec, 3 * p.B * p.H, rec_pad(p.Sq), KV::kBN);
   if (err != 0) return err;
-  return launch_one(cap ? fa_bwd_dkdv_wgmma_kernel<HD, true> : fa_bwd_dkdv_wgmma_kernel<HD, false>,
-                    dim3(a.B * p.KV, n_k), KV::kThreads, KV::kBytes, p, a.stream, tq, tdo, tk, tv, trec);
+  return launch_one(cap ? fa_bwd_dkdv_wgmma_kernel<HD, true, kP> : fa_bwd_dkdv_wgmma_kernel<HD, false, kP>,
+                    dim3(p.B * p.KV, n_k), KV::kThreads, KV::kBytes, a.stream, tq, tdo, tk, tv, trec, p);
+}
+
+// The f32 body's scratch, in bytes, 256-byte aligned parts: q, k, v and dO
+// as three bf16 planes each, then the statistics (2, B * H * Sq) and the
+// row records, f32.
+struct Scratch {
+  size_t q, k, v, dout, stats, rec, bytes;
+};
+
+Scratch scratch_layout(int B, int Sq, int Skv, int H, int KV, int hd) {
+  auto up = [](size_t x) { return (x + 255) / 256 * 256; };
+  const size_t nq = static_cast<size_t>(B) * Sq * H * hd;
+  const size_t nk = static_cast<size_t>(B) * Skv * KV * hd;
+  Scratch s{};
+  s.q = 0;
+  s.k = s.q + up(3 * nq * 2);
+  s.v = s.k + up(3 * nk * 2);
+  s.dout = s.v + up(3 * nk * 2);
+  s.stats = s.dout + up(3 * nq * 2);
+  s.rec = s.stats + up(2 * static_cast<size_t>(B) * H * Sq * 4);
+  s.bytes = s.rec + up(3 * static_cast<size_t>(B) * H * rec_pad(Sq) * 4);
+  return s;
+}
+
+// The f32 body: the split, the statistics kernel, then launch<HD, 3>.
+template <int HD>
+int launch_f32(const float* q, const float* k, const float* v, const float* dout, uint8_t* scratch, Params p,
+               cudaStream_t stream) {
+  EncodeTiled fn;
+  if (const int e = tensor_map_encoder(&fn)) return e;
+  const Scratch sc = scratch_layout(p.B, p.Sq, p.Skv, p.H, p.KV, p.hd);
+  auto* pq = reinterpret_cast<__nv_bfloat16*>(scratch + sc.q);
+  auto* pk = reinterpret_cast<__nv_bfloat16*>(scratch + sc.k);
+  auto* pv = reinterpret_cast<__nv_bfloat16*>(scratch + sc.v);
+  auto* pdo = reinterpret_cast<__nv_bfloat16*>(scratch + sc.dout);
+  float* stats = reinterpret_cast<float*>(scratch + sc.stats);
+  p.m = stats;
+  p.l = stats + static_cast<size_t>(p.B) * p.H * p.Sq;
+  p.rec = reinterpret_cast<float*>(scratch + sc.rec);
+
+  const long long nq = static_cast<long long>(p.B) * p.Sq * p.H * p.hd;
+  const long long nk = static_cast<long long>(p.B) * p.Skv * p.KV * p.hd;
+  const SplitArgs sa{{q, k, v, dout}, {pq, pk, pv, pdo}, {nq, nk, nk, nq}};
+  const long long blocks = ((nq > nk ? nq : nk) / 8 + 255) / 256;
+  fa_bwd_split_kernel<<<dim3(static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16), 4), 256, 0, stream>>>(sa);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+
+  using Q = Geo<HD, kDq, 3>;
+  const int n_q = (p.Sq + Q::kR - 1) / Q::kR;
+  if (n_q > 65535) return kUnsupported;
+  CUtensorMap tq, tk;
+  err = encode(fn, &tq, pq, 3 * p.B, p.Sq, p.H, p.hd, Q::kR);
+  if (err == 0) err = encode(fn, &tk, pk, 3 * p.B, p.Skv, p.KV, p.hd, Q::kBN);
+  if (err != 0) return err;
+  err = launch_one(p.softcap > 0.f ? fa_bwd_stats_bf16x6_kernel<HD, true> : fa_bwd_stats_bf16x6_kernel<HD, false>,
+                   dim3(p.B * p.H, n_q), Q::kThreads, StatsGeo<HD>::kBytes, stream, tq, tk, p, stats);
+  if (err != 0) return err;
+  return launch<HD, 3>(Args{pq, pk, pv, pdo, p, stream});
+}
+
+bool bad_shape(int B, int Sq, int Skv, int H, int KV, int hd, int q_offset, int window, int max_hd) {
+  return B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H <= 0 || H % KV != 0 || q_offset < 0 || window < 0 ||
+         B * H > 65535 || hd <= 0 || hd % 8 != 0 || hd > max_hd;
 }
 
 }  // namespace
 
-// f32 elements of the row-record scratch a call needs.
+// f32 elements of the row-record scratch a bf16 call needs.
 extern "C" long long flash_attention_bwd_wgmma_scratch(int B, int H, int Sq) {
   return 3LL * B * H * rec_pad(Sq);
 }
 
-// bf16 q, k, v, o, dout and the three gradients; hd 64, 128 or 256; stats
-// is the forward's (2, B * H * Sq) f32 m and l, rec f32 scratch of
+// bf16 q, k, v, o, dout and the three gradients; hd a multiple of 8 up to
+// 256 (run at the next body width, zero-filled past hd); stats is the
+// forward's (2, B * H * Sq) f32 m and l, rec f32 scratch of
 // flash_attention_bwd_wgmma_scratch(B, H, Sq) elements; q, k, v, dout and
 // rec 16-byte aligned.  Two launches on `stream` (dQ with the row records,
 // then dK/dV); no synchronisation, no allocation.  Returns 0, a
 // cudaError_t, -1 for arguments the body does not take, -2 / -3 when no
-// cuTensorMapEncodeTiled is found / it refuses a map.
+// cuTensorMapEncodeTiled is found / it refuses a map, -4 when no context
+// can be made current on the calling thread.
 extern "C" int flash_attention_bwd_wgmma_launch(const void* q, const void* k, const void* v, const void* o,
                                                 const void* dout, const float* stats, float* rec, void* dq,
                                                 void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int hd,
                                                 int causal, int window, int q_offset, float softcap, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H <= 0 || H % KV != 0 || q_offset < 0 || window < 0 ||
-      B * H > 65535)
-    return kUnsupported;
+  if (bad_shape(B, Sq, Skv, H, KV, hd, q_offset, window, 256)) return kUnsupported;
   const size_t rows = static_cast<size_t>(B) * H * Sq;
-  const Params p{static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), stats, stats + rows,
-                 rec, static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
-                 static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, KV, causal, window, q_offset, softcap};
-  const Args a{q, k, v, dout, p, B, static_cast<cudaStream_t>(stream)};
-  switch (hd) {
-    case 64:
-      return launch<64>(a);
-    case 128:
-      return launch<128>(a);
-    case 256:
-      return launch<256>(a);
-    default:
-      return kUnsupported;
-  }
+  const Params p{o, dout, stats, stats + rows, rec, dq, dk, dv, B, Sq, Skv, H, KV, hd, causal, window, q_offset,
+                 softcap};
+  const Args a{q, k, v, dout, p, static_cast<cudaStream_t>(stream)};
+  return hd <= 64 ? launch<64, 1>(a) : hd <= 128 ? launch<128, 1>(a) : launch<256, 1>(a);
+}
+
+// Bytes of scratch an f32 call needs.
+extern "C" long long flash_attention_bwd_bf16x6_scratch(int B, int Sq, int Skv, int H, int KV, int hd) {
+  return static_cast<long long>(scratch_layout(B, Sq, Skv, H, KV, hd).bytes);
+}
+
+// f32 q, k, v, o, dout and the three gradients; hd a multiple of 8 up to
+// 128 (run at width 64 or 128, zero-filled past hd); scratch of
+// flash_attention_bwd_bf16x6_scratch(...) bytes, 256-byte aligned; every
+// pointer 16-byte aligned.  Four launches on `stream` (the split, the
+// statistics, dQ with the row records, dK/dV); no synchronisation, no
+// allocation.  Returns as flash_attention_bwd_wgmma_launch.
+extern "C" int flash_attention_bwd_bf16x6_launch(const float* q, const float* k, const float* v, const float* o,
+                                                 const float* dout, void* scratch, float* dq, float* dk, float* dv,
+                                                 int B, int Sq, int Skv, int H, int KV, int hd, int causal,
+                                                 int window, int q_offset, float softcap, void* stream) {
+  if (bad_shape(B, Sq, Skv, H, KV, hd, q_offset, window, 128)) return kUnsupported;
+  const Params p{o, dout, nullptr, nullptr, nullptr, dq, dk, dv, B, Sq, Skv, H, KV, hd, causal, window, q_offset,
+                 softcap};
+  auto* s = static_cast<uint8_t*>(scratch);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return hd <= 64 ? launch_f32<64>(q, k, v, dout, s, p, st) : launch_f32<128>(q, k, v, dout, s, p, st);
 }
 
 extern "C" const char* flash_attention_bwd_wgmma_error_string(int code) {
   if (code == kUnsupported) return "unsupported shape or dtype";
   if (code == kNoEncoder) return "no cuTensorMapEncodeTiled entry point";
-  if (code == kEncodeFailed) return "cuTensorMapEncodeTiled refused a tensor map";
+  if (code == kEncodeFailed) return g_encode_msg;
+  if (code == kNoContext) return "no CUDA context could be made current on the calling thread";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

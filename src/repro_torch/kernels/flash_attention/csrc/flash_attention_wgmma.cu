@@ -1,5 +1,16 @@
 // Flash attention forward for Hopper (sm_90a) on the tensor cores: the bf16
-// body of the long-prompt prefill (hd 64, 128 and 256).
+// body of the long-prompt prefill, at every head dim that is a multiple of 8
+// up to 256.  It is built at widths 64, 128 and 256 (HD) and a call runs at
+// the first width >= hd: the Q/K/V tensor maps carry the true hd as their
+// innermost extent, so TMA zero-fills each box's columns past it (as it
+// zero-fills the ragged key tail), zero columns add exactly 0 to every Q
+// K^T, the scale is the true hd's and only the true hd columns of O are
+// stored.  hd 32 runs at 64, kimi-k2's 112 at 128 (two 64-column boxes, the
+// second with 48 valid columns); a multiple of 8 keeps every row's stride a
+// multiple of 16 bytes, as TMA requires.  The padded products cost what
+// the width's do (hd 32 what hd 64 does); the CUDA-core body, which ran
+// these head dims before, fed f32 FMAs from shared memory at ~10x SDPA's
+// time.
 //
 // Replaces the Pallas TPU kernel flash_attention_kernel
 // (repro/kernels/flash_attention/kernel.py:106, body _flash_kernel) for bf16
@@ -252,8 +263,8 @@ template <int HD, bool kSoftcap, bool kStats>
 __global__ void __launch_bounds__(Smem<HD>::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                             float* __restrict__ stats, int Sq, int Skv, int H, int KV, int causal, int window,
-                             int q_offset, float softcap) {
+                             float* __restrict__ stats, int Sq, int Skv, int H, int KV, int hd, int causal,
+                             int window, int q_offset, float softcap) {
   constexpr int kStages = Cfg<HD>::kStages;
   constexpr int kBQ = Smem<HD>::kBQ;
   constexpr int kChunks = HD / 64;
@@ -332,7 +343,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __gri
     const int col2 = 2 * (lane % 4);
     const int qa = q_offset + q0 + 64 * rg;  // first query position of the warpgroup
     const int qb = qa + 63;                  // last
-    const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+    const float scale = 1.0f / sqrtf(static_cast<float>(hd));  // the true head dim's, not the body's width
     const float scale2 = scale * kLog2e;     // scores are kept in log2 units
 
     float o[kOD / 2];
@@ -412,9 +423,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __gri
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (row < Sq) {
-        __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * Sq + row) * H + h) * HD + kOD * dh + col2;
+        __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * Sq + row) * H + h) * hd + kOD * dh + col2;
 #pragma unroll
         for (int i = 0; i < kOD / 8; ++i) {
+          if (kOD * dh + 8 * i >= hd) break;  // the zero-filled columns past hd are not stored
           const __nv_bfloat162 v2 =
               __floats2bfloat162_rn(o[4 * i + 2 * r] / l[r], o[4 * i + 2 * r + 1] / l[r]);
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) = v2;
@@ -434,20 +446,22 @@ struct Args {
   const void* v;
   void* out;
   float* stats;
-  int B, Sq, Skv, H, KV, causal, window, q_offset;
+  int B, Sq, Skv, H, KV, hd, causal, window, q_offset;
   float softcap;
   cudaStream_t stream;
 };
 
 template <int HD>
 int launch(const Args& a) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return kNoEncoder;
+  EncodeTiled fn;
+  if (const int e = tensor_map_encoder(&fn)) return e;
   constexpr int kBQ = Smem<HD>::kBQ;
   CUtensorMap tq, tk, tv;
-  int err = encode(fn, &tq, a.q, a.B, a.Sq, a.H, HD, kBQ);
-  if (err == 0) err = encode(fn, &tk, a.k, a.B, a.Skv, a.KV, HD, kBKV);
-  if (err == 0) err = encode(fn, &tv, a.v, a.B, a.Skv, a.KV, HD, kBKV);
+  // The maps' innermost extent is the true hd: TMA zero-fills the box's
+  // columns past it, and zeros add exactly 0 to every product.
+  int err = encode(fn, &tq, a.q, a.B, a.Sq, a.H, a.hd, kBQ);
+  if (err == 0) err = encode(fn, &tk, a.k, a.B, a.Skv, a.KV, a.hd, kBKV);
+  if (err == 0) err = encode(fn, &tv, a.v, a.B, a.Skv, a.KV, a.hd, kBKV);
   if (err != 0) return err;
   const int n_qt = (a.Sq + kBQ - 1) / kBQ;
   if (n_qt > 65535) return kUnsupported;
@@ -461,40 +475,35 @@ int launch(const Args& a) {
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid(a.B * a.H, n_qt);
   kernel<<<grid, Smem<HD>::kThreads, Smem<HD>::kBytes, a.stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), a.stats, a.Sq, a.Skv, a.H, a.KV, a.causal, a.window,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), a.stats, a.Sq, a.Skv, a.H, a.KV, a.hd, a.causal, a.window,
       a.q_offset, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 q, k, v, out; hd 64, 128 or 256; every pointer 16-byte aligned;
+// bf16 q, k, v, out; hd a multiple of 8 up to 256 (run at the next body
+// width, 64, 128 or 256, zero-filled past hd); every pointer 16-byte aligned;
 // stats null, or f32 (2, B * H * Sq) for each row's m and l.  Returns 0, a
 // cudaError_t from the launch, -1 for arguments the body does not take, -2
-// / -3 when no cuTensorMapEncodeTiled is found / it refuses a map.
+// / -3 when no cuTensorMapEncodeTiled is found / it refuses a map, -4 when
+// no context can be made current on the calling thread.
 // Launches on `stream`, does not synchronise, allocates nothing.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* out, float* stats,
                                             int B, int Sq, int Skv, int H, int KV, int hd, int causal, int window,
                                             int q_offset, float softcap, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H <= 0 || H % KV != 0 || q_offset < 0 || window < 0)
     return kUnsupported;
-  const Args a{q, k, v, out, stats, B, Sq, Skv, H, KV, causal, window, q_offset, softcap,
+  if (hd <= 0 || hd % 8 != 0 || hd > 256) return kUnsupported;
+  const Args a{q, k, v, out, stats, B, Sq, Skv, H, KV, hd, causal, window, q_offset, softcap,
                static_cast<cudaStream_t>(stream)};
-  switch (hd) {
-    case 64:
-      return launch<64>(a);
-    case 128:
-      return launch<128>(a);
-    case 256:
-      return launch<256>(a);
-    default:
-      return kUnsupported;
-  }
+  return hd <= 64 ? launch<64>(a) : hd <= 128 ? launch<128>(a) : launch<256>(a);
 }
 
 extern "C" const char* flash_attention_wgmma_error_string(int code) {
   if (code == kUnsupported) return "unsupported shape or dtype";
   if (code == kNoEncoder) return "no cuTensorMapEncodeTiled entry point";
-  if (code == kEncodeFailed) return "cuTensorMapEncodeTiled refused a tensor map";
+  if (code == kEncodeFailed) return g_encode_msg;
+  if (code == kNoContext) return "no CUDA context could be made current on the calling thread";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

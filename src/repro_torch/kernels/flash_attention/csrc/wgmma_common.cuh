@@ -12,12 +12,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
 constexpr int kUnsupported = -1;
 constexpr int kNoEncoder = -2;     // no cuTensorMapEncodeTiled entry point
 constexpr int kEncodeFailed = -3;  // cuTensorMapEncodeTiled refused a tensor map
+constexpr int kNoContext = -4;     // no CUDA context could be made current on the calling thread
 // A wait on a barrier that never completes would hang the card; past this
 // many cycles (seconds) the kernel traps instead, and the launch reports it.
 constexpr long long kHangCycles = 20000000000LL;
@@ -114,7 +116,7 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16.  ss (N 32 or 64): A and B
 // from shared memory, both K-major (scale_d 0 overwrites the accumulator).
 // rs (N 64 or 128): A from registers, B MN-major from shared memory
-// (transpose bit set), accumulating.
+// (transpose bit set), accumulating (scale_d 0: overwriting).
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -142,7 +144,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
@@ -155,10 +157,10 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
@@ -177,7 +179,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 template <int N>
@@ -189,11 +191,15 @@ struct Wgmma<32> {
 template <>
 struct Wgmma<64> {
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int s) { wgmma_ss_n64(d, a, b, s); }
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n64(d, a, b); }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int s = 1) {
+    wgmma_rs_n64(d, a, b, s);
+  }
 };
 template <>
 struct Wgmma<128> {
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n128(d, a, b); }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int s = 1) {
+    wgmma_rs_n128(d, a, b, s);
+  }
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -209,23 +215,77 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
+// A driver entry point by name, or null.
+template <typename Fn>
+Fn driver_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult status;
 #if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &status);
 #else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+  const cudaError_t err = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &status);
 #endif
-    return (err == cudaSuccess && status == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
-                                                                         : nullptr;
-  }();
+  return (err == cudaSuccess && status == cudaDriverEntryPointSuccess) ? reinterpret_cast<Fn>(p) : nullptr;
+}
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = driver_fn<EncodeTiled>("cuTensorMapEncodeTiled");
   return fn;
 }
 
-// (B, S, heads, hd) bf16, boxes of 64 columns x 1 head x `rows` positions.
+// cuTensorMapEncodeTiled is a driver call and needs a current context
+// (else CUDA_ERROR_INVALID_CONTEXT).  A host thread that has made no
+// runtime call yet has none: autograd's device thread, when a backward's
+// first CUDA work is this kernel and the allocator serves its buffers from
+// cache.  Make the runtime device's primary context current, as a runtime
+// call would (as Triton's launcher does).
+int bind_context() {
+  using GetCurrent = CUresult (*)(CUcontext*);
+  using DeviceGet = CUresult (*)(CUdevice*, int);
+  using Retain = CUresult (*)(CUcontext*, CUdevice);
+  using SetCurrent = CUresult (*)(CUcontext);
+  static const GetCurrent get = driver_fn<GetCurrent>("cuCtxGetCurrent");
+  static const DeviceGet device_get = driver_fn<DeviceGet>("cuDeviceGet");
+  static const Retain retain = driver_fn<Retain>("cuDevicePrimaryCtxRetain");
+  static const SetCurrent set = driver_fn<SetCurrent>("cuCtxSetCurrent");
+  if (get == nullptr || device_get == nullptr || retain == nullptr || set == nullptr) return kNoContext;
+  CUcontext ctx = nullptr;
+  if (get(&ctx) == CUDA_SUCCESS && ctx != nullptr) return 0;
+  int ordinal = 0;
+  CUdevice dev;
+  if (cudaGetDevice(&ordinal) != cudaSuccess || device_get(&dev, ordinal) != CUDA_SUCCESS ||
+      retain(&ctx, dev) != CUDA_SUCCESS || set(ctx) != CUDA_SUCCESS)
+    return kNoContext;
+  return 0;
+}
+
+// The encoder, with a context current on this thread: 0, or an error code.
+int tensor_map_encoder(EncodeTiled* fn) {
+  *fn = encoder();
+  return *fn == nullptr ? kNoEncoder : bind_context();
+}
+
+// The last map cuTensorMapEncodeTiled refused, for the error string.
+char g_encode_msg[320] = "cuTensorMapEncodeTiled refused a tensor map";
+
+int refused(CUresult r, int rank, const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+            const void* ptr) {
+  char d[96], st[96], bx[64];
+  int nd = 0, ns = 0, nb = 0;
+  for (int i = 0; i < rank; ++i) {
+    nd += snprintf(d + nd, sizeof d - nd, "%s%llu", i ? " " : "", static_cast<unsigned long long>(dims[i]));
+    nb += snprintf(bx + nb, sizeof bx - nb, "%s%u", i ? " " : "", static_cast<unsigned>(box[i]));
+    if (i + 1 < rank)
+      ns += snprintf(st + ns, sizeof st - ns, "%s%llu", i ? " " : "", static_cast<unsigned long long>(strides[i]));
+  }
+  snprintf(g_encode_msg, sizeof g_encode_msg,
+           "cuTensorMapEncodeTiled refused a tensor map (CUresult %d): dims {%s}, byte strides {%s}, box {%s}, "
+           "address %p", static_cast<int>(r), d, st, bx, ptr);
+  return kEncodeFailed;
+}
+
+// (B, S, heads, hd) bf16, boxes of 64 columns x 1 head x `rows` positions;
+// a box's columns past hd (hd < 64 c + 64) and rows past S are zero-filled.
 int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
@@ -236,7 +296,7 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int S, int 
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed;
+  return r == CUDA_SUCCESS ? 0 : refused(r, 4, dims, strides, box, ptr);
 }
 
 }  // namespace

@@ -1,19 +1,22 @@
 """ctypes binding and launch wrappers of the three flash-attention forward
-bodies and of the two backward bodies.
+bodies and of the three backward bodies.
 
 ``body_for`` picks from the dtype and head dim alone; nothing retries on
 another body:
 
-* ``"wgmma"`` -- ``csrc/flash_attention_wgmma.cu``: bf16 at head dims 64,
-  128 and 256 on the tensor cores (wgmma, K/V fed by TMA);
+* ``"wgmma"`` -- ``csrc/flash_attention_wgmma.cu``: bf16 at head dims
+  that are multiples of 8 up to 256 on the tensor cores (wgmma, K/V fed by
+  TMA), built at widths 64, 128 and 256: a call runs at the first width
+  >= hd, the tensor maps zero-filling the columns past hd;
 * ``"tf32x3"`` -- ``csrc/flash_attention_tf32x3.cu``: f32 at head dims
   that are multiples of 8 up to 256 on the tensor cores (mma.sync) in
   error-compensated TF32.  One TF32 product keeps ~11 bits and misses the
   f32 bar (``atol`` 2e-5) by ~50x; splitting each operand as hi + lo and
   summing hi*hi + hi*lo + lo*hi in f32 keeps plain f32's error (~7e-7
   against ~1e-3 at the long prefill's shape);
-* ``"simt"`` -- ``csrc/flash_attention.cu``: the rest (other head dims, or
-  dtypes neither takes) on the CUDA cores in f32 FMAs.
+* ``"simt"`` -- ``csrc/flash_attention.cu``: the rest (head dims that are
+  not multiples of 8, or dtypes neither takes) on the CUDA cores in f32
+  FMAs.
 
 All five build into one library with ``nvcc`` at first use
 (``kernels/nvcc.py``).
@@ -33,12 +36,19 @@ output's gradient and returns dQ, dK and dV, with the same checks and
 guard.  ``bwd_body_for`` picks its body, as ``body_for`` does:
 
 * ``"wgmma"`` -- ``csrc/flash_attention_bwd_wgmma.cu``: bf16 at head dims
-  64, 128 and 256 on the tensor cores; it reads the forward's ``stats``
-  (required) and runs two device kernels (dQ with D = rowsum(dO * O), then
-  dK/dV summed over each KV head's group);
-* ``"simt"`` -- ``csrc/flash_attention_bwd.cu``: the rest (f32, other head
-  dims) on the CUDA cores, three device kernels (its own row statistics,
-  dK/dV, dQ); it takes no ``stats``.
+  that are multiples of 8 up to 256 on the tensor cores (zero-filled as the
+  forward); it reads the forward's ``stats`` (required) and runs two device
+  kernels (dQ with D = rowsum(dO * O), then dK/dV summed over each KV
+  head's group);
+* ``"bf16x6"`` -- the same body on f32 at head dims that are multiples of
+  8 up to 128, at f32 accuracy: each operand split into three bf16 planes
+  (hi, mid, lo) and each product run as six bf16 wgmmas; four device
+  kernels (the split, its own row statistics, dQ, dK/dV) over one scratch
+  buffer; it takes no ``stats``;
+* ``"simt"`` -- ``csrc/flash_attention_bwd.cu``: the rest (f32 at hd 136
+  to 256, head dims that are not multiples of 8) on the CUDA cores, three
+  device kernels (its own row statistics, dK/dV, dQ); it takes no
+  ``stats``.
 
 ``bwd_launch_count`` counts its calls, ``bwd_body_launch_count`` by body.
 """
@@ -57,14 +67,14 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu", _CSRC / "flash_attention_tf32x3.cu",
            _CSRC / "flash_attention_bwd.cu", _CSRC / "flash_attention_bwd_wgmma.cu")
 DTYPES = {torch.bfloat16: 1, torch.float32: 2}
-WGMMA_HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = 256
+BF16X6_MAX_HEAD_DIM = 128   # three planes of every tile fill shared memory past it
 MAX_GRID_Y = 65535
 
 launch_count: int = 0
 body_launch_count: dict = {"wgmma": 0, "tf32x3": 0, "simt": 0}
 bwd_launch_count: int = 0
-bwd_body_launch_count: dict = {"wgmma": 0, "simt": 0}
+bwd_body_launch_count: dict = {"wgmma": 0, "bf16x6": 0, "simt": 0}
 _lib = None
 
 
@@ -73,21 +83,29 @@ def flash_attention_launch_count() -> int:
 
 
 def body_for(dtype: torch.dtype, hd: int) -> str:
-    """The body a call takes: ``"wgmma"`` for bf16 at head dim 64, 128 or
-    256, ``"tf32x3"`` for f32 at a head dim that is a multiple of 8 up to
-    256 (both on the tensor cores), else ``"simt"`` (CUDA cores)."""
-    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
-        return "wgmma"
-    if dtype == torch.float32 and hd % 8 == 0 and hd <= MAX_HEAD_DIM:
-        return "tf32x3"
+    """The body a call takes at a head dim that is a multiple of 8 up to
+    256: ``"wgmma"`` for bf16, ``"tf32x3"`` for f32 (both on the tensor
+    cores); else ``"simt"`` (CUDA cores)."""
+    if hd % 8 == 0 and hd <= MAX_HEAD_DIM:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "tf32x3"
     return "simt"
 
 
 def bwd_body_for(dtype: torch.dtype, hd: int) -> str:
-    """The backward body a call takes: ``"wgmma"`` for bf16 at head dim 64,
-    128 or 256 (tensor cores, the forward's statistics), else ``"simt"``
-    (CUDA cores, its own statistics pass)."""
-    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "simt"
+    """The backward body a call takes at a head dim that is a multiple of
+    8: ``"wgmma"`` for bf16 up to 256 (tensor cores, the forward's
+    statistics), ``"bf16x6"`` for f32 up to 128 (tensor cores, six bf16
+    products an f32 one, its own statistics); else ``"simt"`` (CUDA cores,
+    its own statistics pass)."""
+    if hd % 8 == 0:
+        if dtype == torch.bfloat16 and hd <= MAX_HEAD_DIM:
+            return "wgmma"
+        if dtype == torch.float32 and hd <= BF16X6_MAX_HEAD_DIM:
+            return "bf16x6"
+    return "simt"
 
 
 def _library():
@@ -112,8 +130,15 @@ def _library():
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention_bwd_wgmma_scratch.argtypes = [ctypes.c_int] * 3
         lib.flash_attention_bwd_wgmma_scratch.restype = ctypes.c_longlong
+        # (q, k, v, o, dout, scratch, dq, dk, dv, B, Sq, Skv, H, KV, hd, causal, window, q_offset,
+        #  softcap, stream)
+        lib.flash_attention_bwd_bf16x6_launch.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_bwd_bf16x6_scratch.argtypes = [ctypes.c_int] * 6
+        lib.flash_attention_bwd_bf16x6_scratch.restype = ctypes.c_longlong
         for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch, lib.flash_attention_tf32x3_launch,
-                   lib.flash_attention_bwd_launch, lib.flash_attention_bwd_wgmma_launch):
+                   lib.flash_attention_bwd_launch, lib.flash_attention_bwd_wgmma_launch,
+                   lib.flash_attention_bwd_bf16x6_launch):
             fn.restype = ctypes.c_int
         for fn in (lib.flash_attention_error_string, lib.flash_attention_wgmma_error_string,
                    lib.flash_attention_tf32x3_error_string, lib.flash_attention_bwd_error_string,
@@ -214,8 +239,8 @@ def flash_attention_bwd(
 ):
     """dQ, dK and dV of ``flash_attention`` on the card, each in q's dtype;
     dK and dV of KV head ``kv`` sum over its query heads in the kernel.  The
-    wgmma body needs the forward's ``stats``; the CUDA-core body takes
-    none."""
+    wgmma body needs the forward's ``stats``; the bf16x6 and CUDA-core
+    bodies take none."""
     global bwd_launch_count
     runtime.forbid_grad("flash_attention_bwd", q, k, v, out, dout)
     _check_inputs(q, k, v, out, dout, q_offset=q_offset, window=window)
@@ -245,6 +270,18 @@ def flash_attention_bwd(
         err = lib.flash_attention_bwd_wgmma_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), stats.data_ptr(),
             rec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh, hd, *flags)
+        what = lib.flash_attention_bwd_wgmma_error_string
+    elif body == "bf16x6":
+        # The split reads q, k, v and dout 16 bytes at a time; o is read and
+        # the gradients written 8 at a time.
+        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout, dq, dk, dv)),
+               "bf16x6 backward: inputs must be 16-byte aligned")
+        # q, k, v and dout as bf16 planes, the row statistics and records.
+        scratch = torch.empty(lib.flash_attention_bwd_bf16x6_scratch(b, sq, skv, h, kvh, hd), dtype=torch.uint8,
+                              device=q.device)
+        err = lib.flash_attention_bwd_bf16x6_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), scratch.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh, hd, *flags)
         what = lib.flash_attention_bwd_wgmma_error_string
     else:
         scratch = torch.empty((3, b * h * sq), dtype=torch.float32, device=q.device)   # row max, row sum, D

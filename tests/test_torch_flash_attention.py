@@ -151,10 +151,10 @@ def test_blockwise_equals_kernel_function():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
 @pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256, 36, 264])
 def test_body_for(dtype, hd):
-    """Three bodies: bf16 at head dims 64, 128 and 256 takes the wgmma
-    body; f32 at a head dim that is a multiple of 8 up to 256 the 3xTF32
-    tensor-core body; everything else the CUDA cores."""
-    if dtype == "bfloat16" and hd in (64, 128, 256):
+    """Three bodies: at a head dim that is a multiple of 8 up to 256, bf16
+    takes the wgmma body (zero-filled up to its next width, 64, 128 or 256)
+    and f32 the 3xTF32 tensor-core body; everything else the CUDA cores."""
+    if dtype == "bfloat16" and hd % 8 == 0 and hd <= 256:
         want = "wgmma"
     elif dtype == "float32" and hd % 8 == 0 and hd <= 256:
         want = "tf32x3"
@@ -170,11 +170,20 @@ CHIP_GRID = GRID + [
     (300, 300, 256, True, 128, 0),
     (200, 200, 256, False, 0, 0),
     (300, 300, 128, True, 0, 0),
+    (300, 300, 112, True, 0, 0),      # kimi-k2's head dim: two 64-column boxes, the second zero-filled past 48
 ]
+# Head dims the body runs zero-filled at its next width, and that width.
+ZERO_FILL = {32: 64, 112: 128}
+
+
+def zero_fill(x, width):
+    """x padded with zero columns (the last axis) up to ``width``, as the
+    tensor maps fill a box past the tensor's true hd."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5   # one bf16 ulp of the f32 value, f32 noise
 
 
-def _emulate_wgmma_body(q, k, v, *, causal, window, q_offset, softcap, p_lo=True, stats=False):
+def _emulate_wgmma_body(q, k, v, *, causal, window, q_offset, softcap, p_lo=True, stats=False, width=None):
     """The tensor-core body's arithmetic in torch on the CPU: bf16 Q K^T
     summed in f32 over KV tiles of the body's 64 keys, scale, softcap and
     mask, the online softmax in f32, P split into bf16 hi and lo parts
@@ -182,15 +191,19 @@ def _emulate_wgmma_body(q, k, v, *, causal, window, q_offset, softcap, p_lo=True
     ``acc / max(l, 1e-20)`` rounded once to bf16.  ``stats=True`` also
     returns the rows' statistics as the body writes them for the backward:
     f32 (2, B * H * Sq), m in log2 units (-inf for a row that sees no key)
-    and l clamped to 1e-20."""
+    and l clamped to 1e-20.  ``width``: q, k and v zero-filled up to it, as
+    the body runs a head dim below its width; the scale stays the true
+    hd's and the output keeps the true hd columns."""
     b, sq, h, hd = q.shape
+    if width is not None:
+        q, k, v = (zero_fill(x, width) for x in (q, k, v))
     skv, g = k.shape[1], h // k.shape[2]
     bkv = 64
     qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
     scale = 1.0 / np.sqrt(hd)
     m = torch.full((b, h, sq), -1e30)
     l = torch.zeros((b, h, sq))
-    acc = torch.zeros((b, h, sq, hd))
+    acc = torch.zeros((b, h, sq, qf.shape[-1]))
     qp = q_offset + torch.arange(sq)
     for k0 in range(0, skv, bkv):
         kp = torch.arange(k0, min(k0 + bkv, skv))
@@ -211,7 +224,7 @@ def _emulate_wgmma_body(q, k, v, *, causal, window, q_offset, softcap, p_lo=True
         lo = (p - hi).bfloat16().float() if p_lo else torch.zeros_like(p)
         acc = acc * corr[..., None] + hi @ vf[:, :, k0:k0 + bkv] + lo @ vf[:, :, k0:k0 + bkv]
         m = m_new
-    out = (acc / torch.clamp(l, min=1e-20)[..., None]).transpose(1, 2).bfloat16()
+    out = (acc / torch.clamp(l, min=1e-20)[..., None]).transpose(1, 2)[..., :hd].bfloat16()
     if not stats:
         return out
     m2 = torch.where(m <= -1e30, -torch.inf, m * np.float32(np.log2(np.e)))
@@ -239,6 +252,25 @@ def test_wgmma_body_arithmetic_meets_the_bf16_bar(sq, skv, hd, causal, window, q
         assert _ulp_ratio(got, want32) <= 1.0, (softcap, _ulp_ratio(got, want32))
         np.testing.assert_allclose(got.float().numpy(), gqa_flash_attention_ref(q, k, v, **kw).float().numpy(),
                                    atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("sq,skv,hd,causal,window,q_offset",
+                         [c for c in CHIP_GRID if c[2] in ZERO_FILL] + [(130, 130, 32, False, 0, 0)])
+def test_wgmma_body_zero_filled_equals_true_width(sq, skv, hd, causal, window, q_offset, g):
+    """hd 32 and kimi-k2's 112 run on the wgmma body at widths 64 and 128,
+    the columns past hd zero-filled: zeros add exactly 0 to every Q K^T, so
+    the zero-filled arithmetic gives the bits of the same arithmetic at the
+    true width, and both meet the bf16 bar of phase 2."""
+    gen = torch.Generator().manual_seed(sq + hd + g)
+    mk = lambda *s: torch.randn(s, generator=gen).bfloat16()
+    q, k, v = mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd)
+    for softcap in (0.0, 30.0):
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        got, stats = _emulate_wgmma_body(q, k, v, width=ZERO_FILL[hd], stats=True, **kw)
+        want, want_stats = _emulate_wgmma_body(q, k, v, stats=True, **kw)
+        assert got.shape == q.shape and torch.equal(got, want) and torch.equal(stats, want_stats)
+        assert _ulp_ratio(got, gqa_flash_attention_ref(q.float(), k.float(), v.float(), **kw)) <= 1.0
 
 
 def test_wgmma_body_needs_p_lo():
@@ -467,7 +499,7 @@ def test_cuda_tf32x3_body_matches_plain(hd):
 
 
 @pytest.mark.usefixtures("hopper")
-@pytest.mark.parametrize("dtype,hd", [("float32", 36), ("float32", 20), ("bfloat16", 32)])
+@pytest.mark.parametrize("dtype,hd", [("float32", 36), ("float32", 20), ("bfloat16", 36)])
 def test_cuda_simt_body_takes_the_rest(dtype, hd):
     """Head dims neither tensor-core body takes run on the CUDA-core body."""
     gen = torch.Generator(device="cuda").manual_seed(hd)
@@ -478,3 +510,25 @@ def test_cuda_simt_body_takes_the_rest(dtype, hd):
     want = gqa_flash_attention_ref(q, k, v)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.usefixtures("hopper")
+@pytest.mark.parametrize("hd", sorted(ZERO_FILL))
+def test_cuda_wgmma_body_zero_filled(hd):
+    """bf16 at hd 32 and kimi-k2's 112 (64 query heads over 8 KV heads)
+    runs on the wgmma body, zero-filled to its next width (its counter
+    moves, the CUDA-core body's does not), within one bf16 ulp + 1e-5 of
+    the plain version in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    for b, sq, h, kvh, causal, window, q_offset, softcap in (
+            (2, 300, 4, 2, True, 0, 0, 0.0), (2, 300, 2, 2, True, 128, 0, 30.0), (2, 1, 4, 2, True, 128, 383, 0.0),
+            (2, 130, 2, 2, False, 0, 0, 0.0), (1, 1000, 64, 8, True, 0, 0, 0.0)):
+        skv = 384 if q_offset else sq
+        q, k, v = _cuda_case(gen, b, sq, skv, h, kvh, hd, torch.bfloat16)
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        before = dict(cuda_kernel.body_launch_count)
+        got = flash_attention(q, k, v, **kw)
+        assert cuda_kernel.body_launch_count == {**before, "wgmma": before["wgmma"] + 1}
+        want32 = gqa_flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and _ulp_ratio(got, want32) <= 1.0, (b, sq, h, kvh, kw)

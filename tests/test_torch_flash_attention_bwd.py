@@ -36,7 +36,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_ref,
     gqa_flash_attention_ref,
 )
-from test_torch_flash_attention import BF16_REL, CHIP_GRID, _emulate_wgmma_body  # noqa: E402
+from test_torch_flash_attention import BF16_REL, CHIP_GRID, ZERO_FILL, _emulate_wgmma_body, zero_fill  # noqa: E402
 
 # (sq, skv, hd, causal, window, q_offset): the forward tests' grid.
 GRID = [
@@ -236,15 +236,20 @@ def _hi_lo(x, lo=True):
     return hi, ((x - hi).bfloat16().float() if lo else torch.zeros_like(x))
 
 
-def _emulate_wgmma_bwd(q, k, v, out, dout, stats, *, causal, window, q_offset, softcap, lo=True):
+def _emulate_wgmma_bwd(q, k, v, out, dout, stats, *, causal, window, q_offset, softcap, lo=True, width=None):
     """The wgmma backward's arithmetic in torch on the CPU: bf16 operands,
     their products exact and summed in f32; p = exp2(x - m) * (1 / l) from
     the forward's statistics with the forward's score arithmetic (x = s *
     scale * log2(e), or tanh(s * scale / cap) * cap * log2(e)); D =
     rowsum(dO * O) in f32; dS = p (dP - D) (1 - t^2); dV, dK and dQ each
     from P or dS as bf16 hi + lo (``lo=False`` drops lo), dK and dV summed
-    over the group, scale applied to dK and dQ, each rounded once to bf16."""
+    over the group, scale applied to dK and dQ, each rounded once to bf16.
+    ``width``: the operands zero-filled up to it, as the body runs a head
+    dim below its width; the scale stays the true hd's and the gradients
+    keep the true hd columns."""
     b, sq, h, hd = q.shape
+    if width is not None:
+        q, k, v, out, dout = (zero_fill(x, width) for x in (q, k, v, out, dout))
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     f = lambda x: x.float().transpose(1, 2)                                   # (B, heads, S, hd)
@@ -270,8 +275,8 @@ def _emulate_wgmma_bwd(q, k, v, out, dout, stats, *, causal, window, q_offset, s
     dv = p_hi.transpose(-1, -2) @ dof + p_lo.transpose(-1, -2) @ dof
     dk = (ds_hi.transpose(-1, -2) @ qf + ds_lo.transpose(-1, -2) @ qf) * scale
     dq = (ds_hi @ kf + ds_lo @ kf) * scale
-    group = lambda y: y.reshape(b, kvh, g, skv, hd).sum(2).transpose(1, 2).bfloat16()
-    return dq.transpose(1, 2).bfloat16(), group(dk), group(dv)
+    group = lambda y: y.reshape(b, kvh, g, skv, -1).sum(2).transpose(1, 2)[..., :hd].bfloat16()
+    return dq.transpose(1, 2)[..., :hd].bfloat16(), group(dk), group(dv)
 
 
 def _bwd_bar_ratio(got, q, k, v, out, dout, kw):
@@ -344,12 +349,170 @@ def test_bwd_ref_with_the_forwards_stats(sq, skv, hd, causal, window, q_offset, 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
 @pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256, 36])
 def test_bwd_body_for(dtype, hd):
-    """Two backward bodies: bf16 at head dims 64, 128 and 256 takes the
-    wgmma body (the forward's wgmma body writes its statistics); every
-    other case the CUDA cores."""
-    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128, 256) else "simt"
+    """Three backward bodies: at a head dim that is a multiple of 8, bf16
+    up to 256 takes the wgmma body (the forward's wgmma body writes its
+    statistics) and f32 up to 128 the same body in six bf16 products
+    ("bf16x6"); every other case the CUDA cores."""
+    if dtype == "bfloat16" and hd % 8 == 0 and hd <= 256:
+        want = "wgmma"
+    elif dtype == "float32" and hd % 8 == 0 and hd <= 128:
+        want = "bf16x6"
+    else:
+        want = "simt"
     assert cuda_kernel.bwd_body_for(getattr(torch, dtype), hd) == want
-    assert set(cuda_kernel.bwd_body_launch_count) == {"wgmma", "simt"}
+    assert set(cuda_kernel.bwd_body_launch_count) == {"wgmma", "bf16x6", "simt"}
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("sq,skv,hd,causal,window,q_offset", [c for c in CHIP_GRID if c[2] in ZERO_FILL])
+def test_wgmma_bwd_zero_filled_equals_true_width(sq, skv, hd, causal, window, q_offset, g):
+    """bf16 at hd 32 and kimi-k2's 112 runs on the wgmma backward at widths
+    64 and 128, zero-filled past hd, fed the zero-filled forward's output
+    and statistics: zeros add exactly 0 to every product, so the gradients
+    are the bits of the same arithmetic at the true width, within the bf16
+    bar of phase 2."""
+    q, k, v, do = _bf16_case(sq + skv + hd + g, sq, skv, hd, g)
+    for softcap in (0.0, 30.0):
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        out, stats = _emulate_wgmma_body(q, k, v, stats=True, width=ZERO_FILL[hd], **kw)
+        got = _emulate_wgmma_bwd(q, k, v, out, do, stats, width=ZERO_FILL[hd], **kw)
+        want = _emulate_wgmma_bwd(q, k, v, out, do, stats, **kw)
+        assert all(a.shape == w.shape and torch.equal(a, w) for a, w in zip(got, want))
+        assert max(_bwd_bar_ratio(got, q, k, v, out, do, kw)) <= 1.0, softcap
+
+
+# ---------------------------------------------------------------------------
+# The f32 tensor-core backward (the same body in six bf16 products), emulated
+# ---------------------------------------------------------------------------
+
+# The plane pairs (A, B) of a product, in the body's order: the small ones
+# first, hi * hi last.  Six: mid mid, hi lo, lo hi, hi mid, mid hi, hi hi;
+# three keep hi mid, mid hi and hi hi alone.
+PAIRS6 = ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0))
+PAIRS3 = ((0, 1), (1, 0), (0, 0))
+BWD_PATH_FACTOR = 2.0   # chip_smoke.py's bar for the backward kernel on the training path
+
+
+def _planes(x):
+    """f32 x as three bf16 planes (as f32 tensors): hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid), the differences exact."""
+    hi = x.bfloat16().float()
+    mid = (x - hi).bfloat16().float()
+    return hi, mid, (x - hi - mid).bfloat16().float()
+
+
+def _mm_planes(a, b, pairs):
+    """``a @ b`` as the f32 body forms it: bf16 plane products (exact in
+    f32) summed in f32, the small pairs first, then hi * hi."""
+    pa, pb = _planes(a), _planes(b)
+    small = torch.zeros(())
+    for i, j in pairs[:-1]:
+        small = small + pa[i] @ pb[j]
+    return small + pa[pairs[-1][0]] @ pb[pairs[-1][1]]
+
+
+def _emulate_bf16x6_bwd(q, k, v, out, dout, *, causal, window, q_offset, softcap, pairs=PAIRS6):
+    """The f32 backward body's arithmetic in torch on the CPU: every product
+    in bf16 planes (``pairs``; six by default), its own row statistics from
+    that S (m in log2 units over the visible keys, l = sum exp2(x - m)), p
+    = exp2(x - m) * (1 / l), D = rowsum(dO * O) in f32, dS = p (dP - D) (1
+    - t^2), dV, dK and dQ in planes too, dK and dV summed over the group.
+    exp2 is taken in f64 and rounded to f32, so no f32 ``torch.exp`` runs
+    here (ROADMAP fault C2)."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    f = lambda x: x.float().transpose(1, 2)
+    qf, of, dof = f(q), f(out), f(dout)
+    kf, vf = f(k).repeat_interleave(g, 1), f(v).repeat_interleave(g, 1)
+    mm = lambda a, c: _mm_planes(a, c, pairs)
+    exp2 = lambda x: torch.exp2(x.double()).float()
+    scale = np.float32(1.0 / np.sqrt(np.float32(hd)))
+    log2e = np.float32(np.log2(np.e))
+    s = mm(qf, kf.transpose(-1, -2))
+    t = torch.tanh(s * scale / softcap) if softcap > 0 else torch.zeros_like(s)
+    x = t * softcap * log2e if softcap > 0 else s * (scale * log2e)
+    qp = q_offset + torch.arange(sq)[:, None]
+    kp = torch.arange(skv)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        ok &= kp <= qp
+    if window > 0:
+        ok &= qp - kp < window
+    m = torch.where(ok, x, -torch.inf).amax(-1, keepdim=True)
+    m = torch.where(torch.isinf(m), 0.0, m)
+    e = torch.where(ok, exp2(x - m), 0.0)
+    p = e * (1.0 / torch.clamp(e.sum(-1, keepdim=True), min=1e-20))
+    d = (dof * of).sum(-1, keepdim=True)
+    ds = p * (mm(dof, vf.transpose(-1, -2)) - d) * (1 - t * t)
+    dv = mm(p.transpose(-1, -2), dof)
+    dk = mm(ds.transpose(-1, -2), qf) * scale
+    dq = mm(ds, kf) * scale
+    group = lambda y: y.reshape(b, kvh, g, skv, hd).sum(2).transpose(1, 2)
+    return dq.transpose(1, 2), group(dk), group(dv)
+
+
+def _f32_bar_ratios(got, q, k, v, out, dout, kw):
+    """Each gradient's max error against the plain backward in f64, over the
+    plain backward's own f32 max error against f64 (phase 2's f32 bar)."""
+    w32 = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    w64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, dout)), **kw)
+    return [float((a.double() - x64).abs().max()) / float((x32.double() - x64).abs().max())
+            for a, x32, x64 in zip(got, w32, w64)]
+
+
+def _f32_case(seed, b, sq, skv, h, kvh, hd):
+    gen = torch.Generator().manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen)
+    return mk(b, sq, h, hd), mk(b, skv, kvh, hd), mk(b, skv, kvh, hd), mk(b, sq, h, hd)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("sq,skv,hd,causal,window,q_offset", [c for c in CHIP_GRID if c[2] <= 128])
+def test_bf16x6_bwd_arithmetic_meets_the_f32_bar(sq, skv, hd, causal, window, q_offset, g):
+    """The f32 design shown on the CPU: six bf16 products a product, fed
+    the plain forward's output, keeps dQ, dK and dV within
+    ``BWD_F32_FACTOR`` x the plain backward's own f32 error against f64,
+    the bar phase 2 of chip_smoke.py holds the kernel to, over phase 2's
+    grid at the body's head dims, G 1 and 2, softcap 0 and 30."""
+    q, k, v, do = _f32_case(sq + skv + hd + g, 2, sq, skv, 2 * g, 2, hd)
+    for softcap in (0.0, 30.0):
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        out = gqa_flash_attention_ref(q, k, v, **kw)
+        ratios = _f32_bar_ratios(_emulate_bf16x6_bwd(q, k, v, out, do, **kw), q, k, v, out, do, kw)
+        assert max(ratios) <= BWD_F32_FACTOR, (softcap, ratios)
+
+
+# The training path's attention (B 4, H = KV = 16, hd 64, S 1024, causal),
+# cut for the CPU: B 1, H = KV = 2, S 256.
+TRAIN_CPU = (1, 256, 2, 64)
+
+
+def test_bf16x6_bwd_meets_the_path_bar():
+    """At the training path's attention shape, cut for the CPU, the six
+    products keep each gradient within ``BWD_PATH_FACTOR`` (2.0) of the
+    plain backward's f32 error against f64: f32 accuracy, not just 8x."""
+    b, s, h, hd = TRAIN_CPU
+    q, k, v, do = _f32_case(21, b, s, s, h, h, hd)
+    out = gqa_flash_attention_ref(q, k, v)
+    ratios = _f32_bar_ratios(_emulate_bf16x6_bwd(q, k, v, out, do, causal=True, window=0, q_offset=0, softcap=0.0),
+                             q, k, v, out, do, {})
+    assert max(ratios) <= BWD_PATH_FACTOR, ratios
+
+
+def test_bf16x6_bwd_needs_the_second_order_terms():
+    """The check has teeth: three products (hi hi, hi mid, mid hi) drop hi
+    lo, lo hi and mid mid, of order 2**-16, and on the same inputs, where
+    six meet the path bar, every gradient misses it and dQ misses phase 2's
+    8x too (dV least: its plain f32 error is mostly P's, carried from S)."""
+    b, s, h, hd = TRAIN_CPU
+    q, k, v, do = _f32_case(21, b, s, s, h, h, hd)
+    out = gqa_flash_attention_ref(q, k, v)
+    kw = dict(causal=True, window=0, q_offset=0, softcap=0.0)
+    six = _f32_bar_ratios(_emulate_bf16x6_bwd(q, k, v, out, do, **kw), q, k, v, out, do, {})
+    three = _f32_bar_ratios(_emulate_bf16x6_bwd(q, k, v, out, do, pairs=PAIRS3, **kw), q, k, v, out, do, {})
+    assert max(six) <= BWD_PATH_FACTOR, six
+    assert min(three) > BWD_PATH_FACTOR and max(three) > 2 * BWD_F32_FACTOR, three
 
 
 def test_function_cpu_saves_no_stats():
@@ -495,3 +658,99 @@ def test_cuda_function_bf16_uses_the_forwards_stats():
     assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
     with torch.no_grad():
         assert flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.usefixtures("hopper")
+@pytest.mark.parametrize("hd", sorted(ZERO_FILL))
+def test_cuda_wgmma_bwd_zero_filled(hd):
+    """bf16 at hd 32 and kimi-k2's 112 runs the wgmma backward, zero-filled
+    to its next width, on the forward's statistics (its counter moves, the
+    CUDA-core body's does not), within the bf16 bar of the plain backward
+    in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    for b, sq, h, kvh, causal, window, q_offset, softcap in (
+            (2, 300, 4, 2, True, 0, 0, 0.0), (2, 300, 2, 2, True, 128, 0, 30.0), (2, 1, 4, 2, True, 128, 383, 0.0),
+            (2, 130, 2, 2, False, 0, 0, 0.0), (1, 1024, 64, 8, True, 0, 0, 0.0)):
+        skv = 384 if q_offset else sq
+        mk = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+        q, k, v, do = mk(b, sq, h, hd), mk(b, skv, kvh, hd), mk(b, skv, kvh, hd), mk(b, sq, h, hd)
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        out, stats = _forward_for_bwd(q, k, v, kw)
+        before = dict(cuda_kernel.bwd_body_launch_count)
+        got = cuda_kernel.flash_attention_bwd(q, k, v, out, do, stats=stats, **kw)
+        assert cuda_kernel.bwd_body_launch_count == {**before, "wgmma": before["wgmma"] + 1}
+        torch.cuda.synchronize()
+        assert all(a.shape == t.shape for a, t in zip(got, (q, k, v)))
+        ratios = _bwd_bar_ratio(got, q, k, v, out, do, kw)
+        assert max(ratios) <= 1.0, (b, sq, h, kvh, kw, ratios)
+
+
+@pytest.mark.usefixtures("hopper")
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
+def test_cuda_bf16x6_bwd_matches_plain(hd):
+    """f32 at hd 32 / 64 / 112 / 128 runs the six-product tensor-core
+    backward (its counter moves, no other does), each gradient within
+    ``BWD_F32_FACTOR`` x the plain backward's own f32 error against f64, and
+    a second call gives the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(100 + hd)
+    for sq, skv, g, causal, window, q_offset, softcap in (
+            (300, 300, 2, True, 0, 0, 0.0), (300, 300, 1, True, 128, 0, 30.0), (1, 384, 2, True, 128, 383, 0.0),
+            (130, 130, 1, False, 0, 0, 0.0), (1000, 1000, 2, True, 0, 0, 0.0), (70, 200, 1, True, 40, 100, 0.0)):
+        mk = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        q, k, v, do = mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd), mk(2, sq, 2 * g, hd)
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        out, stats = _forward_for_bwd(q, k, v, kw)
+        assert stats is None
+        before = dict(cuda_kernel.bwd_body_launch_count)
+        got = cuda_kernel.flash_attention_bwd(q, k, v, out, do, **kw)
+        assert cuda_kernel.bwd_body_launch_count == {**before, "bf16x6": before["bf16x6"] + 1}
+        again = cuda_kernel.flash_attention_bwd(q, k, v, out, do, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        ratios = _f32_bar_ratios(got, q, k, v, out, do, kw)
+        assert max(ratios) <= BWD_F32_FACTOR, (sq, skv, g, kw, ratios)
+
+
+@pytest.mark.usefixtures("hopper")
+def test_cuda_tensor_map_kernels_on_a_fresh_thread():
+    """A host thread that has made no CUDA call has no current context, as
+    autograd's device thread may not when a backward's first CUDA work is
+    the kernel and the allocator serves from cache; the tensor-map encoder
+    then failed with CUDA_ERROR_INVALID_CONTEXT.  The TMA bodies' C entry
+    points, called first thing on a new thread with buffers made on this
+    one, bind the device's context and give this thread's bits."""
+    import threading
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, s, h, kvh, hd = 2, 300, 4, 2, 64
+    bf = lambda *sh: torch.randn(sh, generator=gen, device="cuda").bfloat16()
+    q, k, v, do = bf(b, s, h, hd), bf(b, s, kvh, hd), bf(b, s, kvh, hd), bf(b, s, h, hd)
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True)
+    out32 = cuda_kernel.flash_attention(q32, k32, v32)
+    want = (cuda_kernel.flash_attention(q, k, v), *cuda_kernel.flash_attention_bwd(q, k, v, out, do, stats=stats),
+            *cuda_kernel.flash_attention_bwd(q32, k32, v32, out32, do32))
+    lib = cuda_kernel._library()
+    rec = torch.empty(lib.flash_attention_bwd_wgmma_scratch(b, h, s), dtype=torch.float32, device="cuda")
+    scratch = torch.empty(lib.flash_attention_bwd_bf16x6_scratch(b, s, s, h, kvh, hd), dtype=torch.uint8,
+                          device="cuda")
+    got = [torch.empty_like(x) for x in want]
+    stream = torch.cuda.current_stream().cuda_stream
+    torch.cuda.synchronize()
+    dims, flags = (b, s, s, h, kvh, hd), (1, 0, 0, 0.0, stream)
+    errs = []
+
+    def run():
+        ptr = lambda x: x.data_ptr()
+        errs.append(lib.flash_attention_wgmma_launch(ptr(q), ptr(k), ptr(v), ptr(got[0]), None, *dims, *flags))
+        errs.append(lib.flash_attention_bwd_wgmma_launch(
+            ptr(q), ptr(k), ptr(v), ptr(out), ptr(do), ptr(stats), ptr(rec), *map(ptr, got[1:4]), *dims, *flags))
+        errs.append(lib.flash_attention_bwd_bf16x6_launch(
+            ptr(q32), ptr(k32), ptr(v32), ptr(out32), ptr(do32), ptr(scratch), *map(ptr, got[4:]), *dims, *flags))
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert errs == [0, 0, 0], [lib.flash_attention_bwd_wgmma_error_string(e).decode() for e in errs]
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
