@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one H100: builds the kernels,
-holds each (the six kernels, flash attention's three bodies and its three
-backward bodies among them) against its plain PyTorch version on the card, serves
+holds each (the six kernels, flash attention's forward and backward bodies
+among them, and the CUDA-core flash-attention bodies kept as timing
+baselines) against its plain PyTorch version on the card, serves
 the full-width qwen1.5-0.5b split LM through ``generate_reference``, through
 the continuous-batching engine (contiguous and paged pools), through
 ``lm.forward`` with the link kernels (``LinkSpec(use_kernel=True)``) and
@@ -19,9 +20,9 @@ Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
      together, then a link a library), and print the split-decode, merge,
      egress, burst-mask, wgmma (with and without row statistics), tf32x3,
-     the CUDA-core backward's three and the tensor-core backward's four
-     kernels' (dQ and dK/dV of both modes, the f32 split and statistics)
-     registers and spills;
+     bf16x6 forward, the CUDA-core backward's three and the tensor-core
+     backward's kernels' (dQ and dK/dV of both modes, the f32 split and
+     statistics, the f32 slab kernels past hd 128) registers and spills;
   2. flash decode vs ``flash_decode_ref`` at the main path's head shapes
      (B 4, KV 16, G 1, hd 64, C 64 and 1024), gemma3's (KV 8, G 2, hd 256)
      and B 1 at C 4096, bf16 / int8 / f32 caches, softcap 0 and 30; caches
@@ -51,19 +52,22 @@ Phases (any failure raises and the script exits non-zero):
      q_offset 383, a window, non-causal, ragged 200 at hd 32), Sq 1000, hd
      256, a causal ragged hd 128, kimi-k2's hd 112 and hd 36, GQA G 1 and 2,
      softcap 0 and 30, f32 (atol 2e-5) and bf16 (2e-2, and one bf16 ulp of
-     the f32 plain value), each case on the body ``body_for`` names (at hd
-     a multiple of 8, bf16 on the wgmma body -- hd 32 and 112 zero-filled
-     to 64 and 128 -- and f32 on the 3xTF32 body; hd 36 on the CUDA cores;
-     per-body counters, every body given cases); the flash-attention
-     backward vs ``flash_attention_bwd_ref`` over the same grid (dQ, dK, dV
-     each; f32 within ``BWD_F32_FACTOR`` x the plain backward's own
-     f32-vs-f64 error, bf16 within one bf16 ulp of the plain backward in
-     f32 plus that factor x its noise), each case on the body
-     ``bwd_body_for`` names (at hd a multiple of 8, bf16 on the wgmma
-     backward, fed the forward kernel's row statistics, and f32 up to hd
-     128 on the same body in six bf16 products a product, "bf16x6"; f32 at
-     hd 256 and hd 36 on the CUDA cores; per-body counters) and equal bit
-     for bit on a second call;
+     the f32 plain value), each case on the body ``body_for`` names (bf16
+     on the wgmma body -- hd 32 and 112 zero-filled to 64 and 128 by the
+     maps, hd 36 to 40 by the wrapper -- and f32 on the 3xTF32 body; f32
+     up to hd 128 also with row statistics on the bf16x6 body, against the
+     plain version in f64 and its statistics, bit-equal on a second call;
+     per-body counters, none on the CUDA cores); the CUDA-core bodies,
+     launched directly, at hd 36 bf16; the flash-attention backward vs
+     ``flash_attention_bwd_ref`` over the same grid (dQ, dK, dV each; f32
+     within ``BWD_F32_FACTOR`` x the plain backward's own f32-vs-f64 error,
+     bf16 within one bf16 ulp of the plain backward in f32 plus that factor
+     x its noise), each case on the body ``bwd_body_for`` names (bf16 on
+     the wgmma backward, fed the forward kernel's row statistics; f32 on
+     the same body in six bf16 products a product, "bf16x6", fed the bf16x6
+     forward's statistics up to hd 128 and at hd 256 on its own statistics
+     and the slab kernels; per-body counters, none on the CUDA cores) and
+     equal bit for bit on a second call;
      the SSM scan vs ``ssm_scan_ref`` bit for bit at T 1 / 100 / 300 x D 1
      / 130 / 512;
   3. threefry link masks (iid, Gilbert–Elliott) drawn on the card equal
@@ -129,33 +133,39 @@ Phases (any failure raises and the script exits non-zero):
      body;
  12. the SSM scan through its entry point at a jamba mamba layer's state
      (1 x 512 x 131,072 f32), equal to the plain version; the
-     flash-attention entry point forward and backward (bf16, B 2, S 1000,
-     gradients through ``FlashAttentionFunction``): hd 32 and kimi-k2's hd
-     112 (H 64, KV 8) on the wgmma bodies, hd 36 on the CUDA-core bodies
-     (no model has a head dim the tensor-core bodies refuse), each held to
-     the plain versions; flash-attention times beside SDPA at the slice's
-     shape (B 2, H 16, hd 64, S 1000, causal) in bf16 (wgmma body) and f32
-     (3xTF32 body, the bound at both the 3xTF32 and the CUDA-core rate), at
-     hd 36 (CUDA-core body), at gemma3's local layer (KV 8, G 2, hd 256, S
+     flash-attention entry point forward and backward (gradients through
+     ``FlashAttentionFunction``), every run on the tensor cores with no
+     CUDA-core launch: B 2, S 1000, bf16 hd 32 and kimi-k2's hd 112 (H 64,
+     KV 8) on the wgmma bodies, hd 36 bf16 (wgmma) and f32 (bf16x6) zero-
+     filled by the wrapper, and f32 at gemma3-12b's local layer (the
+     3xTF32 forward, the slab backward), each held to the plain versions;
+     flash-attention times beside SDPA at the slice's shape (B 2, H 16, hd
+     64, S 1000, causal) in bf16 (wgmma body) and f32 (3xTF32 body, the
+     bound at both the 3xTF32 and the CUDA-core rate), f32 at the training
+     shape (B 4, S 1024) on the bf16x6 body beside the 3xTF32 one, at hd 36
+     (wgmma, zero-filled), at gemma3's local layer (KV 8, G 2, hd 256, S
      2048, window 1024), at hd 32 and at kimi-k2's heads (hd 112, and hd
-     128 beside it) -- each tensor-core body with the CUDA-core body's time
-     by a direct launch --, the scan's time, plain times and bounds;
+     128 beside it) -- each with the CUDA-core body's time by a direct
+     launch --, the scan's time, plain times and bounds;
  13. COMtune fine-tuning of full-width qwen1.5-0.5b (``run_training``):
      ``launch.train.train`` in bf16 (batch 4 x seq 1024, dropout 0.2, the
      8-bit STE, 8 steps; 24 x 8 forward and 24 x 8 backward flash-attention
      launches, the backward all on the wgmma body); the f32 oracle check
      against naive attention in f32 and f64 (batch 2: gradients of step 1
-     and per-token losses of 4 steps; 24 x 4 backward launches on the f32
-     tensor-core body, bf16x6, and an f32 step of that shape timed); the
+     and per-token losses of 4 steps within ``F32_PATH_FACTOR`` 2.0; 24 x 4
+     forward and 24 x 4 backward launches on the bf16x6 bodies, three
+     device kernels a backward call by a profiler trace, and an f32 step of
+     that shape timed); the
      Gilbert–Elliott train link through the burst-mask kernel (3 steps, a
      launch a step); a bf16 step's time and its forward / backward /
      optimizer / link split; the backward's time at the training shape
-     (bf16 on the wgmma body, f32 on the bf16x6 body, each with the
-     CUDA-core body's by a direct launch; f32 logs the kernel's and SDPA's
-     gradients in units of the naive f32 noise), at hd 36 (CUDA cores), at
-     bf16 hd 32 and at kimi-k2's heads (hd 112 and 128, S 1024) beside
-     SDPA's backward (graph replay), its plain version and its bound (10 hd
-     flops a visible pair).
+     (bf16 on the wgmma body, f32 on the bf16x6 body with the forward's
+     statistics, each with the CUDA-core body's by a direct launch; f32
+     logs the kernel's and SDPA's gradients in units of the naive f32
+     noise), at hd 36 (wgmma, zero-filled), f32 at gemma3-12b's local and
+     global layers (the slab kernels), at bf16 hd 32 and at kimi-k2's heads
+     (hd 112 and 128, S 1024) beside SDPA's backward (graph replay), its
+     plain version and its bound (10 hd flops a visible pair).
 Phases 9-13 run after phase 3, ahead of the profiled phases 5 and 7; last,
 torch.profiler traces, each in a process of its own (``--bwd-split``),
 split the tensor-core backward's time at the training shape between its
@@ -1106,7 +1116,7 @@ def _zero_counts():
 
     fd.launch_count = fd.paged_launch_count = ll.egress_launch_count = ll.burst_launch_count = 0
     fa.launch_count = fa.bwd_launch_count = ss.launch_count = 0
-    fa.body_launch_count.update(wgmma=0, tf32x3=0, simt=0)
+    fa.body_launch_count.update(wgmma=0, tf32x3=0, bf16x6=0, simt=0)
     fa.bwd_body_launch_count.update(wgmma=0, bf16x6=0, simt=0)
 
 
@@ -1396,7 +1406,7 @@ FLASH_GRID = [
     (200, 200, 256, False, 0, 0),
     (300, 300, 128, True, 0, 0),
     (300, 300, 112, True, 0, 0),     # kimi-k2's head dim: the tensor-core bodies zero-filled to 128
-    (100, 100, 36, True, 0, 0),      # not a multiple of 8: the CUDA-core bodies
+    (100, 100, 36, True, 0, 0),      # not a multiple of 8: copied into zero-filled width 40 by the wrapper
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:89 and :101
 BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5               # one bf16 ulp of the f32 value, f32 noise
@@ -1413,12 +1423,18 @@ def check_flash_attention() -> dict:
     (bf16-valued) inputs: the kernel accumulates in f32 and rounds once, so
     it may sit at most one bf16 ulp (<= 2**-7 relative) from that value,
     plus ``BF16_ABS`` for f32 noise where an output cancels to near 0.
-    Each case must run on the body ``body_for`` names (at a head dim that
-    is a multiple of 8, bf16 on the wgmma body -- hd 32 and 112 zero-filled
-    to widths 64 and 128 -- and f32 on the 3xTF32 body; hd 36 on the CUDA
-    cores): its per-body launch counter moves by one, the others' not at
-    all, and every body gets cases.  Returns each body's worst absolute
-    error."""
+    Each case must run on the body ``body_for`` names (bf16 on the wgmma
+    body -- hd 32 and 112 zero-filled to widths 64 and 128 by the tensor
+    maps, hd 36 copied into zero-filled width 40 by the wrapper -- and f32
+    on the 3xTF32 body): its per-body launch counter moves by one, the
+    others' not at all (the CUDA-core body's never), and every routed body
+    gets cases.  f32 at hd up to 128 also runs the training path's forward,
+    ``return_stats=True``: the bf16x6 body, held to the f32 ``atol``
+    against the plain version in f64 and equal bit for bit on a second
+    call, its row statistics against the plain ones in f64 (m to 1e-5, l
+    to 1e-5 relative), its worst error over the plain f32 version's own
+    distance from f64 logged.  Returns each body's worst absolute error
+    (bf16x6: against f64)."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel, gqa_flash_attention_ref
@@ -1427,8 +1443,9 @@ def check_flash_attention() -> dict:
     worst = {"float32": 0.0, "bfloat16": 0.0}
     worst_rel = 0.0      # bf16 error over BF16_REL * |f32 value| + BF16_ABS; must stay <= 1
     n_cases = 0
-    per_body = {"wgmma": 0, "tf32x3": 0, "simt": 0}
-    body_err = {"wgmma": 0.0, "tf32x3": 0.0, "simt": 0.0}
+    per_body = {"wgmma": 0, "tf32x3": 0, "bf16x6": 0, "simt": 0}
+    body_err = {"wgmma": 0.0, "tf32x3": 0.0, "bf16x6": 0.0}
+    bf16x6_noise_ratio = 0.0
     for sq, skv, hd, causal, window, q_offset in FLASH_GRID:
         for g in (1, 2):
             for dname, tol in FLASH_TOL.items():
@@ -1457,13 +1474,91 @@ def check_flash_attention() -> dict:
                         assert ratio <= 1.0, (f"{(sq, skv, hd, causal, window, q_offset, g, softcap)}: bf16 output "
                                               f"off the f32 plain value by {ratio:.2f} of one bf16 ulp + {BF16_ABS}")
                         worst_rel = max(worst_rel, ratio)
+                    elif cuda_kernel.padded_head_dim(hd) <= cuda_kernel.BF16X6_MAX_HEAD_DIM:
+                        before = dict(cuda_kernel.body_launch_count)
+                        got, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True, **kw)
+                        moved = {n: cuda_kernel.body_launch_count[n] - before[n] for n in before}
+                        assert moved == {n: int(n == "bf16x6") for n in before}, f"{hd}: stats forward bodies {moved}"
+                        again, stats2 = cuda_kernel.flash_attention(q, k, v, return_stats=True, **kw)
+                        per_body["bf16x6"] += 1
+                        want64 = gqa_flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+                        m64, l64 = _plain_stats(q, k, v, **kw)
+                        torch.cuda.synchronize()
+                        case = (sq, skv, hd, causal, window, q_offset, g, softcap)
+                        assert torch.equal(got, again) and torch.equal(stats, stats2), f"{case}: two bf16x6 calls differ"
+                        torch.testing.assert_close(got.double(), want64, rtol=0, atol=tol,
+                                                   msg=lambda m: f"bf16x6 forward {case}: {m}")
+                        seen = torch.isfinite(m64)
+                        assert torch.equal(torch.isfinite(stats[0]), seen), f"{case}: rows that see no key differ"
+                        torch.testing.assert_close(stats[0][seen].double(), m64[seen], rtol=0, atol=1e-5)
+                        torch.testing.assert_close(stats[1][seen].double(), l64[seen], rtol=1e-5, atol=0)
+                        err = float((got.double() - want64).abs().max())
+                        noise = float((want.double() - want64).abs().max())
+                        body_err["bf16x6"] = max(body_err["bf16x6"], err)
+                        bf16x6_noise_ratio = max(bf16x6_noise_ratio, err / max(noise, 1e-30))
                     n_cases += 1
-    assert all(n > 0 for n in per_body.values()), f"a body got no case: {per_body}"
+    assert per_body["simt"] == 0 and all(per_body[n] > 0 for n in body_err), f"bodies: {per_body}"
     log(f"[kernel] flash_attention vs flash_attention_ref: {n_cases} cases agree ({per_body['wgmma']} on the "
-        f"wgmma body, {per_body['tf32x3']} on the 3xTF32 body, {per_body['simt']} on the CUDA-core body), max "
-        f"|err| f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}, by body {body_err}; bf16 vs the f32 "
-        f"plain value at most {worst_rel:.3f} of (one bf16 ulp + {BF16_ABS})")
+        f"wgmma body, {per_body['tf32x3']} on the 3xTF32 body, none on the CUDA-core body), max |err| f32 "
+        f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}, by body {body_err}; bf16 vs the f32 plain value at "
+        f"most {worst_rel:.3f} of (one bf16 ulp + {BF16_ABS}); {per_body['bf16x6']} f32 cases with statistics on the "
+        f"bf16x6 body, each bit-equal on a second call, at most {bf16x6_noise_ratio:.3f} x the plain f32 version's "
+        f"distance from f64")
     return body_err
+
+
+def _plain_stats(q, k, v, *, causal, window, q_offset, softcap):
+    """Each row's m (log2 units; -inf for a row that sees no key) and l of
+    the plain scores in f64, (B * H * Sq) each, in the statistics' order."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention.torch_ref import _mask
+
+    b, sq, h, hd = q.shape
+    g = h // k.shape[2]
+    qf = q.double().transpose(1, 2)
+    kf = k.double().repeat_interleave(g, 2).transpose(1, 2)
+    s = qf @ kf.transpose(-1, -2) / np.sqrt(hd)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    x = torch.where(_mask(sq, k.shape[1], causal, window, q_offset, q.device), s * np.log2(np.e), -torch.inf)
+    m = x.amax(-1)
+    l = torch.exp2(x - torch.where(torch.isfinite(m), m, 0.0)[..., None]).sum(-1)
+    return m.reshape(-1), l.reshape(-1)
+
+
+def check_simt_baselines() -> dict:
+    """The CUDA-core bodies, which no route reaches any more, launched
+    directly as the timing baselines are (``_simt_body_call``,
+    ``_simt_bwd_call``), against the plain versions at hd 36 bf16 (B 2, S
+    300, H 4, KV 2, causal, window 0 and 128): the forward within the bf16
+    ``atol``, the backward within phase 2's bf16 bar.  Returns each one's
+    worst absolute error."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref, gqa_flash_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    err = {"simt": 0.0, "simt_bwd": 0.0}
+    for window in (0, 128):
+        q, k, v, dout = mk(2, 300, 4, 36), mk(2, 300, 2, 36), mk(2, 300, 2, 36), mk(2, 300, 4, 36)
+        out = _simt_body_call(q, k, v, window)().clone()
+        grads = [x.clone() for x in _simt_bwd_call(q, k, v, out, dout, window)()]
+        want = gqa_flash_attention_ref(q, k, v, window=window)
+        w32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out, dout)), window=window)
+        w64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, dout)), window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=FLASH_TOL["bfloat16"])
+        err["simt"] = max(err["simt"], float((out.float() - want.float()).abs().max()))
+        for a, x32, x64 in zip(grads, w32, w64):
+            bar = BF16_REL * x32.abs() + BWD_F32_FACTOR * float((x32.double() - x64).abs().max())
+            assert bool(((a.float() - x32).abs() <= bar).all()), f"CUDA-core backward at window {window}"
+            err["simt_bwd"] = max(err["simt_bwd"], float((a.float() - x32).abs().max()))
+    log(f"[kernel] CUDA-core bodies (timing baselines, direct launches) vs the plain versions at hd 36 bf16: "
+        f"forward max |err| {err['simt']:.3e}, backward {err['simt_bwd']:.3e}")
+    return err
 
 
 # The backward's bars.  f32: each gradient's max error against the plain
@@ -1489,14 +1584,18 @@ def check_flash_attention_bwd() -> dict:
     held to the bars above.  ``out`` is the forward kernel's output on the
     same inputs, and for the wgmma backward (bf16 at a head dim that is a
     multiple of 8) ``stats`` is the forward kernel's row statistics, both
-    as ``FlashAttentionFunction`` saves them; the plain backward, the
-    bf16x6 body (f32 at a multiple of 8 up to 128, six bf16 products a
-    product) and the CUDA-core body (f32 at hd 256, hd 36) make their own.
-    Each case must run on the body ``bwd_body_for`` names (its per-body
-    counter moves by one, the others' not at all; every body gets cases),
-    and a second call on the same inputs must give the same bits (no
-    atomics).  Returns each body's worst absolute error against the plain
-    backward in f32, and the f32 bodies' worst ratio to the f32 noise."""
+    as ``FlashAttentionFunction`` saves them; where the backward reads the
+    forward's row statistics (``bwd_reads_stats``: bf16, and f32 up to hd
+    128, whose forward is then the bf16x6 body) ``stats`` is the forward
+    kernel's too; f32 at hd 256 makes its own (the slab kernels).  Each
+    case must run on the body ``bwd_body_for`` names (bf16 on the wgmma
+    backward, f32 on the bf16x6 one, six bf16 products a product; hd 36
+    zero-filled to 40 by the wrapper; its per-body counter moves by one,
+    the others' not at all, the CUDA-core body's never; every routed body
+    gets cases), and a second call on the same inputs must give the same
+    bits (no atomics).  Returns each body's worst absolute error against
+    the plain backward in f32 (f32 at hd 256, the slab kernels, apart); the
+    f32 body's worst ratios to the f32 noise are logged."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel, flash_attention_bwd_ref
@@ -1505,8 +1604,8 @@ def check_flash_attention_bwd() -> dict:
     worst_f32, worst_ratio, n_cases = 0.0, 0.0, 0
     worst_bf16 = 0.0     # bf16 error over its bar; must stay <= 1
     per_body = {"wgmma": 0, "bf16x6": 0, "simt": 0}
-    body_err = {"wgmma": 0.0, "bf16x6": 0.0, "simt": 0.0}
-    body_ratio = {"bf16x6": 0.0, "simt": 0.0}   # f32: error over the plain f32 noise
+    body_err = {"wgmma": 0.0, "bf16x6": 0.0, "bf16x6_hd256": 0.0}   # bf16x6 past hd 128: the slab kernels
+    body_ratio = {"bf16x6": 0.0, "bf16x6_hd256": 0.0}   # f32: error over the plain f32 noise
     for sq, skv, hd, causal, window, q_offset in FLASH_GRID:
         for g in (1, 2):
             for dname in ("float32", "bfloat16"):
@@ -1518,7 +1617,7 @@ def check_flash_attention_bwd() -> dict:
                     kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
                     stats = None
                     with torch.no_grad():
-                        if body == "wgmma":
+                        if cuda_kernel.bwd_reads_stats(dt, hd):
                             out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True, **kw)
                         else:
                             out = cuda_kernel.flash_attention(q, k, v, **kw)
@@ -1536,7 +1635,8 @@ def check_flash_attention_bwd() -> dict:
                     for name, a, w32, w64 in zip(("dq", "dk", "dv"), got, want32, want64):
                         assert a.dtype == dt and a.shape == w32.shape, f"{case} {name}: {a.dtype} {tuple(a.shape)}"
                         noise = float((w32.double() - w64).abs().max())
-                        body_err[body] = max(body_err[body], float((a.float() - w32).abs().max()))
+                        tag = "bf16x6_hd256" if dt == torch.float32 and hd > cuda_kernel.BF16X6_MAX_HEAD_DIM else body
+                        body_err[tag] = max(body_err[tag], float((a.float() - w32).abs().max()))
                         if dt == torch.float32:
                             err = float((a.double() - w64).abs().max())
                             assert err <= BWD_F32_FACTOR * noise, (
@@ -1544,19 +1644,21 @@ def check_flash_attention_bwd() -> dict:
                                 f"noise {noise:.3e}")
                             worst_f32 = max(worst_f32, err)
                             worst_ratio = max(worst_ratio, err / max(noise, 1e-30))
-                            body_ratio[body] = max(body_ratio[body], err / max(noise, 1e-30))
+                            body_ratio[tag] = max(body_ratio[tag], err / max(noise, 1e-30))
                         else:
                             bar = BF16_REL * w32.abs() + BWD_F32_FACTOR * noise
                             ratio = float(((a.float() - w32).abs() / bar).max())
                             assert ratio <= 1.0, f"{case} {name}: bf16 gradient off the f32 plain value by {ratio:.2f} of its bar"
                             worst_bf16 = max(worst_bf16, ratio)
                     n_cases += 1
-    assert all(n > 0 for n in per_body.values()), f"a backward body got no case: {per_body}"
+    assert per_body["simt"] == 0 and per_body["wgmma"] > 0 and per_body["bf16x6"] > 0 and body_ratio["bf16x6_hd256"] > 0, \
+        f"backward bodies: {per_body}"
     log(f"[kernel] flash_attention_bwd vs flash_attention_bwd_ref: {n_cases} cases agree (dQ, dK, dV each; "
         f"{per_body['wgmma']} on the wgmma body with the forward's statistics, {per_body['bf16x6']} on the f32 "
-        f"tensor-core body, {per_body['simt']} on the CUDA-core body), each equal bit for bit on a second call; f32 "
-        f"max |err| {worst_f32:.3e}, at most {worst_ratio:.2f} x the plain f32-vs-f64 noise (bar {BWD_F32_FACTOR}; "
-        f"by body {body_ratio}); bf16 at most {worst_bf16:.3f} of its bar; by body {body_err}")
+        f"tensor-core body, with the bf16x6 forward's statistics up to hd 128 and the slab kernels at hd 256, none "
+        f"on the CUDA-core body), each equal bit for bit on a second call; f32 max |err| {worst_f32:.3e}, at most "
+        f"{worst_ratio:.2f} x the plain f32-vs-f64 noise (bar {BWD_F32_FACTOR}; by body {body_ratio}); bf16 at most "
+        f"{worst_bf16:.3f} of its bar; by body {body_err}")
     return body_err
 
 
@@ -1636,7 +1738,7 @@ def run_long_prefill(report) -> dict:
     want = dict(flash_decode=n_layers * LONG_TOKENS, paged_flash_decode=0, lossy_link_egress=0, burst_mask=0,
                 flash_attention=n_layers, flash_attention_bwd=0, ssm_scan=0)
     assert launches == want, f"long generate_reference: launches {launches}, want {want}"
-    assert fa.body_launch_count == {"wgmma": 0, "tf32x3": n_layers, "simt": 0}, \
+    assert fa.body_launch_count == {"wgmma": 0, "tf32x3": n_layers, "bf16x6": 0, "simt": 0}, \
         f"f32 prefill bodies {fa.body_launch_count}"
     assert toks.shape == (LONG_BATCH, LONG_TOKENS) and int(toks.min()) >= 0 and int(toks.max()) < base.vocab_size
     naive, ntimings = generate_reference(model32, cfg32.with_updates(attn_impl="naive"), prompts, LONG_TOKENS,
@@ -1669,7 +1771,7 @@ def run_long_prefill(report) -> dict:
     want = dict(flash_decode=0, paged_flash_decode=n_layers * eng.steps, lossy_link_egress=0, burst_mask=0,
                 flash_attention=n_layers * n_long, flash_attention_bwd=0, ssm_scan=0)
     assert engine_launches == want, f"long engine: launches {engine_launches}, want {want}"
-    assert fa.body_launch_count == {"wgmma": 0, "tf32x3": n_layers * n_long, "simt": 0}, \
+    assert fa.body_launch_count == {"wgmma": 0, "tf32x3": n_layers * n_long, "bf16x6": 0, "simt": 0}, \
         f"bodies {fa.body_launch_count}"
     etoks = np.stack([r.tokens for r in reqs])
     refs = np.stack([generate_reference(model32, cfg32, torch.from_numpy(p).cuda()[None], LONG_TOKENS, key=k)[0]
@@ -1697,7 +1799,7 @@ def run_long_prefill(report) -> dict:
     lk = forced_logits(model16, cfg16, prompts, forced, key)
     # The one bf16 prefill of 1000 tokens: a launch a layer, all on the wgmma body.
     bf16_launches = _counts()
-    assert fa.body_launch_count == {"wgmma": n_layers, "tf32x3": 0, "simt": 0}, \
+    assert fa.body_launch_count == {"wgmma": n_layers, "tf32x3": 0, "bf16x6": 0, "simt": 0}, \
         f"bf16 prefill bodies {fa.body_launch_count}"
     assert bf16_launches["flash_attention"] == n_layers, f"bf16 long run: launches {bf16_launches}"
     ln = forced_logits(model16, cfg16.with_updates(attn_impl="naive"), prompts, forced, key)
@@ -1754,26 +1856,34 @@ def run_ssm_scan_path() -> int:
     return launches
 
 
-# The entry point's runs past the main paths.  bf16 at a head dim that is a
-# multiple of 8 runs the tensor-core bodies zero-filled to their next width:
-# hd 32 (H = KV = 16) and kimi-k2's 112 (d_model 7168 over 64 heads, 8 KV
-# heads; src/repro/configs/kimi_k2_1t_a32b.py).  A head dim that is not
-# (36; no model has one) is the CUDA-core bodies' case.
+# The entry point's runs past the main paths.  Every head dim runs on the
+# tensor cores: bf16 at hd 32 (H = KV = 16) and kimi-k2's 112 (d_model 7168
+# over 64 heads, 8 KV heads; src/repro/configs/kimi_k2_1t_a32b.py) zero-
+# filled by the tensor maps to their next body width, and a head dim that is
+# not a multiple of 8 (36; no model has one) copied into zero-filled width
+# 40 by the wrapper, bf16 and f32; f32 at gemma3-12b's local layer (hd 256,
+# 16 heads over 8 KV heads, window 1024, S 2048; src/repro_torch/configs/
+# gemma3_12b.py) runs the 3xTF32 forward and the backward's slab kernels.
 ZERO_FILL_CASES = ((32, 16, 16), (112, 64, 8))   # (hd, H, KV)
-SIMT_HD = 36
+PAD_HD = 36
+GEMMA_LOCAL = dict(B=1, S=2048, H=16, KV=8, hd=256, window=1024)
 
 
-def run_simt_entry_point(report) -> dict:
+def run_zero_fill_entry_point(report) -> dict:
     """The flash-attention entry point (``repro_torch.kernels.flash_attention
     .flash_attention``) forward and backward (``FlashAttentionFunction``,
-    bf16 operands that require grad) at the long prefill's shape (B 2, S
-    1000, causal), counts zeroed just before each run and read just after:
-    hd 32 and kimi-k2's hd 112 (H 64, KV 8) run the wgmma forward and
-    backward (one launch each, none on the CUDA cores), hd 36 the CUDA-core
-    forward and backward.  The output is finite, of the right shape and
-    within the bf16 atol of the plain version; dQ, dK and dV within phase
-    2's bf16 bar of the plain backward in f32.  Returns each run's bodies'
-    launches."""
+    operands that require grad), counts zeroed just before each run and
+    read just after, each run one forward and one backward launch on the
+    tensor-core bodies and none on the CUDA cores: at the long prefill's
+    shape (B 2, S 1000, causal) bf16 hd 32, kimi-k2's hd 112 (H 64, KV 8)
+    and hd 36 on the wgmma bodies, f32 hd 36 on the bf16x6 forward and
+    backward (the backward on its statistics); f32 at gemma3-12b's local
+    layer on the 3xTF32 forward and the backward's slab kernels.  The
+    output is finite, of the right shape and within the reference's atol
+    of the plain version; dQ, dK and dV within phase 2's bar of the plain
+    backward (bf16: one bf16 ulp of the plain f32 value plus the f32 noise
+    term; f32: ``BWD_F32_FACTOR`` x the plain f32 backward's distance from
+    f64).  Returns each run's bodies' launches, keyed by (dtype, hd)."""
     import torch
 
     from repro_torch.kernels.flash_attention import (cuda_kernel, flash_attention, flash_attention_bwd_ref,
@@ -1781,35 +1891,49 @@ def run_simt_entry_point(report) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     runs = {}
-    for hd, h, kvh in (*ZERO_FILL_CASES, (SIMT_HD, 16, 16)):
-        mk = lambda heads: torch.randn((LONG_BATCH, LONG_PROMPT, heads, hd), generator=gen, device="cuda").bfloat16()
+    g = GEMMA_LOCAL
+    cases = [(LONG_BATCH, LONG_PROMPT, hd, h, kvh, 0, "bfloat16") for hd, h, kvh in (*ZERO_FILL_CASES, (PAD_HD, 16, 16))]
+    cases += [(LONG_BATCH, LONG_PROMPT, PAD_HD, 16, 16, 0, "float32"),
+              (g["B"], g["S"], g["hd"], g["H"], g["KV"], g["window"], "float32")]
+    for b, s, hd, h, kvh, window, dname in cases:
+        dt = getattr(torch, dname)
+        mk = lambda heads: torch.randn((b, s, heads, hd), generator=gen, device="cuda").to(dt)
         q, k, v, dout = mk(h), mk(kvh), mk(kvh), mk(h)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         _zero_counts()
-        out = flash_attention(*leaves)
+        out = flash_attention(*leaves, window=window)
         out.backward(dout)
         torch.cuda.synchronize()
-        body = "simt" if hd == SIMT_HD else "wgmma"
         launches = _counts()
         fwd, bwd = dict(cuda_kernel.body_launch_count), dict(cuda_kernel.bwd_body_launch_count)
+        reads = cuda_kernel.bwd_reads_stats(dt, hd)
+        fbody, bbody = cuda_kernel.body_for(dt, hd, stats=reads), cuda_kernel.bwd_body_for(dt, hd)
         assert (launches["flash_attention"], launches["flash_attention_bwd"]) == (1, 1), launches
-        assert fwd == {n: int(n == body) for n in fwd} and bwd == {n: int(n == body) for n in bwd}, \
-            f"entry point at hd {hd}: forward bodies {fwd}, backward bodies {bwd}, want {body}"
+        assert fwd == {n: int(n == fbody) for n in fwd} and bwd == {n: int(n == bbody) for n in bwd}, \
+            f"entry point at {dname} hd {hd}: forward bodies {fwd}, backward bodies {bwd}, want {fbody} / {bbody}"
         out = out.detach()
-        assert out.shape == q.shape and out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
-        torch.testing.assert_close(out.float(), gqa_flash_attention_ref(q, k, v).float(), rtol=0,
-                                   atol=FLASH_TOL["bfloat16"])
-        w32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out, dout)))
-        w64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, dout)))
-        ratio = [float(((a.grad.float() - x32).abs() / (BF16_REL * x32.abs() + BWD_F32_FACTOR
-                                                        * float((x32.double() - x64).abs().max()))).max())
-                 for a, x32, x64 in zip(leaves, w32, w64)]
+        assert out.shape == q.shape and out.dtype == dt and bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out.float(), gqa_flash_attention_ref(q, k, v, window=window).float(), rtol=0,
+                                   atol=FLASH_TOL[dname])
+        w32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out, dout)), window=window)
+        w64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, dout)), window=window)
+        ratio = []
+        for a, x32, x64 in zip(leaves, w32, w64):
+            noise = float((x32.double() - x64).abs().max())
+            if dt == torch.bfloat16:
+                ratio.append(float(((a.grad.float() - x32).abs() / (BF16_REL * x32.abs() + BWD_F32_FACTOR * noise)).max()))
+            else:
+                ratio.append(float((a.grad.double() - x64).abs().max()) / (BWD_F32_FACTOR * noise))
         del w32, w64
-        assert max(ratio) <= 1.0, f"entry point at hd {hd}: gradients at {ratio} of the bf16 bar"
-        runs[hd] = dict(H=h, KV=kvh, body=body, forward_bodies=fwd, backward_bodies=bwd, grad_bar_ratio=ratio)
-        log(f"[entry] flash_attention at (B {LONG_BATCH}, S {LONG_PROMPT}, H {h}, KV {kvh}, hd {hd}) bf16, forward and "
-            f"backward: one launch each on the {body} bodies (forward {fwd}, backward {bwd}); output within the bf16 "
-            f"atol of the plain version, dQ / dK / dV at {[round(r, 3) for r in ratio]} of the bf16 bar")
+        assert max(ratio) <= 1.0, f"entry point at {dname} hd {hd}: gradients at {ratio} of the bar"
+        runs[f"{dname}_hd{hd}"] = dict(B=b, S=s, H=h, KV=kvh, hd=hd, window=window, dtype=dname, forward_bodies=fwd,
+                                       backward_bodies=bwd, grad_bar_ratio=ratio)
+        log(f"[entry] flash_attention at (B {b}, S {s}, H {h}, KV {kvh}, hd {hd}, window {window}) {dname}, forward "
+            f"and backward: one launch each, on the {fbody} forward and the {bbody} backward, none on the CUDA cores "
+            f"(forward {fwd}, backward {bwd}); output within the {dname} atol of the plain version, dQ / dK / dV at "
+            f"{[round(r, 3) for r in ratio]} of the bar")
+        del q, k, v, dout, leaves, out
+        torch.cuda.empty_cache()
     report["entry_point_runs"] = runs
     return runs
 
@@ -1826,10 +1950,10 @@ def _visible_pairs(sq, skv, causal, window, q_offset=0) -> int:
 
 
 def _simt_body_call(q, k, v, window):
-    """A timing-only launch of the CUDA-core body (``flash_attention.cu``)
-    on any operands, past ``body_for`` and the wrapper's launch counts: it
-    times the body f32 took before the tf32x3 body, and bf16 at hd 32 and
-    112 before the wgmma body took them, in the same call."""
+    """A direct launch of the CUDA-core body (``flash_attention.cu``;
+    causal) on any operands, past the wrapper and its launch counts: no
+    route reaches it any more, so it is the baseline the tensor-core bodies
+    are timed against in the same call (f32, bf16 at hd 32, 112 and 36)."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel
@@ -1849,7 +1973,7 @@ def _simt_body_call(q, k, v, window):
     return call
 
 
-def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
+def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16", stats=False) -> dict:
     """Kernel (graph replay and eager), plain and library times of causal
     prefill attention, and the bound: bytes (q, k, v read once, out written
     once) over 3.35 TB/s against 4 * hd flops per visible pair over the
@@ -1861,11 +1985,14 @@ def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
     split x = hi + lo with hi*hi + hi*lo + lo*hi, summed in f32, keeps f32
     accuracy (errors ~7e-7 at this shape, as plain f32's), so the f32
     CUDA-core rate (67 TFLOP/s, logged beside it) is not the function's
-    floor.  A tensor-core body's call also times the CUDA-core body by a
-    direct launch (the body f32, and bf16 at hd 32 and 112, ran on before),
-    in the same call.  The library time is SDPA on the (B, H, S, hd)
-    layout: ``is_causal`` without a window, a boolean window mask with
-    one."""
+    floor; the bf16x6 body (``stats=True``: f32 with the row statistics,
+    the training path's forward) runs at the same rate, 989 / 6.  Every
+    call also times the CUDA-core body by a direct launch (the body f32,
+    and bf16 at hd 32, 112 and 36, ran on before), in the same call.  A
+    head dim that is not a multiple of 8 pays the wrapper's zero-filled
+    copies of q, k and v and the output's slice; their bytes are logged.
+    The library time is SDPA on the (B, H, S, hd) layout: ``is_causal``
+    without a window, a boolean window mask with one."""
     import torch
     import torch.nn.functional as F
 
@@ -1877,13 +2004,13 @@ def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
     q, k, v = mk(b, s, h, hd), mk(b, s, kvh, hd), mk(b, s, kvh, hd)
     kw = dict(causal=True, window=window)
     saved = cuda_kernel.launch_count, dict(cuda_kernel.body_launch_count)
-    call = lambda: cuda_kernel.flash_attention(q, k, v, **kw)
+    call = lambda: cuda_kernel.flash_attention(q, k, v, return_stats=stats, **kw)
     ms = time_graph(call, iters=20)
     ms_eager = time_events(call, iters=20, warmup=3)
     cuda_kernel.launch_count = saved[0]
     cuda_kernel.body_launch_count.update(saved[1])
-    body = cuda_kernel.body_for(dt, hd)
-    simt_ms = time_graph(_simt_body_call(q, k, v, window), iters=20) if body != "simt" else None
+    body = cuda_kernel.body_for(dt, hd, stats=stats)
+    simt_ms = time_graph(_simt_body_call(q, k, v, window), iters=20)
     plain_ms = time_events(lambda: gqa_flash_attention_ref(q, k, v, **kw), iters=5, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     if window:
@@ -1894,13 +2021,21 @@ def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16") -> dict:
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     lib_ms = time_graph(sdpa, iters=20)
     elem = 2 if dt == torch.bfloat16 else 4
-    nbytes = (2 * b * s * h * hd + 2 * b * s * kvh * hd) * elem
+    nbytes = (2 * b * s * h * hd + 2 * b * s * kvh * hd) * elem + (2 * b * h * s * 4 if stats else 0)
     ops = 4 * hd * b * h * _visible_pairs(s, s, True, window)
     bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["tf32x3" if dt == torch.float32 else dname])
+    width = cuda_kernel.padded_head_dim(hd)
+    # The wrapper's zero fill: q, k, v read and written at the padded width,
+    # the output written there and its true columns copied out.
+    pad_bytes = (b * s * (2 * h + 2 * kvh) * (hd + width) + b * s * h * (width + 2 * hd)) * elem if width != hd else 0
+    # The bf16x6 body's split: q, k and v written as three bf16 planes and read back.
+    split_bytes = 2 * 3 * 2 * b * s * (h + 2 * kvh) * width if body == "bf16x6" else 0
     rec = dict(shape=dict(B=b, S=s, H=h, KV=kvh, hd=hd, causal=True, window=window, dtype=dname), ms=ms,
                ms_eager=ms_eager, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-               bytes=nbytes, ops=ops, body=body, simt_ms=simt_ms)
-    extra = f", CUDA-core body {simt_ms * 1e3:.1f} us (graph)" if simt_ms is not None else ""
+               bytes=nbytes, pad_bytes=pad_bytes, split_bytes=split_bytes, ops=ops, body=body, simt_ms=simt_ms)
+    extra = f", CUDA-core body {simt_ms * 1e3:.1f} us (graph)"
+    if pad_bytes or split_bytes:
+        extra += f"; zero-fill copies {pad_bytes / 1e6:.1f} MB, split planes {split_bytes / 1e6:.1f} MB beside the bound"
     if dt == torch.float32:
         rec.update(bound_cuda_core_ms=_bound(nbytes, ops, PEAK_OPS["float32"])[0])
         extra += f"; bound at the f32 CUDA-core rate {rec['bound_cuda_core_ms'] * 1e3:.2f} us"
@@ -1944,11 +2079,13 @@ def time_ssm_scan() -> dict:
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, GRAD_BATCH, TRAJ_STEPS, GE_STEPS = 4, 1024, 8, 2, 4, 3
 # The f32 oracle's bars, as multiples of the naive path's f32 distance from
-# f64.  The backward kernel (under the plain forward): 2x.  The whole kernel
-# path: its f32 forward body is 3xTF32, whose operands keep ~22 of f32's 24
-# bits (hi + lo TF32 parts, lo x lo dropped), a unit error of 2**-22, 4x
-# f32's 2**-24; so 2 x 4 = 8x.  Both ratios are logged, worst and median.
-BWD_PATH_FACTOR, F32_PATH_FACTOR = 2.0, 8.0
+# f64: 2x for the backward kernel under the plain forward, and 2x for the
+# whole kernel path.  With a gradient wanted the path's f32 forward is the
+# bf16x6 body (three bf16 planes an operand, six products a product: ~24
+# bits, f32's own accuracy), and the backward reads its row statistics; the
+# serving body, 3xTF32 (~22 bits), put the path at 3.86x.  Both ratios are
+# logged, worst and median.
+BWD_PATH_FACTOR, F32_PATH_FACTOR = 2.0, 2.0
 # The backward's least work a visible (query, key) pair: S again, dP, dV, dK
 # and dQ, 2 hd flops each (2.5x the forward's 4 hd).  A statistics pass or
 # a recomputed S belongs to a design, not to the function.
@@ -2018,11 +2155,14 @@ def run_training(report) -> dict:
        batch 4, 3 steps of ``make_train_step``: one burst-mask launch a step
        (1 x 167,773 packets), 24 forward and 24 backward launches a step,
        finite losses.
-    The f32 runs take the f32 tensor-core backward (``"bf16x6"``: 24 x 4
-    launches on the kernel path, none on the CUDA cores); an f32 step of
-    the oracle's shape is timed as the bf16 one is.  Returns the backward
-    launches by body: the default run's (wgmma) and the f32 oracle's kernel
-    path (bf16x6)."""
+    The f32 kernel path runs the bf16x6 forward with row statistics and
+    the bf16x6 backward on them (24 x 4 launches each, none on the 3xTF32
+    forward or the CUDA cores), three device kernels a backward call (the
+    split, dQ, dK/dV; no statistics kernel), counted by name in a
+    torch.profiler trace of the run; an f32 step of the oracle's shape is
+    timed as the bf16 one is.  Returns the launches by body: the default
+    run's backward (wgmma) and the f32 oracle's kernel path (forward and
+    backward bf16x6)."""
     import copy
 
     import numpy as np
@@ -2057,7 +2197,8 @@ def run_training(report) -> dict:
     want = dict(flash_decode=0, paged_flash_decode=0, lossy_link_egress=0, burst_mask=0,
                 flash_attention=n_layers * TRAIN_STEPS, flash_attention_bwd=n_layers * TRAIN_STEPS, ssm_scan=0)
     assert launches == want, f"training run: launches {launches}, want {want}"
-    assert fa.body_launch_count == {"wgmma": n_layers * TRAIN_STEPS, "tf32x3": 0, "simt": 0}, fa.body_launch_count
+    assert fa.body_launch_count == {"wgmma": n_layers * TRAIN_STEPS, "tf32x3": 0, "bf16x6": 0, "simt": 0}, \
+        fa.body_launch_count
     assert fa.bwd_body_launch_count == {"wgmma": n_layers * TRAIN_STEPS, "bf16x6": 0, "simt": 0}, \
         fa.bwd_body_launch_count
     assert cfg.dtype == "bfloat16" and len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses
@@ -2085,18 +2226,49 @@ def run_training(report) -> dict:
             for n, p in model32.named_parameters():
                 p.copy_(init[n])
 
+    from torch.profiler import ProfilerActivity, profile
+
     _zero_counts()
-    k_nll, k_grad = _oracle_run(model32, cfg32, tokens, key, TRAJ_STEPS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        k_nll, k_grad = _oracle_run(model32, cfg32, tokens, key, TRAJ_STEPS)
+        torch.cuda.synchronize()
     kl = _counts()
-    assert (kl["flash_attention"], kl["flash_attention_bwd"]) == (n_layers * TRAJ_STEPS,) * 2, kl
-    assert fa.body_launch_count["tf32x3"] == n_layers * TRAJ_STEPS, fa.body_launch_count
-    assert fa.bwd_body_launch_count == {"wgmma": 0, "bf16x6": n_layers * TRAJ_STEPS, "simt": 0}, \
-        fa.bwd_body_launch_count
+    n_calls = n_layers * TRAJ_STEPS
+    assert (kl["flash_attention"], kl["flash_attention_bwd"]) == (n_calls,) * 2, kl
+    assert fa.body_launch_count == {"wgmma": 0, "tf32x3": 0, "bf16x6": n_calls, "simt": 0}, fa.body_launch_count
+    assert fa.bwd_body_launch_count == {"wgmma": 0, "bf16x6": n_calls, "simt": 0}, fa.bwd_body_launch_count
+    # The forward's device kernels: its split and the attention; the
+    # backward's: its split, dQ and dK/dV, and no statistics kernel.
+    fa_kernels = {}
+    for e in prof.events():
+        found = re.search(r"(fa_bwd|bf16x6_split|flash_attention)\w*?_kernel", e.name) \
+            if e.device_type.name == "CUDA" else None
+        if found:
+            fa_kernels[found.group(0)] = fa_kernels.get(found.group(0), 0) + 1
+    del prof
+    want_kernels = {"bf16x6_split_kernel": 2 * n_calls, "flash_attention_bf16x6_kernel": n_calls,
+                    "fa_bwd_dq_wgmma_kernel": n_calls, "fa_bwd_dkdv_wgmma_kernel": n_calls}
+    assert fa_kernels == want_kernels, f"f32 oracle attention device kernels {fa_kernels}, want {want_kernels}"
+    bwd_per_call = (fa_kernels["bf16x6_split_kernel"] - fa_kernels["flash_attention_bf16x6_kernel"]
+                    + fa_kernels["fa_bwd_dq_wgmma_kernel"] + fa_kernels["fa_bwd_dkdv_wgmma_kernel"]) / n_calls
+    out["f32_attention_device_kernels"] = dict(fa_kernels, backward_per_call=bwd_per_call)
+    log(f"[train] f32 kernel path: {n_calls} forward launches on the bf16x6 body, {n_calls} backward launches on "
+        f"bf16x6 reading its statistics; attention device kernels (profiler) {fa_kernels}: the backward's "
+        f"{bwd_per_call:g} a call (its split, dQ, dK/dV), no statistics kernel")
     out["f32_times"] = time_training_step(model32, cfg32, GRAD_BATCH)
-    # The comparison run: the plain forward in the kernel's place, the
-    # backward kernel as on the path.
+    # The comparison run: the plain forward (and its row statistics, from
+    # the plain scores in f64) in the kernel's place, the backward kernel
+    # as on the path.
     kernel_fwd = fa.flash_attention
-    fa.flash_attention = lambda q, k, v, **kw: gqa_flash_attention_ref(q, k, v, **kw).contiguous()
+
+    def plain_forward(q, k, v, return_stats=False, **kw):
+        o = gqa_flash_attention_ref(q, k, v, **kw).contiguous()
+        if not return_stats:
+            return o
+        m, l = _plain_stats(q, k, v, **kw)
+        return o, torch.stack([m, l.clamp(min=1e-20)]).float()
+
+    fa.flash_attention = plain_forward
     try:
         reset()
         _, b_grad = _oracle_run(model32, cfg32, tokens, key, 1)
@@ -2173,7 +2345,8 @@ def run_training(report) -> dict:
     del model, opt
     torch.cuda.empty_cache()
     report["training"] = out
-    return {"wgmma": launches["flash_attention_bwd"], "bf16x6": kl["flash_attention_bwd"]}
+    return {"wgmma": launches["flash_attention_bwd"], "bf16x6": kl["flash_attention_bwd"],
+            "bf16x6_forward": kl["flash_attention"]}
 
 
 def time_training_step(model, cfg, batch=TRAIN_BATCH) -> dict:
@@ -2230,12 +2403,12 @@ def time_training_step(model, cfg, batch=TRAIN_BATCH) -> dict:
     return rec
 
 
-def _simt_bwd_call(q, k, v, out, dout):
-    """A timing-only launch of the CUDA-core backward (``flash_attention_bwd
-    .cu``: its statistics pass, dK/dV, dQ) on any operands, past
-    ``bwd_body_for`` and the wrapper's launch counts: it times the body f32,
-    and bf16 at hd 32 and 112, took before the tensor-core backwards, in the
-    same call."""
+def _simt_bwd_call(q, k, v, out, dout, window=0):
+    """A direct launch of the CUDA-core backward (``flash_attention_bwd.cu``:
+    its statistics pass, dK/dV, dQ; causal) on any operands, past the
+    wrapper and its launch counts: no route reaches it any more, so it is
+    the baseline the tensor-core backwards are timed against in the same
+    call (f32, bf16 at hd 32, 112 and 36, f32 at hd 256)."""
     import torch
 
     from repro_torch.kernels.flash_attention import cuda_kernel
@@ -2248,30 +2421,33 @@ def _simt_bwd_call(q, k, v, out, dout):
     def call():
         err = lib.flash_attention_bwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                                              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, sq,
-                                             k.shape[1], h, k.shape[2], hd, cuda_kernel.DTYPES[q.dtype], 1, 0, 0, 0.0,
-                                             torch.cuda.current_stream().cuda_stream)
+                                             k.shape[1], h, k.shape[2], hd, cuda_kernel.DTYPES[q.dtype], 1, window, 0,
+                                             0.0, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"CUDA-core backward launch failed (code {err})")
-        return dq
+        return dq, dk, dv
 
     return call
 
 
-def time_flash_attention_bwd(b, h, kvh, hd, s, dname) -> dict:
+def time_flash_attention_bwd(b, h, kvh, hd, s, dname, window=0) -> dict:
     """The backward of causal attention (B ``b``, S ``s``, ``h`` query over
-    ``kvh`` KV heads): the body ``bwd_body_for`` names (graph replay and
-    eager; the wgmma body reads the forward kernel's row statistics, as
-    ``FlashAttentionFunction`` feeds it) and, for a tensor-core body, the
-    CUDA-core body by a direct launch (graph replay), beside the plain
-    version, SDPA's backward (``is_causal``, ``enable_gqa``: its forward +
+    ``kvh`` KV heads, ``window``): the body ``bwd_body_for`` names (graph
+    replay and eager; where it reads the forward kernel's row statistics,
+    ``bwd_reads_stats``, it is fed them as ``FlashAttentionFunction`` feeds
+    it: bf16 from the wgmma forward, f32 up to hd 128 from the bf16x6
+    forward) and the CUDA-core body by a direct launch (graph replay),
+    beside the plain version, SDPA's backward (``enable_gqa``; ``is_causal``
+    without a window, a boolean window mask with one: its forward +
     backward, by ``torch.autograd.grad``, captured in one CUDA graph, less
     its forward captured alone; the eager difference is logged beside it)
     and the bound: bytes (q, k, v, out, dout read once, dq, dk, dv written
     once) over 3.35 TB/s against ``BWD_FLOPS_PER_PAIR_HD`` x hd flops per
     visible pair at the peak of f32-accurate arithmetic on the operands'
     type.  The f32 body's split writes q, k, v and dout as three bf16
-    planes and reads them back: those bytes are logged beside the bound,
-    and its time includes them.  For bf16 it logs the kernel's gradients
+    planes and reads them back, and a head dim that is not a multiple of 8
+    pays the wrapper's zero-filled copies: those bytes are logged beside
+    the bound, and its time includes them.  For bf16 it logs the kernel's gradients
     and SDPA's against phase 2's bf16 bar (SDPA rounds P and dS to bf16
     once); for f32, each one's max distance from the plain backward in f64
     in units of the plain f32 backward's own (the naive f32 noise)."""
@@ -2288,30 +2464,36 @@ def time_flash_attention_bwd(b, h, kvh, hd, s, dname) -> dict:
     saved = (cuda_kernel.launch_count, cuda_kernel.bwd_launch_count, dict(cuda_kernel.body_launch_count),
              dict(cuda_kernel.bwd_body_launch_count))
     stats = None
+    kw = dict(window=window)
     with torch.no_grad():
-        if body == "wgmma":
-            out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True)
+        if cuda_kernel.bwd_reads_stats(dt, hd):
+            out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True, **kw)
         else:
-            out = cuda_kernel.flash_attention(q, k, v)
-    call = lambda: cuda_kernel.flash_attention_bwd(q, k, v, out, dout, stats=stats)
+            out = cuda_kernel.flash_attention(q, k, v, **kw)
+    call = lambda: cuda_kernel.flash_attention_bwd(q, k, v, out, dout, stats=stats, **kw)
     ms = time_graph(call, iters=10)
     ms_eager = time_events(call, iters=10, warmup=2)
-    simt_ms = time_graph(_simt_bwd_call(q, k, v, out, dout), iters=10) if body != "simt" else None
-    plain_ms = time_events(lambda: flash_attention_bwd_ref(q, k, v, out, dout), iters=3, warmup=1)
+    simt_ms = time_graph(_simt_bwd_call(q, k, v, out, dout, window), iters=10 if hd * s <= 64 * 1024 else 2)
+    plain_ms = time_events(lambda: flash_attention_bwd_ref(q, k, v, out, dout, **kw), iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     dt_ = dout.transpose(1, 2).contiguous()
     gqa = kvh != h
-    sdpa_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=gqa)
-    sdpa_fwd_bwd = lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=gqa), (qt, kt, vt), dt_)
+    if window:
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+        sdpa_kw = dict(attn_mask=mask, enable_gqa=gqa)
+    else:
+        sdpa_kw = dict(is_causal=True, enable_gqa=gqa)
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+    sdpa_fwd_bwd = lambda: torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw), (qt, kt, vt), dt_)
     fwd_ms = time_graph(sdpa_fwd, iters=10)
     both_ms = time_graph(sdpa_fwd_bwd, iters=10)
     lib_ms = both_ms - fwd_ms
     lib_eager_ms = time_events(sdpa_fwd_bwd, iters=20, warmup=3) - time_events(sdpa_fwd, iters=20, warmup=3)
     # Held against the plain backward: bf16 by phase 2's bf16 bar, f32 in
     # units of the naive f32 noise; logged, not asserted.
-    w32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out, dout)))
-    w64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, dout)))
+    w32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out, dout)), **kw)
+    w64 = flash_attention_bwd_ref(*(x.double() for x in (q, k, v, out, dout)), **kw)
     noise = [float((x32.double() - x64).abs().max()) for x32, x64 in zip(w32, w64)]
     quality = {}
     for name, grads in (("kernel", call()), ("sdpa", [x.transpose(1, 2) for x in sdpa_fwd_bwd()])):
@@ -2326,18 +2508,26 @@ def time_flash_attention_bwd(b, h, kvh, hd, s, dname) -> dict:
     cuda_kernel.bwd_body_launch_count.update(saved[3])
     elem = 2 if dt == torch.bfloat16 else 4
     nbytes = 4 * b * s * (h + kvh) * hd * elem
-    split_bytes = 2 * 3 * 2 * 2 * b * s * (h + kvh) * hd if body == "bf16x6" else 0   # planes written, read back
-    ops = BWD_FLOPS_PER_PAIR_HD * hd * b * h * _visible_pairs(s, s, True, 0)
+    width = cuda_kernel.padded_head_dim(hd)
+    # The wrapper's zero fill: q, k, v, out and dout copied to the padded
+    # width, the gradients written there and their true columns copied out.
+    pad_bytes = 2 * b * s * (3 * h + 2 * kvh) * (hd + width) * elem if width != hd else 0
+    split_bytes = 2 * 3 * 2 * 2 * b * s * (h + kvh) * width if body == "bf16x6" else 0   # planes written, read back
+    ops = BWD_FLOPS_PER_PAIR_HD * hd * b * h * _visible_pairs(s, s, True, window)
     bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["tf32x3" if dt == torch.float32 else dname])
     unit = "of the bf16 bar" if dt == torch.bfloat16 else "x the naive f32 noise"
-    rec = dict(shape=dict(B=b, S=s, H=h, KV=kvh, hd=hd, causal=True, dtype=dname), body=body, ms=ms,
+    kernels = 2 if body == "wgmma" else 3 if stats is not None else 4
+    rec = dict(shape=dict(B=b, S=s, H=h, KV=kvh, hd=hd, causal=True, window=window, dtype=dname), body=body, ms=ms,
                ms_eager=ms_eager, simt_ms=simt_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=lib_ms, library_eager_ms=lib_eager_ms, sdpa_fwd_ms=fwd_ms, sdpa_fwd_bwd_ms=both_ms,
-               bytes=nbytes, split_bytes=split_bytes, ops=ops, dq_dk_dv=dict(unit=unit, **quality))
-    extra = f", CUDA-core body {simt_ms * 1e3:.1f} us (graph)" if simt_ms is not None else ""
+               bytes=nbytes, pad_bytes=pad_bytes, split_bytes=split_bytes, ops=ops, device_kernels=kernels,
+               dq_dk_dv=dict(unit=unit, **quality))
+    extra = f", CUDA-core body {simt_ms * 1e3:.1f} us (graph)"
     extra += (f"; dQ, dK, dV {unit}: kernel {[round(r, 3) for r in quality['kernel']]}, sdpa "
               f"{[round(r, 2) for r in quality['sdpa']]}")
     split = f"; the split's planes {split_bytes / 1e6:.1f} MB more" if split_bytes else ""
+    split += f"; zero-fill copies {pad_bytes / 1e6:.1f} MB" if pad_bytes else ""
+    split += f"; {kernels} device kernels a call"
     log(f"[time] flash_attention_bwd {rec['shape']} ({body} body): kernel {ms * 1e3:.1f} us (graph) / "
         f"{ms_eager * 1e3:.1f} us (eager){extra}, plain {plain_ms * 1e3:.1f} us, sdpa backward {lib_ms * 1e3:.1f} us "
         f"(graph: fwd+bwd {both_ms * 1e3:.1f} - fwd {fwd_ms * 1e3:.1f}; eager difference {lib_eager_ms * 1e3:.1f}), "
@@ -2347,8 +2537,8 @@ def time_flash_attention_bwd(b, h, kvh, hd, s, dname) -> dict:
 
 def bwd_kernel_split(b, h, hd, s, dname) -> dict:
     """A tensor-core backward's device time at the training shape split
-    between its kernels (bf16: dQ, dK/dV; f32: the split, the statistics,
-    dQ, dK/dV): a torch.profiler trace of 10 calls (run in a process of its
+    between its kernels (bf16: dQ, dK/dV; f32, on the bf16x6 forward's
+    statistics: the split, dQ, dK/dV): a torch.profiler trace of 10 calls (run in a process of its
     own, ``--bwd-split``: a trace taken after the other phases' traces in
     one process lost most of its kernel time)."""
     import torch
@@ -2362,7 +2552,7 @@ def bwd_kernel_split(b, h, hd, s, dname) -> dict:
              dict(cuda_kernel.bwd_body_launch_count))
     stats = None
     with torch.no_grad():
-        if cuda_kernel.bwd_body_for(q.dtype, hd) == "wgmma":
+        if cuda_kernel.bwd_reads_stats(q.dtype, hd):
             out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True)
         else:
             out = cuda_kernel.flash_attention(q, k, v)
@@ -2372,8 +2562,8 @@ def bwd_kernel_split(b, h, hd, s, dname) -> dict:
     cuda_kernel.launch_count, cuda_kernel.bwd_launch_count = saved[0], saved[1]
     cuda_kernel.body_launch_count.update(saved[2])
     cuda_kernel.bwd_body_launch_count.update(saved[3])
-    return {re.search(r"fa_bwd_\w+", name).group(0): t / 10 * 1e3
-            for name, t in prof.get("top_kernels_ms", {}).items() if "fa_bwd" in name}
+    return {re.search(r"(fa_bwd|bf16x6_split)\w+", name).group(0): t / 10 * 1e3
+            for name, t in prof.get("top_kernels_ms", {}).items() if "fa_bwd" in name or "bf16x6_split" in name}
 
 
 def run_bwd_kernel_split(report) -> None:
@@ -2458,7 +2648,8 @@ def main(argv=None) -> int:
                                                   "burst_mask_kernel", "fa_bwd_stats_kernel", "fa_bwd_dkdv_kernel",
                                                   "fa_bwd_dq_kernel", "fa_bwd_dq_wgmma_kernel",
                                                   "fa_bwd_dkdv_wgmma_kernel", "fa_bwd_stats_bf16x6_kernel",
-                                                  "fa_bwd_split_kernel")):
+                                                  "bf16x6_split_kernel", "flash_attention_bf16x6_kernel",
+                                                  "fa_bwd_dq_slab_kernel", "fa_bwd_dkdv_slab_kernel")):
             log(f"[build]   {name}: {line}")
 
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s}
@@ -2477,29 +2668,43 @@ def main(argv=None) -> int:
     burst_record = dict(name="burst_mask", route="cuda", source=link_source,
                         replaces="src/repro/kernels/lossy_link/kernel.py:94", max_abs_err=check_burst_mask())
     # Flash attention has a record a body: wgmma (bf16, timed in phase 12,
-    # launched by phase 11's bf16 run), tf32x3 (f32, timed in phase 12,
-    # launched by phase 11's f32 engine run) and the CUDA-core body
-    # (launched by its entry-point run at hd 36, timed at that run's shape).
+    # launched by phase 11's bf16 run), tf32x3 (f32 serving, timed in phase
+    # 12, launched by phase 11's f32 engine run), bf16x6 (f32 with a
+    # gradient wanted: launched by phase 13's f32 oracle run, timed at the
+    # training shape) and the CUDA-core body, which no route reaches any
+    # more: a timing baseline, launched directly (0 launches on any path),
+    # timed at hd 36 and held against the plain version by
+    # check_simt_baselines.
     flash_dir = "src/repro_torch/kernels/flash_attention/csrc/"
     flash_err = check_flash_attention()
+    simt_err = check_simt_baselines()
+    flash_err["simt"] = simt_err["simt"]
     flash_records = {body: dict(name=name, route="cuda", source=flash_dir + src,
                                 replaces="src/repro/kernels/flash_attention/kernel.py:106",
                                 max_abs_err=flash_err[body])
                      for body, name, src in (("wgmma", "flash_attention", "flash_attention_wgmma.cu"),
                                              ("tf32x3", "flash_attention_tf32x3", "flash_attention_tf32x3.cu"),
+                                             ("bf16x6", "flash_attention_bf16x6", "flash_attention_bf16x6.cu"),
                                              ("simt", "flash_attention_simt", "flash_attention.cu"))}
     # The backward has a record a body: wgmma (bf16, launched and timed by
-    # phase 13's bf16 run), bf16x6 (f32 at hd <= 128: launched by phase
-    # 13's f32 oracle run, timed at the training shape in f32) and the
-    # CUDA-core body (launched by the entry-point run at hd 36, timed at
-    # that run's shape).
+    # phase 13's bf16 run), bf16x6 (f32 up to hd 128 on the forward's
+    # statistics: launched by phase 13's f32 oracle run, timed at the
+    # training shape in f32), its slab kernels (f32 at hd 136-256: launched
+    # by the entry-point run at gemma3-12b's local layer, timed at its
+    # local and global layers) and the CUDA-core body (a timing baseline as
+    # the forward's).
     bwd_err = check_flash_attention_bwd()
+    bwd_err["simt"] = simt_err["simt_bwd"]
     bwd_records = {body: dict(name=name, route="cuda", source=flash_dir + src,
                               replaces="src/repro/models/attention.py:162 (the gradient of _blockwise_attn, by autodiff)",
                               max_abs_err=bwd_err[body])
                    for body, name, src in (("wgmma", "flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma.cu"),
                                            ("bf16x6", "flash_attention_bwd_bf16x6", "flash_attention_bwd_wgmma.cu"),
+                                           ("bf16x6_hd256", "flash_attention_bwd_bf16x6_slab",
+                                            "flash_attention_bwd_wgmma.cu"),
                                            ("simt", "flash_attention_bwd", "flash_attention_bwd.cu"))}
+    for rec in (flash_records["simt"], bwd_records["simt"]):
+        rec["baseline"] = "no route reaches it; launched directly for its time and check"
     ssm_record = dict(name="ssm_scan", route="cuda", source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                       replaces="src/repro/kernels/ssm_scan/kernel.py:55", max_abs_err=check_ssm_scan())
     if not args.quick:
@@ -2516,41 +2721,57 @@ def main(argv=None) -> int:
                        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
         long_launches, long_bf16_launches = run_long_prefill(report)
         ssm_launches = run_ssm_scan_path()
-        entry = run_simt_entry_point(report)
+        entry = run_zero_fill_entry_point(report)
+        gl = GEMMA_LOCAL
         timings = {"wgmma": time_flash_attention(LONG_BATCH, 16, 16, 64, LONG_PROMPT, 0),
                    "tf32x3": time_flash_attention(LONG_BATCH, 16, 16, 64, LONG_PROMPT, 0, "float32"),
-                   "simt": time_flash_attention(LONG_BATCH, 16, 16, SIMT_HD, LONG_PROMPT, 0)}
+                   # The training path's f32 forward (with statistics), and the
+                   # serving body at the same shape.
+                   "bf16x6": time_flash_attention(TRAIN_BATCH, 16, 16, 64, TRAIN_SEQ, 0, "float32", stats=True),
+                   "tf32x3_train": time_flash_attention(TRAIN_BATCH, 16, 16, 64, TRAIN_SEQ, 0, "float32"),
+                   # hd 36 on the wgmma body, zero-filled by the wrapper (the
+                   # CUDA-core body, its body before, in the same call).
+                   "hd36": time_flash_attention(LONG_BATCH, 16, 16, PAD_HD, LONG_PROMPT, 0)}
         # gemma3's local layer; bf16 hd 32 and kimi-k2's hd 112 on the wgmma
-        # body (the CUDA-core body, their body before, in the same call), and
-        # the hd-128 body at kimi-k2's heads.
+        # body, and the hd-128 body at kimi-k2's heads.
         report["flash_attention_times"] = list(timings.values()) + [
-            time_flash_attention(1, 16, 8, 256, 2048, 1024),
+            time_flash_attention(gl["B"], gl["H"], gl["KV"], gl["hd"], gl["S"], gl["window"]),
             *(time_flash_attention(LONG_BATCH, h, kvh, hd, LONG_PROMPT, 0) for hd, h, kvh in ZERO_FILL_CASES),
             time_flash_attention(LONG_BATCH, 64, 8, 128, LONG_PROMPT, 0)]
         report["long_prefill"]["f32_engine_launches_tf32x3_body"] = long_launches["flash_attention"]
-        for body, n in (("wgmma", long_bf16_launches["flash_attention"]), ("tf32x3", long_launches["flash_attention"]),
-                        ("simt", entry[SIMT_HD]["forward_bodies"]["simt"])):
-            t = timings[body]
-            flash_records[body].update(launches=n, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                                       bound_by=t["bound_by"], library_ms=t["library_ms"])
+        for body, n, t in (("wgmma", long_bf16_launches["flash_attention"], timings["wgmma"]),
+                           ("tf32x3", long_launches["flash_attention"], timings["tf32x3"]),
+                           ("bf16x6", None, timings["bf16x6"]), ("simt", 0, timings["hd36"])):
+            flash_records[body].update(launches=n, ms=t["simt_ms"] if body == "simt" else t["ms"],
+                                       plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                                       library_ms=t["library_ms"])
         stiming = time_ssm_scan()
         report["ssm_scan_times"] = stiming
         ssm_record.update(launches=ssm_launches, ms=stiming["ms"], plain_ms=stiming["plain_ms"],
                           bound_ms=stiming["bound_ms"], bound_by=stiming["bound_by"], library_ms=None)
-        bwd_launches = run_training(report)
-        bwd_launches["simt"] = entry[SIMT_HD]["backward_bodies"]["simt"]
+        trained = run_training(report)
+        flash_records["bf16x6"]["launches"] = trained["bf16x6_forward"]
+        bwd_launches = dict(wgmma=trained["wgmma"], bf16x6=trained["bf16x6"], simt=0,
+                            bf16x6_hd256=entry[f"float32_hd{gl['hd']}"]["backward_bodies"]["bf16x6"])
         btimes = {"wgmma": time_flash_attention_bwd(TRAIN_BATCH, 16, 16, 64, TRAIN_SEQ, "bfloat16"),
                   "bf16x6": time_flash_attention_bwd(TRAIN_BATCH, 16, 16, 64, TRAIN_SEQ, "float32"),
-                  "simt": time_flash_attention_bwd(LONG_BATCH, 16, 16, SIMT_HD, LONG_PROMPT, "bfloat16")}
+                  "hd36": time_flash_attention_bwd(LONG_BATCH, 16, 16, PAD_HD, LONG_PROMPT, "bfloat16"),
+                  # f32 at gemma3-12b's local and global layers: the slab kernels.
+                  "bf16x6_hd256": time_flash_attention_bwd(gl["B"], gl["H"], gl["KV"], gl["hd"], gl["S"], "float32",
+                                                           window=gl["window"]),
+                  "bf16x6_hd256_global": time_flash_attention_bwd(gl["B"], gl["H"], gl["KV"], gl["hd"], gl["S"],
+                                                                  "float32")}
         # bf16 hd 32 (the forward's shape) and kimi-k2's hd 112 on the wgmma
         # backward, and the hd-128 body at kimi-k2's heads.
         report["flash_attention_bwd_times"] = list(btimes.values()) + [
             time_flash_attention_bwd(LONG_BATCH, 16, 16, 32, LONG_PROMPT, "bfloat16"),
             time_flash_attention_bwd(LONG_BATCH, 64, 8, 112, TRAIN_SEQ, "bfloat16"),
             time_flash_attention_bwd(LONG_BATCH, 64, 8, 128, TRAIN_SEQ, "bfloat16")]
-        for body, t in btimes.items():
-            bwd_records[body].update(launches=bwd_launches[body], ms=t["ms"], plain_ms=t["plain_ms"],
-                                     bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"])
+        for body, t in (("wgmma", btimes["wgmma"]), ("bf16x6", btimes["bf16x6"]),
+                        ("bf16x6_hd256", btimes["bf16x6_hd256"]), ("simt", btimes["hd36"])):
+            bwd_records[body].update(launches=bwd_launches[body], ms=t["simt_ms"] if body == "simt" else t["ms"],
+                                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                                     library_ms=t["library_ms"])
         launches = run_slice(report)
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [
@@ -2576,6 +2797,11 @@ def main(argv=None) -> int:
         run_bwd_kernel_split(report)
     report["kernels"] = [record, paged_record, egress_record, burst_record, *flash_records.values(),
                          *bwd_records.values(), ssm_record]
+    if not args.quick:
+        # Every kernel of a path was launched on it; the CUDA-core bodies,
+        # which no route reaches, are the timing baselines and carry 0.
+        idle = [r["name"] for r in report["kernels"] if "baseline" not in r and not r.get("launches")]
+        assert not idle, f"kernels of a path launched no time in its run: {idle}"
     for rec in report["kernels"]:
         if rec.get("library_ms") is not None and rec["library_ms"] < rec["bound_ms"]:
             log(f"[bound] WARNING {rec['name']}: the library call ({rec['library_ms'] * 1e3:.2f} us) beats the "

@@ -2,15 +2,19 @@
 // and dV of the forward bodies' function -- causal, window, q_offset,
 // ragged tails, softcap and GQA with H % KV == 0 -- in two arithmetic
 // modes over one body:
-//   * bf16 (flash_attention_bwd_wgmma_launch): bf16 operands at head dims
-//     that are multiples of 8 up to 256, after the wgmma forward
-//     (flash_attention_wgmma.cu), whose row statistics it reads;
-//   * f32 (flash_attention_bwd_bf16x6_launch): f32 operands at head dims
-//     that are multiples of 8 up to 128, each split into three bf16 planes
-//     (six products a product, below), with row statistics of its own.
+//   * bf16 (flash_attention_bwd_wgmma_launch): bf16 operands at every head
+//     dim up to 256, after the wgmma forward (flash_attention_wgmma.cu),
+//     whose row statistics it reads;
+//   * f32 (flash_attention_bwd_bf16x6_launch): f32 operands at every head
+//     dim up to 256, each split into three bf16 planes (six products a
+//     product, bf16x6.cuh); up to hd 128 after the bf16x6 forward
+//     (flash_attention_bf16x6.cu), whose row statistics it reads, past it
+//     with statistics of its own and the gradients in 64-column slabs.
 // A training sequence past attn_block_q runs a forward body and then this
-// backward, through dispatch.FlashAttentionFunction; f32 at hd 136-256, and
-// head dims that are not multiples of 8, keep flash_attention_bwd.cu.
+// backward, through dispatch.FlashAttentionFunction.  A head dim that is
+// not a multiple of 8 arrives zero-filled to one by the wrapper
+// (cuda_kernel.py), with the true hd as scale_hd; no route reaches the
+// CUDA-core backward (flash_attention_bwd.cu) any more.
 //
 // Replaces the gradient the reference takes by autodiff of its jnp
 // recurrence _blockwise_attn (repro/models/attention.py:162; the Pallas
@@ -26,23 +30,30 @@
 // inside one CTA, rounded once.
 //
 // Head dims: the body is built at widths 64, 128 and 256 (HD); a call runs
-// at the first width >= hd.  The tensor maps carry the true hd as their
-// innermost extent, so TMA zero-fills a box's columns past it; zero
-// columns add exactly 0 to every Q K^T and dO V^T, the scale is the true
-// hd's, and only the true hd columns of dQ, dK and dV are stored.  hd 112
-// runs as two 64-column boxes, the second with 48 valid columns.
+// at the first width >= hd.  The tensor maps carry hd as their innermost
+// extent, so TMA zero-fills a box's columns past it; zero columns add
+// exactly 0 to every Q K^T and dO V^T, the scale is scale_hd's (the true
+// head dim; hd itself when the wrapper did not pad), and only the hd
+// columns of dQ, dK and dV are stored.  hd 112 runs as two 64-column
+// boxes, the second with 48 valid columns.
 //
 // Row statistics: m (log2 units: the scaled, capped score times log2(e);
 // -inf for a row that sees no key) and l = sum exp2(x - m) (clamped to
 // 1e-20), f32 (2, B * H * Sq).  In bf16 they are the wgmma forward's own,
-// written when it is asked for them.  In f32 the forward is the 3xTF32 body,
-// whose scores keep ~22 of f32's 24 bits; feeding its m and l to an f32
-// backward would bring that error in, so fa_bwd_stats_bf16x6_kernel makes
-// them from the backward's own f32-accurate S (the same products, the
-// same arithmetic as every later p).  Each p is formed with that arithmetic
-// -- one FFMA x = s * scale2 - m without a softcap, tanhf(s * scale /
-// softcap) * softcap * log2(e) - m with one, exp2 on the SFU -- and m and l
-// stay apart: one lse = m + log2 l would put its rounding into every p.
+// written when it is asked for them.  In f32 up to hd 128 they are the
+// bf16x6 forward's, formed from the same six-product S with the arithmetic
+// of fa_bwd_stats_bf16x6_kernel, element for element; so the backward runs
+// no statistics kernel (three device kernels a call: the split, dQ,
+// dK/dV).  The serving forward (3xTF32) keeps ~22 of f32's 24 bits; on the
+// training path its O and statistics put the f32 path's gradients at 3.86x
+// naive attention's f32 error, so the training path's forward is bf16x6.
+// Past hd 128 no forward writes f32 statistics (three planes of every tile
+// do not fit its shared memory), and fa_bwd_stats_bf16x6_kernel forms them
+// after the split (four device kernels).  Each p is formed with that
+// arithmetic -- one FFMA x = s * scale2 - m without a softcap, tanhf(s *
+// scale / softcap) * softcap * log2(e) - m with one, exp2 on the SFU -- and
+// m and l stay apart: one lse = m + log2 l would put its rounding into
+// every p.
 //
 // Layouts (contiguous, the model's native ones, read in place by TMA):
 //   q, o, dO, dQ   (B, Sq, H, hd)    bf16 or f32
@@ -60,10 +71,12 @@
 // training shape (B 4, H 16, hd 64, S 1024, causal), bf16: 67.1 MB, 20.0 us,
 // against 21.5 GFLOP, 21.7 us; f32: 134 MB against 130 us of operations.
 // The products this body issues, a visible pair: bf16 -- S and dP twice
-// each (once in each kernel), dV, dK and dQ as hi + lo pairs: 20 hd; f32 --
-// S three times (the statistics kernel too), dP twice, dV, dK and dQ once,
-// each as six bf16 products: 96 hd.  The f32 split writes 1.5x the
-// operands' f32 bytes as planes and reads them back.
+// each (once in each kernel), dV, dK and dQ as hi + lo pairs: 20 hd; f32 up
+// to hd 128 -- S and dP twice, dV, dK and dQ once, each as six bf16
+// products: 72 hd; f32 past hd 128 -- S once more in the statistics
+// kernel, and S and dP once a 128-column slice in each slab kernel: 132 hd
+// at width 256.  The f32 split writes 1.5x the operands' f32 bytes as
+// planes and reads them back.
 //
 // Design -- what it does about the faults of the CUDA-core backward
 // (flash_attention_bwd.cu: f32 FMAs fed a scalar from shared memory for
@@ -119,7 +132,8 @@
 //   the forward's kSplit does.  f32: three planes of every tile fill shared
 //   memory at one CTA an SM; two warpgroups share the streamed tiles at hd
 //   64, and at hd 128 the dK/dV kernel's two share 64 resident keys, each
-//   keeping half of dK and dV's columns.
+//   keeping half of dK and dV's columns; past hd 128 nothing stays
+//   resident (the slab kernels, below).
 //   dQ kernel: one CTA per (b * H + h, query tile), heaviest causal tiles
 //   first; Q, dO, m, 1 / l and D stay; K and V come through a TMA ring.  It
 //   writes each row's m, 1 / l and D (the row records) for the next kernel.
@@ -138,6 +152,7 @@
 #include <type_traits>
 
 #include "wgmma_common.cuh"
+#include "bf16x6.cuh"
 
 namespace {
 
@@ -174,6 +189,12 @@ template <>
 struct Cfg<128, kDkdv, 3> {
   static constexpr int kWG = 2, kCtas = 1, kBN = 32, kSplit = 2, kStages = 2;  // 195 KB
 };
+// f32 at hd 256: only the statistics kernel takes this geometry (Q's planes
+// resident, K's streamed); the gradients run the slab kernels below.
+template <>
+struct Cfg<256, kDq, 3> {
+  static constexpr int kWG = 1, kCtas = 1, kBN = 32, kSplit = 1, kStages = 2;
+};
 
 // Row records: the dQ kernel writes each row's m, 1 / l and D (m = 1 / l =
 // 0 for a row that sees no key, and for the padding past Sq) as f32 (B * H,
@@ -184,7 +205,6 @@ __host__ __device__ constexpr int rec_pad(int sq) { return (sq + kRecPad - 1) / 
 
 template <int HD, int K, int kP>
 struct Geo {
-  static_assert(kP == 1 || (kP == 3 && HD <= 128), "the f32 body takes hd <= 128");
   using C = Cfg<HD, K, kP>;
   static constexpr int kWG = C::kWG;
   static constexpr int kSplit = C::kSplit;
@@ -209,123 +229,18 @@ struct Geo {
   static constexpr uint32_t kBytes = 1024 + kStatOff + kStatBytes;
 };
 
-// The f32 statistics kernel: the dQ kernel's rows and key tiles, Q
-// resident and K alone through a deeper ring.
+// The f32 statistics kernel (width 256 only: below it the bf16x6 forward
+// writes the statistics): 64 query rows, Q's planes resident, K's through a
+// ring of two.
 template <int HD>
 struct StatsGeo {
   using G = Geo<HD, kDq, 3>;
-  static constexpr int kStages = 3;
+  static constexpr int kStages = 2;
   static constexpr uint32_t kStageBytes = 3 * G::kTileBytes;
   static constexpr uint32_t kBarOff = 3 * G::kResBytes + kStages * kStageBytes;
-  static constexpr uint32_t kBytes = 1024 + kBarOff + 8 * (2 * kStages + 1);  // 121 KB
+  static constexpr uint32_t kBytes = 1024 + kBarOff + 8 * (2 * kStages + 1);  // 193 KB
 };
 
-
-// One TMA box of a rank-2 map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-template <int F, int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[F][N][4]) {
-#pragma unroll
-  for (int p = 0; p < F; ++p) pin(r[p]);
-}
-
-// Fragment planes of P and dS: bf16 hi + lo in bf16, hi + mid + lo in f32.
-template <int kP>
-constexpr int kFrag = kP == 3 ? 3 : 2;
-
-// The plane pairs (A plane, B plane) of a six-product f32 product, small
-// first: mid mid, hi lo, lo hi, hi mid, mid hi; hi hi (0, 0) goes last.
-__host__ __device__ constexpr int pair_a(int t) { return t == 0 ? 1 : t == 2 ? 2 : t == 4 ? 1 : 0; }
-__host__ __device__ constexpr int pair_b(int t) { return t == 0 ? 1 : t == 1 ? 2 : t == 3 ? 1 : 0; }
-
-// An accumulator pair (a, b) as fragment word j of k-slab kk of each of the
-// F planes: plane 0 = bf16(x), each next plane bf16 of what the planes
-// before it leave (x - hi exact in f32, as is x - hi - mid), rounded to
-// nearest.
-template <int F, int S>
-__device__ __forceinline__ void split_into(float a, float b, uint32_t (&f)[F][S][4], int kk, int j) {
-#pragma unroll
-  for (int p = 0; p < F; ++p) {
-    const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
-    f[p][kk][j] = *reinterpret_cast<const uint32_t*>(&h2);
-    if (p + 1 < F) {
-      const float2 back = __bfloat1622float2(h2);
-      a -= back.x;
-      b -= back.y;
-    }
-  }
-}
-
-// An m64 x kBN accumulator as register-A fragments of kBN / 16 k-slabs:
-// fragment word f of slab kk = (row r, block 2kk), (r + 8, 2kk), (r, 2kk +
-// 1), (r + 8, 2kk + 1), as the forward forms P's.
-template <int kBN, int F>
-__device__ __forceinline__ void to_fragments(const float (&x)[kBN / 2], uint32_t (&f)[F][kBN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const int idx = 4 * (2 * kk + (w >> 1)) + 2 * (w & 1);
-      split_into(x[idx], x[idx + 1], f, kk, w);
-    }
-}
-
-// The products of a register-A fragment over kBN / 16 k-slabs with B, a
-// streamed tile read MN-major from sB (its planes kPlaneB bytes apart),
-// from the first of its 64-column chunks this warpgroup takes (rows = the
-// product's k, columns = its N of kOD).  bf16 (kP 1): acc += (hi + lo) B.
-// f32 (kP 3): acc = the six plane pairs, small ones first over every
-// k-slab, then hi hi; acc is a fresh tile sum (scale_d 0 on the first).
-template <int kBN, int kOD, int kP, uint32_t kPlaneB>
-__device__ __forceinline__ void issue_rs(float (&acc)[kOD / 2], const uint32_t (&f)[kFrag<kP>][kBN / 16][4],
-                                         uint32_t sB) {
-  auto desc = [&](int kk, int pb) { return sw128_desc(sB + pb * kPlaneB + kk * 16 * 128, kBN * 128, 1024); };
-  if constexpr (kP == 1) {
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint64_t db = desc(kk, 0);
-      Wgmma<kOD>::rs(acc, f[0][kk], db);
-      Wgmma<kOD>::rs(acc, f[1][kk], db);
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-      for (int t = 0; t < 5; ++t) Wgmma<kOD>::rs(acc, f[pair_a(t)][kk], desc(kk, pair_b(t)), kk > 0 || t > 0);
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) Wgmma<kOD>::rs(acc, f[0][kk], desc(kk, 0), 1);
-  }
-  wgmma_commit();
-}
-
-// acc = A B^T over HD, A = 64 resident rows (K-major, chunks kChunkA apart,
-// planes kPlaneA apart), B = a streamed tile of kBN rows (K-major, chunks
-// kBN * 128 apart, planes kPlaneB apart).  bf16: one product a k-slab.
-// f32: the five small plane pairs over every k-slab, then hi hi.
-template <int HD, int kBN, uint32_t kChunkA, int kP, uint32_t kPlaneA, uint32_t kPlaneB>
-__device__ __forceinline__ void issue_ss(float (&acc)[kBN / 2], uint32_t sA, uint32_t sB) {
-  auto one = [&](int kk, int pa, int pb, int scale_d) {
-    const uint64_t da = sw128_desc(sA + pa * kPlaneA + (kk / 4) * kChunkA + (kk % 4) * 32, 16, 1024);
-    const uint64_t db = sw128_desc(sB + pb * kPlaneB + (kk / 4) * (kBN * 128) + (kk % 4) * 32, 16, 1024);
-    Wgmma<kBN>::ss(acc, da, db, scale_d);
-  };
-  if constexpr (kP == 3) {
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-#pragma unroll
-      for (int t = 0; t < 5; ++t) one(kk, pair_a(t), pair_b(t), kk > 0 || t > 0);
-  }
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) one(kk, 0, 0, kP == 3 || kk > 0);
-  wgmma_commit();
-}
 
 struct Params {
   const void* o;       // (B, Sq, H, hd), the operands' type (bf16 or f32)
@@ -336,88 +251,20 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  int B, Sq, Skv, H, KV, hd, causal, window, q_offset;
+  int B, Sq, Skv, H, KV, hd;
+  int scale_hd;        // the true head dim, for the scale (hd is the width the operands are laid out at)
+  int causal, window, q_offset;
   float softcap;
 };
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
-
-// The scaled, capped score in log2 units, as the forward keeps it.
-template <bool kSoftcap>
-__device__ __forceinline__ float logit2(float s, float scale2, float scale, float softcap) {
-  if constexpr (kSoftcap) {
-    return tanhf(s * scale / softcap) * softcap * kLog2e;
-  } else {
-    return s * scale2;
-  }
-}
-
-// p of one accumulator element from its raw score s and its query's m and
-// 1 / l, with the forward's score arithmetic; dfac gets dS's factor
-// 1 - t^2 (1 without a softcap).  The caller masks.
-template <bool kSoftcap>
-__device__ __forceinline__ float prob(float s, float m, float il, float scale2, float scale, float softcap,
-                                      float& dfac) {
-  if constexpr (kSoftcap) {
-    const float t = tanhf(s * scale / softcap);
-    dfac = 1.f - t * t;
-    return exp2_approx(t * softcap * kLog2e - m) * il;
-  } else {
-    dfac = 1.f;
-    return exp2_approx(fmaf(s, scale2, -m)) * il;
-  }
-}
-
-__device__ __forceinline__ bool visible(int qp, int kp, int Skv, int causal, int window) {
-  return kp < Skv && (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
-}
-
 // ---------------------------------------------------------------------------
-// f32: the split into bf16 planes, and the row statistics
+// f32: the row statistics
 // ---------------------------------------------------------------------------
 
-// Up to four f32 tensors of n elements (n a multiple of 8), each into three
-// bf16 planes at dst, dst + n, dst + 2 n: hi, mid, lo.  A thread splits 8
-// elements: two 16-byte loads, a 16-byte store a plane.
-struct SplitArgs {
-  const float* src[4];
-  __nv_bfloat16* dst[4];
-  long long n[4];
-};
-
-__global__ void __launch_bounds__(256) fa_bwd_split_kernel(const SplitArgs a) {
-  // Constant indices: a parameter array indexed by blockIdx.y would be
-  // copied to local memory by every thread.
-  const int t = blockIdx.y;
-  const long long n8 = (t == 0 ? a.n[0] : t == 1 ? a.n[1] : t == 2 ? a.n[2] : a.n[3]) / 8;
-  const float4* src = reinterpret_cast<const float4*>(t == 0 ? a.src[0] : t == 1 ? a.src[1] : t == 2 ? a.src[2]
-                                                                                                     : a.src[3]);
-  uint4* dst = reinterpret_cast<uint4*>(t == 0 ? a.dst[0] : t == 1 ? a.dst[1] : t == 2 ? a.dst[2] : a.dst[3]);
-  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < n8;
-       i += static_cast<long long>(gridDim.x) * 256) {
-    const float4 x = src[2 * i];
-    const float4 y = src[2 * i + 1];
-    uint32_t w[3][1][4];
-    split_into(x.x, x.y, w, 0, 0);
-    split_into(x.z, x.w, w, 0, 1);
-    split_into(y.x, y.y, w, 0, 2);
-    split_into(y.z, y.w, w, 0, 3);
-#pragma unroll
-    for (int p = 0; p < 3; ++p) dst[p * n8 + i] = make_uint4(w[p][0][0], w[p][0][1], w[p][0][2], w[p][0][3]);
-  }
-}
-
-// Each row's m and l from S in six bf16 products, as the forward forms them
-// (online over the dQ kernel's key tiles [lo, hi)): one CTA per (b * H + h,
-// query tile of the dQ kernel's kR rows).  stats as the wgmma forward
-// writes it.
+// Each row's m and l from S in six bf16 products, as the bf16x6 forward
+// forms them below width 256 (online over key tiles [lo, hi) of kBN
+// keys): one CTA per (b * H + h, query tile of kR rows).  stats as the
+// wgmma forward writes it.
 template <int HD, bool kSoftcap>
 __global__ void __launch_bounds__(Geo<HD, kDq, 3>::kThreads, 1)
 fa_bwd_stats_bf16x6_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -482,7 +329,7 @@ fa_bwd_stats_bf16x6_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
   const int col2 = 2 * (lane % 4);
   const int qa = a.q_offset + q0 + 64 * wg;
   const int qb = qa + 63;
-  const float scale = 1.0f / sqrtf(static_cast<float>(a.hd));
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.scale_hd));
   const float scale2 = scale * kLog2e;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
@@ -563,6 +410,7 @@ __global__ void __launch_bounds__(Geo<HD, kDq, kP>::kThreads, Cfg<HD, kDq, kP>::
 fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                        const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                        const Params a) {
+  static_assert(kP == 1 || HD <= 128, "f32 past hd 128 runs the slab kernels");
   using G = Geo<HD, kDq, kP>;
   using T = std::conditional_t<kP == 3, float, __nv_bfloat16>;  // o, dO and the gradients
   constexpr int kBN = G::kBN, kR = G::kR, kOD = G::kOD, kStages = G::kStages, kWG = G::kWG;
@@ -681,7 +529,7 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   const int col2 = 2 * (lane % 4);
   const int qa = a.q_offset + q0 + 64 * rg;  // first query position of the warpgroup
   const int qb = qa + 63;
-  const float scale = 1.0f / sqrtf(static_cast<float>(a.hd));  // the true head dim's
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.scale_hd));  // the true head dim's
   const float scale2 = scale * kLog2e;
   float rm[2], ril[2], rd[2];
 #pragma unroll
@@ -788,6 +636,7 @@ __global__ void __launch_bounds__(Geo<HD, kDkdv, kP>::kThreads, Cfg<HD, kDkdv, k
 fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                          const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap trec, const Params a) {
+  static_assert(kP == 1 || HD <= 128, "f32 past hd 128 runs the slab kernels");
   using G = Geo<HD, kDkdv, kP>;
   using T = std::conditional_t<kP == 3, float, __nv_bfloat16>;
   constexpr int kBN = G::kBN, kR = G::kR, kOD = G::kOD, kStages = G::kStages, kWG = G::kWG;
@@ -861,7 +710,7 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
   const int r0 = 16 * (tid / 32) + lane / 4;
   const int col2 = 2 * (lane % 4);
   const int ka = k0 + 64 * rg;  // first key of the warpgroup
-  const float scale = 1.0f / sqrtf(static_cast<float>(a.hd));  // the true head dim's
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.scale_hd));  // the true head dim's
   const float scale2 = scale * kLog2e;
 
   float dk[kOD / 2], dv[kOD / 2];
@@ -981,6 +830,385 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
 }
 
 // ---------------------------------------------------------------------------
+// f32 at hd 136-256: the slab kernels (run at width 256)
+// ---------------------------------------------------------------------------
+
+// Three bf16 planes of a 64-row tile at width 256 take 96 KB, so neither
+// gradient kernel can keep its rows' two operands resident beside a ring.
+// Both stream every operand in 64-column slabs instead: a stage holds one
+// slab (its three planes) of the CTA's 64 rows of two tensors (A1, A2) and
+// of a streamed tile's kBN rows of two more (B1, B2).  S and dP are summed
+// slab by slab, each slab's six products in a fresh accumulator that the
+// CUDA cores add into the tile's f32 sum.  A CTA keeps 128 of the 256
+// gradient columns (its slice, blockIdx.z), so each tile's S and dP are
+// formed once a slice; a tile's four slabs are streamed with the slice's two
+// last, so that they are still in the ring for the gradient products.  One
+// warpgroup a CTA, one CTA an SM (220 KB); the warpgroup's thread 0 issues
+// every copy, refilling a stage as soon as its products are waited on.
+//   dQ:    rows = 64 queries, A1 = Q, A2 = dO; B1 = K, B2 = V (kBN keys);
+//          dQ[:, slice] += dS K[:, slice].
+//   dK/dV: rows = 64 keys, A1 = K, A2 = V; B1 = Q, B2 = dO (kBN queries)
+//          and the tile's row records; dV[:, slice] += P^T dO[:, slice],
+//          dK[:, slice] += dS^T Q[:, slice].
+struct SlabGeo {
+  static constexpr int kHD = 256, kSlabs = kHD / 64, kSliceCols = 128, kSlices = kHD / kSliceCols;
+  static constexpr int kBN = 32, kStages = 3, kThreads = 128;
+  static constexpr uint32_t kPlaneA = 64 * 128;   // one plane of a 64-row slab
+  static constexpr uint32_t kPlaneB = kBN * 128;  // ... of a kBN-row slab
+  static constexpr uint32_t kA2 = 3 * kPlaneA;    // A2's planes, after A1's
+  static constexpr uint32_t kB1 = 6 * kPlaneA;
+  static constexpr uint32_t kB2 = kB1 + 3 * kPlaneB;
+  static constexpr uint32_t kRec = kB2 + 3 * kPlaneB;  // dK/dV: the tile's row records (3 x kBN f32)
+  static constexpr uint32_t kLoadBytes = 6 * kPlaneA + 6 * kPlaneB;
+  static constexpr uint32_t kStageBytes = kRec + 1024;
+  static constexpr uint32_t kBarOff = kStages * kStageBytes;  // full[kStages]
+  static constexpr uint32_t kStatOff = kBarOff + 8 * kStages;
+  static constexpr uint32_t kBytes = 1024 + kStatOff + 3 * 64 * 4;  // 220.8 KB
+  static_assert(kSlices == 2 && kSlabs == 4, "the stream order below takes two slices of two slabs");
+};
+
+// The slab a tile's stream position takes: the other slice's two first,
+// then this slice's.
+__device__ __forceinline__ int slab_at(int slice, int pos) { return (2 * slice + 2 + pos) % 4; }
+
+// S (or S^T) and dP (dP^T) of one tile, summed over its four slabs; the
+// stages of positions 0 and 1 are refilled once their products are done,
+// with stream index n + kStages (issue(n) loads stream index n).
+template <typename Issue>
+__device__ __forceinline__ void slab_scores(float (&s)[SlabGeo::kBN / 2], float (&dp)[SlabGeo::kBN / 2], int n0,
+                                            int total, uint32_t sbase, uint32_t bars, Issue&& issue) {
+  using G = SlabGeo;
+  constexpr int kN = G::kBN / 2;
+  float sp[kN], dpp[kN];
+#pragma unroll
+  for (int pos = 0; pos < 4; ++pos) {
+    const int n = n0 + pos;
+    const int st = n % G::kStages;
+    const uint32_t sb = sbase + st * G::kStageBytes;
+    mbar_wait(bars + 8 * st, (n / G::kStages) & 1);
+    wgmma_fence();
+    issue_ss<64, G::kBN, G::kPlaneA, 3, G::kPlaneA, G::kPlaneB>(sp, sb, sb + G::kB1);
+    issue_ss<64, G::kBN, G::kPlaneA, 3, G::kPlaneA, G::kPlaneB>(dpp, sb + G::kA2, sb + G::kB2);
+    wgmma_wait<0>();
+    pin(sp);
+    pin(dpp);
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      s[i] = pos == 0 ? sp[i] : s[i] + sp[i];
+      dp[i] = pos == 0 ? dpp[i] : dp[i] + dpp[i];
+    }
+    if (pos < 2) {
+      if (threadIdx.x == 0 && n + G::kStages < total) issue(n + G::kStages);
+      __syncwarp();
+    }
+  }
+}
+
+// acc[32 half ..] += the tile's terms of one 64-column slab: a register-A
+// fragment over kBN k-rows times B (MN-major at sB), in a fresh accumulator.
+__device__ __forceinline__ void slab_product(float (&acc)[64], int half, const uint32_t (&f)[3][SlabGeo::kBN / 16][4],
+                                             uint32_t sB) {
+  float t[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) t[i] = 0.f;
+  wgmma_fence();
+  issue_rs<SlabGeo::kBN, 64, 3, SlabGeo::kPlaneB>(t, f, sB);
+  wgmma_wait<0>();
+  pin(t);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[32 * half + i] += t[i];
+}
+
+template <bool kSoftcap>
+__global__ void __launch_bounds__(SlabGeo::kThreads, 1)
+fa_bwd_dq_slab_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                      const Params a) {
+  using G = SlabGeo;
+  constexpr int kBN = G::kBN, kStages = G::kStages;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_u32(base);
+  const uint32_t bars = sbase + G::kBarOff;
+  float* sM = reinterpret_cast<float*>(base + G::kStatOff);  // (64) m, then 1 / l, then D
+  float* sIL = sM + 64;
+  float* sD = sIL + 64;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int kvh = h / (a.H / a.KV);
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * 64;
+  const int nq = min(64, a.Sq - q0);
+  const int slice = blockIdx.z;
+  const int n_kv = (a.Skv + kBN - 1) / kBN;
+  const int hi = a.causal ? min((a.q_offset + q0 + nq - 1) / kBN + 1, n_kv) : n_kv;
+  const int lo = a.window > 0 ? min(max(a.q_offset + q0 - a.window + 1, 0) / kBN, hi - 1) : 0;
+  const int n_tiles = hi - lo;  // >= 1
+  const int total = 4 * n_tiles;
+
+  auto issue = [&](int n) {
+    const int st = n % kStages;
+    const int c = 64 * slab_at(slice, n % 4);
+    const int kr = (lo + n / 4) * kBN;
+    const uint32_t sb = sbase + st * G::kStageBytes;
+    const uint32_t full = bars + 8 * st;
+    mbar_expect_tx(full, G::kLoadBytes);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      tma_load(sb + p * G::kPlaneA, &tq, c, h, q0, b + p * a.B, full);
+      tma_load(sb + G::kA2 + p * G::kPlaneA, &tdo, c, h, q0, b + p * a.B, full);
+      tma_load(sb + G::kB1 + p * G::kPlaneB, &tk, c, kvh, kr, b + p * a.B, full);
+      tma_load(sb + G::kB2 + p * G::kPlaneB, &tv, c, kvh, kr, b + p * a.B, full);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int n = 0; n < min(kStages, total); ++n) issue(n);
+  }
+
+  // D = rowsum(dO o O) for the CTA's 64 rows (two threads a row), m and 1 /
+  // l as the dQ kernel forms them; slice 0 writes the row records for the
+  // dK/dV kernel.
+  {
+    constexpr int kCols = G::kHD / 2;
+    const int r = threadIdx.x / 2;
+    const int part = threadIdx.x % 2;
+    const int q = q0 + r;
+    const int n = min(kCols, a.hd - part * kCols);
+    float dd = 0.f;
+    if (q < a.Sq && n > 0) {
+      const size_t off = ((static_cast<size_t>(b) * a.Sq + q) * a.H + h) * a.hd + part * kCols;
+      const float* o = static_cast<const float*>(a.o) + off;
+      const float* d = static_cast<const float*>(a.dout) + off;
+#pragma unroll 8
+      for (int c = 0; c < n; c += 2) {
+        const float2 x = load2(o + c);
+        const float2 y = load2(d + c);
+        dd = fmaf(x.x, y.x, dd);
+        dd = fmaf(x.y, y.y, dd);
+      }
+    }
+    dd += __shfl_xor_sync(0xffffffffu, dd, 1);
+    if (part == 0) {
+      float mm = 0.f, il = 0.f;
+      if (q < a.Sq) {
+        const size_t row = static_cast<size_t>(bh) * a.Sq + q;
+        mm = a.m[row];
+        il = 1.f / a.l[row];
+        if (mm == -INFINITY) mm = il = 0.f;
+      }
+      sM[r] = mm;
+      sIL[r] = il;
+      sD[r] = dd;
+      if (slice == 0) {
+        const int pad = rec_pad(a.Sq);  // q < pad: 64 divides kRecPad
+        float* rec = a.rec + static_cast<size_t>(bh) * 3 * pad + q;
+        rec[0] = mm;
+        rec[pad] = il;
+        rec[2 * pad] = dd;
+      }
+    }
+  }
+  __syncthreads();
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int r0 = 16 * (tid / 32) + lane / 4;
+  const int col2 = 2 * (lane % 4);
+  const int qa = a.q_offset + q0;
+  const int qb = qa + 63;
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.scale_hd));
+  const float scale2 = scale * kLog2e;
+  float rm[2], ril[2], rd[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    rm[e] = sM[r0 + 8 * e];
+    ril[e] = sIL[r0 + 8 * e];
+    rd[e] = sD[r0 + 8 * e];
+  }
+
+  float dq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+  float s[kBN / 2], dp[kBN / 2];
+  uint32_t f[3][kBN / 16][4];
+
+  for (int j = 0; j < n_tiles; ++j) {
+    slab_scores(s, dp, 4 * j, total, sbase, bars, issue);
+    const int k0 = (lo + j) * kBN;
+    const bool edge = k0 + kBN > a.Skv || (a.causal && k0 + kBN - 1 > qa) || (a.window > 0 && qb - k0 >= a.window);
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * i + e;
+        const int r = e >> 1;
+        float dfac;
+        float p = prob<kSoftcap>(s[x], rm[r], ril[r], scale2, scale, a.softcap, dfac);
+        if (edge && !visible(qa + r0 + 8 * r, k0 + 8 * i + col2 + (e & 1), a.Skv, a.causal, a.window)) p = 0.f;
+        dp[x] = p * (dp[x] - rd[r]) * dfac;
+      }
+    to_fragments<kBN>(dp, f);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = 4 * j + 2 + half;
+      slab_product(dq, half, f, sbase + (n % kStages) * G::kStageBytes + G::kB1);  // dS K[:, slab]
+    }
+    pin(f);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = 4 * j + 2 + half;
+      if (threadIdx.x == 0 && n + kStages < total) issue(n + kStages);
+      __syncwarp();
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int q = q0 + r0 + 8 * e;
+    if (q < a.Sq) {
+      float* row = static_cast<float*>(a.dq) + ((static_cast<size_t>(b) * a.Sq + q) * a.H + h) * a.hd +
+                   G::kSliceCols * slice + col2;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (G::kSliceCols * slice + 8 * i >= a.hd) break;  // the zero-filled columns past hd are not stored
+        store2(row + 8 * i, dq[4 * i + 2 * e] * scale, dq[4 * i + 2 * e + 1] * scale);
+      }
+    }
+  }
+}
+
+template <bool kSoftcap>
+__global__ void __launch_bounds__(SlabGeo::kThreads, 1)
+fa_bwd_dkdv_slab_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap trec, const Params a) {
+  using G = SlabGeo;
+  constexpr int kBN = G::kBN, kStages = G::kStages;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_u32(base);
+  const uint32_t bars = sbase + G::kBarOff;
+
+  const int b = blockIdx.x / a.KV;
+  const int kvh = blockIdx.x % a.KV;
+  const int grp = a.H / a.KV;
+  const int k0 = blockIdx.y * 64;
+  const int nk = min(64, a.Skv - k0);
+  const int slice = blockIdx.z;
+  // The query rows that see a key of this tile, walked in query tiles of
+  // kBN rows for each head of the group, as the dK/dV kernel walks them.
+  const int q_begin = a.causal ? max(k0 - a.q_offset, 0) : 0;
+  const int q_end = a.window > 0 ? min(a.Sq, k0 + nk - 1 + a.window - a.q_offset) : a.Sq;
+  const int t_lo = q_begin / kBN;
+  const int n_qt = q_end > q_begin ? (q_end + kBN - 1) / kBN - t_lo : 0;
+  const int n_tiles = grp * n_qt;
+  const int total = 4 * n_tiles;
+
+  auto issue = [&](int n) {
+    const int st = n % kStages;
+    const int t = n / 4;
+    const int h = kvh * grp + t / n_qt;
+    const int q0 = (t_lo + t % n_qt) * kBN;
+    const int c = 64 * slab_at(slice, n % 4);
+    const uint32_t sb = sbase + st * G::kStageBytes;
+    const uint32_t full = bars + 8 * st;
+    mbar_expect_tx(full, G::kLoadBytes + 3 * kBN * 4);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      tma_load(sb + p * G::kPlaneA, &tk, c, kvh, k0, b + p * a.B, full);
+      tma_load(sb + G::kA2 + p * G::kPlaneA, &tv, c, kvh, k0, b + p * a.B, full);
+      tma_load(sb + G::kB1 + p * G::kPlaneB, &tq, c, h, q0, b + p * a.B, full);
+      tma_load(sb + G::kB2 + p * G::kPlaneB, &tdo, c, h, q0, b + p * a.B, full);
+    }
+    tma_load_2d(sb + G::kRec, &trec, q0, 3 * (b * a.H + h), full);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int n = 0; n < min(kStages, total); ++n) issue(n);
+  }
+  __syncthreads();
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int r0 = 16 * (tid / 32) + lane / 4;
+  const int col2 = 2 * (lane % 4);
+  const float scale = 1.0f / sqrtf(static_cast<float>(a.scale_hd));
+  const float scale2 = scale * kLog2e;
+
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  float s[kBN / 2], dp[kBN / 2];
+  uint32_t pf[3][kBN / 16][4], df[3][kBN / 16][4];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    slab_scores(s, dp, 4 * t, total, sbase, bars, issue);  // S^T = K Q^T, dP^T = V dO^T
+    const int q0 = (t_lo + t % n_qt) * kBN;
+    const int qp0 = a.q_offset + q0;
+    const bool edge = k0 + 64 > a.Skv || (a.causal && k0 + 63 > qp0) || (a.window > 0 && qp0 + kBN - 1 - k0 >= a.window);
+    const uint32_t s2 = sbase + ((4 * t + 2) % kStages) * G::kStageBytes;  // the slice's first slab
+    const uint32_t s3 = sbase + ((4 * t + 3) % kStages) * G::kStageBytes;  // ... and second
+    const float* sst = reinterpret_cast<const float*>(base + (s3 + G::kRec - sbase));
+    // P^T and dS^T straight into fragments, as the dK/dV kernel forms them.
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+      const float2 mm = *reinterpret_cast<const float2*>(sst + 8 * i + col2);
+      const float2 il = *reinterpret_cast<const float2*>(sst + kBN + 8 * i + col2);
+      const float2 dd = *reinterpret_cast<const float2*>(sst + 2 * kBN + 8 * i + col2);
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        float p[2], ds[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int x = 4 * i + 2 * w + c;
+          float dfac;
+          p[c] = prob<kSoftcap>(s[x], c ? mm.y : mm.x, c ? il.y : il.x, scale2, scale, a.softcap, dfac);
+          if (edge && !visible(qp0 + 8 * i + col2 + c, k0 + r0 + 8 * w, a.Skv, a.causal, a.window)) p[c] = 0.f;
+          ds[c] = p[c] * (dp[x] - (c ? dd.y : dd.x)) * dfac;
+        }
+        split_into(p[0], p[1], pf, i / 2, 2 * (i % 2) + w);
+        split_into(ds[0], ds[1], df, i / 2, 2 * (i % 2) + w);
+      }
+    }
+    slab_product(dv, 0, pf, s2 + G::kB2);  // P^T dO[:, slab]
+    slab_product(dv, 1, pf, s3 + G::kB2);
+    pin(pf);
+    slab_product(dk, 0, df, s2 + G::kB1);  // dS^T Q[:, slab]
+    slab_product(dk, 1, df, s3 + G::kB1);
+    pin(df);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = 4 * t + 2 + half;
+      if (threadIdx.x == 0 && n + kStages < total) issue(n + kStages);
+      __syncwarp();
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int key = k0 + r0 + 8 * e;
+    if (key < a.Skv) {
+      const size_t off = ((static_cast<size_t>(b) * a.Skv + key) * a.KV + kvh) * a.hd + G::kSliceCols * slice + col2;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (G::kSliceCols * slice + 8 * i >= a.hd) break;  // the zero-filled columns past hd are not stored
+        store2(static_cast<float*>(a.dk) + off + 8 * i, dk[4 * i + 2 * e] * scale, dk[4 * i + 2 * e + 1] * scale);
+        store2(static_cast<float*>(a.dv) + off + 8 * i, dv[4 * i + 2 * e], dv[4 * i + 2 * e + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side: the launches (tensor maps encoded as wgmma_common.cuh does)
 // ---------------------------------------------------------------------------
 
@@ -1003,15 +1231,6 @@ struct Args {
   Params p;
   cudaStream_t stream;
 };
-
-template <typename Kern, typename... Maps>
-int launch_one(Kern kernel, dim3 grid, int threads, uint32_t smem, cudaStream_t stream, const Maps&... maps_then_args) {
-  const cudaError_t cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                static_cast<int>(smem));
-  if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  kernel<<<grid, threads, smem, stream>>>(maps_then_args...);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The dQ kernel, then the dK/dV kernel.
 template <int HD, int kP>
@@ -1072,10 +1291,45 @@ Scratch scratch_layout(int B, int Sq, int Skv, int H, int KV, int hd) {
   return s;
 }
 
-// The f32 body: the split, the statistics kernel, then launch<HD, 3>.
+// f32 at width 256: the dQ slab kernel (with the row records), then the
+// dK/dV slab kernel, each over both 128-column slices.
+int launch_slab(const Args& a) {
+  using G = SlabGeo;
+  EncodeTiled fn;
+  if (const int e = tensor_map_encoder(&fn)) return e;
+  const Params& p = a.p;
+  const int nb = 3 * p.B;
+  const int n_q = (p.Sq + 63) / 64;
+  const int n_k = (p.Skv + 63) / 64;
+  if (n_q > 65535 || n_k > 65535) return kUnsupported;
+  const bool cap = p.softcap > 0.f;
+  CUtensorMap tq, tdo, tk, tv, trec;
+  int err = encode(fn, &tq, a.q, nb, p.Sq, p.H, p.hd, 64);
+  if (err == 0) err = encode(fn, &tdo, a.dout, nb, p.Sq, p.H, p.hd, 64);
+  if (err == 0) err = encode(fn, &tk, a.k, nb, p.Skv, p.KV, p.hd, G::kBN);
+  if (err == 0) err = encode(fn, &tv, a.v, nb, p.Skv, p.KV, p.hd, G::kBN);
+  if (err != 0) return err;
+  err = launch_one(cap ? fa_bwd_dq_slab_kernel<true> : fa_bwd_dq_slab_kernel<false>, dim3(p.B * p.H, n_q, G::kSlices),
+                   G::kThreads, G::kBytes, a.stream, tq, tdo, tk, tv, p);
+  if (err != 0) return err;
+  err = encode(fn, &tq, a.q, nb, p.Sq, p.H, p.hd, G::kBN);
+  if (err == 0) err = encode(fn, &tdo, a.dout, nb, p.Sq, p.H, p.hd, G::kBN);
+  if (err == 0) err = encode(fn, &tk, a.k, nb, p.Skv, p.KV, p.hd, 64);
+  if (err == 0) err = encode(fn, &tv, a.v, nb, p.Skv, p.KV, p.hd, 64);
+  if (err == 0) err = encode_rec(fn, &trec, p.rec, 3 * p.B * p.H, rec_pad(p.Sq), G::kBN);
+  if (err != 0) return err;
+  return launch_one(cap ? fa_bwd_dkdv_slab_kernel<true> : fa_bwd_dkdv_slab_kernel<false>,
+                    dim3(p.B * p.KV, n_k, G::kSlices), G::kThreads, G::kBytes, a.stream, tq, tdo, tk, tv, trec, p);
+}
+
+// The f32 body: the split of q, k, v and dO into planes, then the
+// gradients: below width 256 on the bf16x6 forward's statistics
+// (`fwd_stats`, f32 (2, B * H * Sq)) by launch<HD, 3>, three device kernels
+// in all; at width 256 (fwd_stats null) the statistics kernel, then the
+// slab kernels, four.
 template <int HD>
-int launch_f32(const float* q, const float* k, const float* v, const float* dout, uint8_t* scratch, Params p,
-               cudaStream_t stream) {
+int launch_f32(const float* q, const float* k, const float* v, const float* dout, const float* fwd_stats,
+               uint8_t* scratch, Params p, cudaStream_t stream) {
   EncodeTiled fn;
   if (const int e = tensor_map_encoder(&fn)) return e;
   const Scratch sc = scratch_layout(p.B, p.Sq, p.Skv, p.H, p.KV, p.hd);
@@ -1083,35 +1337,36 @@ int launch_f32(const float* q, const float* k, const float* v, const float* dout
   auto* pk = reinterpret_cast<__nv_bfloat16*>(scratch + sc.k);
   auto* pv = reinterpret_cast<__nv_bfloat16*>(scratch + sc.v);
   auto* pdo = reinterpret_cast<__nv_bfloat16*>(scratch + sc.dout);
-  float* stats = reinterpret_cast<float*>(scratch + sc.stats);
+  float* stats = fwd_stats != nullptr ? const_cast<float*>(fwd_stats) : reinterpret_cast<float*>(scratch + sc.stats);
   p.m = stats;
   p.l = stats + static_cast<size_t>(p.B) * p.H * p.Sq;
   p.rec = reinterpret_cast<float*>(scratch + sc.rec);
 
   const long long nq = static_cast<long long>(p.B) * p.Sq * p.H * p.hd;
   const long long nk = static_cast<long long>(p.B) * p.Skv * p.KV * p.hd;
-  const SplitArgs sa{{q, k, v, dout}, {pq, pk, pv, pdo}, {nq, nk, nk, nq}};
-  const long long blocks = ((nq > nk ? nq : nk) / 8 + 255) / 256;
-  fa_bwd_split_kernel<<<dim3(static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16), 4), 256, 0, stream>>>(sa);
-  int err = static_cast<int>(cudaGetLastError());
+  int err = launch_split(SplitArgs{{q, k, v, dout}, {pq, pk, pv, pdo}, {nq, nk, nk, nq}}, 4, stream);
   if (err != 0) return err;
 
-  using Q = Geo<HD, kDq, 3>;
-  const int n_q = (p.Sq + Q::kR - 1) / Q::kR;
-  if (n_q > 65535) return kUnsupported;
-  CUtensorMap tq, tk;
-  err = encode(fn, &tq, pq, 3 * p.B, p.Sq, p.H, p.hd, Q::kR);
-  if (err == 0) err = encode(fn, &tk, pk, 3 * p.B, p.Skv, p.KV, p.hd, Q::kBN);
-  if (err != 0) return err;
-  err = launch_one(p.softcap > 0.f ? fa_bwd_stats_bf16x6_kernel<HD, true> : fa_bwd_stats_bf16x6_kernel<HD, false>,
-                   dim3(p.B * p.H, n_q), Q::kThreads, StatsGeo<HD>::kBytes, stream, tq, tk, p, stats);
-  if (err != 0) return err;
-  return launch<HD, 3>(Args{pq, pk, pv, pdo, p, stream});
+  if constexpr (HD == 256) {
+    using Q = Geo<HD, kDq, 3>;
+    const int n_q = (p.Sq + Q::kR - 1) / Q::kR;
+    if (n_q > 65535) return kUnsupported;
+    CUtensorMap tq, tk;
+    err = encode(fn, &tq, pq, 3 * p.B, p.Sq, p.H, p.hd, Q::kR);
+    if (err == 0) err = encode(fn, &tk, pk, 3 * p.B, p.Skv, p.KV, p.hd, Q::kBN);
+    if (err != 0) return err;
+    err = launch_one(p.softcap > 0.f ? fa_bwd_stats_bf16x6_kernel<HD, true> : fa_bwd_stats_bf16x6_kernel<HD, false>,
+                     dim3(p.B * p.H, n_q), Q::kThreads, StatsGeo<HD>::kBytes, stream, tq, tk, p, stats);
+    if (err != 0) return err;
+    return launch_slab(Args{pq, pk, pv, pdo, p, stream});
+  } else {
+    return launch<HD, 3>(Args{pq, pk, pv, pdo, p, stream});
+  }
 }
 
-bool bad_shape(int B, int Sq, int Skv, int H, int KV, int hd, int q_offset, int window, int max_hd) {
+bool bad_shape(int B, int Sq, int Skv, int H, int KV, int hd, int scale_hd, int q_offset, int window, int max_hd) {
   return B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H <= 0 || H % KV != 0 || q_offset < 0 || window < 0 ||
-         B * H > 65535 || hd <= 0 || hd % 8 != 0 || hd > max_hd;
+         B * H > 65535 || hd <= 0 || hd % 8 != 0 || hd > max_hd || scale_hd <= 0 || scale_hd > hd;
 }
 
 }  // namespace
@@ -1121,23 +1376,25 @@ extern "C" long long flash_attention_bwd_wgmma_scratch(int B, int H, int Sq) {
   return 3LL * B * H * rec_pad(Sq);
 }
 
-// bf16 q, k, v, o, dout and the three gradients; hd a multiple of 8 up to
-// 256 (run at the next body width, zero-filled past hd); stats is the
-// forward's (2, B * H * Sq) f32 m and l, rec f32 scratch of
-// flash_attention_bwd_wgmma_scratch(B, H, Sq) elements; q, k, v, dout and
-// rec 16-byte aligned.  Two launches on `stream` (dQ with the row records,
-// then dK/dV); no synchronisation, no allocation.  Returns 0, a
-// cudaError_t, -1 for arguments the body does not take, -2 / -3 when no
-// cuTensorMapEncodeTiled is found / it refuses a map, -4 when no context
-// can be made current on the calling thread.
+// bf16 q, k, v, o, dout and the three gradients, laid out at width hd, a
+// multiple of 8 up to 256 (run at the next body width, zero-filled past
+// hd); scale_hd <= hd is the true head dim the scale is taken at (hd pads
+// it with zero columns); stats is the forward's (2, B * H * Sq) f32 m and
+// l, rec f32 scratch of flash_attention_bwd_wgmma_scratch(B, H, Sq)
+// elements; q, k, v, dout and rec 16-byte aligned.  Two launches on
+// `stream` (dQ with the row records, then dK/dV); no synchronisation, no
+// allocation.  Returns 0, a cudaError_t, -1 for arguments the body does not
+// take, -2 / -3 when no cuTensorMapEncodeTiled is found / it refuses a map,
+// -4 when no context can be made current on the calling thread.
 extern "C" int flash_attention_bwd_wgmma_launch(const void* q, const void* k, const void* v, const void* o,
                                                 const void* dout, const float* stats, float* rec, void* dq,
                                                 void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int hd,
-                                                int causal, int window, int q_offset, float softcap, void* stream) {
-  if (bad_shape(B, Sq, Skv, H, KV, hd, q_offset, window, 256)) return kUnsupported;
+                                                int scale_hd, int causal, int window, int q_offset, float softcap,
+                                                void* stream) {
+  if (bad_shape(B, Sq, Skv, H, KV, hd, scale_hd, q_offset, window, 256) || stats == nullptr) return kUnsupported;
   const size_t rows = static_cast<size_t>(B) * H * Sq;
-  const Params p{o, dout, stats, stats + rows, rec, dq, dk, dv, B, Sq, Skv, H, KV, hd, causal, window, q_offset,
-                 softcap};
+  const Params p{o, dout, stats, stats + rows, rec, dq, dk, dv, B, Sq, Skv, H, KV, hd, scale_hd, causal, window,
+                 q_offset, softcap};
   const Args a{q, k, v, dout, p, static_cast<cudaStream_t>(stream)};
   return hd <= 64 ? launch<64, 1>(a) : hd <= 128 ? launch<128, 1>(a) : launch<256, 1>(a);
 }
@@ -1147,22 +1404,29 @@ extern "C" long long flash_attention_bwd_bf16x6_scratch(int B, int Sq, int Skv, 
   return static_cast<long long>(scratch_layout(B, Sq, Skv, H, KV, hd).bytes);
 }
 
-// f32 q, k, v, o, dout and the three gradients; hd a multiple of 8 up to
-// 128 (run at width 64 or 128, zero-filled past hd); scratch of
+// f32 q, k, v, o, dout and the three gradients at width hd, a multiple of 8
+// up to 256 (run at width 64, 128 or 256, zero-filled past hd), scale_hd
+// as above; stats the bf16x6 forward's (2, B * H * Sq) f32 m and l up to hd
+// 128, null past it (the body forms its own); scratch of
 // flash_attention_bwd_bf16x6_scratch(...) bytes, 256-byte aligned; every
-// pointer 16-byte aligned.  Four launches on `stream` (the split, the
-// statistics, dQ with the row records, dK/dV); no synchronisation, no
-// allocation.  Returns as flash_attention_bwd_wgmma_launch.
+// pointer 16-byte aligned.  Three launches on `stream` up to hd 128 (the
+// split, dQ with the row records, dK/dV), four past it (the statistics
+// after the split; the slab kernels); no synchronisation, no allocation.
+// Returns as flash_attention_bwd_wgmma_launch.
 extern "C" int flash_attention_bwd_bf16x6_launch(const float* q, const float* k, const float* v, const float* o,
-                                                 const float* dout, void* scratch, float* dq, float* dk, float* dv,
-                                                 int B, int Sq, int Skv, int H, int KV, int hd, int causal,
-                                                 int window, int q_offset, float softcap, void* stream) {
-  if (bad_shape(B, Sq, Skv, H, KV, hd, q_offset, window, 128)) return kUnsupported;
-  const Params p{o, dout, nullptr, nullptr, nullptr, dq, dk, dv, B, Sq, Skv, H, KV, hd, causal, window, q_offset,
-                 softcap};
+                                                 const float* dout, const float* stats, void* scratch, float* dq,
+                                                 float* dk, float* dv, int B, int Sq, int Skv, int H, int KV, int hd,
+                                                 int scale_hd, int causal, int window, int q_offset, float softcap,
+                                                 void* stream) {
+  if (bad_shape(B, Sq, Skv, H, KV, hd, scale_hd, q_offset, window, 256) || (stats != nullptr) != (hd <= 128))
+    return kUnsupported;
+  const Params p{o, dout, nullptr, nullptr, nullptr, dq, dk, dv, B, Sq, Skv, H, KV, hd, scale_hd, causal, window,
+                 q_offset, softcap};
   auto* s = static_cast<uint8_t*>(scratch);
   const auto st = static_cast<cudaStream_t>(stream);
-  return hd <= 64 ? launch_f32<64>(q, k, v, dout, s, p, st) : launch_f32<128>(q, k, v, dout, s, p, st);
+  return hd <= 64    ? launch_f32<64>(q, k, v, dout, stats, s, p, st)
+         : hd <= 128 ? launch_f32<128>(q, k, v, dout, stats, s, p, st)
+                     : launch_f32<256>(q, k, v, dout, stats, s, p, st);
 }
 
 extern "C" const char* flash_attention_bwd_wgmma_error_string(int code) {

@@ -193,8 +193,8 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 template <int HDMAX>
 __global__ void __launch_bounds__(32 * Cfg<HDMAX>::kWarps, Cfg<HDMAX>::kMinBlocks)
 flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                              float* __restrict__ out, int Sq, int Skv, int H, int KV, int hd, int causal,
-                              int window, int q_offset, float softcap) {
+                              float* __restrict__ out, int Sq, int Skv, int H, int KV, int hd, int scale_hd,
+                              int causal, int window, int q_offset, float softcap) {
   using C = Cfg<HDMAX>;
   constexpr int kThreads = 32 * C::kWarps;
   constexpr int kBQ = 16 * C::kWarps;   // query rows of a CTA
@@ -228,7 +228,7 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
   const int q0 = qt * kBQ;
   const int nq = min(kBQ, Sq - q0);
   const int chunks = hd / 4;            // 16-byte pieces of a row
-  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  const float scale = 1.0f / sqrtf(static_cast<float>(scale_hd));  // the true head dim's
 
   for (int i = tid; i < kBQ * chunks; i += kThreads) {
     const int r = i / chunks;
@@ -511,7 +511,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
-  int B, Sq, Skv, H, KV, hd, causal, window, q_offset;
+  int B, Sq, Skv, H, KV, hd, scale_hd, causal, window, q_offset;
   float softcap;
   cudaStream_t stream;
 };
@@ -530,23 +530,26 @@ int launch(const Args& a) {
   const dim3 grid(a.B * a.H, n_qt);
   kernel<<<grid, 32 * C::kWarps, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-      static_cast<float*>(a.out), a.Sq, a.Skv, a.H, a.KV, a.hd, a.causal, a.window, a.q_offset, a.softcap);
+      static_cast<float*>(a.out), a.Sq, a.Skv, a.H, a.KV, a.hd, a.scale_hd, a.causal, a.window, a.q_offset,
+      a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// f32 q, k, v, out; hd a multiple of 8 in [8, 256]; every pointer 16-byte
+// f32 q, k, v, out at width hd, a multiple of 8 in [8, 256]; scale_hd <= hd
+// is the true head dim the scale is taken at (the wrapper zero-fills a head
+// dim that is not a multiple of 8 up to one); every pointer 16-byte
 // aligned.  Returns 0, a cudaError_t from the launch, or -1 for arguments
 // the body does not take.  Launches on `stream`, does not synchronise,
 // allocates nothing.
 extern "C" int flash_attention_tf32x3_launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                                             int Skv, int H, int KV, int hd, int causal, int window, int q_offset,
-                                             float softcap, void* stream) {
+                                             int Skv, int H, int KV, int hd, int scale_hd, int causal, int window,
+                                             int q_offset, float softcap, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H <= 0 || H % KV != 0 || hd < 8 || hd > 256 || hd % 8 != 0 ||
-      q_offset < 0 || window < 0)
+      q_offset < 0 || window < 0 || scale_hd <= 0 || scale_hd > hd)
     return kUnsupported;
-  const Args a{q, k, v, out, B, Sq, Skv, H, KV, hd, causal, window, q_offset, softcap,
+  const Args a{q, k, v, out, B, Sq, Skv, H, KV, hd, scale_hd, causal, window, q_offset, softcap,
                static_cast<cudaStream_t>(stream)};
   if (hd <= 64) return launch<64>(a);
   if (hd <= 128) return launch<128>(a);

@@ -263,8 +263,8 @@ template <int HD, bool kSoftcap, bool kStats>
 __global__ void __launch_bounds__(Smem<HD>::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                             float* __restrict__ stats, int Sq, int Skv, int H, int KV, int hd, int causal,
-                             int window, int q_offset, float softcap) {
+                             float* __restrict__ stats, int Sq, int Skv, int H, int KV, int hd, int scale_hd,
+                             int causal, int window, int q_offset, float softcap) {
   constexpr int kStages = Cfg<HD>::kStages;
   constexpr int kBQ = Smem<HD>::kBQ;
   constexpr int kChunks = HD / 64;
@@ -343,7 +343,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __gri
     const int col2 = 2 * (lane % 4);
     const int qa = q_offset + q0 + 64 * rg;  // first query position of the warpgroup
     const int qb = qa + 63;                  // last
-    const float scale = 1.0f / sqrtf(static_cast<float>(hd));  // the true head dim's, not the body's width
+    const float scale = 1.0f / sqrtf(static_cast<float>(scale_hd));  // the true head dim's, not the body's width
     const float scale2 = scale * kLog2e;     // scores are kept in log2 units
 
     float o[kOD / 2];
@@ -446,7 +446,7 @@ struct Args {
   const void* v;
   void* out;
   float* stats;
-  int B, Sq, Skv, H, KV, hd, causal, window, q_offset;
+  int B, Sq, Skv, H, KV, hd, scale_hd, causal, window, q_offset;
   float softcap;
   cudaStream_t stream;
 };
@@ -475,27 +475,29 @@ int launch(const Args& a) {
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid(a.B * a.H, n_qt);
   kernel<<<grid, Smem<HD>::kThreads, Smem<HD>::kBytes, a.stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), a.stats, a.Sq, a.Skv, a.H, a.KV, a.hd, a.causal, a.window,
-      a.q_offset, a.softcap);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), a.stats, a.Sq, a.Skv, a.H, a.KV, a.hd, a.scale_hd, a.causal,
+      a.window, a.q_offset, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 q, k, v, out; hd a multiple of 8 up to 256 (run at the next body
-// width, 64, 128 or 256, zero-filled past hd); every pointer 16-byte aligned;
+// bf16 q, k, v, out at width hd, a multiple of 8 up to 256 (run at the next
+// body width, 64, 128 or 256, zero-filled past hd); scale_hd <= hd is the
+// true head dim the scale is taken at (the wrapper zero-fills a head dim
+// that is not a multiple of 8 up to one); every pointer 16-byte aligned;
 // stats null, or f32 (2, B * H * Sq) for each row's m and l.  Returns 0, a
 // cudaError_t from the launch, -1 for arguments the body does not take, -2
 // / -3 when no cuTensorMapEncodeTiled is found / it refuses a map, -4 when
 // no context can be made current on the calling thread.
 // Launches on `stream`, does not synchronise, allocates nothing.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* out, float* stats,
-                                            int B, int Sq, int Skv, int H, int KV, int hd, int causal, int window,
-                                            int q_offset, float softcap, void* stream) {
+                                            int B, int Sq, int Skv, int H, int KV, int hd, int scale_hd, int causal,
+                                            int window, int q_offset, float softcap, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H <= 0 || H % KV != 0 || q_offset < 0 || window < 0)
     return kUnsupported;
-  if (hd <= 0 || hd % 8 != 0 || hd > 256) return kUnsupported;
-  const Args a{q, k, v, out, stats, B, Sq, Skv, H, KV, hd, causal, window, q_offset, softcap,
+  if (hd <= 0 || hd % 8 != 0 || hd > 256 || scale_hd <= 0 || scale_hd > hd) return kUnsupported;
+  const Args a{q, k, v, out, stats, B, Sq, Skv, H, KV, hd, scale_hd, causal, window, q_offset, softcap,
                static_cast<cudaStream_t>(stream)};
   return hd <= 64 ? launch<64>(a) : hd <= 128 ? launch<128>(a) : launch<256>(a);
 }

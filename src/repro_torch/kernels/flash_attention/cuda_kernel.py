@@ -1,61 +1,73 @@
-"""ctypes binding and launch wrappers of the three flash-attention forward
-bodies and of the three backward bodies.
+"""ctypes binding and launch wrappers of the flash-attention forward and
+backward bodies.
 
-``body_for`` picks from the dtype and head dim alone; nothing retries on
-another body:
+Every body runs on the tensor cores.  TMA and the 16-byte copies need rows
+whose stride is a multiple of 16 bytes, so a head dim that is not a
+multiple of 8 (hd 36, say) is zero-filled by the wrapper up to the next
+multiple of 8 (``padded_head_dim``): q, k and v (and, for the backward, the
+output and its gradient) are copied into zero-filled tensors of that width,
+the body runs at it with the true hd's scale (``scale_hd``; zero columns
+add exactly 0 to every product), and the true hd's columns come back.  The
+copies count in the call's time.
 
-* ``"wgmma"`` -- ``csrc/flash_attention_wgmma.cu``: bf16 at head dims
-  that are multiples of 8 up to 256 on the tensor cores (wgmma, K/V fed by
-  TMA), built at widths 64, 128 and 256: a call runs at the first width
-  >= hd, the tensor maps zero-filling the columns past hd;
-* ``"tf32x3"`` -- ``csrc/flash_attention_tf32x3.cu``: f32 at head dims
-  that are multiples of 8 up to 256 on the tensor cores (mma.sync) in
-  error-compensated TF32.  One TF32 product keeps ~11 bits and misses the
-  f32 bar (``atol`` 2e-5) by ~50x; splitting each operand as hi + lo and
-  summing hi*hi + hi*lo + lo*hi in f32 keeps plain f32's error (~7e-7
-  against ~1e-3 at the long prefill's shape);
-* ``"simt"`` -- ``csrc/flash_attention.cu``: the rest (head dims that are
-  not multiples of 8, or dtypes neither takes) on the CUDA cores in f32
-  FMAs.
+``body_for`` picks the forward body from the dtype, the head dim and
+whether the row statistics are asked for; nothing retries on another body:
 
-All five build into one library with ``nvcc`` at first use
-(``kernels/nvcc.py``).
+* ``"wgmma"`` -- ``csrc/flash_attention_wgmma.cu``: bf16 at every head dim
+  up to 256 (wgmma, K/V fed by TMA), built at widths 64, 128 and 256: a
+  call runs at the first width >= the padded hd, the tensor maps
+  zero-filling the columns past it; with ``return_stats`` it also writes
+  each row's m and l;
+* ``"tf32x3"`` -- ``csrc/flash_attention_tf32x3.cu``: f32 without
+  statistics (serving: no gradient wanted), at every head dim up to 256,
+  on the tensor cores (mma.sync) in error-compensated TF32: each operand
+  split as hi + lo and hi*hi + hi*lo + lo*hi summed in f32, ~22 of f32's 24
+  bits;
+* ``"bf16x6"`` -- ``csrc/flash_attention_bf16x6.cu``: f32 with statistics
+  (a gradient wanted) at head dims up to 128: each operand split into
+  three bf16 planes and each product run as six bf16 wgmmas, f32 accuracy,
+  with the row statistics formed by the backward's own arithmetic.
 
 ``flash_attention`` refuses inputs that require grad
 (``runtime.forbid_grad``), checks device, dtype, shape, contiguity and
-alignment, allocates the output with ``torch.empty``, launches on PyTorch's
-current stream and raises if the launch reports an error.  ``launch_count`` counts
-its launches and nothing else, so a run can show that it went through the
-kernel; ``body_launch_count`` splits the same count by body.  Asked
-with ``return_stats=True`` (the wgmma body only), it also returns each
+alignment, allocates the output (and any scratch) with ``torch.empty``,
+launches on PyTorch's current stream and raises if the launch reports an
+error.  ``launch_count`` counts its launches and nothing else, so a run
+can show that it went through the kernel; ``body_launch_count`` splits the
+same count by body.  Asked with ``return_stats=True`` it also returns each
 row's max m (log2 units) and sum l, f32 ``(2, B * H * Sq)``, for the
 backward.
 
 ``flash_attention_bwd`` takes the forward's inputs, its output and the
 output's gradient and returns dQ, dK and dV, with the same checks and
-guard.  ``bwd_body_for`` picks its body, as ``body_for`` does:
+guard.  ``bwd_body_for`` picks its body:
 
-* ``"wgmma"`` -- ``csrc/flash_attention_bwd_wgmma.cu``: bf16 at head dims
-  that are multiples of 8 up to 256 on the tensor cores (zero-filled as the
-  forward); it reads the forward's ``stats`` (required) and runs two device
-  kernels (dQ with D = rowsum(dO * O), then dK/dV summed over each KV
-  head's group);
-* ``"bf16x6"`` -- the same body on f32 at head dims that are multiples of
-  8 up to 128, at f32 accuracy: each operand split into three bf16 planes
-  (hi, mid, lo) and each product run as six bf16 wgmmas; four device
-  kernels (the split, its own row statistics, dQ, dK/dV) over one scratch
-  buffer; it takes no ``stats``;
-* ``"simt"`` -- ``csrc/flash_attention_bwd.cu``: the rest (f32 at hd 136
-  to 256, head dims that are not multiples of 8) on the CUDA cores, three
-  device kernels (its own row statistics, dK/dV, dQ); it takes no
-  ``stats``.
+* ``"wgmma"`` -- ``csrc/flash_attention_bwd_wgmma.cu``: bf16 at every head
+  dim up to 256 on the tensor cores (zero-filled as the forward); it reads
+  the forward's ``stats`` (required) and runs two device kernels (dQ with
+  D = rowsum(dO * O), then dK/dV summed over each KV head's group);
+* ``"bf16x6"`` -- the same source on f32 at every head dim up to 256, at
+  f32 accuracy: each operand split into three bf16 planes (hi, mid, lo)
+  and each product run as six bf16 wgmmas.  Up to hd 128 it reads the
+  bf16x6 forward's ``stats`` (required) and runs three device kernels (the
+  split, dQ, dK/dV) over one scratch buffer; past hd 128 the planes do not
+  fit the forward's shared memory, so it takes no ``stats``, forms its own
+  (a statistics kernel after the split: four device kernels) and runs the
+  gradients as 64-column slabs, each CTA keeping 128 of the 256 columns.
 
-``bwd_launch_count`` counts its calls, ``bwd_body_launch_count`` by body.
+``bwd_reads_stats`` says which calls read the forward's statistics;
+``dispatch.FlashAttentionFunction`` asks the forward for them then.
+``bwd_launch_count`` counts the backward's calls, ``bwd_body_launch_count``
+by body.  The CUDA-core bodies (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``, key ``"simt"``) are still built into the
+library as timing baselines (``chip_smoke.py`` launches them directly); no
+route reaches them, so their counts stay 0.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
@@ -65,14 +77,15 @@ from repro_torch.kernels import nvcc, runtime
 LIB_NAME = "flash_attention"
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu", _CSRC / "flash_attention_tf32x3.cu",
-           _CSRC / "flash_attention_bwd.cu", _CSRC / "flash_attention_bwd_wgmma.cu")
+           _CSRC / "flash_attention_bf16x6.cu", _CSRC / "flash_attention_bwd.cu",
+           _CSRC / "flash_attention_bwd_wgmma.cu")
 DTYPES = {torch.bfloat16: 1, torch.float32: 2}
 MAX_HEAD_DIM = 256
-BF16X6_MAX_HEAD_DIM = 128   # three planes of every tile fill shared memory past it
+BF16X6_MAX_HEAD_DIM = 128   # three planes of every tile fill the forward's shared memory past it
 MAX_GRID_Y = 65535
 
 launch_count: int = 0
-body_launch_count: dict = {"wgmma": 0, "tf32x3": 0, "simt": 0}
+body_launch_count: dict = {"wgmma": 0, "tf32x3": 0, "bf16x6": 0, "simt": 0}
 bwd_launch_count: int = 0
 bwd_body_launch_count: dict = {"wgmma": 0, "bf16x6": 0, "simt": 0}
 _lib = None
@@ -82,67 +95,115 @@ def flash_attention_launch_count() -> int:
     return launch_count
 
 
-def body_for(dtype: torch.dtype, hd: int) -> str:
-    """The body a call takes at a head dim that is a multiple of 8 up to
-    256: ``"wgmma"`` for bf16, ``"tf32x3"`` for f32 (both on the tensor
-    cores); else ``"simt"`` (CUDA cores)."""
-    if hd % 8 == 0 and hd <= MAX_HEAD_DIM:
-        if dtype == torch.bfloat16:
-            return "wgmma"
-        if dtype == torch.float32:
-            return "tf32x3"
-    return "simt"
+def padded_head_dim(hd: int) -> int:
+    """The width a call runs at: hd rounded up to a multiple of 8 (16-byte
+    rows in bf16 and f32)."""
+    return -(-hd // 8) * 8
+
+
+def _check_route(dtype: torch.dtype, hd: int) -> None:
+    _check(dtype in DTYPES, f"dtype {dtype} not one of {list(DTYPES)}")
+    _check(1 <= hd <= MAX_HEAD_DIM, f"head_dim {hd} outside [1, {MAX_HEAD_DIM}]")
+
+
+def body_for(dtype: torch.dtype, hd: int, *, stats: bool = False) -> str:
+    """The forward body a call takes: ``"wgmma"`` for bf16; for f32
+    ``"tf32x3"`` (serving, no statistics) or, asked for the row statistics,
+    ``"bf16x6"`` up to hd 128.  Raises for what no body takes."""
+    _check_route(dtype, hd)
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if not stats:
+        return "tf32x3"
+    _check(padded_head_dim(hd) <= BF16X6_MAX_HEAD_DIM,
+           f"no f32 forward body writes row statistics past hd {BF16X6_MAX_HEAD_DIM} (hd {hd})")
+    return "bf16x6"
 
 
 def bwd_body_for(dtype: torch.dtype, hd: int) -> str:
-    """The backward body a call takes at a head dim that is a multiple of
-    8: ``"wgmma"`` for bf16 up to 256 (tensor cores, the forward's
-    statistics), ``"bf16x6"`` for f32 up to 128 (tensor cores, six bf16
-    products an f32 one, its own statistics); else ``"simt"`` (CUDA cores,
-    its own statistics pass)."""
-    if hd % 8 == 0:
-        if dtype == torch.bfloat16 and hd <= MAX_HEAD_DIM:
-            return "wgmma"
-        if dtype == torch.float32 and hd <= BF16X6_MAX_HEAD_DIM:
-            return "bf16x6"
-    return "simt"
+    """The backward body a call takes: ``"wgmma"`` for bf16, ``"bf16x6"``
+    for f32 (both on the tensor cores).  Raises for what no body takes."""
+    _check_route(dtype, hd)
+    return "wgmma" if dtype == torch.bfloat16 else "bf16x6"
+
+
+def bwd_reads_stats(dtype: torch.dtype, hd: int) -> bool:
+    """Whether the backward reads the forward's row statistics: bf16 at
+    every head dim, f32 up to hd 128 (past it the backward forms its own)."""
+    return bwd_body_for(dtype, hd) == "wgmma" or padded_head_dim(hd) <= BF16X6_MAX_HEAD_DIM
+
+
+def _words(*nbytes: int) -> torch.dtype:
+    """The widest integer word (8, 4, 2 or 1 bytes) that divides every one of
+    ``nbytes``."""
+    return {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}[math.gcd(8, *nbytes)]
+
+
+def _zero_fill(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x copied into a zero-filled tensor ``width`` columns wide (its last
+    axis).  The rows are copied as whole integer words (a 72-byte row as nine
+    8-byte words): a strided copy of 2-byte elements ran at ~0.8 TB/s."""
+    words = _words(x.shape[-1] * x.element_size(), x.storage_offset() * x.element_size())
+    out = x.new_empty((*x.shape[:-1], width))
+    src, dst = x.view(words), out.view(words)
+    dst[..., src.shape[-1]:].zero_()
+    dst[..., :src.shape[-1]].copy_(src)
+    return out
+
+
+def _true_columns(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """The first ``hd`` columns of a freshly allocated x, contiguous, copied
+    as whole words as ``_zero_fill`` copies them."""
+    words = _words(hd * x.element_size())
+    n = hd * x.element_size() // words.itemsize
+    return x.view(words)[..., :n].contiguous().view(x.dtype)
 
 
 def _library():
     global _lib
     if _lib is None:
         lib = nvcc.load_library(LIB_NAME, SOURCES)
-        # (q, k, v, out, B, Sq, Skv, H, KV, hd, [dtype,] causal, window, q_offset, softcap, stream)
+        # The CUDA-core bodies, for direct timing launches only:
+        # (q, k, v, out, B, Sq, Skv, H, KV, hd, dtype, causal, window, q_offset, softcap, stream)
         lib.flash_attention_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-        # (q, k, v, out, [stats,] B, Sq, Skv, H, KV, hd, causal, window, q_offset, softcap, stream)
-        lib.flash_attention_wgmma_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-        lib.flash_attention_tf32x3_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
         # (q, k, v, o, dout, dq, dk, dv, stats, B, Sq, Skv, H, KV, hd, dtype, causal, window,
         #  q_offset, softcap, stream)
         lib.flash_attention_bwd_launch.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-        # (q, k, v, o, dout, stats, rec, dq, dk, dv, B, Sq, Skv, H, KV, hd, causal, window, q_offset,
+        # The tensor-core bodies; hd is the width the operands are laid out at,
+        # scale_hd the true head dim:
+        # (q, k, v, out, stats, B, Sq, Skv, H, KV, hd, scale_hd, causal, window, q_offset, softcap, stream)
+        lib.flash_attention_wgmma_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+        # (q, k, v, out, B, Sq, Skv, H, KV, hd, scale_hd, causal, window, q_offset, softcap, stream)
+        lib.flash_attention_tf32x3_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+        # (q, k, v, out, stats, scratch, B, Sq, Skv, H, KV, hd, scale_hd, causal, window, q_offset,
         #  softcap, stream)
+        lib.flash_attention_bf16x6_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_bf16x6_scratch.argtypes = [ctypes.c_int] * 6
+        lib.flash_attention_bf16x6_scratch.restype = ctypes.c_longlong
+        # (q, k, v, o, dout, stats, rec, dq, dk, dv, B, Sq, Skv, H, KV, hd, scale_hd, causal, window,
+        #  q_offset, softcap, stream)
         lib.flash_attention_bwd_wgmma_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention_bwd_wgmma_scratch.argtypes = [ctypes.c_int] * 3
         lib.flash_attention_bwd_wgmma_scratch.restype = ctypes.c_longlong
-        # (q, k, v, o, dout, scratch, dq, dk, dv, B, Sq, Skv, H, KV, hd, causal, window, q_offset,
-        #  softcap, stream)
+        # (q, k, v, o, dout, stats, scratch, dq, dk, dv, B, Sq, Skv, H, KV, hd, scale_hd, causal, window,
+        #  q_offset, softcap, stream)
         lib.flash_attention_bwd_bf16x6_launch.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention_bwd_bf16x6_scratch.argtypes = [ctypes.c_int] * 6
         lib.flash_attention_bwd_bf16x6_scratch.restype = ctypes.c_longlong
         for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch, lib.flash_attention_tf32x3_launch,
-                   lib.flash_attention_bwd_launch, lib.flash_attention_bwd_wgmma_launch,
-                   lib.flash_attention_bwd_bf16x6_launch):
+                   lib.flash_attention_bf16x6_launch, lib.flash_attention_bwd_launch,
+                   lib.flash_attention_bwd_wgmma_launch, lib.flash_attention_bwd_bf16x6_launch):
             fn.restype = ctypes.c_int
         for fn in (lib.flash_attention_error_string, lib.flash_attention_wgmma_error_string,
-                   lib.flash_attention_tf32x3_error_string, lib.flash_attention_bwd_error_string,
-                   lib.flash_attention_bwd_wgmma_error_string):
+                   lib.flash_attention_tf32x3_error_string, lib.flash_attention_bf16x6_error_string,
+                   lib.flash_attention_bwd_error_string, lib.flash_attention_bwd_wgmma_error_string):
             fn.argtypes = [ctypes.c_int]
             fn.restype = ctypes.c_char_p
         _lib = lib
@@ -188,39 +249,48 @@ def flash_attention(
 ):
     """Online-softmax attention of the whole query sequence on the card;
     query head ``h`` reads KV head ``h // (H // KV)`` in place.  Returns
-    (B, Sq, H, hd) in q's dtype; with ``return_stats`` (wgmma body only)
-    also the rows' m and l for ``flash_attention_bwd``."""
+    (B, Sq, H, hd) in q's dtype; with ``return_stats`` also the rows' m
+    and l for ``flash_attention_bwd`` (bf16 at any hd, f32 up to hd 128:
+    the bf16x6 body)."""
     global launch_count
     runtime.forbid_grad("flash_attention", q, k, v)
     _check_inputs(q, k, v, q_offset=q_offset, window=window)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    body = body_for(q.dtype, hd)
-    _check(not return_stats or body == "wgmma", f"return_stats: only the wgmma body writes row statistics, not {body}")
-    out = torch.empty_like(q)
+    body = body_for(q.dtype, hd, stats=return_stats)
     stats = torch.empty((2, b * h * sq), dtype=torch.float32, device=q.device) if return_stats else None
-    if out.numel() == 0:
+    if q.numel() == 0:
+        out = torch.empty_like(q)
         return (out, stats) if return_stats else out
+    width = padded_head_dim(hd)
+    if width != hd:
+        q, k, v = (_zero_fill(t, width) for t in (q, k, v))
+    out = torch.empty_like(q)
+    # TMA / cp.async read the tensors in place, 16 bytes at a time.
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)), f"{body} body: inputs must be 16-byte aligned")
     lib = _library()
+    dims = (b, sq, skv, h, kvh, width, hd)
     flags = (int(bool(causal)), int(window), int(q_offset), float(softcap),
              torch.cuda.current_stream(q.device).cuda_stream)
-    if body in ("wgmma", "tf32x3"):
-        # TMA / cp.async read the tensors in place, 16 bytes at a time.
-        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)), f"{body} body: inputs must be 16-byte aligned")
-        launch, what = ((lib.flash_attention_wgmma_launch, lib.flash_attention_wgmma_error_string) if body == "wgmma"
-                        else (lib.flash_attention_tf32x3_launch, lib.flash_attention_tf32x3_error_string))
-        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-        if body == "wgmma":
-            ptrs.append(None if stats is None else stats.data_ptr())
-        err = launch(*ptrs, b, sq, skv, h, kvh, hd, *flags)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if body == "wgmma":
+        err = lib.flash_attention_wgmma_launch(*ptrs, None if stats is None else stats.data_ptr(), *dims, *flags)
+        what = lib.flash_attention_wgmma_error_string
+    elif body == "tf32x3":
+        err = lib.flash_attention_tf32x3_launch(*ptrs, *dims, *flags)
+        what = lib.flash_attention_tf32x3_error_string
     else:
-        err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                         b, sq, skv, h, kvh, hd, DTYPES[q.dtype], *flags)
-        what = lib.flash_attention_error_string
+        # q, k and v as three bf16 planes each.
+        scratch = torch.empty(lib.flash_attention_bf16x6_scratch(b, sq, skv, h, kvh, width), dtype=torch.uint8,
+                              device=q.device)
+        err = lib.flash_attention_bf16x6_launch(*ptrs, stats.data_ptr(), scratch.data_ptr(), *dims, *flags)
+        what = lib.flash_attention_bf16x6_error_string
     if err != 0:
         raise RuntimeError(f"flash_attention ({body} body) launch failed: {what(err).decode()} (code {err})")
     launch_count += 1
     body_launch_count[body] += 1
+    if width != hd:
+        out = _true_columns(out, hd)
     return (out, stats) if return_stats else out
 
 
@@ -231,66 +301,63 @@ def flash_attention_bwd(
     out: torch.Tensor,        # (B, Sq, H, hd): the forward's output
     dout: torch.Tensor,       # (B, Sq, H, hd): its gradient
     *,
-    stats: torch.Tensor | None = None,   # (2, B * H * Sq) f32: the wgmma forward's m and l
+    stats: torch.Tensor | None = None,   # (2, B * H * Sq) f32: the forward's m and l
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
     softcap: float = 0.0,
 ):
     """dQ, dK and dV of ``flash_attention`` on the card, each in q's dtype;
-    dK and dV of KV head ``kv`` sum over its query heads in the kernel.  The
-    wgmma body needs the forward's ``stats``; the bf16x6 and CUDA-core
-    bodies take none."""
+    dK and dV of KV head ``kv`` sum over its query heads in the kernel.
+    Where ``bwd_reads_stats`` (bf16; f32 up to hd 128) it needs the
+    forward's ``stats``; past that it takes none."""
     global bwd_launch_count
     runtime.forbid_grad("flash_attention_bwd", q, k, v, out, dout)
     _check_inputs(q, k, v, out, dout, q_offset=q_offset, window=window)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     body = bwd_body_for(q.dtype, hd)
-    if body == "wgmma":
-        _check(stats is not None, "the wgmma backward reads the forward's row statistics: pass stats= from "
-                                  "flash_attention(..., return_stats=True)")
+    if bwd_reads_stats(q.dtype, hd):
+        _check(stats is not None, f"the {body} backward at hd {hd} reads the forward's row statistics: pass "
+                                  "stats= from flash_attention(..., return_stats=True)")
         _check(stats.device == q.device and stats.dtype == torch.float32 and stats.is_contiguous()
                and tuple(stats.shape) == (2, b * h * sq), f"stats must be contiguous f32 (2, {b * h * sq}) on "
                f"{q.device}, got {stats.dtype} {tuple(stats.shape)} on {stats.device}")
     else:
-        _check(stats is None, f"the {body} backward computes its own row statistics; it takes no stats")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        _check(stats is None, f"the {body} backward at hd {hd} computes its own row statistics; it takes no stats")
     if q.numel() == 0 or k.numel() == 0:
-        return dq, dk.zero_(), dv.zero_()
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    width = padded_head_dim(hd)
+    if width != hd:
+        q, k, v, out, dout = (_zero_fill(t, width) for t in (q, k, v, out, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # TMA reads q, k, v and dout in place, 16 bytes at a time; the f32 split
+    # reads them 16 bytes at a time too, o 8 at a time, and writes the
+    # gradients 8 at a time.
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout, dq, dk, dv)),
+           f"{body} backward: inputs must be 16-byte aligned")
     lib = _library()
+    dims = (b, sq, skv, h, kvh, width, hd)
     flags = (int(bool(causal)), int(window), int(q_offset), float(softcap),
              torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            None if stats is None else stats.data_ptr())
+    grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     if body == "wgmma":
-        # TMA reads q, k, v and dout in place, 16 bytes at a time.
-        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, dout)), "wgmma backward: inputs must be 16-byte aligned")
         # Each row's m, 1 / l and D = rowsum(dO * O), written by the dQ kernel
         # for the dK/dV kernel (padded rows, so TMA can load them).
         rec = torch.empty(lib.flash_attention_bwd_wgmma_scratch(b, h, sq), dtype=torch.float32, device=q.device)
-        err = lib.flash_attention_bwd_wgmma_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), stats.data_ptr(),
-            rec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh, hd, *flags)
-        what = lib.flash_attention_bwd_wgmma_error_string
-    elif body == "bf16x6":
-        # The split reads q, k, v and dout 16 bytes at a time; o is read and
-        # the gradients written 8 at a time.
-        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout, dq, dk, dv)),
-               "bf16x6 backward: inputs must be 16-byte aligned")
-        # q, k, v and dout as bf16 planes, the row statistics and records.
-        scratch = torch.empty(lib.flash_attention_bwd_bf16x6_scratch(b, sq, skv, h, kvh, hd), dtype=torch.uint8,
-                              device=q.device)
-        err = lib.flash_attention_bwd_bf16x6_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), scratch.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh, hd, *flags)
-        what = lib.flash_attention_bwd_wgmma_error_string
+        err = lib.flash_attention_bwd_wgmma_launch(*ptrs, rec.data_ptr(), *grads, *dims, *flags)
     else:
-        scratch = torch.empty((3, b * h * sq), dtype=torch.float32, device=q.device)   # row max, row sum, D
-        err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), scratch.data_ptr(), b, sq, skv, h, kvh, hd, DTYPES[q.dtype], *flags)
-        what = lib.flash_attention_bwd_error_string
+        # q, k, v and dout as bf16 planes, the row statistics and records.
+        scratch = torch.empty(lib.flash_attention_bwd_bf16x6_scratch(b, sq, skv, h, kvh, width), dtype=torch.uint8,
+                              device=q.device)
+        err = lib.flash_attention_bwd_bf16x6_launch(*ptrs, scratch.data_ptr(), *grads, *dims, *flags)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd ({body} body) launch failed: {what(err).decode()} (code {err})")
+        what = lib.flash_attention_bwd_wgmma_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_bwd ({body} body) launch failed: {what} (code {err})")
     bwd_launch_count += 1
     bwd_body_launch_count[body] += 1
+    if width != hd:
+        dq, dk, dv = (_true_columns(g, hd) for g in (dq, dk, dv))
     return dq, dk, dv

@@ -27,19 +27,26 @@ class FlashAttentionFunction(torch.autograd.Function):
     card, ``gqa_flash_attention_ref`` and ``flash_attention_bwd_ref`` on the
     CPU.  The raw kernel wrappers refuse inputs that require grad; here the
     forward runs under autograd's own no-grad and saves q, k, v and the
-    output for the backward, and, where the backward runs the wgmma body
-    and a gradient is wanted, the forward kernel's row statistics (m, l),
-    which that body reads instead of recomputing them.  A forward whose
-    inputs need no gradient (serving) asks for no statistics.  Double
-    backward raises."""
+    output for the backward, and, where a gradient is wanted and the
+    backward reads them (``cuda_kernel.bwd_reads_stats``: bf16, and f32 up
+    to hd 128), the forward kernel's row statistics (m, l), which the
+    backward reads instead of recomputing them.  In f32 that request runs
+    the forward on the bf16x6 body (f32-accurate, six bf16 products a
+    product) instead of the serving body, 3xTF32, whose ~22 bits would
+    reach every gradient.  A forward whose inputs need no gradient, or
+    that runs with grad disabled (serving; ``grad_enabled``, which the
+    entry points pass as ``torch.is_grad_enabled()``: inside ``forward``
+    grad is always off), asks for no statistics.  Double backward
+    raises."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int, softcap: float):
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int, softcap: float, grad_enabled: bool = True):
         kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
         stats = None
         if runtime.use_kernel(q):
             qkv = (q.contiguous(), k.contiguous(), v.contiguous())
-            if any(ctx.needs_input_grad[:3]) and cuda_kernel.bwd_body_for(q.dtype, q.shape[-1]) == "wgmma":
+            wants_grad = grad_enabled and any(ctx.needs_input_grad[:3])
+            if wants_grad and cuda_kernel.bwd_reads_stats(q.dtype, q.shape[-1]):
                 out, stats = cuda_kernel.flash_attention(*qkv, **kw, return_stats=True)
             else:
                 out = cuda_kernel.flash_attention(*qkv, **kw)
@@ -58,7 +65,7 @@ class FlashAttentionFunction(torch.autograd.Function):
                                                     dout.contiguous(), stats=stats, **ctx.kw)
         else:
             grads = flash_attention_bwd_ref(q, k, v, out, dout, **ctx.kw)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_attention(
@@ -73,7 +80,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """GQA attention over the whole sequence; returns (B, Sq, H, hd) in
     q's dtype, differentiable in q, k and v."""
-    return FlashAttentionFunction.apply(q, k, v, bool(causal), int(window), int(q_offset), float(softcap))
+    return FlashAttentionFunction.apply(q, k, v, bool(causal), int(window), int(q_offset), float(softcap),
+                                        torch.is_grad_enabled())
 
 
 def grouped_flash_attention(

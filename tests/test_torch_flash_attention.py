@@ -151,16 +151,28 @@ def test_blockwise_equals_kernel_function():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
 @pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256, 36, 264])
 def test_body_for(dtype, hd):
-    """Three bodies: at a head dim that is a multiple of 8 up to 256, bf16
-    takes the wgmma body (zero-filled up to its next width, 64, 128 or 256)
-    and f32 the 3xTF32 tensor-core body; everything else the CUDA cores."""
-    if dtype == "bfloat16" and hd % 8 == 0 and hd <= 256:
-        want = "wgmma"
-    elif dtype == "float32" and hd % 8 == 0 and hd <= 256:
-        want = "tf32x3"
+    """Every forward body is on the tensor cores: at every head dim up to
+    256 (one that is not a multiple of 8 zero-filled by the wrapper to the
+    next one, 36 to 40), bf16 takes the wgmma body, f32 the 3xTF32 body,
+    and f32 asked for the row statistics (a gradient wanted) the bf16x6
+    body up to hd 128; no f32 body writes statistics past it.  A dtype or
+    head dim no body takes raises; nothing routes to the CUDA cores."""
+    dt = getattr(torch, dtype)
+    if dtype == "float16" or hd > 256:
+        for stats in (False, True):
+            with pytest.raises(ValueError):
+                cuda_kernel.body_for(dt, hd, stats=stats)
+        return
+    assert cuda_kernel.padded_head_dim(hd) == -(-hd // 8) * 8
+    if dtype == "bfloat16":
+        assert cuda_kernel.body_for(dt, hd) == cuda_kernel.body_for(dt, hd, stats=True) == "wgmma"
+        return
+    assert cuda_kernel.body_for(dt, hd) == "tf32x3"
+    if cuda_kernel.padded_head_dim(hd) <= 128:
+        assert cuda_kernel.body_for(dt, hd, stats=True) == "bf16x6"
     else:
-        want = "simt"
-    assert cuda_kernel.body_for(getattr(torch, dtype), hd) == want
+        with pytest.raises(ValueError, match="statistics"):
+            cuda_kernel.body_for(dt, hd, stats=True)
 
 
 # Phase 2's grid in chip_smoke.py (FLASH_GRID): the reference test's grid,
@@ -501,15 +513,26 @@ def test_cuda_tf32x3_body_matches_plain(hd):
 @pytest.mark.usefixtures("hopper")
 @pytest.mark.parametrize("dtype,hd", [("float32", 36), ("float32", 20), ("bfloat16", 36)])
 def test_cuda_simt_body_takes_the_rest(dtype, hd):
-    """Head dims neither tensor-core body takes run on the CUDA-core body."""
+    """Head dims that are not multiples of 8, which the CUDA-core body took
+    before, now run on the tensor-core bodies, zero-filled by the wrapper
+    to the next multiple of 8 (bf16 on the wgmma body, f32 on the 3xTF32
+    body, and with statistics on the bf16x6 body): the CUDA-core body's
+    counter does not move, and the output keeps the true hd's columns
+    within the reference's ``atol``."""
     gen = torch.Generator(device="cuda").manual_seed(hd)
-    q, k, v = _cuda_case(gen, 2, 200, 200, 4, 2, hd, getattr(torch, dtype))
-    before = dict(cuda_kernel.body_launch_count)
-    got = flash_attention(q, k, v)
-    assert cuda_kernel.body_launch_count == {**before, "simt": before["simt"] + 1}
+    dt = getattr(torch, dtype)
+    q, k, v = _cuda_case(gen, 2, 200, 200, 4, 2, hd, dt)
     want = gqa_flash_attention_ref(q, k, v)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[dtype])
+    for stats in (False, True):
+        body = cuda_kernel.body_for(dt, hd, stats=stats)
+        assert body != "simt"
+        before = dict(cuda_kernel.body_launch_count)
+        got = cuda_kernel.flash_attention(q, k, v, return_stats=stats)
+        got = got[0] if stats else got
+        assert cuda_kernel.body_launch_count == {**before, body: before[body] + 1}
+        torch.cuda.synchronize()
+        assert got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[dtype])
 
 
 @pytest.mark.usefixtures("hopper")

@@ -349,17 +349,20 @@ def test_bwd_ref_with_the_forwards_stats(sq, skv, hd, causal, window, q_offset, 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
 @pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256, 36])
 def test_bwd_body_for(dtype, hd):
-    """Three backward bodies: at a head dim that is a multiple of 8, bf16
-    up to 256 takes the wgmma body (the forward's wgmma body writes its
-    statistics) and f32 up to 128 the same body in six bf16 products
-    ("bf16x6"); every other case the CUDA cores."""
-    if dtype == "bfloat16" and hd % 8 == 0 and hd <= 256:
-        want = "wgmma"
-    elif dtype == "float32" and hd % 8 == 0 and hd <= 128:
-        want = "bf16x6"
-    else:
-        want = "simt"
-    assert cuda_kernel.bwd_body_for(getattr(torch, dtype), hd) == want
+    """Every backward body is on the tensor cores: at every head dim up to
+    256 (36 zero-filled to 40 by the wrapper) bf16 takes the wgmma body,
+    which reads the forward's statistics, and f32 the same body in six
+    bf16 products ("bf16x6"), which reads the bf16x6 forward's statistics
+    up to hd 128 and forms its own past it.  A dtype no body takes raises;
+    the CUDA-core body keeps its counter key but no route."""
+    dt = getattr(torch, dtype)
+    if dtype == "float16":
+        with pytest.raises(ValueError):
+            cuda_kernel.bwd_body_for(dt, hd)
+        return
+    want = "wgmma" if dtype == "bfloat16" else "bf16x6"
+    assert cuda_kernel.bwd_body_for(dt, hd) == want
+    assert cuda_kernel.bwd_reads_stats(dt, hd) == (dtype == "bfloat16" or cuda_kernel.padded_head_dim(hd) <= 128)
     assert set(cuda_kernel.bwd_body_launch_count) == {"wgmma", "bf16x6", "simt"}
 
 
@@ -411,14 +414,29 @@ def _mm_planes(a, b, pairs):
     return small + pa[pairs[-1][0]] @ pb[pairs[-1][1]]
 
 
-def _emulate_bf16x6_bwd(q, k, v, out, dout, *, causal, window, q_offset, softcap, pairs=PAIRS6):
+def _emulate_bf16x6_bwd(q, k, v, out, dout, *, causal, window, q_offset, softcap, pairs=PAIRS6, width=None):
     """The f32 backward body's arithmetic in torch on the CPU: every product
     in bf16 planes (``pairs``; six by default), its own row statistics from
     that S (m in log2 units over the visible keys, l = sum exp2(x - m)), p
     = exp2(x - m) * (1 / l), D = rowsum(dO * O) in f32, dS = p (dP - D) (1
     - t^2), dV, dK and dQ in planes too, dK and dV summed over the group.
     exp2 is taken in f64 and rounded to f32, so no f32 ``torch.exp`` runs
-    here (ROADMAP fault C2)."""
+    here (ROADMAP fault C2).  ``width``: the operands zero-filled up to it,
+    as the body runs a head dim below its width; the scale stays the true
+    hd's and the gradients keep the true hd columns."""
+    b, sq, h, hd = q.shape
+    if width is not None:
+        q, k, v, out, dout = (zero_fill(x, width) for x in (q, k, v, out, dout))
+        dq, dk, dv = _emulate_bf16x6_bwd_at(q, k, v, out, dout, causal=causal, window=window, q_offset=q_offset,
+                                            softcap=softcap, pairs=pairs, scale_hd=hd)
+        return dq[..., :hd], dk[..., :hd], dv[..., :hd]
+    return _emulate_bf16x6_bwd_at(q, k, v, out, dout, causal=causal, window=window, q_offset=q_offset,
+                                  softcap=softcap, pairs=pairs, scale_hd=hd)
+
+
+def _emulate_bf16x6_bwd_at(q, k, v, out, dout, *, causal, window, q_offset, softcap, pairs, scale_hd):
+    """``_emulate_bf16x6_bwd`` at the operands' width, the scale taken at
+    ``scale_hd``."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -427,7 +445,7 @@ def _emulate_bf16x6_bwd(q, k, v, out, dout, *, causal, window, q_offset, softcap
     kf, vf = f(k).repeat_interleave(g, 1), f(v).repeat_interleave(g, 1)
     mm = lambda a, c: _mm_planes(a, c, pairs)
     exp2 = lambda x: torch.exp2(x.double()).float()
-    scale = np.float32(1.0 / np.sqrt(np.float32(hd)))
+    scale = np.float32(1.0 / np.sqrt(np.float32(scale_hd)))
     log2e = np.float32(np.log2(np.e))
     s = mm(qf, kf.transpose(-1, -2))
     t = torch.tanh(s * scale / softcap) if softcap > 0 else torch.zeros_like(s)
@@ -535,10 +553,10 @@ def test_function_cpu_saves_no_stats():
 # ---------------------------------------------------------------------------
 
 def _forward_for_bwd(q, k, v, kw):
-    """The forward kernel's output and, where the backward runs the wgmma
-    body, its row statistics, as ``FlashAttentionFunction`` saves them."""
+    """The forward kernel's output and, where the backward reads them, its
+    row statistics, as ``FlashAttentionFunction`` saves them."""
     with torch.no_grad():
-        if cuda_kernel.bwd_body_for(q.dtype, q.shape[-1]) == "wgmma":
+        if cuda_kernel.bwd_reads_stats(q.dtype, q.shape[-1]):
             return cuda_kernel.flash_attention(q, k, v, return_stats=True, **kw)
         return cuda_kernel.flash_attention(q, k, v, **kw), None
 
@@ -689,9 +707,10 @@ def test_cuda_wgmma_bwd_zero_filled(hd):
 @pytest.mark.parametrize("hd", [32, 64, 112, 128])
 def test_cuda_bf16x6_bwd_matches_plain(hd):
     """f32 at hd 32 / 64 / 112 / 128 runs the six-product tensor-core
-    backward (its counter moves, no other does), each gradient within
-    ``BWD_F32_FACTOR`` x the plain backward's own f32 error against f64, and
-    a second call gives the same bits."""
+    backward (its counter moves, no other does) on the bf16x6 forward's
+    statistics, each gradient within ``BWD_F32_FACTOR`` x the plain
+    backward's own f32 error against f64, and a second call gives the same
+    bits."""
     gen = torch.Generator(device="cuda").manual_seed(100 + hd)
     for sq, skv, g, causal, window, q_offset, softcap in (
             (300, 300, 2, True, 0, 0, 0.0), (300, 300, 1, True, 128, 0, 30.0), (1, 384, 2, True, 128, 383, 0.0),
@@ -700,11 +719,11 @@ def test_cuda_bf16x6_bwd_matches_plain(hd):
         q, k, v, do = mk(2, sq, 2 * g, hd), mk(2, skv, 2, hd), mk(2, skv, 2, hd), mk(2, sq, 2 * g, hd)
         kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
         out, stats = _forward_for_bwd(q, k, v, kw)
-        assert stats is None
+        assert stats is not None and stats.shape == (2, 2 * 2 * g * sq)
         before = dict(cuda_kernel.bwd_body_launch_count)
-        got = cuda_kernel.flash_attention_bwd(q, k, v, out, do, **kw)
+        got = cuda_kernel.flash_attention_bwd(q, k, v, out, do, stats=stats, **kw)
         assert cuda_kernel.bwd_body_launch_count == {**before, "bf16x6": before["bf16x6"] + 1}
-        again = cuda_kernel.flash_attention_bwd(q, k, v, out, do, **kw)
+        again = cuda_kernel.flash_attention_bwd(q, k, v, out, do, stats=stats, **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, again))
         ratios = _f32_bar_ratios(got, q, k, v, out, do, kw)
@@ -727,17 +746,19 @@ def test_cuda_tensor_map_kernels_on_a_fresh_thread():
     q, k, v, do = bf(b, s, h, hd), bf(b, s, kvh, hd), bf(b, s, kvh, hd), bf(b, s, h, hd)
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     out, stats = cuda_kernel.flash_attention(q, k, v, return_stats=True)
-    out32 = cuda_kernel.flash_attention(q32, k32, v32)
+    out32, stats32 = cuda_kernel.flash_attention(q32, k32, v32, return_stats=True)
     want = (cuda_kernel.flash_attention(q, k, v), *cuda_kernel.flash_attention_bwd(q, k, v, out, do, stats=stats),
-            *cuda_kernel.flash_attention_bwd(q32, k32, v32, out32, do32))
+            *cuda_kernel.flash_attention_bwd(q32, k32, v32, out32, do32, stats=stats32), out32, stats32)
     lib = cuda_kernel._library()
     rec = torch.empty(lib.flash_attention_bwd_wgmma_scratch(b, h, s), dtype=torch.float32, device="cuda")
     scratch = torch.empty(lib.flash_attention_bwd_bf16x6_scratch(b, s, s, h, kvh, hd), dtype=torch.uint8,
                           device="cuda")
+    fwd_scratch = torch.empty(lib.flash_attention_bf16x6_scratch(b, s, s, h, kvh, hd), dtype=torch.uint8,
+                              device="cuda")
     got = [torch.empty_like(x) for x in want]
     stream = torch.cuda.current_stream().cuda_stream
     torch.cuda.synchronize()
-    dims, flags = (b, s, s, h, kvh, hd), (1, 0, 0, 0.0, stream)
+    dims, flags = (b, s, s, h, kvh, hd, hd), (1, 0, 0, 0.0, stream)
     errs = []
 
     def run():
@@ -746,11 +767,14 @@ def test_cuda_tensor_map_kernels_on_a_fresh_thread():
         errs.append(lib.flash_attention_bwd_wgmma_launch(
             ptr(q), ptr(k), ptr(v), ptr(out), ptr(do), ptr(stats), ptr(rec), *map(ptr, got[1:4]), *dims, *flags))
         errs.append(lib.flash_attention_bwd_bf16x6_launch(
-            ptr(q32), ptr(k32), ptr(v32), ptr(out32), ptr(do32), ptr(scratch), *map(ptr, got[4:]), *dims, *flags))
+            ptr(q32), ptr(k32), ptr(v32), ptr(out32), ptr(do32), ptr(stats32), ptr(scratch), *map(ptr, got[4:7]),
+            *dims, *flags))
+        errs.append(lib.flash_attention_bf16x6_launch(ptr(q32), ptr(k32), ptr(v32), ptr(got[7]), ptr(got[8]),
+                                                      ptr(fwd_scratch), *dims, *flags))
 
     worker = threading.Thread(target=run)
     worker.start()
     worker.join()
     torch.cuda.synchronize()
-    assert errs == [0, 0, 0], [lib.flash_attention_bwd_wgmma_error_string(e).decode() for e in errs]
+    assert errs == [0, 0, 0, 0], [lib.flash_attention_bwd_wgmma_error_string(e).decode() for e in errs]
     assert all(torch.equal(a, w) for a, w in zip(got, want))
