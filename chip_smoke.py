@@ -9,12 +9,15 @@ the continuous-batching engine (contiguous and paged pools), through
 with prompts past ``attn_block_q`` (the flash-attention prefill), drives
 the SSM scan through its entry point, fine-tunes it with the COMtune link
 (``launch.train``, sequences past ``attn_block_q``: the flash-attention
-forward and backward kernels), and times the kernels and the paths.
+forward and backward kernels), runs the paper's own experiment (the split
+VGG16 CNN, DI through the egress kernel), and times the kernels and the
+paths.
 
     python3 chip_smoke.py            # everything (needs one sm_90 card)
     python3 chip_smoke.py --quick    # build + kernel checks only
     python3 chip_smoke.py --link-round   # one link round, timed and traced
     python3 chip_smoke.py --bwd-split [bfloat16|float32]   # a tensor-core backward's kernels, traced
+    python3 chip_smoke.py --paper        # the link kernels' build + phase 14 only
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
@@ -166,7 +169,19 @@ Phases (any failure raises and the script exits non-zero):
      global layers (the slab kernels), at bf16 hd 32 and at kimi-k2's heads
      (hd 112 and 128, S 1024) beside SDPA's backward (graph replay), its
      plain version and its bound (10 hd flops a visible pair).
-Phases 9-13 run after phase 3, ahead of the profiled phases 5 and 7; last,
+ 14. the paper's experiment (``run_paper_experiment``), PyTorch's TF32
+     flags at their defaults: the full-width VGG16 (``paper_vgg16.CONFIG``,
+     split 16,384 elements, f32) pre-trained 300 steps and fine-tuned 200
+     at r 0.5 and r 0 through ``paper.experiment``, an 8-bit quantizer
+     calibrated on each, DI on the 600 test images at p 0 / 0.5 / 0.7
+     through the egress kernel (one launch each, every output equal to
+     ``lossy_link_egress_keyed_ref`` on the same key, predictions equal to
+     the plain egress's), one eval batch's logits against the CPU's; the
+     harness at ``CNN_CFG`` (COMtune beats previous DI by more than 0.03
+     at p 0.7 over 3 seeds; the 8-bit fine-tuned model's DI through the
+     egress); the eval hook's lossless check; the egress at (600, 16,384)
+     f32 by graph replay beside its plain version and bound.
+Phases 9-14 run after phase 3, ahead of the profiled phases 5 and 7; last,
 torch.profiler traces, each in a process of its own (``--bwd-split``),
 split the tensor-core backward's time at the training shape between its
 kernels, bf16 and f32.
@@ -2583,11 +2598,259 @@ def run_bwd_kernel_split(report) -> None:
     report["flash_attention_bwd_split_us"] = split
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the paper's own experiment (the split VGG CNN, DI through the egress)
+# ---------------------------------------------------------------------------
+
+PAPER_LOSSES = (0.0, 0.5, 0.7)
+PAPER_MESSAGE_BYTES = 16384            # 8 bits a feature of the 16,384-element split (65.5 kB f32)
+CNN_CPU_REL = 1e-4                     # card vs CPU logits, as tests/test_torch_cnn.py's card case
+COMTUNE_MARGIN = 0.03                  # tests/test_comtune.py:124-129
+
+
+def time_cnn_parts(params, state, comp, cfg) -> dict:
+    """Where a full-width VGG16 step and a DI evaluation spend their time,
+    by CUDA events with no profiler (steady steps 2-5 of 5): a fine-tuning
+    step at batch 64 (forward through the loss with the r 0.5 dropout link,
+    backward, Adam) and the dropout link alone on its split activation; a
+    DI evaluation of the 600 test images at p 0.5 (device half, the egress
+    kernel, server half).  Works on copies: the models stay as trained."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import prng
+    from repro_torch.core import comtune
+    from repro_torch.models import cnn
+    from repro_torch.optim import AdamConfig, adam_update, init_adam
+    from repro_torch.paper import experiment as E
+
+    (xtr, ytr), (xte, _) = E.dataset()
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    steady = lambda xs: sum(xs[1:]) / len(xs[1:])
+    p = {n: t.detach().clone().requires_grad_(True) for n, t in params.items()}
+    adam_cfg = AdamConfig(lr=E.LR * 0.5)
+    opt = init_adam(p, adam_cfg)
+    xb, yb = torch.from_numpy(xtr[:64]).cuda(), torch.from_numpy(ytr[:64]).cuda().long()
+    key = prng.PRNGKey(7, "cuda")
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(5):
+        key, sub = prng.split(key)
+        e = [ev() for _ in range(4)]
+        with cnn.f32_math():
+            e[0].record()
+            logits, _ = cnn.forward(p, state, xb, cfg, train=True, link_fn=lambda a: comtune.dropout_link(sub, a, 0.5))
+            loss = -F.log_softmax(logits, dim=-1).gather(-1, yb[:, None]).mean()
+            e[1].record()
+            grads = torch.autograd.grad(loss, list(p.values()))
+            e[2].record()
+        _, opt, _ = adam_update(dict(zip(p, grads)), p, opt, adam_cfg)
+        e[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(parts):
+            parts[name].append(e[i].elapsed_time(e[i + 1]))
+    a = torch.randn((64, cfg.split_activation_dim), device="cuda")
+    rec = {f"step_{k}_ms": steady(v) for k, v in parts.items()}
+    rec["step_dropout_link_ms"] = time_events(lambda: comtune.dropout_link(key, a, 0.5), iters=20, warmup=3)
+    x = torch.from_numpy(xte).cuda()
+    spec = E.di_link_spec(comp, 0.5)
+    dkey = prng.PRNGKey(1000, "cuda")
+    di = {"device_half": [], "egress": [], "server_half": []}
+    with torch.no_grad():
+        for _ in range(5):
+            e = [ev() for _ in range(4)]
+            e[0].record()
+            act, _ = cnn.forward_device(params, state, x, cfg)
+            e[1].record()
+            msg = comtune.emulate_link(dkey, act, spec, "serve")
+            e[2].record()
+            cnn.forward_server(params, state, msg, cfg)
+            e[3].record()
+            torch.cuda.synchronize()
+            for i, name in enumerate(di):
+                di[name].append(e[i].elapsed_time(e[i + 1]))
+    rec.update({f"di_{k}_ms": steady(v) for k, v in di.items()})
+    log(f"[time] VGG16 step (batch 64, f32, CUDA events): forward {rec['step_forward_ms']:.2f} ms (the dropout link "
+        f"alone {rec['step_dropout_link_ms']:.3f}), backward {rec['step_backward_ms']:.2f}, optimizer "
+        f"{rec['step_optimizer_ms']:.2f}; DI evaluation (600 images): device half {rec['di_device_half_ms']:.2f} ms, "
+        f"egress {rec['di_egress_ms']:.3f}, server half {rec['di_server_half_ms']:.2f}")
+    return rec
+
+
+def run_paper_experiment(report) -> int:
+    """The paper's experiment through ``repro_torch.paper.experiment``, with
+    PyTorch's TF32 flags at their defaults (cuDNN's on): the CNN computes in
+    f32 whatever they say.
+
+    The path (counts zeroed just before, read just after):
+    1. the full-width VGG16 (``paper_vgg16.CONFIG``: 13 convs, 64-512
+       channels, split 16,384 elements), random weights from seed 0, on the
+       experiment's data: ``pretrained`` (300 steps, batch 64, lr 2e-3),
+       ``finetuned`` at r 0.5 and at r 0 ("previous DI"), 200 steps each;
+       an 8-bit quantizer calibrated on each model's 512 split activations
+       (``make_compressor("quant", 16,384 B)``); DI on the 600 test images
+       at p 0 / 0.5 / 0.7 (``di_logits``): one egress launch each;
+    2. the harness at its own ``CNN_CFG`` and step counts: ``accuracy_stats``
+       at p 0.7 over 3 seeds, COMtune (r 0.5) above previous DI by more
+       than 0.03; ``finetuned(0.5, "quant", uncompressed_bytes() / 4)`` and
+       its DI accuracy through the egress (one launch a p);
+    3. the eval hook: ``train_tiny_model(steps=30, n_train=200, n_test=80,
+       seed=1)``; all-ones packet masks give the clean per-sample accuracy.
+    Then the checks: every full-width egress output equal (``torch.equal``)
+    to ``lossy_link_egress_keyed_ref`` on the same key, and the path's
+    predictions equal the plain egress's; finite, falling losses; one eval
+    batch's logits within ``CNN_CPU_REL`` of the CPU's forward; a step's
+    and a DI evaluation's parts (``time_cnn_parts``); the egress at (600,
+    16,384) f32 timed by graph replay beside its plain version and bound.
+    Returns the path's egress launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import paper_vgg16
+    from repro_torch.core import comtune
+    from repro_torch.kernels.lossy_link import cuda_kernel as ll
+    from repro_torch.kernels.lossy_link import lossy_link_egress_keyed_ref
+    from repro_torch.models import cnn
+    from repro_torch.net import evalhook
+    from repro_torch.paper import experiment as E
+
+    torch.cuda.empty_cache()
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False   # PyTorch's defaults
+    cfg = paper_vgg16.CONFIG
+    assert cfg.split_activation_dim == 16384
+    _, (xte, yte) = E.dataset()
+    out = {"config": "paper_vgg16.CONFIG", "tf32_flags": "cudnn True, matmul False (defaults)"}
+    n_evals = len(PAPER_LOSSES)
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    # 1. the full-width model
+    t0 = time.perf_counter()
+    p_pre, s_pre = E.pretrained(0, cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    models, evals = {}, []
+    for r in (0.5, 0.0):
+        params, state, _ = E.finetuned(r, seed=0, cfg=cfg, device="cuda")
+        models[r] = (params, state, E.make_compressor("quant", PAPER_MESSAGE_BYTES, params, state, cfg=cfg))
+    torch.cuda.synchronize()
+    di_s = []
+    for r, (params, state, comp) in models.items():
+        assert comp.quant.bits == 8 and comp.quant.s_min.shape == (16384,)
+        for p in PAPER_LOSSES:
+            t1 = time.perf_counter()
+            logits = E.di_logits(params, state, comp, p, seed=0, cfg=cfg)
+            torch.cuda.synchronize()
+            di_s.append(time.perf_counter() - t1)
+            evals.append((r, p, logits))
+    # 2. the harness at CNN_CFG
+    t2 = time.perf_counter()
+    harness = {r: E.finetuned(r, device="cuda") for r in (0.5, 0.0)}
+    stats = {r: E.accuracy_stats(m[0], m[1], None, 0.7, n_seeds=3) for r, m in harness.items()}
+    qp, qs, qcomp = E.finetuned(0.5, "quant", E.uncompressed_bytes() / 4, device="cuda")
+    quant_acc = {p: E.di_accuracy(qp, qs, qcomp, p) for p in (0.5, 0.7)}
+    torch.cuda.synchronize()
+    harness_s = time.perf_counter() - t2
+    # 3. the eval hook
+    tiny = evalhook.train_tiny_model(steps=30, n_train=200, n_test=80, seed=1, device="cuda")
+    rids = np.arange(37)
+    per_request = evalhook.accuracy_per_request_masks(tiny, np.ones((37, 11), dtype=bool), rids)
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = dict(flash_decode=0, paged_flash_decode=0, lossy_link_egress=2 * n_evals + len(quant_acc), burst_mask=0,
+                flash_attention=0, flash_attention_bwd=0, ssm_scan=0)
+    assert launches == want, f"paper experiment: launches {launches}, want {want}"
+
+    # Checks (their launches are not the path's).
+    steps_s = pre_s / E.PRETRAIN_STEPS
+    for name, key_ in (("pretrained", (0, cfg, "cuda")), ("finetuned r 0.5", (0.5, "none", None, 0, cfg, "cuda")),
+                       ("finetuned r 0", (0.0, "none", None, 0, cfg, "cuda"))):
+        losses = E.TRAIN_LOSSES[key_].float().cpu()
+        assert torch.isfinite(losses).all(), name
+        first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+        out[f"{name} loss first/last 20"] = [first, last]
+        log(f"[paper] VGG16 {name}: loss {first:.4f} (first 20 steps) -> {last:.4f} (last 20)")
+        if name == "pretrained":
+            assert last < first, f"{name}: the loss did not fall ({first} -> {last})"
+    x_cuda = torch.from_numpy(xte).cuda()
+    y = torch.from_numpy(yte).long()
+    acc = {}
+    with torch.no_grad():
+        for r, p, logits in evals:
+            params, state, comp = models[r]
+            a, _ = cnn.forward_device(params, state, x_cuda, cfg)
+            key = prng.PRNGKey(1000, "cuda")
+            link = comtune.emulate_link(key, a, E.di_link_spec(comp, p), "serve")
+            q = comp.quant
+            plain = lossy_link_egress_keyed_ref(key, a, q.s_min, q.s_max, bits=q.bits, loss_rate=p)
+            assert torch.equal(link, plain), f"r {r}, p {p}: the egress differs from its plain version"
+            plain_logits, _ = cnn.forward_server(params, state, plain, cfg)
+            assert torch.equal(logits.argmax(-1), plain_logits.argmax(-1)), f"r {r}, p {p}: predictions differ"
+            acc[(r, p)] = float((logits.argmax(-1).cpu() == y).float().mean())
+        # One eval batch on the card against the CPU, the flags at their defaults.
+        params, state, _ = models[0.5]
+        got, _ = cnn.forward(params, state, x_cuda[:64], cfg)
+        cpu, _ = cnn.forward({n: t.cpu() for n, t in params.items()}, {n: t.cpu() for n, t in state.items()},
+                             torch.from_numpy(xte[:64]), cfg)
+        cpu_err = float((got.cpu() - cpu).abs().max())
+        assert cpu_err <= CNN_CPU_REL * float(cpu.abs().max()), f"card vs CPU logits: {cpu_err}"
+    assert torch.backends.cudnn.allow_tf32, "the CNN left the caller's TF32 flag changed"
+    for p in PAPER_LOSSES:
+        log(f"[paper] VGG16 DI accuracy at p {p}: COMtune (r 0.5) {acc[(0.5, p)]:.4f}, previous DI "
+            f"{acc[(0.0, p)]:.4f} (8-bit, through the egress)")
+    out["vgg16_di_accuracy"] = {f"r {r} p {p}": v for (r, p), v in acc.items()}
+    out.update(train_step_ms=steps_s * 1e3, pretrain_s=pre_s, di_eval_ms=float(np.median(di_s)) * 1e3,
+               di_eval_ms_all=[t * 1e3 for t in di_s], card_vs_cpu_logits_max_abs=cpu_err,
+               card_vs_cpu_logits_max=float(cpu.abs().max()))
+    log(f"[paper] VGG16 train step {steps_s * 1e3:.2f} ms (300 pre-training steps at batch 64 in {pre_s:.2f} s, "
+        f"host clock); a DI evaluation (600 images) {out['di_eval_ms']:.2f} ms (median of {len(di_s)}); card vs "
+        f"CPU logits {cpu_err:.3g} (largest {out['card_vs_cpu_logits_max']:.3g})")
+
+    m5, m0 = stats[0.5][0], stats[0.0][0]
+    out["harness"] = dict(comtune_p07=stats[0.5], previous_di_p07=stats[0.0], quant_finetuned_di=quant_acc,
+                          quant_bits=qcomp.quant.bits, seconds=harness_s)
+    log(f"[paper] harness (CNN_CFG) at p 0.7 over 3 seeds: COMtune {m5:.4f}, previous DI {m0:.4f}; the 8-bit "
+        f"COMtune model's DI accuracy {quant_acc}; {harness_s:.1f} s")
+    assert m5 > m0 + COMTUNE_MARGIN, f"COMtune {m5} does not beat previous DI {m0} by {COMTUNE_MARGIN}"
+
+    with torch.no_grad():
+        clean, _ = cnn.forward(tiny.params, tiny.state, torch.from_numpy(tiny.x_test).cuda(), evalhook.TINY_CFG)
+    clean = clean.argmax(-1).cpu().numpy() == tiny.y_test
+    assert np.array_equal(per_request, clean[rids % len(tiny.y_test)]), "lossless masks: not the clean accuracy"
+    out["evalhook_lossless_accuracy"] = float(per_request.mean())
+    log(f"[paper] eval hook: all-ones masks give the clean accuracy {per_request.mean():.4f} on 37 requests")
+
+    # The egress at the CNN's shape: (600, 16,384) f32, the r 0.5 model's split and range.
+    params, state, comp = models[0.5]
+    out["parts"] = time_cnn_parts(params, state, comp, cfg)
+    with torch.no_grad():
+        a, _ = cnn.forward_device(params, state, x_cuda, cfg)
+    q, key, t, d = comp.quant, prng.PRNGKey(1000, "cuda"), a.shape[0], a.shape[1]
+    kw = dict(bits=q.bits, loss_rate=0.5)
+    nbytes = 2 * t * d * 4 + 2 * d * 4 + 2 * 8
+    ops = (EGRESS_OPS_PER_ELEMENT + THREEFRY_OPS_PER_ELEMENT) * t * d
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["float32"])
+    out["egress"] = dict(shape=dict(T=t, D=d, x="float32", bits=q.bits, p=0.5), bytes=nbytes, ops=ops,
+                         ms=time_graph(lambda: ll.lossy_link_egress(key, a, q.s_min, q.s_max, **kw)),
+                         plain_ms=time_events(lambda: lossy_link_egress_keyed_ref(key, a, q.s_min, q.s_max, **kw),
+                                              iters=10, warmup=2),
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    e = out["egress"]
+    log(f"[time] lossy_link_egress (600, 16384) f32: kernel {e['ms'] * 1e3:.2f} us (graph), plain "
+        f"{e['plain_ms'] * 1e3:.1f} us, bound {e['bound_ms'] * 1e3:.2f} us ({bound_by}, {nbytes} B)")
+    out["launches"] = launches
+    report["paper_experiment"] = out
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return launches["lossy_link_egress"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
     ap.add_argument("--link-round", action="store_true",
                     help="time and trace one i.i.d. link round only (phase 9's traced part)")
+    ap.add_argument("--paper", action="store_true", help="build the link kernels and run phase 14 only")
     ap.add_argument("--bwd-split", nargs="?", const="bfloat16", choices=("bfloat16", "float32"),
                     help="trace the tensor-core backward of this dtype at the training shape only (its kernels' "
                          "device times)")
@@ -2610,6 +2873,17 @@ def main(argv=None) -> int:
         nvcc.build_libraries([(link_kernel.LIB_NAME, link_kernel.SOURCES)])
         print("LINK_ROUND " + json.dumps(link_round()))
         log(f"[card] {card_line()}")
+        return 0
+    if args.paper:
+        from repro_torch.kernels.lossy_link import cuda_kernel as link_kernel
+
+        nvcc.build_libraries([(link_kernel.LIB_NAME, link_kernel.SOURCES)])
+        log(f"[card] {card_line()}")
+        report = {}
+        run_paper_experiment(report)
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_paper.json").write_text(json.dumps(report, indent=1, default=str))
+        log("[paper] phase 14 passed; no result line in --paper mode")
         return 0
     if args.bwd_split:
         from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
@@ -2709,7 +2983,7 @@ def main(argv=None) -> int:
                       replaces="src/repro/kernels/ssm_scan/kernel.py:55", max_abs_err=check_ssm_scan())
     if not args.quick:
         check_masks()
-        # Phases 9-13 run ahead of the profiled phases, so that their
+        # Phases 9-14 run ahead of the profiled phases, so that their
         # host-clock times are taken before any profiler trace.
         link_launches = run_link_kernels(report)
         run_link_round(report)
@@ -2772,6 +3046,12 @@ def main(argv=None) -> int:
             bwd_records[body].update(launches=bwd_launches[body], ms=t["simt_ms"] if body == "simt" else t["ms"],
                                      plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                                      library_ms=t["library_ms"])
+        paper_launches = run_paper_experiment(report)
+        pe = report["paper_experiment"]["egress"]
+        egress_record.update(launches=egress_record["launches"] + paper_launches,
+                             launches_by_path={"link_slice_iid": link_launches["iid"]["lossy_link_egress"],
+                                               "paper_experiment": paper_launches},
+                             at_cnn_split={k: pe[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")})
         launches = run_slice(report)
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [

@@ -5,6 +5,8 @@
   ``[s_min, s_max]``, round to an ``n``-bit integer code (round half to
   even, as ``jnp.round``); the code is what crosses the channel.
 * PCA (Eq. 18-19): transmit ``w a``, reconstruct ``w^T a' + b``.
+* Message sizing: ``n = floor(32 M / M_float)`` bits, or ``D' = floor(M /
+  4)`` PCA coefficients, for a target message size ``M`` bytes.
 * The fine-tuning graph's roundtrip (``Compressor.roundtrip_train``):
   quantize-dequantize with a straight-through gradient
   (``fake_quantize_ste``), PCA as the linear map it is.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -26,6 +29,11 @@ class QuantSpec:
     bits: int
     s_min: torch.Tensor
     s_max: torch.Tensor
+
+    @staticmethod
+    def bits_for_message_size(message_bytes: float, float_bytes: float) -> int:
+        """n = floor(32 M / M_float), clamped to [1, 32]."""
+        return int(max(1, min(32, np.floor(32.0 * message_bytes / float_bytes))))
 
 
 def _range(spec: QuantSpec, like: torch.Tensor):
@@ -68,6 +76,12 @@ class PCASpec:
     @property
     def reduced_dim(self) -> int:
         return int(self.w.shape[0])
+
+    @staticmethod
+    def reduced_dim_for_message_size(message_bytes: float, float_bytes: float, full_dim: int) -> int:
+        """D' = floor(M D / M_float) with M_float = D * float_bytes, i.e.
+        floor(M / float_bytes) coefficients, clamped to [1, D]."""
+        return int(max(1, min(full_dim, int(np.floor(message_bytes / float_bytes)))))
 
 
 def pca_compress(x: torch.Tensor, spec: PCASpec) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Unreliable-link model (paper §III-B, Eq. 1-3) — the port's twin of
 ``repro/core/link.py``: keep masks drawn from ``repro_torch.prng`` with the
 reference's key use, so every mask is bit-equal to the reference's, plus
-the NumPy channel constants the latency analytics use.
+the channel constants and the NumPy latency analytics of Eq. 4-5 (the same
+float64 arrays as the reference's, bit for bit).
 """
 
 from __future__ import annotations
@@ -106,3 +107,79 @@ def apply_channel(
         keep = np.maximum(np.float32(1.0) - np.float32(loss_rate), np.float32(MIN_KEEP_FRACTION))
         y = y * scalar_as(np.float32(1.0) / keep, x.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Latency model (Eq. 4-5): pure NumPy analytics, as the reference's.
+# ---------------------------------------------------------------------------
+
+def _gammaln(x: np.ndarray) -> np.ndarray:
+    """Stirling-series log-gamma, accurate to ~1e-10 for x >= 1 (no scipy)."""
+    x = np.asarray(x, dtype=np.float64)
+    # Shift x up by 6 for series accuracy, then divide back down.
+    shift = 6
+    xs = x + shift
+    series = (
+        (xs - 0.5) * np.log(xs)
+        - xs
+        + 0.5 * np.log(2.0 * np.pi)
+        + 1.0 / (12.0 * xs)
+        - 1.0 / (360.0 * xs**3)
+        + 1.0 / (1260.0 * xs**5)
+    )
+    corr = np.zeros_like(xs)
+    for i in range(shift):
+        corr += np.log(x + i)
+    return series - corr
+
+
+def log_binom_coeff(n, k):
+    n = np.asarray(n, dtype=np.float64)
+    k = np.asarray(k, dtype=np.float64)
+    return _gammaln(n + 1.0) - _gammaln(k + 1.0) - _gammaln(n - k + 1.0)
+
+
+def received_packets_pmf(n_t: int, loss_rate: float) -> np.ndarray:
+    """Eq. (4): PMF of the number of received packets, support 0..n_t."""
+    n_r = np.arange(n_t + 1)
+    if loss_rate <= 0.0:
+        pmf = np.zeros(n_t + 1)
+        pmf[-1] = 1.0
+        return pmf
+    if loss_rate >= 1.0:
+        pmf = np.zeros(n_t + 1)
+        pmf[0] = 1.0
+        return pmf
+    logp = log_binom_coeff(n_t, n_r) + (n_t - n_r) * np.log(loss_rate) + n_r * np.log1p(-loss_rate)
+    pmf = np.exp(logp)
+    return pmf / pmf.sum()
+
+
+def unreliable_latency_s(n_t: int, cfg: ChannelConfig) -> float:
+    """No retransmission: deterministic n_t * l / b (paper §III-B)."""
+    return n_t * cfg.slot_time_s()
+
+
+def reliable_latency_pmf(n_t: int, cfg: ChannelConfig, max_slots: int | None = None):
+    """Eq. (5): latency (slots) * T until all n_t packets are delivered under
+    stop-and-wait retransmission; the slot count K is negative-binomial,
+    P(K=k) = C(k-1, n_t-1) p^(k-n_t) (1-p)^n_t.  Returns (latency_seconds,
+    pmf) over k = n_t .. max_slots."""
+    p = cfg.loss_rate
+    if max_slots is None:
+        # Enough tail for p up to 0.9.
+        max_slots = max(n_t + 1, int(n_t / max(1e-9, 1.0 - p) * 6))
+    k = np.arange(n_t, max_slots + 1)
+    if p <= 0.0:
+        pmf = np.zeros_like(k, dtype=np.float64)
+        pmf[0] = 1.0
+    else:
+        logp = log_binom_coeff(k - 1, n_t - 1) + (k - n_t) * np.log(p) + n_t * np.log1p(-p)
+        pmf = np.exp(logp)
+        pmf = pmf / pmf.sum()
+    return k.astype(np.float64) * cfg.slot_time_s(), pmf
+
+
+def latency_cdf(latency_s: np.ndarray, pmf: np.ndarray):
+    order = np.argsort(latency_s)
+    return latency_s[order], np.cumsum(pmf[order])
