@@ -18,6 +18,7 @@ paths.
     python3 chip_smoke.py --link-round   # one link round, timed and traced
     python3 chip_smoke.py --bwd-split [bfloat16|float32]   # a tensor-core backward's kernels, traced
     python3 chip_smoke.py --paper        # the link kernels' build + phase 14 only
+    python3 chip_smoke.py --net          # the decode, link and attention kernels' build + phase 15 only
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
@@ -181,7 +182,25 @@ Phases (any failure raises and the script exits non-zero):
      at p 0.7 over 3 seeds; the 8-bit fine-tuned model's DI through the
      egress); the eval hook's lossless check; the egress at (600, 16,384)
      f32 by graph replay beside its plain version and bound.
-Phases 9-14 run after phase 3, ahead of the profiled phases 5 and 7; last,
+ 15. the network stack (``run_network_stack``): keep masks of ``channel_link``
+     on the card equal to the CPU's for fading (50 and 120 m), trace, iid +
+     FEC (10, 2), GE + FEC (4, 2) with and without ``use_kernel``, fading +
+     FEC (10, 2) and adaptive compensation (element, packet), at the split's
+     (4, 1, 1024); full-width qwen1.5-0.5b in f32 over fading + FEC (10, 2),
+     batch 4, prompt 32, 8 tokens: ``generate_reference`` and both engine
+     pools, engine tokens equal to the per-request loops', decode kernels
+     launched, no link kernel; ``run_sim`` over 16 clients and 41 packets,
+     ge / fading / trace x unreliable / ARQ(3) / FEC(4, 2)-ARQ(2), the model
+     in the loop (the full-width LM and the eval hook's CNN): conservation,
+     network fields unchanged by the model, the CNN's accuracy equal to
+     ``accuracy_per_request_masks``, a lossless channel's clean accuracy;
+     ``launch.train.train(train_channel="ge", train_fec=(10, 2))`` at full
+     width, bf16, 4 x 1024, 3 steps (24 + 24 flash-attention launches a
+     step), a step and the FEC link timed by CUDA events; each protocol's
+     E[latency] and p99 at the paper experiment's 164 packets, p 0.1 / 0.5
+     / 0.7, beside phase 14's DI accuracies; the serving CLI with
+     ``--channel fading --protocol fec_arq --deadline 0.05``.
+Phases 9-15 run after phase 3, ahead of the profiled phases 5 and 7; last,
 torch.profiler traces, each in a process of its own (``--bwd-split``),
 split the tensor-core backward's time at the training shape between its
 kernels, bf16 and f32.
@@ -2845,12 +2864,344 @@ def run_paper_experiment(report) -> int:
     return launches["lossy_link_egress"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the network stack (net/*) on the split LM's serve and train paths
+# ---------------------------------------------------------------------------
+
+NET_SHAPE = (4, 1, 1024)                 # the split activation of a batch-4 decode round: 164 packets
+NET_FEC = (10, 2)
+NET_TOKENS = 8
+NET_CLIENTS, NET_PACKETS, NET_SEED = 16, 41, 5
+# Hand-scheduled arrivals (tests/test_torch_simulator.py's): 4 requests a
+# client, staggered, some while the client's radio is still busy.
+NET_ARRIVALS = [(0.002 * i + 0.05 * (i // NET_CLIENTS), i % NET_CLIENTS) for i in range(4 * NET_CLIENTS)]
+NET_PAPER_PACKETS = -(-PAPER_MESSAGE_BYTES // 100)   # 16,384 one-byte codes in 100 B packets: 164
+NET_TRADEOFF_LOSSES = (0.1, 0.5, 0.7)
+NET_DEADLINE = 0.05
+
+
+def _net_channels(name):
+    """One channel a client for a simulator cell (the grid of
+    ``benchmarks/net_sweep.py:70-76``'s protocols over these channels)."""
+    from repro_torch.net import channels, traces
+
+    if name == "ge":
+        return [channels.GilbertElliottChannel.from_target(0.3) for _ in range(NET_CLIENTS)]
+    if name == "fading":
+        return [channels.FadingMarkovChannel(distance_m=70.0 + 5.0 * (c % 4)) for c in range(NET_CLIENTS)]
+    if name == "trace":
+        trace = traces.synthetic_burst_trace(20_000, 0.3, mean_burst=6.0, seed=3)
+        return [channels.TraceChannel.from_array(trace) for _ in range(NET_CLIENTS)]
+    return [channels.IIDChannel(0.0) for _ in range(NET_CLIENTS)]
+
+
+def _net_protocols():
+    from repro_torch.net import ARQProtocol, FECSpec, HybridFECARQProtocol, UnreliableProtocol
+
+    return {"unreliable": UnreliableProtocol(), "arq": ARQProtocol(max_rounds=3),
+            "fec_arq": HybridFECARQProtocol(fec=FECSpec(k=4, m=2), max_rounds=2)}
+
+
+def check_net_masks() -> dict:
+    """Phase 15.1: ``channel_link``'s keep mask (the nonzeros of its output on
+    an all-ones message of the split's shape) drawn on the card equals the
+    same call on the CPU, for the net path's channels and FEC, and for
+    adaptive compensation at both granularities.  No link kernel launches
+    (FEC and the stateful channels bypass the egress; with FEC the FEC branch
+    comes ahead of the burst mask).  Returns the cases' keep fractions."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core import comtune
+    from repro_torch.net import traces
+
+    trace = tuple(int(v) for v in traces.synthetic_burst_trace(5000, 0.3, seed=0))
+    cases = {
+        "fading": dict(channel="fading"),
+        "fading_120m": dict(channel="fading", channel_params=(("distance_m", 120.0),)),
+        "trace": dict(channel="trace", channel_params=(("keep_trace", trace),)),
+        "iid_fec_10_2": dict(loss_rate=0.3, fec_k=10, fec_m=2),
+        "ge_fec_4_2": dict(loss_rate=0.3, channel="ge", fec_k=4, fec_m=2),
+        "ge_fec_4_2_use_kernel": dict(loss_rate=0.3, channel="ge", fec_k=4, fec_m=2, use_kernel=True),
+        "fading_fec_10_2": dict(channel="fading", fec_k=10, fec_m=2),
+        "adaptive_element": dict(loss_rate=0.3, adaptive_compensation=True),
+        "adaptive_packet": dict(loss_rate=0.3, adaptive_compensation=True, granularity="packet"),
+    }
+    _zero_counts()
+    out = {}
+    for name, kw in cases.items():
+        spec = comtune.LinkSpec(**kw)
+        kept = []
+        for seed in (0, 1, 7):
+            masks = []
+            for dev in ("cuda", "cpu"):
+                y = comtune.channel_link(prng.PRNGKey(seed, dev), torch.ones(NET_SHAPE, device=dev), spec)
+                masks.append((y != 0).cpu())
+            assert torch.equal(*masks), f"{name} seed {seed}: the keep mask on the card differs from the CPU's"
+            kept.append(float(masks[0].float().mean()))
+        out[name] = kept
+    c = _counts()
+    assert c["lossy_link_egress"] == 0 and c["burst_mask"] == 0, f"net-path masks launched link kernels: {c}"
+    log(f"[net] keep masks on the card equal the CPU's ({len(cases)} cases x 3 keys, shape {NET_SHAPE}, "
+        f"{-(-NET_SHAPE[0] * NET_SHAPE[2] // 25)} packets before FEC): " +
+        ", ".join(f"{k} {sum(v) / len(v):.3f}" for k, v in out.items()))
+    return out
+
+
+def run_network_stack(report) -> dict:
+    """Phase 15, the network stack on the card (counts zeroed just before
+    each path, read just after):
+
+    1. ``check_net_masks``;
+    2. serving: full-width qwen1.5-0.5b in f32 (random weights from seed 0),
+       batch 4, prompt 32, 8 tokens over a fading + FEC (10, 2) link, through
+       ``generate_reference`` (batch 4, then each request alone on its
+       ``fold_in`` key) and ``generate()``'s contiguous engine and the paged
+       engine: the engines' tokens equal the per-request loops', the decode
+       kernels launch, the egress and burst mask do not;
+    3. fine-tuning: ``train("qwen1.5-0.5b", full_size=True,
+       train_channel="ge", train_fec=(10, 2))`` in bf16, 4 x 1024, 3 steps:
+       finite losses, 24 forward and 24 backward flash-attention launches a
+       step, no link kernel; then one step and the FEC link alone timed by
+       CUDA events;
+    4. the simulator: ``run_sim`` over 16 clients, 41 packets, the
+       hand-scheduled arrivals and seed, channels ge / fading / trace x the
+       unreliable, ARQ(3) and FEC(4, 2)-ARQ(2) protocols, the model in the
+       loop through ``make_lm_request_eval_fn`` on the serving model and
+       through the eval hook's tiny CNN on the card: conservation; every
+       network field equal to a run without the model; the CNN's accuracy
+       equal to ``accuracy_per_request_masks`` on the masks it was handed; a
+       lossless channel gives the clean accuracy of either model;
+    5. the paper's trade-off: E[latency] and p99 of each protocol for the
+       paper experiment's message (164 packets of 100 B) at p 0.1 / 0.5 /
+       0.7, beside phase 14's DI accuracies where that phase ran;
+    6. the CLI: ``launch.serve.main`` with ``--full-size --channel fading
+       --protocol fec_arq --deadline 0.05`` logs the protocol line.
+    Returns the serving and training paths' launches."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.link import ChannelConfig
+    from repro_torch.launch import serve as t_serve
+    from repro_torch.launch import train as t_train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.net import evalhook, simulator
+    from repro_torch.net.protocol import latency_quantile
+    from repro_torch.optim import AdamConfig, init_adam
+    from repro_torch.serve import ContinuousEngine, PoolConfig
+
+    torch.cuda.empty_cache()
+    out = {"masks": check_net_masks()}
+
+    # 2. serving over fading + FEC
+    base = get_config("qwen1.5-0.5b").with_updates(attn_impl="flash_decode", dtype="float32")
+    cfg = base.with_updates(link=dataclasses.replace(base.link, channel="fading", fec_k=NET_FEC[0], fec_m=NET_FEC[1]))
+    spec = lm.link_spec_from_config(cfg)
+    assert spec.fec_spec is not None and spec.fec_spec.k == NET_FEC[0] and spec.uses_net_path
+    n_layers = cfg.num_layers
+    model = lm.init_lm(cfg, seed=0, device="cuda")
+    key = prng.PRNGKey(15, "cuda")
+    prompts = prng.randint(key, (BATCH, PROMPT), 0, cfg.vocab_size)
+    serve = {}
+    _zero_counts()
+    t0 = time.perf_counter()
+    toks_ref, serve["reference_batch4"] = t_serve.generate_reference(model, cfg, prompts, NET_TOKENS, key=key)
+    per_request = [t_serve.generate_reference(model, cfg, prompts[i:i + 1], NET_TOKENS, key=prng.fold_in(key, i))[0]
+                   for i in range(BATCH)]
+    loop_s = time.perf_counter() - t0
+    toks_ref1 = torch.cat(per_request).cpu().numpy()
+    t0 = time.perf_counter()
+    toks_flat, serve["engine_contiguous"] = t_serve.generate(model, cfg, prompts, NET_TOKENS, key=key)
+    flat_s = time.perf_counter() - t0
+    pool = PoolConfig(max_slots=BATCH, max_new=NET_TOKENS, max_prompt=PROMPT, min_bucket=8, paged=True, block_size=16)
+    t0 = time.perf_counter()
+    toks_paged, serve["engine_paged"] = ContinuousEngine(cfg, pool, device="cuda").generate_batch(
+        model, prompts, NET_TOKENS, key=key)
+    paged_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    serve_launches = _counts()
+    assert toks_ref.shape == (BATCH, NET_TOKENS) and int(toks_ref.min()) >= 0
+    for name, toks in (("contiguous", toks_flat), ("paged", toks_paged)):
+        assert np.array_equal(toks.cpu().numpy(), toks_ref1), f"fading+FEC: {name} engine tokens differ from the loop's"
+    assert serve_launches["flash_decode"] > 0 and serve_launches["paged_flash_decode"] > 0, serve_launches
+    assert serve_launches["lossy_link_egress"] == 0 and serve_launches["burst_mask"] == 0, serve_launches
+    out["serving"] = dict(timings=serve, launches=serve_launches, loops_s=loop_s, contiguous_s=flat_s,
+                          paged_s=paged_s, tokens_equal=True)
+    rt = serve["reference_batch4"]
+    log(f"[net] serving f32 qwen1.5-0.5b over fading + FEC{NET_FEC}, batch {BATCH}, prompt {PROMPT}, {NET_TOKENS} "
+        f"tokens: engine tokens (contiguous, paged) == generate_reference per request; loop prefill "
+        f"{rt['prefill_s']:.3f} s, decode {rt['decode_s_per_token'] * 1e3:.2f} ms/token; engines "
+        f"{flat_s:.2f} / {paged_s:.2f} s; launches {serve_launches}; link latency a round "
+        f"{rt['link_latency_s_per_round'] * 1e3:.3f} ms")
+
+    # 4. the simulator (the serving model is the LM in the loop)
+    tiny = evalhook.train_tiny_model(steps=30, n_train=200, n_test=80, seed=1, device="cuda")
+    lm_fn = evalhook.make_lm_request_eval_fn(model, cfg, NET_PACKETS)
+    cnn_fn = evalhook.make_request_eval_fn(tiny, NET_PACKETS)
+    sim_cfg = simulator.SimConfig(n_clients=NET_CLIENTS, n_packets=NET_PACKETS, seed=NET_SEED,
+                                  min_delivered_fraction=0.0)
+    cells = {}
+    t0 = time.perf_counter()
+    for ch_name in ("ge", "fading", "trace"):
+        for pr_name, proto in _net_protocols().items():
+            seen = []
+
+            def cnn_rec(masks, rids):
+                seen.append((masks, rids))
+                return cnn_fn(masks, rids)
+
+            kw = dict(channels=_net_channels(ch_name), protocol=proto, arrivals=NET_ARRIVALS)
+            plain = simulator.run_sim(sim_cfg, **kw)
+            kw["channels"] = _net_channels(ch_name)
+            rep_lm = simulator.run_sim(sim_cfg, model_in_the_loop=True, request_eval_fn=lm_fn, **kw)
+            kw["channels"] = _net_channels(ch_name)
+            rep_cnn = simulator.run_sim(sim_cfg, model_in_the_loop=True, request_eval_fn=cnn_rec, **kw)
+            for rep in (plain, rep_lm, rep_cnn):
+                assert rep.arrived == rep.served + rep.dropped == len(NET_ARRIVALS), rep
+            for rep in (rep_lm, rep_cnn):
+                assert dataclasses.replace(rep, accuracy_under_load=None, accuracy_mode=None) == plain, \
+                    f"{ch_name}/{pr_name}: the model changed a network field"
+            masks = np.concatenate([m for m, _ in seen])
+            rids = np.concatenate([r for _, r in seen])
+            direct = float(evalhook.accuracy_per_request_masks(tiny, masks, rids,
+                                                               elements_per_packet=-(-tiny.split_dim // NET_PACKETS)
+                                                               ).mean())
+            assert rep_cnn.accuracy_under_load == direct, (ch_name, pr_name, rep_cnn.accuracy_under_load, direct)
+            cells[f"{ch_name}/{pr_name}"] = dict(plain.row(), accuracy_lm=rep_lm.accuracy_under_load,
+                                                  accuracy_cnn=rep_cnn.accuracy_under_load)
+            log(f"[net] sim {ch_name:6s} {pr_name:10s}: p50 {plain.latency_p50_s * 1e3:.3f} ms, p99 "
+                f"{plain.latency_p99_s * 1e3:.3f} ms, delivered {plain.mean_delivered_fraction:.4f}, served "
+                f"{plain.served}/{plain.arrived}, accuracy under load LM {rep_lm.accuracy_under_load:.4f} / CNN "
+                f"{rep_cnn.accuracy_under_load:.4f}")
+    # A lossless channel: each model's clean accuracy on the served requests.
+    # (The same requests in the same order and chunks, all-ones masks.)
+    lossless = {}
+    for name, fn in (("lm", lm_fn), ("cnn", cnn_fn)):
+        seen = []
+
+        def rec(masks, rids, fn=fn):
+            seen.append(rids)
+            return fn(masks, rids)
+
+        rep = simulator.run_sim(sim_cfg, channels=_net_channels("lossless"), arrivals=NET_ARRIVALS,
+                                model_in_the_loop=True, request_eval_fn=rec)
+        assert rep.served == rep.arrived == len(NET_ARRIVALS) and rep.mean_delivered_fraction == 1.0
+        assert sorted(np.concatenate(seen).tolist()) == list(range(rep.served))
+        clean = float(np.concatenate([fn(np.ones((len(r), NET_PACKETS), bool), r) for r in seen]).mean())
+        assert rep.accuracy_under_load == clean, (name, rep.accuracy_under_load, clean)
+        lossless[name] = clean
+    sim_s = time.perf_counter() - t0
+    out["simulator"] = dict(cells=cells, lossless_accuracy=lossless, seconds=sim_s)
+    log(f"[net] sim lossless: accuracy = clean accuracy (LM {lossless['lm']:.4f}, CNN {lossless['cnn']:.4f}); "
+        f"{len(cells)} cells in {sim_s:.1f} s")
+    del model, lm_fn
+    torch.cuda.empty_cache()
+
+    # 3. fine-tuning against GE + FEC (10, 2)
+    _zero_counts()
+    t0 = time.perf_counter()
+    model, losses, tcfg = t_train.train("qwen1.5-0.5b", steps=GE_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-4,
+                                        full_size=True, train_channel="ge", train_fec=NET_FEC, log_every=1,
+                                        device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    tl = _counts()
+    assert np.isfinite(losses).all() and len(losses) == GE_STEPS, losses
+    nl = tcfg.num_layers
+    assert tl["flash_attention"] == nl * GE_STEPS and tl["flash_attention_bwd"] == nl * GE_STEPS, tl
+    assert tl["lossy_link_egress"] == 0 and tl["burst_mask"] == 0, tl
+    tspec = t_train.build_train_link_spec(tcfg, train_channel="ge", train_fec=NET_FEC)
+    assert tspec.train_link == "channel" and tspec.fec_spec.k == NET_FEC[0]
+    # One step and the FEC link alone, by CUDA events.
+    adam_cfg = AdamConfig(lr=3e-4, grad_clip_norm=1.0)
+    opt = init_adam(dict(model.named_parameters()), adam_cfg)
+    step = make_train_step(tcfg, adam_cfg, link_spec=tspec)
+    toks = _train_batches(tcfg, TRAIN_BATCH, 1, seed=31)[0]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    model, opt, metrics = step(model, opt, {"tokens": toks}, prng.PRNGKey(32, "cuda"))
+    ev[1].record()
+    link_fn = lm.make_link_fn(tcfg, model, prng.PRNGKey(33, "cuda"), "train", link_spec=tspec)
+    a = torch.randn(TRAIN_BATCH, TRAIN_SEQ, tcfg.d_model, device="cuda", dtype=torch.bfloat16)
+    ev[2].record()
+    y = link_fn(a)
+    ev[3].record()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(metrics["loss"]))
+    step_ms, link_ms = ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])
+    n_data = -(-TRAIN_BATCH * TRAIN_SEQ * tcfg.d_model // tspec.elements_per_packet)
+    n_tx = tspec.fec_spec.transmitted_packets(n_data)
+    out["training"] = dict(losses=losses, launches=tl, seconds=train_s, step_ms=step_ms, fec_link_ms=link_ms,
+                           data_packets=n_data, transmitted_packets=n_tx,
+                           kept_fraction=float((y != 0).float().mean()))
+    log(f"[net] train bf16 4 x 1024 on GE + FEC{NET_FEC} ({n_data} data packets, {n_tx} sent), {GE_STEPS} steps in "
+        f"{train_s:.1f} s: losses {[round(x, 4) for x in losses]}, launches {tl}; a step {step_ms:.1f} ms, the FEC "
+        f"link alone {link_ms:.1f} ms (CUDA events), kept {out['training']['kept_fraction']:.4f}")
+    del model, opt, step, link_fn, a, y
+    torch.cuda.empty_cache()
+
+    # 5. the paper's trade-off
+    acc = report.get("paper_experiment", {}).get("vgg16_di_accuracy", {})
+    tradeoff = {}
+    for p in NET_TRADEOFF_LOSSES:
+        ccfg = ChannelConfig(loss_rate=p)
+        row = {}
+        for pr_name, proto in _net_protocols().items():
+            lat, pmf = proto.latency_pmf(NET_PAPER_PACKETS, ccfg)
+            row[pr_name] = dict(mean_s=float(np.dot(lat, pmf)), p99_s=latency_quantile(lat, pmf, 0.99))
+        row["di_accuracy"] = {"comtune": acc.get(f"r 0.5 p {p}"), "previous_di": acc.get(f"r 0.0 p {p}")}
+        tradeoff[p] = row
+        di = row["di_accuracy"]
+        di_txt = (f"COMtune {di['comtune']:.4f}, previous DI {di['previous_di']:.4f}" if di["comtune"] is not None
+                  else "no phase-14 DI run at this p")
+        log(f"[net] trade-off at p {p}, {NET_PAPER_PACKETS} packets: " +
+            ", ".join(f"{k} E {v['mean_s'] * 1e3:.3f} ms / p99 {v['p99_s'] * 1e3:.3f} ms"
+                      for k, v in row.items() if k != "di_accuracy") + f"; unreliable DI accuracy: {di_txt}")
+    out["tradeoff"] = tradeoff
+
+    # 6. the CLI
+    records = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = _Keep(level=logging.INFO)
+    cli_log = logging.getLogger("repro_torch.launch.serve")
+    cli_log.addHandler(handler)
+    saved = cli_log.level
+    cli_log.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    try:
+        t_serve.main(["--arch", "qwen1.5-0.5b", "--full-size", "--channel", "fading", "--protocol", "fec_arq",
+                      "--deadline", str(NET_DEADLINE)])
+    finally:
+        cli_log.removeHandler(handler)
+        cli_log.setLevel(saved)
+    proto_lines = [r for r in records if r.startswith("protocol=fec_arq E[link_latency_s]:")]
+    deadline_lines = [r for r in records if r.startswith(f"P(uplink complete within {NET_DEADLINE:g}s):")]
+    assert proto_lines and deadline_lines, records
+    out["cli"] = dict(lines=proto_lines + deadline_lines, seconds=time.perf_counter() - t0)
+    log(f"[net] CLI --full-size --channel fading --protocol fec_arq --deadline {NET_DEADLINE}: "
+        f"{proto_lines[0]}; {deadline_lines[0]}")
+    torch.cuda.empty_cache()
+    report["network_stack"] = out
+    return {"serving": serve_launches, "training": tl}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
     ap.add_argument("--link-round", action="store_true",
                     help="time and trace one i.i.d. link round only (phase 9's traced part)")
     ap.add_argument("--paper", action="store_true", help="build the link kernels and run phase 14 only")
+    ap.add_argument("--net", action="store_true",
+                    help="build the decode, link and attention kernels and run phase 15 only")
     ap.add_argument("--bwd-split", nargs="?", const="bfloat16", choices=("bfloat16", "float32"),
                     help="trace the tensor-core backward of this dtype at the training shape only (its kernels' "
                          "device times)")
@@ -2884,6 +3235,21 @@ def main(argv=None) -> int:
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_paper.json").write_text(json.dumps(report, indent=1, default=str))
         log("[paper] phase 14 passed; no result line in --paper mode")
+        return 0
+    if args.net:
+        from repro_torch.kernels.decode_attention import cuda_kernel as decode_kernel
+        from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
+        from repro_torch.kernels.lossy_link import cuda_kernel as link_kernel
+
+        nvcc.build_libraries([(m.LIB_NAME, m.SOURCES) for m in (decode_kernel, link_kernel, flash_kernel)])
+        log(f"[card] {card_line()}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        report = {}
+        run_network_stack(report)
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_net.json").write_text(json.dumps(report, indent=1, default=str))
+        log("[net] phase 15 passed; no result line in --net mode")
         return 0
     if args.bwd_split:
         from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
@@ -3052,6 +3418,12 @@ def main(argv=None) -> int:
                              launches_by_path={"link_slice_iid": link_launches["iid"]["lossy_link_egress"],
                                                "paper_experiment": paper_launches},
                              at_cnn_split={k: pe[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")})
+        # Phase 15's paths: serving over fading + FEC, fine-tuning on GE + FEC.
+        net = run_network_stack(report)
+        for rec, n in ((record, net["serving"]["flash_decode"]), (paged_record, net["serving"]["paged_flash_decode"]),
+                       (flash_records["wgmma"], net["training"]["flash_attention"]),
+                       (bwd_records["wgmma"], net["training"]["flash_attention_bwd"])):
+            rec["launches_by_path"] = dict(rec.get("launches_by_path", {}), network_stack=n)
         launches = run_slice(report)
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [
@@ -3089,7 +3461,7 @@ def main(argv=None) -> int:
     report["seconds"] = time.perf_counter() - t0
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     if args.quick:
         log("[quick] kernel checks passed; no result line in --quick mode")
         return 0

@@ -17,8 +17,11 @@ compression roundtrip, then the emulation ``spec.train_link`` names),
 (compression only) and ``off``.  ``LinkSpec(use_kernel=True)`` takes the
 link through the hand kernels of ``kernels/lossy_link``: the fused egress
 for the plain i.i.d. quantized serving link, the burst-mask kernel for
-Gilbert–Elliott channels in either mode.  FEC protection and adaptive
-compensation are not ported yet (ROADMAP A11).
+Gilbert–Elliott channels in either mode without FEC.  The channel process
+(``net.channels``: i.i.d., Gilbert–Elliott, fading, trace), packet FEC
+(``net.fec``) and adaptive compensation are ``LinkSpec`` fields, and
+``di_latency_s`` reports the link's latency under the ``net.protocol``
+policies.
 """
 
 from __future__ import annotations
@@ -37,10 +40,9 @@ from repro_torch.kernels.lossy_link import dispatch as link_kernels
 
 @dataclasses.dataclass(frozen=True)
 class LinkSpec:
-    """Configuration of the emulated IoT link at the split point (the
-    reference's ``LinkSpec`` without its FEC code and adaptive
-    compensation).  ``dropout_rate`` / ``loss_rate`` may be 0-d f32 tensors
-    (the per-step curriculum's rate)."""
+    """Configuration of the emulated IoT link at the split point.
+    ``dropout_rate`` / ``loss_rate`` may be 0-d f32 tensors (the per-step
+    curriculum's rate)."""
 
     dropout_rate: float = 0.0          # r used during COMtune fine-tuning
     loss_rate: float = 0.0             # p used during DI serving
@@ -54,9 +56,16 @@ class LinkSpec:
     elements_per_packet: int = 25      # 100 B packets / 4 B floats
     shuffle: bool = True               # paper's anti-burst interleaving
     use_kernel: bool = False           # the link kernels on the serve path
+    adaptive_compensation: bool = False  # compensate by the realized keep fraction
+    # Channel process (net.channels registry): "iid" (the paper's), "ge" /
+    # "gilbert_elliott", "fading", "trace"; channel_params is a hashable
+    # tuple of (name, value) pairs for make_channel.
     channel: str = "iid"
     channel_params: tuple = ()
-    fec_m: int = 0                     # FEC parity packets per block (0 = none)
+    # Packet FEC (net.fec): k data + m parity packets a block; m = 0: none.
+    fec_k: int = 0
+    fec_m: int = 0
+    fec_kind: str = "rs"
 
     def with_channel_loss_rate(self, rate: float) -> "LinkSpec":
         """Set ``loss_rate``, dropping any ``("loss_rate", x)`` channel param
@@ -78,12 +87,24 @@ class LinkSpec:
             return self.with_channel_loss_rate(rate)
         return dataclasses.replace(self, dropout_rate=rate)
 
+    def with_channel(self, channel: str, **params) -> "LinkSpec":
+        return dataclasses.replace(self, channel=channel, channel_params=tuple(sorted(params.items())))
+
     @property
     def uses_net_path(self) -> bool:
         """True when the link cannot take the plain-iid fast paths (the fused
         egress kernel bakes in ``loss_rate``): a stateful channel, FEC, or a
         ``channel_params`` loss-rate override."""
         return self.channel not in ("", "iid") or self.fec_m > 0 or "loss_rate" in dict(self.channel_params)
+
+    @property
+    def fec_spec(self):
+        """The FEC code (``net.fec.FECSpec``, k at least 1), or None."""
+        if self.fec_m <= 0:
+            return None
+        from repro_torch.net.fec import FECSpec
+
+        return FECSpec(k=max(self.fec_k, 1), m=self.fec_m, kind=self.fec_kind)
 
     def resolve_channel(self):
         """The channel model this spec names; a ("loss_rate", x) channel
@@ -118,17 +139,21 @@ def dropout_link(key: torch.Tensor, x: torch.Tensor, rate) -> torch.Tensor:
     return torch.where(keep, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _not_ported(spec: LinkSpec) -> None:
-    if spec.fec_m > 0:
-        raise NotImplementedError("packet FEC on the link is not ported yet (ROADMAP A11)")
-
-
 def _stateful_channel_mask(key: torch.Tensor, x: torch.Tensor, spec: LinkSpec):
-    """Keep mask (x's shape, f32) and stationary loss rate of a non-iid
-    channel.  Under ``use_kernel`` a Gilbert–Elliott channel draws its
-    packet masks with the burst-mask kernel (one row), from the same keys
-    the channel's own scan uses, so the mask is bit-equal either way."""
+    """Keep mask (x's shape, f32) and effective loss rate of a link on the
+    net path.  Under FEC: the block-recovery mask over the expanded packet
+    stream and the residual loss rate (ahead of the kernel branch, as in
+    the reference).  Otherwise, under ``use_kernel``, a Gilbert–Elliott
+    channel draws its packet masks with the burst-mask kernel (one row),
+    from the same keys the channel's own scan uses, so the mask is
+    bit-equal either way."""
     ch = spec.resolve_channel()
+    fspec = spec.fec_spec
+    if fspec is not None:
+        from repro_torch.net import fec as fec_lib
+
+        flat = fec_lib.fec_element_keep(key, ch, x.numel(), spec.elements_per_packet, fspec, shuffle=spec.shuffle)
+        return flat.reshape(x.shape), fec_lib.residual_loss_rate(fspec, ch)
     if spec.use_kernel and spec.channel in ("ge", "gilbert_elliott"):
         kperm, kmask = prng.split(key)
         n_packets = -(-x.numel() // spec.elements_per_packet)
@@ -140,23 +165,42 @@ def _stateful_channel_mask(key: torch.Tensor, x: torch.Tensor, spec: LinkSpec):
     return flat.reshape(x.shape), ch.stationary_loss_rate
 
 
+def _adaptive(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Compensation by the realized keep fraction: ``x * mask /
+    max(mean(mask), MIN_KEEP_FRACTION)``, the mean in f32."""
+    mask = mask.detach()
+    kept = torch.clamp(mask.mean(), min=MIN_KEEP_FRACTION)
+    return x * mask.to(x.dtype) / kept.to(x.dtype)
+
+
 def channel_link(key: torch.Tensor, x: torch.Tensor, spec: LinkSpec) -> torch.Tensor:
     """Eq. (10)-(11): channel + compensation on the compressed message (the
     serving graph), or on the STE roundtrip's activation when the
     fine-tuning graph emulates the deployment channel; the masks and the
     compensation carry no gradient, so the gradient is identity on the
-    mask.  The i.i.d. rate may be a 0-d tensor; only a Python zero takes
-    the shortcut."""
-    _not_ported(spec)
-    if spec.channel in ("", "iid"):
+    mask.  The plain i.i.d. link keeps the paper's Eq. 1-3 path; stateful
+    channels and FEC (iid + FEC included) go through ``net``.  Under
+    ``adaptive_compensation`` the receiver divides by the realized keep
+    fraction instead of the nominal one.  The i.i.d. rate may be a 0-d
+    tensor; only a Python zero takes the shortcut."""
+    if spec.channel in ("", "iid") and spec.fec_m <= 0:
         loss_rate = dict(spec.channel_params).get("loss_rate", spec.loss_rate)
         if not torch.is_tensor(loss_rate) and loss_rate <= 0.0:
             return x
+        if spec.adaptive_compensation:
+            if spec.granularity == "element":
+                mask = link_lib.element_loss_mask(key, x.shape, loss_rate)
+            else:
+                mask = link_lib.packet_loss_mask(key, x.numel(), loss_rate, spec.elements_per_packet,
+                                                 spec.shuffle).reshape(x.shape)
+            return _adaptive(x, mask)
         return link_lib.apply_channel(
             key, x, loss_rate, granularity=spec.granularity,
             elements_per_packet=spec.elements_per_packet, shuffle=spec.shuffle, compensate=True,
         )
     mask, p_eff = _stateful_channel_mask(key, x, spec)
+    if spec.adaptive_compensation:
+        return _adaptive(x, mask)
     keep = max(1.0 - p_eff, MIN_KEEP_FRACTION)
     return x * mask.to(x.dtype) / scalar_as(keep, x.dtype)
 
@@ -235,12 +279,37 @@ def message_bytes(spec: LinkSpec, feature_dim: int) -> float:
 
 def di_latency_s(spec: LinkSpec, feature_dim: int, batch: int,
                  channel: link_lib.ChannelConfig, protocol=None) -> float:
-    """Latency of one DI round under the paper's one-shot (unreliable)
-    protocol: ``n_t * l / b``."""
-    _not_ported(spec)
-    if protocol not in (None, "unreliable"):
-        raise NotImplementedError(f"protocol {protocol!r} latency is not ported yet (ROADMAP A11)")
+    """Expected communication latency of one DI round.
+
+    ``protocol`` selects the link-layer policy (``net.protocol``):
+
+    * ``None`` / ``"unreliable"``: the paper's one-shot protocol, ``n_t * l
+      / b``, with FEC expanding ``n_t`` by ``(k+m)/k``;
+    * ``"arq"`` / ``"fec_arq"`` or a policy instance: the mean of the
+      policy's latency PMF at ``channel.loss_rate``.  ARQ resends the
+      (FEC-expanded, if any) packet stream; FEC-ARQ codes blocks itself, so
+      it takes the raw data-packet count and the spec's FEC code (which the
+      string form needs).
+    """
     total_bytes = message_bytes(spec, feature_dim) * batch
     n_data = -(-int(total_bytes) // channel.packet_bytes)
-    return n_data * channel.slot_time_s()
+    fspec = spec.fec_spec
+    n_tx = fspec.transmitted_packets(n_data) if fspec is not None else n_data
 
+    if protocol is None or protocol == "unreliable":
+        return n_tx * channel.slot_time_s()
+
+    if isinstance(protocol, str):
+        from repro_torch.net import protocol as protocol_lib
+
+        kwargs = {}
+        if protocol == "fec_arq":
+            if fspec is None:
+                raise ValueError("protocol='fec_arq' needs the spec's FEC code (set fec_k/fec_m) or pass a "
+                                 "HybridFECARQProtocol instance")
+            kwargs["fec"] = fspec
+        policy = protocol_lib.make_protocol(protocol, **kwargs)
+    else:
+        policy = protocol
+    n_t = n_data if getattr(policy, "name", "") == "fec_arq" else n_tx
+    return policy.expected_latency_s(n_t, channel)

@@ -7,10 +7,13 @@ engine (``serve.continuous``) as independent requests, request ``i`` keyed
 ``fold_in(key, i)``.  ``generate_reference`` runs one prefill, then one DI
 round per token for the whole batch, with the reference's key chain
 (``split`` before the prefill and before every step); per request, the
-engine's greedy tokens equal it token for token.  The ``repro.net``
-protocol report is not ported yet (ROADMAP A11).
+engine's greedy tokens equal it token for token.  After generation the CLI
+reports the uplink's latency under a ``net.protocol`` policy
+(``--protocol``), and with ``--deadline`` the probability that the policy
+delivers the whole uplink in time.
 
-    python -m repro_torch.launch.serve --arch qwen1.5-0.5b --full-size
+    python -m repro_torch.launch.serve --arch qwen1.5-0.5b --full-size \
+        [--channel iid|ge|fading] [--protocol unreliable|arq|fec_arq] [--deadline 0.05]
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import dataclasses
 import logging
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -66,7 +70,9 @@ def _link_accounting(cfg, batch: int) -> dict:
         compressor=_accounting_compressor(cfg),
         channel=cfg.link.channel,
         channel_params=tuple(cfg.link.channel_params),
+        fec_k=cfg.link.fec_k,
         fec_m=cfg.link.fec_m,
+        fec_kind=cfg.link.fec_kind,
     )
     return {
         "link_latency_s_per_round": comtune.di_latency_s(spec, cfg.d_model, batch, channel_cfg),
@@ -140,8 +146,13 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--loss-rate", type=float, default=0.1)
-    ap.add_argument("--channel", default="iid", choices=["iid", "ge", "gilbert_elliott"],
-                    help="serve-time channel process")
+    ap.add_argument("--channel", default="iid", choices=["iid", "ge", "gilbert_elliott", "fading"],
+                    help="serve-time channel process (net.channels)")
+    ap.add_argument("--protocol", default="unreliable", choices=["unreliable", "arq", "fec_arq"],
+                    help="report the uplink's latency under this net.protocol policy")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="report P(the protocol delivers the whole uplink within this many seconds), from "
+                    "the analytic completion PMFs")
     ap.add_argument("--attn-impl", default=None, choices=["naive", "blockwise", "flash_decode"],
                     help="override cfg.attn_impl: blockwise/flash_decode decode through the "
                     "flash-decode kernel, naive through the full-softmax oracle")
@@ -165,6 +176,29 @@ def main(argv=None):
     log.info(f"generated: {toks[:, :10].cpu().numpy()} ...")
     for k, v in timings.items():
         log.info(f"{k}: {v:.5f}")
+    protocol_report(cfg, args.batch, args.loss_rate, args.channel, args.protocol, args.deadline)
+
+
+def protocol_report(cfg, batch: int, loss_rate: float, channel: str, protocol: str, deadline=None) -> dict:
+    """Log (and return) the uplink's latency PMF mean and p99 under
+    ``protocol`` at the channel's stationary loss rate (for ``fading`` set
+    by its distance, not ``loss_rate``), and with ``deadline`` the
+    probability that the whole uplink arrives in time."""
+    from repro_torch.net import deadline_feasible, make_protocol
+    from repro_torch.net.protocol import latency_quantile
+
+    channel_cfg = ChannelConfig(loss_rate=loss_rate)
+    spec = comtune.LinkSpec(loss_rate=loss_rate, compressor=_accounting_compressor(cfg), channel=channel)
+    p_eff = spec.resolve_channel().stationary_loss_rate
+    n_t = channel_cfg.num_packets_for_bytes(comtune.message_bytes(spec, cfg.d_model) * batch)
+    proto = make_protocol(protocol)
+    lat, pmf = proto.latency_pmf(n_t, channel_cfg, loss_rate=p_eff)
+    out = {"protocol": proto.name, "mean_s": float(np.dot(lat, pmf)), "p99_s": latency_quantile(lat, pmf, 0.99)}
+    log.info(f"protocol={proto.name} E[link_latency_s]: {out['mean_s']:.5f} p99: {out['p99_s']:.5f}")
+    if deadline is not None:
+        out["p_deadline"] = deadline_feasible(proto, n_t, channel_cfg, deadline, loss_rate=p_eff)
+        log.info(f"P(uplink complete within {deadline:g}s): {out['p_deadline']:.4f}")
+    return out
 
 
 if __name__ == "__main__":

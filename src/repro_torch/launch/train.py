@@ -4,23 +4,24 @@ Fine-tunes an architecture on the synthetic LM stream with the link
 emulation active at the split point (paper Eq. 8), on the card unless
 ``--device cpu``: the trainer's ``LinkSpec`` is ``cfg.link`` plus the
 channel-aware overrides (``--train-link channel`` trains against the
-deployment channel, ``--train-channel ge`` its bursts, ``--no-shuffle`` a
-sender without interleaving), and ``--curriculum p0:p1`` ramps the
-emulation rate.  The dropout and plain-i.i.d. emulations ramp it per step
-(a 0-d rate tensor in each step's batch); the stateful channels ramp it
-per chunk of ``--steps-per-epoch`` steps, as the reference does.  Steps
+deployment channel, ``--train-channel ge`` its bursts, ``--train-fec 10,2``
+its residual loss under packet FEC, ``--no-shuffle`` a sender without
+interleaving), and ``--curriculum p0:p1`` ramps the emulation rate.  The
+dropout and plain-i.i.d. emulations ramp it per step (a 0-d rate tensor in
+each step's batch); the stateful channels and FEC ramp it per chunk of
+``--steps-per-epoch`` steps, as the reference does.  Steps
 run in chunks through ``launch.steps.make_train_epoch`` (or one at a time
 under ``--no-epoch-scan``; both eager, on the same key chain), with
 periodic checkpoints in the reference's layout and ``--resume``.
 
-Not ported: ``--train-fec`` (packet FEC, ROADMAP A11), ``--sharded`` /
-``--fsdp`` (ROADMAP A13) and ``--profile-dir`` (ROADMAP A8); each raises.
+Not ported: ``--sharded`` / ``--fsdp`` (ROADMAP A13) and ``--profile-dir``
+(ROADMAP A8); each raises.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --steps 200 --batch 8 --seq 128 [--full-size] [--device cpu] \\
         [--link off|train] [--train-link dropout|channel] [--train-channel ge] \\
-        [--no-shuffle] [--curriculum 0.1:0.4] [--no-epoch-scan] \\
+        [--train-fec 10,2] [--no-shuffle] [--curriculum 0.1:0.4] [--no-epoch-scan] \\
         [--ckpt-dir DIR --ckpt-every 100] [--resume]
 """
 
@@ -52,18 +53,19 @@ def build_train_link_spec(cfg, train_link: Optional[str] = None, train_channel: 
                           train_fec: Optional[Tuple[int, int]] = None, shuffle: Optional[bool] = None,
                           loss_rate: Optional[float] = None):
     """The trainer's ``LinkSpec``: ``cfg.link`` plus the channel-aware
-    overrides; ``loss_rate`` sets the rate the "channel" emulation trains
-    at.  Asking for a train channel implies ``train_link="channel"``."""
-    if train_fec is not None:
-        raise NotImplementedError("packet FEC on the train link (--train-fec) is not ported yet (ROADMAP A11)")
+    overrides; ``train_fec`` is (k, m); ``loss_rate`` sets the rate the
+    "channel" emulation trains at.  Asking for a train channel or train FEC
+    implies ``train_link="channel"``."""
     spec = lm.link_spec_from_config(cfg)
     updates = {}
-    if train_link is None and train_channel is not None:
+    if train_link is None and (train_channel is not None or train_fec is not None):
         train_link = "channel"
     if train_link is not None:
         updates["train_link"] = train_link
     if train_channel is not None:
         updates["channel"] = train_channel
+    if train_fec is not None:
+        updates["fec_k"], updates["fec_m"] = train_fec
     if shuffle is not None:
         updates["shuffle"] = shuffle
     spec = dataclasses.replace(spec, **updates)
@@ -119,8 +121,9 @@ def _state(model, opt_state: AdamState, key: torch.Tensor, cfg) -> dict:
 def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, lr: float = 3e-4,
           link_mode: str = "train", full_size: bool = False, ckpt_dir: Optional[str] = None,
           log_every: int = 20, seed: int = 0, *, train_link: Optional[str] = None,
-          train_channel: Optional[str] = None, shuffle: Optional[bool] = None,
-          train_loss_rate: Optional[float] = None, curriculum: Optional[Tuple[float, float]] = None,
+          train_channel: Optional[str] = None, train_fec: Optional[Tuple[int, int]] = None,
+          shuffle: Optional[bool] = None, train_loss_rate: Optional[float] = None,
+          curriculum: Optional[Tuple[float, float]] = None,
           epoch_scan: bool = True, steps_per_epoch: int = 0, ckpt_every: int = 0, resume: bool = False,
           device="cuda"):
     """Returns (model, losses, cfg); ``losses`` covers the steps run by this
@@ -135,8 +138,8 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, lr: float
     model = lm.init_lm(cfg, seed=seed, device=dev)
     model.requires_grad_(True)
     opt_state = init_adam(dict(model.named_parameters()), adam_cfg)
-    link_spec = build_train_link_spec(cfg, train_link=train_link, train_channel=train_channel, shuffle=shuffle,
-                                      loss_rate=train_loss_rate)
+    link_spec = build_train_link_spec(cfg, train_link=train_link, train_channel=train_channel, train_fec=train_fec,
+                                      shuffle=shuffle, loss_rate=train_loss_rate)
     per_step = curriculum is not None and epoch_scan and per_step_curriculum_ok(link_spec)
     if steps_per_epoch <= 0:
         steps_per_epoch = min(steps, 50)
@@ -240,6 +243,13 @@ def _parse_curriculum(s: Optional[str]):
     return float(p0), float(p1)
 
 
+def _parse_fec(s: Optional[str]):
+    if not s:
+        return None
+    k, m = s.split(",")
+    return int(k), int(m)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", choices=sorted(ARCHITECTURES), required=True)
@@ -250,9 +260,10 @@ def main(argv=None):
     ap.add_argument("--link", default="train", choices=["train", "off"])
     ap.add_argument("--train-link", default=None, choices=["dropout", "channel"],
                     help="what emulates the channel in Eq. 8 (default: cfg.link)")
-    ap.add_argument("--train-channel", default=None, choices=["iid", "ge", "gilbert_elliott"],
+    ap.add_argument("--train-channel", default=None, choices=["iid", "ge", "gilbert_elliott", "fading"],
                     help="channel process for --train-link channel")
-    ap.add_argument("--train-fec", default=None, metavar="K,M", help="not ported yet (ROADMAP A11)")
+    ap.add_argument("--train-fec", default=None, metavar="K,M",
+                    help="packet FEC on the emulated train link, e.g. 10,2")
     ap.add_argument("--train-loss-rate", type=float, default=None,
                     help="channel loss rate the 'channel' emulation trains against")
     ap.add_argument("--no-shuffle", action="store_true",
@@ -271,8 +282,6 @@ def main(argv=None):
     ap.add_argument("--profile-dir", default=None, help="not ported yet (ROADMAP A8)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.train_fec:
-        raise NotImplementedError("packet FEC on the train link (--train-fec) is not ported yet (ROADMAP A11)")
     if args.sharded or args.fsdp is not None:
         raise NotImplementedError("the sharded trainer (--sharded / --fsdp) is not ported yet (ROADMAP A13)")
     if args.profile_dir is not None:
@@ -281,7 +290,7 @@ def main(argv=None):
     _, losses, _ = train(
         args.arch, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr, link_mode=args.link,
         full_size=args.full_size, ckpt_dir=args.ckpt_dir, seed=args.seed, train_link=args.train_link,
-        train_channel=args.train_channel, train_loss_rate=args.train_loss_rate,
+        train_channel=args.train_channel, train_fec=_parse_fec(args.train_fec), train_loss_rate=args.train_loss_rate,
         shuffle=False if args.no_shuffle else None, curriculum=_parse_curriculum(args.curriculum),
         epoch_scan=not args.no_epoch_scan, steps_per_epoch=args.steps_per_epoch, ckpt_every=args.ckpt_every,
         resume=args.resume, device=args.device)

@@ -127,7 +127,9 @@ def link_spec_from_config(cfg: ModelConfig, loss_rate: Optional[float] = None, *
         channel=link.channel,
         channel_params=tuple(link.channel_params),
         shuffle=link.shuffle,
+        fec_k=link.fec_k,
         fec_m=link.fec_m,
+        fec_kind=link.fec_kind,
     )
     kw.update(overrides)
     return comtune.LinkSpec(**kw)

@@ -160,13 +160,16 @@ def test_link_accounting(compression, batch):
 
 
 def test_unported_paths_raise():
-    ts = t_comtune.LinkSpec(loss_rate=0.1)
-    x = torch.zeros(1, 1, 8)
-    # The fine-tuning link is ported (tests/test_torch_train.py); FEC on its
-    # channel emulation is not.
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        t_comtune.emulate_link(prng.PRNGKey(0), x, dataclasses.replace(ts, fec_m=2, train_link="channel"), "train")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        t_comtune.emulate_link(prng.PRNGKey(0), x, dataclasses.replace(ts, fec_m=2), "serve")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        t_channels.make_channel("fading")
+    """The paths this test once held to "not ported" now run: the FEC train
+    link (GE + FEC, train mode), the FEC serve link and the fading channel
+    each equal the reference's to the last bit."""
+    x = (np.random.default_rng(6).standard_normal((2, 3, 64)) * 3).astype(np.float32)
+    for kw, mode in ((dict(fec_k=10, fec_m=2, train_link="channel", channel="ge"), "train"),
+                     (dict(fec_k=4, fec_m=2), "serve"), (dict(channel="fading"), "serve")):
+        js, ts = _specs(kw.pop("channel", "iid"), 0.1, "identity", **kw)
+        for seed in SEEDS:
+            _bits_equal(j_comtune.emulate_link(jax.random.PRNGKey(seed), jnp.asarray(x), js, mode),
+                        t_comtune.emulate_link(prng.PRNGKey(seed), torch.tensor(x), ts, mode).detach())
+    assert isinstance(t_channels.make_channel("fading"), t_channels.FadingMarkovChannel)
+    assert (dataclasses.asdict(t_channels.make_channel("fading"))
+            == dataclasses.asdict(j_channels.make_channel("fading")))

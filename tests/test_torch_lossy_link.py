@@ -397,11 +397,19 @@ def test_egress_routing(J, case, monkeypatch):
     assert len(calls) == (1 if case == "iid" else 0)
 
 
-def test_fec_never_takes_the_egress(J):
+def test_fec_never_takes_the_egress(J, monkeypatch):
+    """An FEC link under ``use_kernel`` is on the net path: no egress launch,
+    and the output of the reference's FEC branch, bit for bit."""
     js, ts = _specs(J, "iid", use_kernel=True, fec_m=2)
     assert ts.uses_net_path and js.uses_net_path
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        t_comtune.emulate_link(prng.PRNGKey(0), torch.zeros(2, 1, 64), ts, "serve")
+    calls = []
+    real = dispatch.lossy_link_egress
+    monkeypatch.setattr(dispatch, "lossy_link_egress", lambda *a: calls.append(1) or real(*a))
+    for seed in SEEDS:
+        x = (np.random.default_rng(seed).standard_normal((2, 1, 64)) * 3).astype(np.float32)
+        got = t_comtune.emulate_link(prng.PRNGKey(seed), torch.tensor(x), ts, "serve")
+        _bits_equal(J.comtune.emulate_link(J.jax.random.PRNGKey(seed), J.jnp.asarray(x), js, "serve"), got)
+    assert calls == []
 
 
 # ---------------------------------------------------------------------------

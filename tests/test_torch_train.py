@@ -2,8 +2,9 @@
 and epoch (``repro_torch.launch.steps``) against ``make_train_epoch`` on
 the reference's own weights, the trainer (``repro_torch.launch.train``),
 and the twins of ``tests/test_system.py::TestLMComtuneTraining`` and of the
-applicable cases of ``tests/test_channel_training.py`` (FEC, protocols and
-sharding stay out: ROADMAP A11, A13).
+applicable cases of ``tests/test_channel_training.py`` (sharding stays out:
+ROADMAP A13; its FEC, adaptive and protocol cases are twinned in
+``tests/test_torch_fec.py`` and ``tests/test_torch_protocol.py``).
 
 Bars:
   * the split activation's 8-bit link codes: equal but for isolated
@@ -98,6 +99,9 @@ CASES = {
     "dropout": ({}, None, {}, S),
     "ge": (GE_SPEC, None, {}, S),
     "ge_kernel": (dict(GE_SPEC, use_kernel=True), None, {}, S),
+    # --train-fec 10,2: the GE channel behind packet FEC (the FEC branch
+    # comes ahead of the burst-mask kernel).
+    "ge_fec": (dict(GE_SPEC, fec_k=10, fec_m=2, use_kernel=True), None, {}, S),
     "curriculum": ({}, np.linspace(0.1, 0.4, K).astype(np.float32), {}, S),
     # attn_block_q 16 at seq 40: _blockwise_attn (three query blocks) is
     # what both packages differentiate.
@@ -200,9 +204,9 @@ def test_split_codes_then_link_output():
 @pytest.mark.parametrize("name", list(CASES))
 def test_epoch_matches_reference(trajectories, name):
     """Losses and gradient norms of 5 steps against ``make_train_epoch``:
-    the dropout link, the GE channel with and without ``use_kernel``, a
-    per-step curriculum and the ``_blockwise_attn`` path; the returned key
-    continues the same chain."""
+    the dropout link, the GE channel with and without ``use_kernel`` and
+    behind FEC (10, 2), a per-step curriculum and the ``_blockwise_attn``
+    path; the returned key continues the same chain."""
     r = trajectories(name)
     (jl, jg, jk), (tl, tg, tk) = r["j"], r["t"]
     np.testing.assert_allclose(tl, jl, rtol=RTOL, atol=0)
@@ -229,10 +233,15 @@ def test_cli_trains_on_cpu_and_needs_a_card_by_default(caplog):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_train.main(["--arch", "qwen1.5-0.5b", "--steps", "1"])
-    for flags, item in ((["--train-fec", "10,2"], "A11"), (["--sharded"], "A13"), (["--fsdp", "on"], "A13"),
-                        (["--profile-dir", "x"], "A8")):
+    for flags, item in ((["--sharded"], "A13"), (["--fsdp", "on"], "A13"), (["--profile-dir", "x"], "A8")):
         with pytest.raises(NotImplementedError, match=item):
             t_train.main(["--arch", "qwen1.5-0.5b", "--steps", "1", "--device", "cpu", *flags])
+    # --train-fec trains against the FEC-protected channel.
+    caplog.clear()
+    t_train.main(["--arch", "qwen1.5-0.5b", "--steps", "2", "--batch", "2", "--seq", "16", "--device", "cpu",
+                  "--train-channel", "ge", "--train-fec", "10,2"])
+    assert "final loss" in caplog.text
+    assert t_train._parse_fec("10,2") == (10, 2) and t_train._parse_fec(None) is None
 
 
 # ---------------------------------------------------------------------------
@@ -287,8 +296,17 @@ class TestEmulateLink:
         assert not supports_target_rate("ge", (("p_gb", 0.05), ("p_bg", 0.4)))
         assert not supports_target_rate("fading")
         assert t_train.build_train_link_spec(cfg, train_channel="ge").train_link == "channel"
-        with pytest.raises(NotImplementedError, match="A11"):
-            t_train.build_train_link_spec(cfg, train_fec=(10, 2))
+        # Train FEC implies the channel emulation, as the reference's does.
+        jcfg = j_get_config("qwen1.5-0.5b").reduced()
+        jcfg = jcfg.with_updates(link=dataclasses.replace(jcfg.link, channel="ge",
+                                                         channel_params=(("loss_rate", 0.1),)))
+        from repro.launch.train import build_train_link_spec as j_build
+
+        got = t_train.build_train_link_spec(cfg, train_fec=(10, 2))
+        want = j_build(jcfg, train_fec=(10, 2))
+        for f in ("train_link", "channel", "channel_params", "fec_k", "fec_m", "fec_kind", "loss_rate"):
+            assert getattr(got, f) == getattr(want, f), f
+        assert got.fec_spec.k == 10 and not t_train.per_step_curriculum_ok(got)
 
     def test_curriculum_schedule_ramps(self):
         chunks = t_train.curriculum_schedule(50, 10, (0.1, 0.5))
