@@ -19,6 +19,7 @@ paths.
     python3 chip_smoke.py --bwd-split [bfloat16|float32]   # a tensor-core backward's kernels, traced
     python3 chip_smoke.py --paper        # the link kernels' build + phase 14 only
     python3 chip_smoke.py --net          # the decode, link and attention kernels' build + phase 15 only
+    python3 chip_smoke.py --serve        # the decode, link and attention kernels' build + phase 16 only
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
@@ -200,7 +201,25 @@ Phases (any failure raises and the script exits non-zero):
      E[latency] and p99 at the paper experiment's 164 packets, p 0.1 / 0.5
      / 0.7, beside phase 14's DI accuracies; the serving CLI with
      ``--channel fading --protocol fec_arq --deadline 0.05``.
-Phases 9-15 run after phase 3, ahead of the profiled phases 5 and 7; last,
+ 16. the serving layer (``run_serving_layer``), full-width qwen1.5-0.5b:
+     the whole-generation ``DecodeEngine`` (f32, batch 4, prompt 32, 32
+     tokens, i.i.d. and GE: tokens equal ``generate_reference``'s, one build
+     a signature, 24 x 32 flash-decode launches a call, and under
+     ``LinkSpec(use_kernel=True)`` the egress or burst-mask launches of
+     phase 9); sampling at temperature 0.8 (the DecodeEngine and both pools
+     repeat under a key, the uniforms and a full-vocabulary row's samples on
+     the card equal the CPU's under 1,024 keys, a 16-way row's frequencies
+     within 4 sigma of the softmax); the sharded router (two paged shards on
+     cuda:0) behind an ``SLAScheduler``, 16 requests in two classes, a
+     forced preemption resumed on the other shard, tokens equal the
+     per-request loop's (f32, i.i.d. and GE); the device counters against a
+     replay of the draws and the analytic counts, the registry's toggle
+     changing no token, no device-to-host copy in a profiled window of
+     decode steps; ``run_sim`` over the router through ``make_sim_server``
+     (16 clients, GE, ARQ(3)) with a Chrome trace of the registry; the
+     trainer with ``--profile-dir`` and its link counters; the engines'
+     tokens/s and an engine step with the registry off and on, in turns.
+Phases 9-16 run after phase 3, ahead of the profiled phases 5 and 7; last,
 torch.profiler traces, each in a process of its own (``--bwd-split``),
 split the tensor-core backward's time at the training shape between its
 kernels, bf16 and f32.
@@ -735,6 +754,7 @@ def run_engine(report) -> int:
     from repro_torch.kernels.decode_attention import cuda_kernel
     from repro_torch.launch.serve import generate_reference
     from repro_torch.models import lm
+    from repro_torch.obs import device as obs_device
     from repro_torch.serve import PoolConfig
 
     base = get_config("qwen1.5-0.5b").with_updates(attn_impl="flash_decode")
@@ -835,10 +855,19 @@ def run_engine(report) -> int:
         prof["device_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
     # The link's share: one decode step's 8 slot-wise rounds, and one
     # admission's streamed rounds (one per padded position) at buckets 8, 128.
+    # The slot-wise rounds run as the engine runs them: under its link tap,
+    # every slot live.
     rounds = prng.split(key, 8)
     x = torch.randn((8, 1, base.d_model), device="cuda").to(torch.bfloat16)
-    link = {"slotwise_8_slots_ms": time_events(lambda: lm.make_slotwise_link_fn(cfg16, model16, rounds, "serve")(x),
-                                               iters=10, warmup=2)}
+    live = torch.ones(8, dtype=torch.bool, device="cuda")
+
+    def slotwise_round():
+        with obs_device.tap_link_stats() as tap:
+            y = lm.make_slotwise_link_fn(cfg16, model16, rounds, "serve", live=live)(x)
+            tap.totals("cuda")
+        return y
+
+    link = {"slotwise_8_slots_ms": time_events(slotwise_round, iters=10, warmup=2)}
     for bucket in (8, 128):
         xs = torch.randn((1, bucket, base.d_model), device="cuda").to(torch.bfloat16)
         link[f"streamed_bucket_{bucket}_ms"] = time_events(
@@ -3194,6 +3223,475 @@ def run_network_stack(report) -> dict:
     return {"serving": serve_launches, "training": tl}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the serving layer
+# ---------------------------------------------------------------------------
+
+SERVE_TEMPERATURE = 0.8
+SERVE_SAMPLE_TOKENS = 16
+SERVE_SAMPLE_KEYS, SERVE_SAMPLE_CHUNK = 1024, 64      # the full-vocabulary row's keys; CPU keys a chunk
+SERVE_FREQ_KEYS, SERVE_FREQ_CLASSES = 4096, 16
+SERVE_TIE = 1e-5                         # near tie: the top two perturbed logits closer than this
+SERVE_ROUTER_REQUESTS, SERVE_ROUTER_TOKENS = 16, 8
+SERVE_STEP_WINDOW = 8                    # decode steps a timed or profiled window
+
+
+def _serve_cfg(base, dtype, channel, **link):
+    cfg = base.with_updates(dtype=dtype)
+    return cfg.with_updates(link=dataclasses.replace(cfg.link, loss_rate=LOSS, channel=channel, **link))
+
+
+def _serve_oracle_link(model, cfg, jobs):
+    """The link counters an engine run must hold: each request's key chain
+    replayed through ``lm.make_link_fn`` (the engine's own link closure) on
+    zeros of the engine's message shapes, under a link tap: one streamed
+    round over the padded bucket, then a (1, 1, d) round a token."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.models import lm
+    from repro_torch.models.common import dtype_of
+    from repro_torch.obs import device as obs_device
+
+    tot = {"elems": 0.0, "dropped": 0.0, "fec_recovered": 0.0}
+    with torch.inference_mode():
+        for bucket, n_tokens, rkey in jobs:
+            k, sub = prng.split(rkey)
+            with obs_device.tap_link_stats() as tap:
+                lm.make_link_fn(cfg, model, sub, "serve")(torch.zeros(1, bucket, cfg.d_model, dtype=dtype_of(cfg.dtype),
+                                                                      device="cuda"))
+                for _ in range(n_tokens):
+                    k, sub = prng.split(k)
+                    lm.make_link_fn(cfg, model, sub, "serve")(torch.zeros(1, 1, cfg.d_model,
+                                                                          dtype=dtype_of(cfg.dtype), device="cuda"))
+            for name, v in tap.totals("cuda").items():
+                tot[name] += float(v)
+    return tot
+
+
+def run_serving_layer(report) -> dict:
+    """Phase 16, the serving layer on the card: full-width qwen1.5-0.5b
+    (random weights from seed 0), counts zeroed just before each path and
+    read just after.
+
+    1. ``DecodeEngine``: f32, batch 4, prompt 32, 32 tokens, loss 0.1, i.i.d.
+       and GE: greedy tokens equal ``generate_reference``'s at the same batch
+       and key; a second call builds nothing (``traces == compiles == 1``,
+       ``compile_s`` 0); flash decode launched 24 x 32 times a call; under
+       ``LinkSpec(use_kernel=True)`` 32 egress launches (i.i.d.) or 32 + 32
+       burst-mask launches (GE), the tokens equal phase 9's loop on that spec;
+    2. sampling at temperature 0.8, f32 and bf16, through the ``DecodeEngine``
+       and both pools: the same key twice, the same tokens (in f32 the pools'
+       equal each other); the uniforms on the card equal the CPU's bit for
+       bit; on one full-vocabulary logits row (the f32 model's), the card's
+       sample equals the CPU's under 1,024 keys, near ties counted; on a
+       16-way row, 4,096 keys, every class within 4 sigma of the softmax;
+    3. the router and the scheduler: two paged shards on cuda:0, an
+       ``SLAScheduler`` with two priority classes, 16 requests; a forced
+       preemption whose request resumes on the other shard; in f32 under
+       i.i.d. and GE every request's tokens equal the per-request
+       ``generate_reference``'s; placements and each shard's buckets;
+    4. counters: after a contiguous engine run (f32, i.i.d. and GE) the link
+       counters equal a replay of the same draws, ``decode_read_bytes`` and
+       ``valid_tokens`` the analytic counts; tokens with the registry on
+       equal tokens with it off; a profiled window of decode steps holds no
+       device-to-host copy;
+    5. the live simulator: ``run_sim`` with ``make_sim_server`` over the
+       router, 16 clients on GE channels under ARQ(3): conservation, the
+       ``sim.*`` counters in the snapshot, a Chrome trace of the registry
+       under chiprun_out/;
+    6. training: ``launch.train.train`` at full width, bf16, 4 x 1024, 2 steps,
+       ``profile_dir``: the trace names the flash-attention kernels, and the
+       registry's ``train.link_elems`` is 4 x 1024 x 1024 a step;
+    7. times in turns (A B C C B A), bf16 i.i.d.: the ``DecodeEngine``,
+       ``ContinuousEngine.generate_batch`` and ``generate_reference`` in
+       tokens/s (host clock, a synchronize at the end of each call); an
+       engine step with the registry off and on (off, on, on, off).
+    Returns the launches of this phase's paths."""
+    import json as json_lib
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs, prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.comtune import LinkSpec
+    from repro_torch.launch import serve as t_serve
+    from repro_torch.launch import train as t_train
+    from repro_torch.launch.steps import temperature_scale
+    from repro_torch.models import cache as cache_lib, lm
+    from repro_torch.net import ARQProtocol, GilbertElliottChannel, SimConfig, run_sim
+    from repro_torch.obs import exporters
+    from repro_torch.serve import (SLA, ContinuousEngine, DecodeEngine, PoolConfig, ShardedEngine, SLAScheduler,
+                                   make_sim_server)
+
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    reg = obs.registry()
+    reg.disable()
+    reg.reset()
+    base = get_config("qwen1.5-0.5b").with_updates(attn_impl="flash_decode")
+    n_layers = base.num_layers
+    per_run = n_layers * TOKENS
+    key = prng.PRNGKey(16, "cuda")
+    prompts = prng.randint(key, (BATCH, PROMPT), 0, base.vocab_size)
+    zeros = dict(flash_decode=0, paged_flash_decode=0, lossy_link_egress=0, burst_mask=0, flash_attention=0,
+                 flash_attention_bwd=0, ssm_scan=0)
+    out, paths = {}, {}
+    t_phase = time.perf_counter()
+
+    # 1. The whole-generation engine.
+    model32 = lm.init_lm(base.with_updates(dtype="float32"), seed=0, device="cuda")
+    de = {}
+    for channel in ("iid", "ge"):
+        cfg = _serve_cfg(base, "float32", channel)
+        eng = DecodeEngine()
+        _zero_counts()
+        toks, t1 = eng.generate(model32, cfg, prompts, TOKENS, key=key)
+        torch.cuda.synchronize()
+        c1 = _counts()
+        toks2, t2 = eng.generate(model32, cfg, prompts, TOKENS, key=key)
+        entry = eng.get_compiled(cfg, BATCH, PROMPT, TOKENS, device="cuda")
+        assert (entry.traces, entry.compiles, entry.calls) == (1, 1, 2), (entry.traces, entry.compiles, entry.calls)
+        assert t2["compile_s"] == 0.0 and t2["compiled_this_call"] == 0.0 and t1["compiled_this_call"] == 1.0
+        assert c1 == dict(zeros, flash_decode=per_run), f"DecodeEngine {channel}: launches {c1}"
+        ref, _ = t_serve.generate_reference(model32, cfg, prompts, TOKENS, key=key)
+        assert torch.equal(toks, ref) and torch.equal(toks, toks2), f"DecodeEngine {channel}: tokens differ"
+        spec = LinkSpec(loss_rate=LOSS, channel=channel, use_kernel=True)
+        _zero_counts()
+        tk, tk_t = eng.generate(model32, cfg, prompts, TOKENS, key=key, link_spec=spec)
+        torch.cuda.synchronize()
+        ck = _counts()
+        want = dict(zeros, flash_decode=per_run, **({"lossy_link_egress": TOKENS} if channel == "iid"
+                                                     else {"burst_mask": PROMPT + TOKENS}))
+        assert ck == want, f"DecodeEngine use_kernel {channel}: launches {ck}, want {want}"
+        assert torch.equal(tk, spec_loop(model32, cfg, prompts, key, spec)), f"use_kernel {channel}: tokens differ"
+        de[channel] = dict(launches=c1, launches_use_kernel=ck, first=t1, second=t2, use_kernel=tk_t,
+                           libraries=list(entry.libraries))
+        paths[f"decode_engine_{channel}"] = c1
+        paths[f"decode_engine_use_kernel_{channel}"] = ck
+        log(f"[serve] 1 DecodeEngine f32 {channel}: tokens == generate_reference (batch {BATCH}, prompt {PROMPT}, "
+            f"{TOKENS} tokens); traces {entry.traces} compiles {entry.compiles} calls {entry.calls}, build "
+            f"{t1['compile_s']:.3f} s, second call compile_s {t2['compile_s']}; launches {c1}; use_kernel launches "
+            f"{ck}, tokens == the phase-9 loop; {t2['tokens_per_s']:.1f} tokens/s")
+    out["decode_engine"] = de
+
+    # 2. Sampling.
+    samp = {}
+    model16 = lm.init_lm(base.with_updates(dtype="bfloat16"), seed=0, device="cuda")
+    for dtype, model in (("float32", model32), ("bfloat16", model16)):
+        cfg = _serve_cfg(base, dtype, "iid")
+        eng = DecodeEngine()
+        a, _ = eng.generate(model, cfg, prompts, SERVE_SAMPLE_TOKENS, key=key, greedy=False,
+                            temperature=SERVE_TEMPERATURE)
+        b, _ = eng.generate(model, cfg, prompts, SERVE_SAMPLE_TOKENS, key=key, greedy=False,
+                            temperature=SERVE_TEMPERATURE)
+        assert torch.equal(a, b), f"sampled DecodeEngine {dtype}: the same key gave other tokens"
+        greedy, _ = eng.generate(model, cfg, prompts, SERVE_SAMPLE_TOKENS, key=key)
+        pools = {}
+        for paged in (False, True):
+            pool = PoolConfig(max_slots=BATCH, max_new=SERVE_SAMPLE_TOKENS, max_prompt=PROMPT, greedy=False,
+                              temperature=SERVE_TEMPERATURE, paged=paged)
+            x, _ = ContinuousEngine(cfg, pool, device="cuda").generate_batch(model, prompts, SERVE_SAMPLE_TOKENS,
+                                                                             key=key)
+            y, _ = ContinuousEngine(cfg, pool, device="cuda").generate_batch(model, prompts, SERVE_SAMPLE_TOKENS,
+                                                                             key=key)
+            assert torch.equal(x, y), f"sampled pool {dtype} paged={paged}: the same key gave other tokens"
+            pools["paged" if paged else "contiguous"] = x
+        pools_equal = bool(torch.equal(pools["contiguous"], pools["paged"]))
+        if dtype == "float32":
+            assert pools_equal, "f32 sampling: the contiguous pool's tokens differ from the paged pool's"
+        samp[dtype] = dict(greedy_agreement=float((a == greedy).float().mean()), pools_equal=pools_equal)
+        log(f"[serve] 2 sampling {dtype} T {SERVE_TEMPERATURE}: DecodeEngine and both pools repeat under a key; "
+            f"pools equal {pools_equal}; sampled vs greedy agreement {samp[dtype]['greedy_agreement']:.3f}")
+    tiny = float(np.finfo(np.float32).tiny)
+    ukeys = prng.split(prng.PRNGKey(160), 8)
+    for shape in ((base.vocab_size,), (BATCH, base.vocab_size), (7, 33)):
+        for kk in (ukeys[0], ukeys):
+            ucard = prng.uniform(kk.to("cuda"), shape, minval=tiny, maxval=1.0).cpu()
+            ucpu = prng.uniform(kk, shape, minval=tiny, maxval=1.0)
+            assert torch.equal(ucard.view(torch.int32), ucpu.view(torch.int32)), f"uniforms {shape}: card != CPU"
+    with torch.inference_mode():
+        row = lm.forward(model32, prompts[:1], _serve_cfg(base, "float32", "iid"))[0][0, -1]
+    scaled = temperature_scale(row, SERVE_TEMPERATURE)
+    keys = prng.split(prng.PRNGKey(161), SERVE_SAMPLE_KEYS)
+    t0 = time.perf_counter()
+    card = torch.cat([prng.categorical(keys[i:i + SERVE_SAMPLE_CHUNK].to("cuda"),
+                                       scaled.expand(min(SERVE_SAMPLE_CHUNK, SERVE_SAMPLE_KEYS - i), -1))
+                      for i in range(0, SERVE_SAMPLE_KEYS, SERVE_SAMPLE_CHUNK)]).cpu()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_scaled = scaled.cpu()
+    cpu, ties = [], 0
+    for i in range(0, SERVE_SAMPLE_KEYS, SERVE_SAMPLE_CHUNK):
+        pert = prng.gumbel(keys[i:i + SERVE_SAMPLE_CHUNK], (base.vocab_size,)) + cpu_scaled
+        top2 = torch.topk(pert, 2, dim=-1).values
+        ties += int(((top2[:, 0] - top2[:, 1]) < SERVE_TIE).sum())
+        cpu.append(torch.argmax(pert, dim=-1))
+    cpu = torch.cat(cpu)
+    cpu_s = time.perf_counter() - t0
+    same = int((card == cpu).sum())
+    log(f"[serve] 2 full-vocabulary row ({base.vocab_size} logits, T {SERVE_TEMPERATURE}), {SERVE_SAMPLE_KEYS} keys: "
+        f"card sample == CPU sample for {same}; near ties (top two within {SERVE_TIE:g}) {ties}; "
+        f"{len(set(cpu.tolist()))} distinct tokens; card {card_s:.2f} s, CPU {cpu_s:.2f} s")
+    assert same == SERVE_SAMPLE_KEYS, f"{SERVE_SAMPLE_KEYS - same} samples differ between the card and the CPU"
+    logits16 = torch.linspace(-2.0, 1.5, SERVE_FREQ_CLASSES, device="cuda")
+    draws = prng.categorical(prng.split(prng.PRNGKey(162, "cuda"), SERVE_FREQ_KEYS),
+                             logits16.expand(SERVE_FREQ_KEYS, -1)).cpu().numpy()
+    p = torch.softmax(logits16.double(), dim=0).cpu().numpy()
+    freq = np.bincount(draws, minlength=SERVE_FREQ_CLASSES) / SERVE_FREQ_KEYS
+    zscore = np.abs(freq - p) / np.sqrt(p * (1 - p) / SERVE_FREQ_KEYS)
+    log(f"[serve] 2 {SERVE_FREQ_CLASSES}-way row, {SERVE_FREQ_KEYS} keys: largest |freq - p| {zscore.max():.2f} sigma")
+    assert zscore.max() <= 4.0, (freq, p)
+    samp.update(full_row=dict(keys=SERVE_SAMPLE_KEYS, equal=same, near_ties=ties, card_s=card_s, cpu_s=cpu_s),
+                freq_max_sigma=float(zscore.max()))
+    out["sampling"] = samp
+    del model16
+    torch.cuda.empty_cache()
+
+    # 3. The router and the scheduler.
+    router_out = {}
+    lengths = [7, 5, 9] + [5 + (3 * i) % 28 for i in range(SERVE_ROUTER_REQUESTS - 3)]
+    rng = np.random.default_rng(16)
+    rprompts = [rng.integers(0, base.vocab_size, (n,)).astype(np.int32) for n in lengths]
+    for channel in ("iid", "ge"):
+        cfg = _serve_cfg(base, "float32", channel)
+        pool = PoolConfig(max_slots=1, max_new=32, max_prompt=PROMPT, paged=True, block_size=16)
+        eng = ShardedEngine(cfg, pool, devices=["cuda:0", "cuda:0"])
+        sched = SLAScheduler(backoff_s=0.0, max_retries=10_000)
+        eng.attach_scheduler(sched)
+        rkey = lambda i: prng.fold_in(prng.PRNGKey(11, "cuda"), i)
+        batch_cls, inter = SLA(priority=0, class_name="batch"), SLA(priority=5, class_name="interactive")
+        _zero_counts()
+        t0 = time.perf_counter()
+        ra = eng.submit(rprompts[0], SERVE_ROUTER_TOKENS, key=rkey(0), sla=batch_cls)
+        eng.step(model32)
+        rb = eng.submit(rprompts[1], 4, key=rkey(1), sla=SLA(deadline_s=600.0, class_name="batch"))
+        eng.step(model32)
+        rc = eng.submit(rprompts[2], 24, key=rkey(2), sla=inter)
+        while len(eng.placements.get(ra.rid, [])) < 2:
+            eng.step(model32)
+        reqs = [ra, rb, rc] + [eng.submit(rprompts[i], SERVE_ROUTER_TOKENS, key=rkey(i),
+                                          sla=inter if i % 3 == 0 else batch_cls) for i in range(3, len(lengths))]
+        done = eng.run(model32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rl = _counts()
+        assert len(done) == len(reqs) and all(r.state == "completed" for r in reqs)
+        assert eng.placements[ra.rid][:2] == [0, 1] and ra.n_preempts >= 1, eng.placements[ra.rid]
+        assert sched.stats["preemptions"] >= 1 and sched.stats["resumes"] >= 1, sched.stats
+        for i, r in enumerate(reqs):
+            ref, _ = t_serve.generate_reference(model32, cfg, torch.from_numpy(r.prompt)[None].to("cuda"),
+                                                r.max_tokens, key=rkey(i))
+            assert np.array_equal(r.tokens, ref[0].cpu().numpy()), f"router {channel}: request {i} differs"
+        assert rl["paged_flash_decode"] > 0 and rl["flash_decode"] == 0, rl
+        paths[f"router_{channel}"] = rl
+        router_out[channel] = dict(launches=rl, wall_s=wall, placements={str(k): v for k, v in eng.placements.items()},
+                                   num_buckets=[sh.num_buckets for sh in eng.shards], stats=dict(sched.stats),
+                                   classes=sched.class_report(), placement_counts=list(eng.placement_counts))
+        log(f"[serve] 3 router f32 {channel}: 2 shards on cuda:0 (paged), {len(reqs)} requests, 2 classes: "
+            f"tokens == per-request generate_reference; request 0 preempted {ra.n_preempts}x, placements "
+            f"{eng.placements[ra.rid]}; preemptions {sched.stats['preemptions']}, resumes {sched.stats['resumes']}; "
+            f"placements a shard {eng.placement_counts}; buckets a shard {router_out[channel]['num_buckets']}; "
+            f"launches {rl}; {wall:.2f} s")
+    out["router"] = router_out
+
+    # 4. Counters.
+    counters = {}
+    ctoks = 8
+    clens = (5, 13, 29, 32)
+    cprompts = [rng.integers(0, base.vocab_size, (n,)).astype(np.int32) for n in clens]
+    for channel in ("iid", "ge"):
+        cfg = _serve_cfg(base, "float32", channel)
+        pool = PoolConfig(max_slots=2, max_new=16, max_prompt=PROMPT)
+        eng = ContinuousEngine(cfg, pool, device="cuda")
+        ckey = lambda i: prng.fold_in(prng.PRNGKey(17, "cuda"), i)
+        for i, prompt in enumerate(cprompts):
+            eng.submit(prompt, ctoks, key=ckey(i))
+        eng.run(model32)
+        got = eng.device_counters()
+        want = _serve_oracle_link(model32, cfg, [(eng.bucket_for(n), ctoks, ckey(i)) for i, n in enumerate(clens)])
+        assert (got["link_elems"], got["link_dropped"], got["fec_recovered_packets"]) == (
+            want["elems"], want["dropped"], want["fec_recovered"]), (got, want)
+        want_valid = sum(n + t + 1 for n in clens for t in range(ctoks))
+        want_bytes = sum(cache_lib.decode_read_bytes(cfg, pool.max_seq, n + t + 1) for n in clens for t in range(ctoks))
+        assert got["valid_tokens"] == want_valid and got["decode_read_bytes"] == want_bytes, (got, want_valid,
+                                                                                               want_bytes)
+        assert got["decode_steps"] == eng.steps
+        counters[channel] = got
+        log(f"[serve] 4 counters f32 {channel}: link elems {got['link_elems']:.0f} dropped {got['link_dropped']:.0f} "
+            f"(realized drop rate {got['realized_drop_rate']:.4f}) == the replay; decode_read_bytes "
+            f"{got['decode_read_bytes']:.0f} and valid_tokens {got['valid_tokens']:.0f} == the analytic counts; "
+            f"{got['decode_steps']:.0f} steps")
+    cfg16 = _serve_cfg(base, "bfloat16", "ge")
+    model16 = lm.init_lm(cfg16, seed=0, device="cuda")
+    runs = {}
+    for enabled in (False, True):
+        reg.reset()
+        reg.enabled = enabled
+        eng = ContinuousEngine(cfg16, PoolConfig(max_slots=4, max_new=16, max_prompt=PROMPT, paged=True),
+                               device="cuda")
+        runs[enabled] = (eng.generate_batch(model16, prompts, ctoks, key=key)[0], eng.device_counters())
+    reg.disable()
+    assert torch.equal(runs[False][0], runs[True][0]) and runs[False][1] == runs[True][1], "the registry changed a token"
+    eng = ContinuousEngine(cfg16.with_updates(link=dataclasses.replace(cfg16.link, channel="iid")),
+                           PoolConfig(max_slots=BATCH, max_new=64, max_prompt=PROMPT), device="cuda")
+    for i in range(BATCH):
+        eng.submit(prompts[i].cpu().numpy(), 40, key=prng.fold_in(key, i))
+    eng.step(model16)
+    eng.step(model16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(SERVE_STEP_WINDOW):
+            eng.step(model16)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    dtoh = [e.name for e in events if "DtoH" in e.name or "Device -> Pageable" in e.name]
+    assert events, "the profiled window holds no device event"
+    assert not dtoh, f"device-to-host copies in a window of decode steps: {dtoh[:4]}"
+    eng.run(model16)
+    counters["registry_toggle_tokens_equal"] = True
+    counters["profiled_window"] = dict(steps=SERVE_STEP_WINDOW, device_events=len(events), dtoh_copies=len(dtoh))
+    log(f"[serve] 4 registry on/off: bf16 GE paged tokens and counters equal; a profiled window of "
+        f"{SERVE_STEP_WINDOW} decode steps: {len(events)} device events, {len(dtoh)} device-to-host copies")
+    out["counters"] = counters
+
+    # 5. The live simulator over the router.
+    reg.reset()
+    reg.enable()
+    router = ShardedEngine(_serve_cfg(base, "bfloat16", "iid"), PoolConfig(max_slots=4, max_new=8, max_prompt=PROMPT,
+                                                                          paged=True),
+                           devices=["cuda:0", "cuda:0"])
+    arrivals = NET_ARRIVALS[:NET_CLIENTS]
+    _zero_counts()
+    t0 = time.perf_counter()
+    rep = run_sim(SimConfig(n_clients=NET_CLIENTS, n_packets=NET_PACKETS, seed=NET_SEED, min_delivered_fraction=0.0),
+                  channels=[GilbertElliottChannel.from_target(0.3) for _ in range(NET_CLIENTS)],
+                  protocol=ARQProtocol(max_rounds=3), arrivals=arrivals,
+                  engine=make_sim_server(router, model16, prompt_lens=(8, 16, 32), num_tokens=8, seed=NET_SEED))
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    sl = _counts()
+    snap = reg.snapshot()
+    reg.disable()
+    assert rep.arrived == rep.served + rep.dropped == len(arrivals), rep
+    for name in ("sim.requests_arrived", "sim.requests_served", "sim.requests_dropped"):
+        assert name in snap["counters"], name
+    assert snap["counters"]["sim.requests_served"] == rep.served and "sim.latency_s" in snap["histograms"]
+    assert snap["counters"]["serve.requests_retired"] == rep.served and sl["paged_flash_decode"] > 0, sl
+    trace_path = out_dir / "serve_registry_trace.json"
+    exporters.write_chrome_trace(reg, str(trace_path))
+    n_trace = len(json_lib.loads(trace_path.read_text())["traceEvents"])
+    paths["simulator_router"] = sl
+    out["simulator"] = dict(report=rep.row(), counters=snap["counters"], launches=sl, wall_s=sim_s,
+                            trace_events=n_trace, placement_counts=list(router.placement_counts))
+    log(f"[serve] 5 live simulator: {NET_CLIENTS} clients, GE (0.3), ARQ(3), the router (2 paged shards): arrived "
+        f"{rep.arrived} = served {rep.served} + dropped {rep.dropped}; p50 {rep.latency_p50_s * 1e3:.1f} ms, p99 "
+        f"{rep.latency_p99_s * 1e3:.1f} ms (the engine's wall time as the server's busy time); sim.* counters in the "
+        f"snapshot; {n_trace} events in {trace_path.relative_to(ROOT)}; launches {sl}; {sim_s:.1f} s")
+    reg.reset()
+    del router, model16, model32
+    torch.cuda.empty_cache()
+
+    # 6. Training with the profiler and the link counters.
+    prof_dir = out_dir / "serve_train_profile"
+    reg.enable()
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, losses, tcfg = t_train.train("qwen1.5-0.5b", steps=2, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-4, full_size=True,
+                                    log_every=1, profile_dir=str(prof_dir), device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    tl = _counts()
+    tsnap = reg.snapshot()
+    reg.disable()
+    reg.reset()
+    trace_file = prof_dir / exporters.TRACE_FILE
+    text = trace_file.read_text()
+    names = {n for n in ("flash_attention_wgmma_kernel", "fa_bwd_dq_wgmma_kernel", "fa_bwd_dkdv_wgmma_kernel")
+             if n in text}
+    trace_mb = trace_file.stat().st_size / 2**20
+    shutil.rmtree(prof_dir)
+    per_step = TRAIN_BATCH * TRAIN_SEQ * tcfg.d_model
+    assert np.isfinite(losses).all() and len(losses) == 2
+    assert len(names) == 3, f"the training trace lacks flash-attention kernels: found {sorted(names)}"
+    assert tsnap["counters"]["train.link_elems"] == 2 * per_step, tsnap["counters"]
+    assert tl["flash_attention"] == 2 * tcfg.num_layers and tl["flash_attention_bwd"] == 2 * tcfg.num_layers, tl
+    paths["training_profiled"] = tl
+    out["training"] = dict(losses=losses, seconds=train_s, trace_mb=trace_mb, kernels_named=sorted(names),
+                           counters={k: v for k, v in tsnap["counters"].items() if k.startswith("train.")},
+                           launches=tl)
+    log(f"[serve] 6 train bf16 {TRAIN_BATCH} x {TRAIN_SEQ}, 2 steps with --profile-dir: trace {trace_mb:.1f} MB names "
+        f"{sorted(names)}; train.link_elems {tsnap['counters']['train.link_elems']:.0f} = 2 x {per_step}, dropped "
+        f"{tsnap['counters']['train.link_dropped']:.0f}; losses {[round(x, 4) for x in losses]}; {train_s:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 7. Times in turns.
+    cfg = _serve_cfg(base, "bfloat16", "iid")
+    model16 = lm.init_lm(cfg, seed=0, device="cuda")
+    dengine = DecodeEngine()
+    cengine = ContinuousEngine(cfg, PoolConfig(max_slots=BATCH, max_new=TOKENS, max_prompt=PROMPT), device="cuda")
+
+    def decode_engine():
+        return dengine.generate(model16, cfg, prompts, TOKENS, key=key)[0]
+
+    def continuous():
+        return cengine.generate_batch(model16, prompts, TOKENS, key=key)[0]
+
+    def reference():
+        return t_serve.generate_reference(model16, cfg, prompts, TOKENS, key=key)[0]
+
+    runs = {"decode_engine": decode_engine, "continuous_generate_batch": continuous,
+            "generate_reference": reference}
+    for fn in runs.values():
+        fn()                                     # builds, loads, first admission: outside the turns
+    tps = {}
+    for name in ("decode_engine", "continuous_generate_batch", "generate_reference") * 1 + (
+            "generate_reference", "continuous_generate_batch", "decode_engine"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        tps.setdefault(name, []).append(BATCH * TOKENS / (time.perf_counter() - t0))
+    step_ms = {}
+    eng = ContinuousEngine(cfg, PoolConfig(max_slots=BATCH, max_new=64, max_prompt=PROMPT), device="cuda")
+    for i in range(BATCH):
+        eng.submit(prompts[i].cpu().numpy(), 4 * SERVE_STEP_WINDOW + 2, key=prng.fold_in(key, i))
+    eng.step(model16)
+    for enabled in (False, True, True, False):
+        reg.enabled = enabled
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_STEP_WINDOW):
+            eng.step(model16)
+        torch.cuda.synchronize()
+        step_ms.setdefault("on" if enabled else "off", []).append((time.perf_counter() - t0) / SERVE_STEP_WINDOW * 1e3)
+    reg.disable()
+    reg.reset()
+    eng.run(model16)
+    times = dict(tokens_per_s={k: dict(median=float(np.median(v)), samples=v) for k, v in tps.items()},
+                 engine_step_ms={k: dict(median=float(np.median(v)), samples=v) for k, v in step_ms.items()})
+    out["times"] = times
+    card = card_line()
+    log(f"[serve] 7 times ({card}; bf16 i.i.d., batch {BATCH}, prompt {PROMPT}, {TOKENS} tokens; turns A B C C B A): "
+        + ", ".join(f"{k} {v['median']:.1f} tokens/s {[round(x, 1) for x in v['samples']]}"
+                    for k, v in times["tokens_per_s"].items())
+        + "; engine step (contiguous, 4 live slots) registry off "
+        f"{times['engine_step_ms']['off']['median']:.2f} ms {[round(x, 2) for x in step_ms['off']]}, on "
+        f"{times['engine_step_ms']['on']['median']:.2f} ms {[round(x, 2) for x in step_ms['on']]}")
+    del model16
+    torch.cuda.empty_cache()
+    out["launches_by_path"] = paths
+    out["seconds"] = time.perf_counter() - t_phase
+    report["serving_layer"] = out
+    log(f"[serve] phase 16 passed in {out['seconds']:.1f} s")
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
@@ -3202,6 +3700,8 @@ def main(argv=None) -> int:
     ap.add_argument("--paper", action="store_true", help="build the link kernels and run phase 14 only")
     ap.add_argument("--net", action="store_true",
                     help="build the decode, link and attention kernels and run phase 15 only")
+    ap.add_argument("--serve", action="store_true",
+                    help="build the decode, link and attention kernels and run phase 16 only")
     ap.add_argument("--bwd-split", nargs="?", const="bfloat16", choices=("bfloat16", "float32"),
                     help="trace the tensor-core backward of this dtype at the training shape only (its kernels' "
                          "device times)")
@@ -3250,6 +3750,22 @@ def main(argv=None) -> int:
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_net.json").write_text(json.dumps(report, indent=1, default=str))
         log("[net] phase 15 passed; no result line in --net mode")
+        return 0
+    if args.serve:
+        from repro_torch.kernels.decode_attention import cuda_kernel as decode_kernel
+        from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
+        from repro_torch.kernels.lossy_link import cuda_kernel as link_kernel
+
+        t0 = time.perf_counter()
+        nvcc.build_libraries([(m.LIB_NAME, m.SOURCES) for m in (decode_kernel, link_kernel, flash_kernel)])
+        log(f"[card] {card_line()}; three libraries built in {time.perf_counter() - t0:.1f} s")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        report = {}
+        run_serving_layer(report)
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_serve.json").write_text(json.dumps(report, indent=1, default=str))
+        log("[serve] phase 16 passed; no result line in --serve mode")
         return 0
     if args.bwd_split:
         from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
@@ -3424,6 +3940,19 @@ def main(argv=None) -> int:
                        (flash_records["wgmma"], net["training"]["flash_attention"]),
                        (bwd_records["wgmma"], net["training"]["flash_attention_bwd"])):
             rec["launches_by_path"] = dict(rec.get("launches_by_path", {}), network_stack=n)
+        # Phase 16's paths: the DecodeEngine (and under use_kernel), the router.
+        served = run_serving_layer(report)
+        for rec, name, path in ((record, "flash_decode", "decode_engine_iid"),
+                                (record, "flash_decode", "decode_engine_ge"),
+                                (paged_record, "paged_flash_decode", "router_iid"),
+                                (paged_record, "paged_flash_decode", "router_ge"),
+                                (paged_record, "paged_flash_decode", "simulator_router"),
+                                (egress_record, "lossy_link_egress", "decode_engine_use_kernel_iid"),
+                                (burst_record, "burst_mask", "decode_engine_use_kernel_ge"),
+                                (flash_records["wgmma"], "flash_attention", "training_profiled"),
+                                (bwd_records["wgmma"], "flash_attention_bwd", "training_profiled")):
+            rec["launches_by_path"] = dict(rec.get("launches_by_path", {}), **{f"serving_layer/{path}":
+                                                                               served[path][name]})
         launches = run_slice(report)
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [

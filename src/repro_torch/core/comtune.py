@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -36,6 +37,7 @@ from repro_torch.core import link as link_lib
 from repro_torch.core.compression import Compressor
 from repro_torch.core.link import MIN_KEEP_FRACTION, scalar_as
 from repro_torch.kernels.lossy_link import dispatch as link_kernels
+from repro_torch.obs import device as obs_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,8 +130,10 @@ def dropout_link(key: torch.Tensor, x: torch.Tensor, rate) -> torch.Tensor:
     reference divides by a traced rate instead, one ulp off in ~1 element
     of 16.)  Only a Python zero takes the shortcut."""
     if not torch.is_tensor(rate) and rate <= 0.0:
+        obs_device.record_full_keep(x.numel())
         return x
     keep = prng.bernoulli(key, 1.0 - rate, tuple(x.shape)).to(x.device)
+    obs_device.record_mask(keep)
     if torch.is_tensor(rate):
         c = (1.0 - rate.to(device=x.device, dtype=torch.float32)).to(x.dtype)
     else:
@@ -186,6 +190,7 @@ def channel_link(key: torch.Tensor, x: torch.Tensor, spec: LinkSpec) -> torch.Te
     if spec.channel in ("", "iid") and spec.fec_m <= 0:
         loss_rate = dict(spec.channel_params).get("loss_rate", spec.loss_rate)
         if not torch.is_tensor(loss_rate) and loss_rate <= 0.0:
+            obs_device.record_full_keep(x.numel())
             return x
         if spec.adaptive_compensation:
             if spec.granularity == "element":
@@ -193,12 +198,14 @@ def channel_link(key: torch.Tensor, x: torch.Tensor, spec: LinkSpec) -> torch.Te
             else:
                 mask = link_lib.packet_loss_mask(key, x.numel(), loss_rate, spec.elements_per_packet,
                                                  spec.shuffle).reshape(x.shape)
+            obs_device.record_mask(mask)
             return _adaptive(x, mask)
         return link_lib.apply_channel(
             key, x, loss_rate, granularity=spec.granularity,
             elements_per_packet=spec.elements_per_packet, shuffle=spec.shuffle, compensate=True,
         )
     mask, p_eff = _stateful_channel_mask(key, x, spec)
+    obs_device.record_mask(mask)
     if spec.adaptive_compensation:
         return _adaptive(x, mask)
     keep = max(1.0 - p_eff, MIN_KEEP_FRACTION)
@@ -208,7 +215,9 @@ def channel_link(key: torch.Tensor, x: torch.Tensor, spec: LinkSpec) -> torch.Te
 def streamed_channel_link(key: torch.Tensor, msg: torch.Tensor, spec: LinkSpec) -> torch.Tensor:
     """A (B, S, F) message sent as S per-token rounds: position ``i`` draws
     with ``fold_in(key, i)``, except position 0, which keeps the raw key (so
-    a one-position message matches the decode round's draw)."""
+    a one-position message matches the decode round's draw).  Each round
+    records into the ambient collector, which sums them as the reference's
+    per-position taps do."""
     rounds = []
     for i in range(msg.shape[1]):
         k = key if i == 0 else prng.fold_in(key, i)
@@ -250,6 +259,12 @@ def emulate_link(key: Optional[torch.Tensor], x: torch.Tensor, spec: LinkSpec, m
         # in spec.loss_rate); anything on the net path goes through
         # channel_link, which has its own burst-mask kernel for GE.
         if spec.use_kernel and spec.compressor.kind == "quant" and not spec.uses_net_path:
+            if obs_device.tapping():
+                # The egress draws its keep mask inside the kernel (keep = u
+                # >= p, on the key's threefry uniforms); draw those uniforms
+                # again here, only to count.
+                u = prng.uniform(key, (x.numel() // x.shape[-1], x.shape[-1]))
+                obs_device.record_mask(u >= float(np.float32(spec.loss_rate)))
             return link_kernels.lossy_link_egress(key, x, spec.compressor.quant, spec.loss_rate)
         msg = channel_link(key, spec.compressor.compress(x), spec)
         return spec.compressor.decompress(msg)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.obs import device as obs_device
 
 # Floor for every kept-fraction denominator (1 - p, 1 - p_eff), so a loss
 # rate of 1.0 returns zeros instead of 0 * inf = NaN.
@@ -99,6 +100,7 @@ def apply_channel(
         mask = packet_loss_mask(key, x.numel(), loss_rate, elements_per_packet, shuffle).reshape(x.shape)
     else:
         raise ValueError(f"unknown granularity: {granularity!r}")
+    obs_device.record_mask(mask)
     y = x * mask.to(x.dtype)
     if compensate:
         if torch.is_tensor(loss_rate):

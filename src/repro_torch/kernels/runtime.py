@@ -66,6 +66,15 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def canonical_device(device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card's
+    ``cuda:<i>``, so two names of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the card's queued work (no-op on the CPU): the end of every
     timed region and of every completion stamp."""

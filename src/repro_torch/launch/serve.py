@@ -4,16 +4,21 @@ emulated lossy IoT link (the paper's DI round, Eq. 12) -- the twin of
 
 ``generate()`` serves a batch through the continuous-batching slot-pool
 engine (``serve.continuous``) as independent requests, request ``i`` keyed
-``fold_in(key, i)``.  ``generate_reference`` runs one prefill, then one DI
-round per token for the whole batch, with the reference's key chain
-(``split`` before the prefill and before every step); per request, the
-engine's greedy tokens equal it token for token.  After generation the CLI
+``fold_in(key, i)``; ``num_shards > 1`` serves them through the sharded
+router (``serve.router``), one pool a shard; ``greedy=False`` or an
+explicit ``engine=DecodeEngine()`` takes the whole-generation engine
+(``serve.engine``), which draws one joint link mask over the batch a round.
+``generate_reference`` runs one prefill, then one DI round per token for
+the whole batch, with the reference's key chain (``split`` before the
+prefill and before every step); per request, the engines' greedy tokens
+equal it token for token (the whole-generation engine's at the same
+batch).  After generation the CLI
 reports the uplink's latency under a ``net.protocol`` policy
 (``--protocol``), and with ``--deadline`` the probability that the policy
 delivers the whole uplink in time.
 
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --full-size \
-        [--channel iid|ge|fading] [--protocol unreliable|arq|fec_arq] [--deadline 0.05]
+        [--channel iid|ge|fading] [--protocol unreliable|arq|fec_arq] [--deadline 0.05] [--num-shards 2]
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from repro_torch.core.link import ChannelConfig
 from repro_torch.kernels.runtime import resolve_device, synchronize
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import cache as cache_lib, lm
-from repro_torch.serve import continuous
+from repro_torch.serve import ContinuousEngine, ShardedEngine, continuous, default_engine, router
 
 log = logging.getLogger("repro_torch.launch.serve")
 
@@ -81,18 +86,36 @@ def _link_accounting(cfg, batch: int) -> dict:
 
 
 def generate(model: lm.LM, cfg, prompts: torch.Tensor, num_tokens: int, loss_rate: float | None = None,
-             key: torch.Tensor | None = None, greedy: bool = True, channel: str | None = None):
-    """Returns (generated (B, num_tokens) int32, timings).  The batch is
-    served by the continuous-batching engine (``engine_for``, on the
-    prompts' device) as B independent DI streams; per request ``i``, greedy
-    output equals ``generate_reference(prompts[i:i+1], key=fold_in(key, i))``
-    token for token."""
-    if not greedy:
-        raise NotImplementedError("sampling and the whole-generation engine are not ported yet (ROADMAP A7)")
+             key: torch.Tensor | None = None, greedy: bool = True, channel: str | None = None,
+             temperature: float = 1.0, engine=None, num_shards: int = 0):
+    """Returns (generated (B, num_tokens) int32, timings), on the prompts'
+    device.
+
+    Default (``engine=None``, greedy): the continuous-batching engine
+    (``engine_for``) serves the batch as B independent DI streams; per
+    request ``i``, the tokens equal ``generate_reference(prompts[i:i+1],
+    key=fold_in(key, i))`` token for token.  ``num_shards > 1`` rides the
+    sharded router instead (``sharded_engine``: the shards wrap around the
+    visible cards), with the same per-request contract.  With sampling
+    (``greedy=False``, at ``temperature``) or an explicit ``DecodeEngine``,
+    the whole-generation engine serves the batch under one joint link mask
+    a round: its greedy tokens equal ``generate_reference`` at the same
+    batch under the same key."""
     cfg = _override_link(cfg, loss_rate=loss_rate, channel=channel)
-    engine = continuous.engine_for(cfg, prompts.shape[1], num_tokens, device=prompts.device)
-    tokens, timings = engine.generate_batch(model, prompts, num_tokens,
-                                            key=key if key is not None else prng.PRNGKey(0))
+    device = prompts.device
+    if engine is None and greedy and num_shards > 1:
+        pool = continuous.PoolConfig(max_prompt=continuous.pow2_bucket(prompts.shape[1]),
+                                     max_new=continuous.pow2_bucket(num_tokens, 16))
+        engine = router.sharded_engine(cfg, pool, num_shards=num_shards, device=device)
+    if engine is None and greedy:
+        engine = continuous.engine_for(cfg, prompts.shape[1], num_tokens, device=device)
+    if isinstance(engine, (ContinuousEngine, ShardedEngine)):
+        tokens, timings = engine.generate_batch(model, prompts, num_tokens,
+                                                key=key if key is not None else prng.PRNGKey(0))
+    else:
+        engine = engine or default_engine()
+        tokens, timings = engine.generate(model, cfg, prompts, num_tokens, key=key, greedy=greedy,
+                                          temperature=temperature)
     timings.update(_link_accounting(cfg, prompts.shape[0]))
     return tokens, timings
 
@@ -157,6 +180,9 @@ def main(argv=None):
                     help="override cfg.attn_impl: blockwise/flash_decode decode through the "
                     "flash-decode kernel, naive through the full-softmax oracle")
     ap.add_argument("--full-size", action="store_true")
+    ap.add_argument("--num-shards", type=int, default=0,
+                    help="serve through the sharded router with this many slot-pool shards (0 / 1: one "
+                    "engine); the shards wrap around the visible cards")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
@@ -171,7 +197,7 @@ def main(argv=None):
     model = lm.init_lm(cfg, seed=0, device=device)
     prompts = prng.randint(key, (args.batch, args.prompt_len), 0, cfg.vocab_size)
     toks, timings = generate(model, cfg, prompts, args.tokens, loss_rate=args.loss_rate, key=key,
-                             channel=args.channel)
+                             channel=args.channel, num_shards=args.num_shards)
     log.info(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
     log.info(f"generated: {toks[:, :10].cpu().numpy()} ...")
     for k, v in timings.items():

@@ -12,22 +12,27 @@ each step's batch); the stateful channels and FEC ramp it per chunk of
 ``--steps-per-epoch`` steps, as the reference does.  Steps
 run in chunks through ``launch.steps.make_train_epoch`` (or one at a time
 under ``--no-epoch-scan``; both eager, on the same key chain), with
-periodic checkpoints in the reference's layout and ``--resume``.
+periodic checkpoints in the reference's layout and ``--resume``.  Each
+step's metrics carry the link counters of its draws (elements sent,
+dropped, FEC-recovered packets); the run logs their totals and, with the
+``obs`` registry enabled, adds them to its ``train.*`` counters.
+``--profile-dir DIR`` wraps the run in ``torch.profiler`` and writes a
+Chrome trace into DIR (``obs.exporters.torch_profile``).
 
-Not ported: ``--sharded`` / ``--fsdp`` (ROADMAP A13) and ``--profile-dir``
-(ROADMAP A8); each raises.
+Not ported: ``--sharded`` / ``--fsdp`` (ROADMAP A13); each raises.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --steps 200 --batch 8 --seq 128 [--full-size] [--device cpu] \\
         [--link off|train] [--train-link dropout|channel] [--train-channel ge] \\
         [--train-fec 10,2] [--no-shuffle] [--curriculum 0.1:0.4] [--no-epoch-scan] \\
-        [--ckpt-dir DIR --ckpt-every 100] [--resume]
+        [--ckpt-dir DIR --ckpt-every 100] [--resume] [--profile-dir DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import time
@@ -36,13 +41,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import prng
+from repro_torch import obs, prng
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.configs import ARCHITECTURES, get_config
 from repro_torch.data import lm_batch_iterator, make_lm_dataset
 from repro_torch.kernels.runtime import resolve_device, synchronize
-from repro_torch.launch.steps import make_train_epoch, make_train_step
+from repro_torch.launch.steps import LINK_KEYS, make_train_epoch, make_train_step
 from repro_torch.models import lm
+from repro_torch.obs.exporters import torch_profile
 from repro_torch.optim import AdamConfig, AdamState, init_adam, schedule
 from repro_torch.params import jax_layout, params_from_jax
 
@@ -125,10 +131,12 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, lr: float
           shuffle: Optional[bool] = None, train_loss_rate: Optional[float] = None,
           curriculum: Optional[Tuple[float, float]] = None,
           epoch_scan: bool = True, steps_per_epoch: int = 0, ckpt_every: int = 0, resume: bool = False,
-          device="cuda"):
+          profile_dir: Optional[str] = None, device="cuda"):
     """Returns (model, losses, cfg); ``losses`` covers the steps run by this
     call (a resumed run returns the tail of the trajectory).  Weights come
-    from ``lm.init_lm(cfg, seed)``."""
+    from ``lm.init_lm(cfg, seed)``.  ``profile_dir`` wraps the steps in
+    ``torch.profiler`` (the card's activity too on a CUDA device) and
+    writes a Chrome trace there."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if not full_size:
@@ -192,41 +200,60 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, lr: float
         if ckpt_dir and ckpt_every and (step_global % ckpt_every < grid or step_global == steps):
             save_checkpoint(ckpt_dir, step_global, _state(model, opt_state, key, cfg), name="train")
 
-    for chunk_start, n_steps, rate in curriculum_schedule(steps, steps_per_epoch, curriculum):
-        if chunk_start + n_steps <= start_step:
-            continue    # fully covered by the restored checkpoint
-        if epoch_scan and chunk_start >= start_step:
-            batches = {"tokens": torch.from_numpy(np.stack([next(it) for _ in range(n_steps)])).to(dev)}
-            if per_step:
-                batches["link_rate"] = rates[chunk_start:chunk_start + n_steps]
-                rate = None
-            epoch_fn = make_train_epoch(cfg, adam_cfg, link_mode=link_mode, link_spec=spec_for(rate))
-            model, opt_state, key, metrics = epoch_fn(model, opt_state, batches, key)
-            losses.append(metrics["loss"])
-            done += n_steps
-            step_global = chunk_start + n_steps
-            if step_global % log_every < n_steps or step_global == steps:
-                report(step_global)
-            maybe_ckpt(step_global, grid=n_steps)
-        else:
-            # One step at a time: the per-step baseline, and how a resume
-            # that lands inside a chunk re-aligns to the chunk grid.
-            step_fn = make_train_step(cfg, adam_cfg, link_mode=link_mode,
-                                      link_spec=spec_for(None if per_step else rate))
-            for i in range(n_steps):
-                step_global = chunk_start + i + 1
-                if step_global <= start_step:
-                    continue
-                b = {"tokens": torch.from_numpy(next(it)).to(dev)}
+    # The link counters stay on the device, like the losses, until the one
+    # read after the loop; the profiler and the registry span wrap the steps.
+    reg = obs.registry()
+    link_dev: list = []
+    with contextlib.ExitStack() as ctx:
+        ctx.enter_context(torch_profile(profile_dir, dev))
+        ctx.enter_context(reg.span("train.run", arch=arch, steps=steps))
+        for chunk_start, n_steps, rate in curriculum_schedule(steps, steps_per_epoch, curriculum):
+            if chunk_start + n_steps <= start_step:
+                continue    # fully covered by the restored checkpoint
+            if epoch_scan and chunk_start >= start_step:
+                batches = {"tokens": torch.from_numpy(np.stack([next(it) for _ in range(n_steps)])).to(dev)}
                 if per_step:
-                    b["link_rate"] = rates[step_global - 1]
-                key, sub = prng.split(key)
-                model, opt_state, metrics = step_fn(model, opt_state, b, sub)
-                losses.append(metrics["loss"][None])
-                done += 1
-                if step_global % log_every == 0 or step_global == steps:
+                    batches["link_rate"] = rates[chunk_start:chunk_start + n_steps]
+                    rate = None
+                epoch_fn = make_train_epoch(cfg, adam_cfg, link_mode=link_mode, link_spec=spec_for(rate))
+                model, opt_state, key, metrics = epoch_fn(model, opt_state, batches, key)
+                losses.append(metrics["loss"])
+                link_dev.append(torch.stack([metrics[k] for k in LINK_KEYS], dim=-1))
+                done += n_steps
+                step_global = chunk_start + n_steps
+                if step_global % log_every < n_steps or step_global == steps:
                     report(step_global)
-                maybe_ckpt(step_global)
+                maybe_ckpt(step_global, grid=n_steps)
+            else:
+                # One step at a time: the per-step baseline, and how a resume
+                # that lands inside a chunk re-aligns to the chunk grid.
+                step_fn = make_train_step(cfg, adam_cfg, link_mode=link_mode,
+                                          link_spec=spec_for(None if per_step else rate))
+                for i in range(n_steps):
+                    step_global = chunk_start + i + 1
+                    if step_global <= start_step:
+                        continue
+                    b = {"tokens": torch.from_numpy(next(it)).to(dev)}
+                    if per_step:
+                        b["link_rate"] = rates[step_global - 1]
+                    key, sub = prng.split(key)
+                    model, opt_state, metrics = step_fn(model, opt_state, b, sub)
+                    losses.append(metrics["loss"][None])
+                    link_dev.append(torch.stack([metrics[k] for k in LINK_KEYS])[None])
+                    done += 1
+                    if step_global % log_every == 0 or step_global == steps:
+                        report(step_global)
+                    maybe_ckpt(step_global)
+
+    if link_dev:
+        tot = dict(zip(LINK_KEYS, torch.cat(link_dev).to(torch.float64).sum(dim=0).cpu().tolist()))
+        drop = tot["link_dropped"] / max(tot["link_elems"], 1.0)
+        log.info("link: elems %d dropped %d (realized drop rate %.4f) fec_recovered_packets %d over %d steps",
+                 tot["link_elems"], tot["link_dropped"], drop, tot["fec_recovered_packets"], done)
+        if reg.enabled:
+            for k, v in tot.items():
+                reg.counter(f"train.{k}").inc(v)
+            reg.gauge("train.realized_drop_rate").set(drop)
 
     if ckpt_dir and not ckpt_every:
         save_checkpoint(ckpt_dir, steps, _state(model, opt_state, key, cfg), name="train")
@@ -279,13 +306,12 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile-dir", default=None, help="not ported yet (ROADMAP A8)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="wrap the run in torch.profiler and write a Chrome trace into this directory")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.sharded or args.fsdp is not None:
         raise NotImplementedError("the sharded trainer (--sharded / --fsdp) is not ported yet (ROADMAP A13)")
-    if args.profile_dir is not None:
-        raise NotImplementedError("--profile-dir waits for the port of the obs layer (ROADMAP A8)")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     _, losses, _ = train(
         args.arch, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr, link_mode=args.link,
@@ -293,7 +319,7 @@ def main(argv=None):
         train_channel=args.train_channel, train_fec=_parse_fec(args.train_fec), train_loss_rate=args.train_loss_rate,
         shuffle=False if args.no_shuffle else None, curriculum=_parse_curriculum(args.curriculum),
         epoch_scan=not args.no_epoch_scan, steps_per_epoch=args.steps_per_epoch, ckpt_every=args.ckpt_every,
-        resume=args.resume, device=args.device)
+        resume=args.resume, profile_dir=args.profile_dir, device=args.device)
     if losses:
         log.info("final loss %.4f (start %.4f)", np.mean(losses[-10:]), np.mean(losses[:5]))
 

@@ -173,6 +173,43 @@ def decode_read_bytes(cfg: ModelConfig, max_seq: int, valid: int, masked: bool =
     return total
 
 
+def decode_read_bytes_jnp(cfg: ModelConfig, max_seq: int, valid, masked: bool = True, paged: bool = False,
+                          block_size: int = 16) -> torch.Tensor:
+    """Twin of the reference's traced ``decode_read_bytes_jnp``:
+    :func:`decode_read_bytes` on a tensor of valid lengths (the slot
+    pool's per-slot lengths), in f32 on their device with the reference's
+    operations in its order, so the engines add the read-bytes counter on
+    the card each step.  The per-layer lengths and block sizes are host
+    numbers; only the ceil-to-block arithmetic runs on the device.  The
+    reference's analytic count, not the bytes the split-KV kernel reads."""
+    row_bytes = _attn_row_bytes(cfg)
+    valid = torch.as_tensor(valid).to(torch.float32)
+
+    def layer_bytes(length):
+        if paged:
+            j_l = blocks_for(length, block_size)
+            v = torch.clamp(valid, max=float(length))
+            nblk = torch.clamp(torch.ceil(v / block_size), max=float(j_l))
+            return nblk * float(block_size * row_bytes) + float(4 * j_l + 4)
+        if masked:
+            bkv = decode_block_kv(length, cfg.attn_decode_block_kv)
+            v = torch.clamp(valid, max=float(length))
+            rows = torch.clamp(torch.ceil(v / bkv) * bkv, max=float(length))
+        else:
+            rows = torch.full_like(valid, float(length))
+        return rows * float(row_bytes)
+
+    # A layer's term depends only on its cache length: formed once a length,
+    # added a layer at a time in the reference's order.
+    terms: dict = {}
+    total = torch.zeros_like(valid)
+    for length in _attn_lengths(cfg, max_seq):
+        if length not in terms:
+            terms[length] = layer_bytes(length)
+        total = total + terms[length]
+    return total
+
+
 def admission_write_bytes(cfg: ModelConfig, max_seq: int, bucket: int, paged: bool = False,
                           block_size: int = 16) -> int:
     """Cache bytes one admission writes: the whole ``max_seq`` slot

@@ -27,6 +27,7 @@ from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.attention import Cache, Index, PagedIndex
 from repro_torch.models.common import RMSNorm, acc_dtype, dtype_of, frozen, trunc_normal_
+from repro_torch.obs import device as obs_device
 from repro_torch.models.transformer import Stack
 
 
@@ -168,20 +169,30 @@ def _calibrated_spec(cfg: ModelConfig, model: LM, loss_rate: Optional[float],
 
 
 def make_slotwise_link_fn(cfg: ModelConfig, model: LM, keys: torch.Tensor, mode: str,
-                          loss_rate: Optional[float] = None, link_spec: Optional[comtune.LinkSpec] = None):
+                          loss_rate: Optional[float] = None, link_spec: Optional[comtune.LinkSpec] = None,
+                          live: Optional[torch.Tensor] = None):
     """Per-slot link for a batched decode step (twin of
     ``repro.models.lm.make_slotwise_link_fn``): row ``i`` of the split
     activation ``(B, S, d)`` goes through ``emulate_link`` alone, under its
     own key ``keys[i]`` -- bitwise the draws of a batch-1 round with that
-    key.  ``loss_rate`` and ``link_spec`` act as in ``make_link_fn``.  A
-    loop over the rows; the device counters of the reference's version (and
-    its ``live`` weights for them) wait for ROADMAP A8."""
+    key.  ``loss_rate`` and ``link_spec`` act as in ``make_link_fn``.
+
+    Each row draws under a link tap of its own (``obs.device``); while a
+    collector is installed, the rows' statistics are re-published to it
+    weighted by ``live`` ((B,) bool; all ones when None): dead slots still
+    compute, but never count, as in the reference."""
     if mode == "off":
         return None
     spec = _calibrated_spec(cfg, model, loss_rate, link_spec)
 
     def fn(x):
-        return torch.cat([comtune.emulate_link(keys[i], x[i:i + 1], spec, mode) for i in range(x.shape[0])])
+        rows, taps = [], []
+        for i in range(x.shape[0]):
+            with obs_device.tap_link_stats() as tap:
+                rows.append(comtune.emulate_link(keys[i], x[i:i + 1], spec, mode))
+            taps.append(tap)
+        obs_device.emit_rows(taps, live, x.device)
+        return torch.cat(rows)
 
     return fn
 

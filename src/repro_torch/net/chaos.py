@@ -136,9 +136,10 @@ class _OverrideChannel:
 
 class EngineChaos:
     """Applies pool-level faults to a live ``ContinuousEngine``, or to a
-    sharded router (any engine with a ``shards`` list; the router waits for
-    ROADMAP A8), where the squeeze hits every shard's allocator at the
-    scheduled fraction.
+    sharded ``serve.router.ShardedEngine`` (any engine with a ``shards``
+    list), where the squeeze hits every shard's allocator at the scheduled
+    fraction and the router's placement steers admissions to the shards
+    with free blocks left.
 
     Call ``apply(now)`` between engine steps.  Only the host-side block
     allocator is touched: blocks move between ``engine._free_blocks`` and

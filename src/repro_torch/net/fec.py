@@ -28,6 +28,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.link import element_mask_from_packets, log_binom_coeff
+from repro_torch.obs import device as obs_device
 
 # ---------------------------------------------------------------------------
 # GF(256) arithmetic (Reed-Solomon polynomial 0x11D, generator 2)
@@ -235,6 +236,10 @@ def fec_element_keep(key: torch.Tensor, channel, num_elements: int, elements_per
     n_tx = spec.transmitted_packets(n_data)
     raw = channel.packet_keep(kmask, n_tx)
     data_keep = block_recovery_mask(raw, spec)[:n_data]
+    if obs_device.tapping():
+        # Data packets the raw channel lost but decoding rebuilt.
+        raw_data = raw.reshape(-1, spec.block_packets)[:, :spec.k].reshape(-1)[:n_data].to(torch.float32)
+        obs_device.record_fec_recovered(torch.sum(data_keep - raw_data))
     return element_mask_from_packets(data_keep, num_elements, elements_per_packet, kperm, shuffle).detach()
 
 

@@ -23,9 +23,11 @@ realized packet mask goes through the server half of a real COMtune model
 Every arrived request ends served or dropped (dropped when its round
 delivers less than ``min_delivered_fraction`` of the message).
 
-The reference also publishes each run to its ``obs`` registry
-(``_publish_obs``: spans, counters, histograms); the port's registry waits
-for ROADMAP A8, so this module reports through ``SimReport`` only.
+With the ``obs`` registry enabled, each run is published to it
+(``_publish_obs``: the run's span, the ``sim.*`` counters, gauges and
+histograms, and a span chain a request on the simulated clock).  The live
+engine (``serve.continuous.make_sim_server``) can stand in for the server
+model.
 """
 
 from __future__ import annotations
@@ -35,10 +37,12 @@ import dataclasses
 import heapq
 import inspect
 import itertools
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import link as link_lib
 from repro_torch.net.channels import Channel, IIDChannel
 from repro_torch.net.chaos import ChaosSchedule, _OverrideChannel
@@ -127,12 +131,13 @@ def run_sim(
     the caller asks for the CPU; request rid -> test sample rid mod
     n_test).
 
-    ``engine`` replaces the analytic server compute-time model by any
-    callable ``engine(batch_requests) -> wall_seconds``: the returned time
-    becomes the server's busy time.  A callable with a ``now`` keyword
-    receives the simulated batch start time.  Composes with
-    ``model_in_the_loop=True``.  (The reference's live-engine adapter,
-    ``make_sim_server``, waits for ROADMAP A8.)
+    ``engine`` replaces the analytic server compute-time model with the
+    live serve engine: each served batch goes to ``engine(batch_requests)
+    -> wall_seconds`` (``serve.continuous.make_sim_server``), and the
+    measured wall time becomes the server's busy time.  A callable with a
+    ``now`` keyword receives the simulated batch start time (what drives
+    chaos squeezes and scheduler deadlines on the simulated clock).
+    Composes with ``model_in_the_loop=True``.
 
     ``chaos`` injects scheduled faults (``net.chaos``) into the event flow:
     ``channel_collapse`` windows draw uplink masks from an i.i.d. overlay at
@@ -141,6 +146,7 @@ def run_sim(
     started inside them, and ``burst_storm`` windows multiply the Poisson
     arrival rate (explicit ``arrivals`` schedules are taken as-is).
     """
+    t_wall0 = time.perf_counter()
     rng = np.random.RandomState(cfg.seed)
     channel_cfg = channel_cfg or link_lib.ChannelConfig()
     protocol = protocol or UnreliableProtocol()
@@ -321,7 +327,40 @@ def run_sim(
         accuracy_under_load=acc,
         accuracy_mode=acc_mode,
     )
+    reg = obs.registry()
+    if reg.enabled:
+        _publish_obs(reg, report, done, t_wall0)
     return report
+
+
+# Per-request simulated-time spans that go into the event log (the
+# counters and histograms always cover every request).
+_OBS_SPAN_CAP = 1024
+
+
+def _publish_obs(reg, report: SimReport, done: Sequence[_Request], t_wall0: float) -> None:
+    """Registry export of one simulation.  Per-request spans are on the
+    simulated clock, rebased onto the registry's epoch (``reg.perf0 +
+    sim_time``), so a chrome trace shows the simulated timeline from 0;
+    wall time stamps only the ``sim.run`` span."""
+    reg.record_span("sim.run", t_wall0, time.perf_counter(), arrived=report.arrived, served=report.served,
+                    dropped=report.dropped, throughput_rps=report.throughput_rps)
+    reg.counter("sim.requests_arrived").inc(report.arrived)
+    reg.counter("sim.requests_served").inc(report.served)
+    reg.counter("sim.requests_dropped").inc(report.dropped)
+    reg.gauge("sim.throughput_rps").set(report.throughput_rps)
+    reg.gauge("sim.mean_batch_size").set(report.mean_batch_size)
+    lat_h = reg.histogram("sim.latency_s")
+    frac_h = reg.histogram("sim.delivered_fraction")
+    for r in done:
+        lat_h.observe(r.t_done - r.t_arrival)
+        frac_h.observe(r.delivered_fraction)
+    for r in done[:_OBS_SPAN_CAP]:
+        parent = reg.record_span("sim.request", reg.perf0 + r.t_arrival, reg.perf0 + r.t_done, rid=r.rid,
+                                 client=r.client, delivered_fraction=r.delivered_fraction)
+        reg.record_span("sim.uplink", reg.perf0 + r.t_uplink_start, reg.perf0 + r.t_uplink_done, parent=parent,
+                        rid=r.rid)
+        reg.record_span("sim.server", reg.perf0 + r.t_uplink_done, reg.perf0 + r.t_done, parent=parent, rid=r.rid)
 
 
 _EVAL_CHUNK = 256   # requests per model call when flushing collected masks

@@ -101,24 +101,59 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 def random_bits(key: torch.Tensor, shape: Sequence[int] = (), *,
                 partitionable: Optional[bool] = None) -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2**32)."""
+    """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2**32).
+    A key stack ``(..., 2)`` draws under every key at once -> ``(...) +
+    shape``, bit-equal to each key's own draw (what ``vmap`` gives)."""
     shape = tuple(int(s) for s in shape)
+    lead = tuple(key.shape[:-1])
     if _resolve(partitionable):
         hi, lo = _iota_2x32(shape, key.device)
-        b0, b1 = threefry2x32(key[0], key[1], hi, lo)
+        words = [key[..., j].reshape(lead + (1,) * len(shape)) for j in (0, 1)]
+        b0, b1 = threefry2x32(*words, hi, lo)
         return b0 ^ b1
     size = math.prod(shape)
     counts = torch.arange(size, dtype=torch.int64, device=key.device)
-    return _threefry_2x32(key, counts).reshape(shape)
+    return _threefry_2x32(key, counts).reshape(lead + shape)
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int] = (), *,
+def uniform(key: torch.Tensor, shape: Sequence[int] = (), *, minval: float = 0.0, maxval: float = 1.0,
             partitionable: Optional[bool] = None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in [0, 1), float32: the top 23
-    bits become the mantissa of a float in [1, 2), minus 1."""
+    """``jax.random.uniform(key, shape, minval=minval, maxval=maxval)``,
+    float32: the top 23 bits become the mantissa of a float f in [1, 2),
+    minus 1, then ``max(minval, f * (maxval - minval) + minval)`` with the
+    bounds rounded to f32, as jax converts them.  XLA fuses the multiply
+    and the add (one rounding); the port forms them in f64, where the
+    product of two f32s is exact, and rounds once to f32."""
     bits = random_bits(key, shape, partitionable=partitionable)
     one = (bits >> 9) | 0x3F800000
-    return one.to(torch.int32).view(torch.float32) - 1.0
+    f = one.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return f     # f * 1 + 0, and max(0, f) = f: the same bits
+    lo, hi = np.float32(minval), np.float32(maxval)
+    scaled = (f.to(torch.float64) * float(hi - lo) + float(lo)).to(torch.float32)
+    return torch.clamp(scaled, min=float(lo))
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int] = (), *,
+           partitionable: Optional[bool] = None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32, its default "low"
+    mode: ``-log(-log(u))`` with ``u`` uniform on [tiny, 1).  The uniforms
+    are jax's bit for bit; the two logs are the device's (within an ulp of
+    XLA's each)."""
+    tiny = float(np.finfo(np.float32).tiny)
+    u = uniform(key, shape, minval=tiny, maxval=1.0, partitionable=partitionable)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, *,
+                partitionable: Optional[bool] = None) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` for float32 logits
+    (the Gumbel-max trick): the argmax over the last axis of ``logits +
+    gumbel(key, logits.shape)``, the first index on a tie, as int64.  A
+    key stack ``(..., 2)`` samples each leading row under its own key (the
+    reference's ``vmap(categorical)``): ``logits`` ``(...) + rest``."""
+    g = gumbel(key, tuple(logits.shape[key.dim() - 1:]), partitionable=partitionable)
+    return torch.argmax(g.to(logits.device) + logits, dim=-1)
 
 
 def bernoulli(key: torch.Tensor, p, shape: Sequence[int] = (), *,

@@ -222,9 +222,10 @@ def test_rejections():
         eng.submit(_prompt(0, 8, tcfg.vocab_size), 4)         # 3 blocks > 2 allocatable
     with pytest.raises(ValueError, match=">= 2 blocks"):
         ContinuousEngine(tcfg, PoolConfig(paged=True, num_blocks=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        ContinuousEngine(tcfg, PoolConfig(greedy=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    # A scheduler attaches only before traffic.
+    eng = _tight_engine(tcfg)
+    eng.submit(_prompt(0, 3, tcfg.vocab_size), 2)
+    with pytest.raises(RuntimeError, match="before submitting traffic"):
         eng.attach_scheduler(object())
 
 

@@ -26,6 +26,7 @@ Bars:
 """
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -226,16 +227,23 @@ def test_loss_decreases_with_link_active():
     assert np.mean(losses[-10:]) < np.mean(losses[:5]) - 0.5, (np.mean(losses[:5]), np.mean(losses[-10:]))
 
 
-def test_cli_trains_on_cpu_and_needs_a_card_by_default(caplog):
+def test_cli_trains_on_cpu_and_needs_a_card_by_default(caplog, tmp_path):
     caplog.set_level("INFO", logger="repro_torch.launch.train")
     t_train.main(["--arch", "qwen1.5-0.5b", "--steps", "12", "--batch", "2", "--seq", "16", "--device", "cpu"])
     assert "final loss" in caplog.text
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_train.main(["--arch", "qwen1.5-0.5b", "--steps", "1"])
-    for flags, item in ((["--sharded"], "A13"), (["--fsdp", "on"], "A13"), (["--profile-dir", "x"], "A8")):
+    for flags, item in ((["--sharded"], "A13"), (["--fsdp", "on"], "A13")):
         with pytest.raises(NotImplementedError, match=item):
             t_train.main(["--arch", "qwen1.5-0.5b", "--steps", "1", "--device", "cpu", *flags])
+    # --profile-dir writes a Chrome trace of the run (CPU activity only here),
+    # and the run logs its link counters.
+    caplog.clear()
+    t_train.main(["--arch", "qwen1.5-0.5b", "--steps", "1", "--batch", "2", "--seq", "16", "--device", "cpu",
+                  "--profile-dir", str(tmp_path)])
+    trace = json.loads((tmp_path / "torch_trace.json").read_text())
+    assert trace["traceEvents"] and "link: elems 8192 dropped" in caplog.text
     # --train-fec trains against the FEC-protected channel.
     caplog.clear()
     t_train.main(["--arch", "qwen1.5-0.5b", "--steps", "2", "--batch", "2", "--seq", "16", "--device", "cpu",
