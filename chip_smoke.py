@@ -20,6 +20,7 @@ paths.
     python3 chip_smoke.py --paper        # the link kernels' build + phase 14 only
     python3 chip_smoke.py --net          # the decode, link and attention kernels' build + phase 15 only
     python3 chip_smoke.py --serve        # the decode, link and attention kernels' build + phase 16 only
+    python3 chip_smoke.py --arch         # the decode, link and attention kernels' build + phase 17 only
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
@@ -29,15 +30,17 @@ Phases (any failure raises and the script exits non-zero):
      backward's kernels' (dQ and dK/dV of both modes, the f32 split and
      statistics, the f32 slab kernels past hd 128) registers and spills;
   2. flash decode vs ``flash_decode_ref`` at the main path's head shapes
-     (B 4, KV 16, G 1, hd 64, C 64 and 1024), gemma3's (KV 8, G 2, hd 256)
-     and B 1 at C 4096, bf16 / int8 / f32 caches, softcap 0 and 30; caches
+     (B 4, KV 16, G 1, hd 64, C 64 and 1024), gemma3's (KV 8, G 2, hd 256),
+     B 1 at C 4096, kimi-k2's (KV 8, G 8, hd 112; C 64 and 1024) and
+     arctic's G 7 at hd 128, bf16 / int8 / f32 caches, softcap 0 and 30; caches
      of 1024 rows and up split across blocks (the merge kernel after the
      split kernel) and n_valid 0 / 1 / 63 / 65 leave splits empty; then paged flash
      decode (the same split body) vs ``paged_flash_decode_ref`` and
      ``paged_flash_decode_split_ref`` at the engine's shape (B 8, KV 16, G 1,
      hd 64, block 16, 160 rows: one split), gemma3's heads (hd 256, G 2)
      and G 8 at hd 128 over 320 rows (five splits), a 1,024-row table (16
-     splits) and one-row blocks (the table window restaged), bf16 / int8 /
+     splits), one-row blocks (the table window restaged), kimi-k2's heads
+     over 64 and 1,024 rows and arctic's G 7 over 320, bf16 / int8 /
      f32, over a permuted block table,
      n_valid at 0, 1, the block edges, the split edges and full, each case
      equal bit for bit to the contiguous kernel on the gathered rows; then
@@ -219,7 +222,29 @@ Phases (any failure raises and the script exits non-zero):
      (16 clients, GE, ARQ(3)) with a Chrome trace of the registry; the
      trainer with ``--profile-dir`` and its link counters; the engines'
      tokens/s and an engine step with the registry off and on, in turns.
-Phases 9-16 run after phase 3, ahead of the profiled phases 5 and 7; last,
+ 17. the attention-family architectures (``run_architectures``), random
+     weights from a seed, each model freed before the next: kimi-k2-1t-a32b
+     at full width in bf16, its depth cut to the dense prologue + one MoE
+     unit (2 of 61 layers, ~39 GB: 384 experts of width 2048, top-8 + 1
+     shared, vocab 163,840, untied head), the link before the MoE layer:
+     ``generate_reference`` (batch 4, prompt 32, 16 tokens, loss 0.1) twice
+     under i.i.d. with equal tokens and once under GE, 2 x 16 flash-decode
+     launches at hd 112 a run; the paged pool on 8 requests of prompts
+     5-127 (8 slots) twice with equal tokens, the paged kernel launched
+     layers x steps; teacher-forced logits of the kernel path within twice
+     the bf16 noise of the naive path's (bf16 and int8 KV; the f32 pass
+     reads the bf16 experts upcast in chunks); the MoE layer's share of a
+     decode step and the peak memory; qwen2-vl-72b in f32 (4 layers, split
+     after 2; M-RoPE, untied, the vision frontend) and musicgen-medium in
+     f32 (all 48 layers; LayerNorm, GELU, the audio frontend):
+     ``generate()`` takes the DecodeEngine, whose tokens equal the loop's
+     and the naive oracle's under i.i.d. and GE, and one qwen2-vl forward
+     through the adapter with a (2, 256, 8192) ``frontend_embed``; last,
+     flash decode and paged flash decode timed at kimi-k2's heads (B 4, KV
+     8, G 8, hd 112; 64 and 1,024 rows) beside their plain versions, SDPA
+     and the bytes bound.  Phase 2's decode grid holds hd 112 (G 8) and G 7
+     at hd 128, both caches, and phase 1 prints the hd-112 instantiations.
+Phases 9-17 run after phase 3, ahead of the profiled phases 5 and 7; last,
 torch.profiler traces, each in a process of its own (``--bwd-split``),
 split the tensor-core backward's time at the training shape between its
 kernels, bf16 and f32.
@@ -232,6 +257,7 @@ kernels' JSON record, which is the line before the last; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -362,6 +388,15 @@ def _decode_inputs(gen, b, kvh, g, hd, c, qdt, cache):
     return q, k, v, None, None
 
 
+# (B, KV, G, hd, C): the main path's heads at 64 and 1,024 rows, gemma3's
+# (hd 256, G 2), B 1 at 4,096 rows; kimi-k2's decode heads (hd 112: 7, 14 or
+# 28 16-byte loads a row on 8, 16 or 32 lanes, the rest idle; 64 / 8 heads,
+# G 8 in two tiles) at 64 and 1,024 rows; arctic's G 7 (56 / 8 heads) at hd
+# 128, its second tile of three heads.
+DECODE_SHAPES = [(4, 16, 1, 64, 64), (4, 16, 1, 64, 1024), (4, 8, 2, 256, 1024), (1, 16, 1, 64, 4096),
+                 (4, 8, 8, 112, 64), (4, 8, 8, 112, 1024), (4, 8, 7, 128, 1024)]
+
+
 def check_flash_decode() -> float:
     """Kernel vs plain on the card.  Tolerances: 2e-5 for f32 outputs (the
     kernel's per-position online softmax sums in another order than the
@@ -370,7 +405,8 @@ def check_flash_decode() -> float:
     hair apart can round to neighbouring bf16 values.  The caches of 1024
     and 4096 rows split across blocks (``decode_plan``: nsplit > 1, the
     merge kernel after the split kernel), and n_valid 0 / 1 / 63 / 65
-    leave most splits with no row."""
+    leave most splits with no row; split caches also take n_valid at the
+    first split edge and one row either side."""
     import torch
 
     from repro_torch.kernels.decode_attention import cuda_kernel, flash_decode_ref
@@ -378,16 +414,17 @@ def check_flash_decode() -> float:
     gen = torch.Generator(device="cuda").manual_seed(0)
     combos = [(torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"), (torch.float32, "float32"),
               (torch.float32, "int8")]
-    shapes = [(4, 16, 1, 64, 64), (4, 16, 1, 64, 1024), (4, 8, 2, 256, 1024), (1, 16, 1, 64, 4096)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     n_cases = 0
     n_split_cases = 0
-    for b, kvh, g, hd, c in shapes:
+    for b, kvh, g, hd, c in DECODE_SHAPES:
         plan = cuda_kernel.decode_plan(b, kvh, g, c, sms)
         log(f"[kernel] flash_decode plan at B {b}, KV {kvh}, G {g}, hd {hd}, C {c}: {plan}")
         assert (plan["nsplit"] > 1) == (c >= 1024), f"C {c}: plan {plan}"
-        lengths = sorted({min(n, c) for n in (0, 1, 63, 64, 65, c)})
+        per = plan["rows_per_split"]
+        edges = (per - 1, per, per + 1) if plan["nsplit"] > 1 else ()
+        lengths = sorted({min(n, c) for n in (0, 1, 63, 64, 65, c) + edges})
         rows = [lengths[i % len(lengths)] for i in range(max(b, len(lengths)))]
         for qdt, cache in combos:
             for r0 in range(0, len(rows), b):
@@ -427,9 +464,11 @@ def _paged_inputs(gen, b, kvh, g, hd, bs, j, qdt, cache):
 # (B, KV, G, hd, bs, J): the engine's shape (160 rows, one split, no merge),
 # gemma3's heads and G 8 (two group tiles) at hd 128 over 320 rows (five
 # splits each), a 1,024-row table (16 splits), and blocks of one row, whose
-# 512-row splits restage the kernel's 128-entry table window.
+# 512-row splits restage the kernel's 128-entry table window; kimi-k2's
+# decode heads (hd 112, KV 8, G 8) over 64 rows (one split) and 1,024 (four),
+# and arctic's G 7 at hd 128 over 320 rows.
 PAGED_SHAPES = [(8, 16, 1, 64, 16, 10), (8, 8, 2, 256, 16, 20), (4, 4, 8, 128, 16, 20), (2, 8, 1, 128, 16, 64),
-                (16, 16, 1, 64, 1, 1024)]
+                (16, 16, 1, 64, 1, 1024), (4, 8, 8, 112, 16, 4), (4, 8, 8, 112, 16, 64), (4, 8, 7, 128, 16, 20)]
 
 
 def _paged_lengths(bs, rows, per):
@@ -3692,6 +3731,297 @@ def run_serving_layer(report) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the attention-family architectures at full width
+# ---------------------------------------------------------------------------
+
+# kimi-k2-1t-a32b (src/repro_torch/configs/kimi_k2_1t_a32b.py) at full width:
+# depth cut to the dense prologue layer + one MoE unit, the link after the
+# prologue (split_after_units 0).  384 routed experts of width 2048 (3 x 384 x
+# 7168 x 2048 bf16 = 33.8 GB), the shared expert, a 163,840-row embedding
+# and untied head: ~39 GB of weights.
+ARCH_BATCH, ARCH_PROMPT, ARCH_TOKENS = 4, 32, 16
+ARCH_PAGED_PROMPTS = (5, 13, 29, 61, 127, 17, 45, 90)
+KIMI_CUT = dict(num_layers=2, num_units=1)
+QWEN2VL_CUT = dict(num_layers=4, num_units=4)
+KIMI_DECODE = dict(b=4, kvh=8, g=8, hd=112)
+
+
+@contextlib.contextmanager
+def _upcast_expert_bmm(chunk: int = 32):
+    """Inside, ``torch.bmm`` of an f32 batch by a bf16 expert tensor upcasts
+    the experts ``chunk`` at a time: the f32 pass of the bf16 noise bar runs
+    the bf16 weights' values in f32 without an f32 copy of 34 GB of experts
+    (harness only; the port never mixes the two)."""
+    import torch
+
+    real = torch.bmm
+
+    def bmm(a, b):
+        if a.dtype == b.dtype:
+            return real(a, b)
+        out = torch.empty((a.shape[0], a.shape[1], b.shape[2]), dtype=a.dtype, device=a.device)
+        for i in range(0, a.shape[0], chunk):
+            out[i:i + chunk] = real(a[i:i + chunk], b[i:i + chunk].to(a.dtype))
+        return out
+
+    torch.bmm = bmm
+    try:
+        yield
+    finally:
+        torch.bmm = real
+
+
+def _arch_cfg(name, dtype, cut, split):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = get_config(name)
+    return base.with_updates(dtype=dtype, **cut,
+                             link=dataclasses.replace(base.link, split_after_units=split, loss_rate=LOSS))
+
+
+def _moe_decode_ms(model, cfg) -> float:
+    """Device ms of the MoE layer at a decode step of the loop (B tokens)."""
+    import torch
+
+    from repro_torch.models.moe import MoE
+
+    moe = next(layer.ffn for layer in model.stack.layers if isinstance(layer.ffn, MoE))
+    x = torch.randn((ARCH_BATCH, 1, cfg.d_model), device="cuda").to(model.embed.dtype)
+    with torch.inference_mode():
+        return time_events(lambda: moe(x, cfg), iters=20, warmup=3)
+
+
+def run_kimi_k2(report, card) -> dict:
+    """kimi-k2 at full width in bf16 (``KIMI_CUT``): the loop, the forced
+    logits' bar, the paged pool twice, times and memory; the kernel launch
+    counts of each path."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels.decode_attention import cuda_kernel
+    from repro_torch.launch.serve import generate_reference
+    from repro_torch.models import lm
+    from repro_torch.models.moe import MoE
+    from repro_torch.serve import PoolConfig
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    cfg = _arch_cfg("kimi-k2-1t-a32b", "bfloat16", KIMI_CUT, 0)
+    n_layers = cfg.num_layers
+    log(f"[arch] kimi-k2-1t-a32b at full width (d_model {cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads, hd "
+        f"{cfg.resolved_head_dim}, {cfg.num_experts} experts top-{cfg.top_k} + {cfg.num_shared_experts} shared, "
+        f"width {cfg.moe_dff}, vocab {cfg.vocab_size}), bf16; cut: {cfg.num_layers} of 61 layers (the dense prologue "
+        f"+ 1 MoE unit), split_after_units 0 (was 7): the link before the MoE layer")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    init_peak = torch.cuda.max_memory_allocated()
+    log(f"[arch] ({card}) kimi-k2 weights {weights / 1e9:.2f} GB drawn in {init_s:.1f} s; peak "
+        f"{init_peak / 1e9:.2f} GB ({init_peak / total:.1%} of the card)")
+    key = prng.PRNGKey(0, "cuda")
+    prompts = prng.randint(key, (ARCH_BATCH, ARCH_PROMPT), 0, cfg.vocab_size)
+    out = dict(cut=dict(KIMI_CUT, split_after_units=0), weights_gb=weights / 1e9, init_s=init_s, loop={})
+    launches, forced = {}, None
+
+    # The loop, twice under i.i.d. (the combine sums in a fixed order, so
+    # the card repeats its tokens) and once under GE.
+    for channel, reps in (("iid", 2), ("ge", 1)):
+        got = []
+        for _ in range(reps):
+            before = cuda_kernel.launch_count
+            toks, t = generate_reference(model, cfg, prompts, ARCH_TOKENS, loss_rate=LOSS, key=key, channel=channel)
+            n = cuda_kernel.launch_count - before
+            assert n == n_layers * ARCH_TOKENS, f"kimi-k2 loop {channel}: {n} flash-decode launches"
+            assert toks.shape == (ARCH_BATCH, ARCH_TOKENS) and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size
+            got.append(toks)
+        assert all(torch.equal(got[0], g) for g in got[1:]), "kimi-k2: a second run's tokens differ"
+        forced = got[0] if channel == "iid" else forced
+        launches[f"kimi_loop_{channel}"] = n
+        out["loop"][channel] = dict(prefill_s=t["prefill_s"], decode_ms_per_token=t["decode_s_per_token"] * 1e3,
+                                    runs=reps)
+        log(f"[arch] ({card}) kimi-k2 loop {channel}: prefill {t['prefill_s']:.3f} s, decode "
+            f"{t['decode_s_per_token'] * 1e3:.2f} ms/token, {n} flash-decode launches (hd {cfg.resolved_head_dim}, {n_layers} layers x "
+            f"{ARCH_TOKENS}){', tokens equal over two runs' if reps > 1 else ''}")
+    moe_ms = _moe_decode_ms(model, cfg)
+    dec_ms = out["loop"]["iid"]["decode_ms_per_token"]
+    out["moe_layer_decode_ms"] = moe_ms
+    out["moe_share_of_decode_step"] = moe_ms / dec_ms
+    log(f"[arch] ({card}) kimi-k2 MoE layer at a decode step (B {ARCH_BATCH}): {moe_ms:.3f} ms of the loop's "
+        f"{dec_ms:.2f} ms a token ({moe_ms / dec_ms:.1%})")
+
+    # The paged pool (generate()'s engine), 8 requests of prompts 5-127,
+    # twice: equal tokens, the paged kernel launched layers x steps.
+    pool = PoolConfig(max_slots=8, max_new=ARCH_TOKENS, max_prompt=128, block_size=16, paged=True)
+    rng = np.random.default_rng(0)
+    pr = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32) for n in ARCH_PAGED_PROMPTS]
+    keys = [prng.fold_in(key, i) for i in range(len(pr))]
+    paged = []
+    for _ in range(2):
+        cuda_kernel.paged_launch_count = 0
+        t0 = time.perf_counter()
+        eng, _, toks = _engine_serve(model, cfg, pool, pr, keys, ARCH_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = cuda_kernel.paged_launch_count
+        assert n == n_layers * eng.steps, f"kimi-k2 paged: {n} launches for {eng.steps} steps"
+        paged.append(toks)
+    assert np.array_equal(paged[0], paged[1]), "kimi-k2 paged: a second run's tokens differ"
+    launches["kimi_paged"] = n
+    out["paged"] = dict(steps=eng.steps, wall_s=wall, tokens_per_s=len(pr) * ARCH_TOKENS / wall)
+    log(f"[arch] ({card}) kimi-k2 paged pool: 8 requests x {ARCH_TOKENS} tokens in {wall:.2f} s "
+        f"({len(pr) * ARCH_TOKENS / wall:.1f} tokens/s), {eng.steps} decode steps, {n} paged launches "
+        f"(hd {cfg.resolved_head_dim}); "
+        f"tokens equal over two runs")
+
+    # The bf16 bar of phase 4: teacher-forced logits of the kernel path
+    # within twice the bf16 noise (naive bf16 against naive f32 on the same
+    # weights) of the naive path's.  The f32 pass casts every weight but the
+    # experts, which it reads through _upcast_expert_bmm.
+    lk, ln = {}, {}
+    for kv in ("", "int8"):
+        c16 = cfg.with_updates(kv_cache_dtype=kv)
+        before = cuda_kernel.launch_count
+        lk[kv] = forced_logits(model, c16.with_updates(attn_impl="flash_decode"), prompts, forced, key).float().cpu()
+        assert cuda_kernel.launch_count - before == n_layers * ARCH_TOKENS
+        ln[kv] = forced_logits(model, c16.with_updates(attn_impl="naive"), prompts, forced, key).float().cpu()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_share"] = torch.cuda.max_memory_allocated() / total
+    log(f"[arch] ({card}) kimi-k2 bf16 peak {out['peak_gb']:.2f} GB ({out['peak_share']:.1%} of the card)")
+    experts = {id(w) for layer in model.stack.layers if isinstance(layer.ffn, MoE)
+               for w in (layer.ffn.w_up, layer.ffn.w_gate, layer.ffn.w_down)}
+    with torch.no_grad():
+        for p in model.parameters():
+            if id(p) not in experts:
+                p.data = p.data.float()
+    out["forced"] = {}
+    with _upcast_expert_bmm():
+        for kv in ("", "int8"):
+            c32 = cfg.with_updates(dtype="float32", kv_cache_dtype=kv, attn_impl="naive")
+            lf = forced_logits(model, c32, prompts, forced, key).float().cpu()
+            assert bool(torch.isfinite(lk[kv]).all()), "non-finite logits"
+            e_kernel = float((lk[kv] - ln[kv]).abs().max())
+            e_dtype = float((ln[kv] - lf).abs().max())
+            agree = float((lk[kv].argmax(-1) == ln[kv].argmax(-1)).float().mean())
+            tag = f"{kv or 'bf16'}-kv"
+            out["forced"][tag] = dict(kernel_vs_naive=e_kernel, naive_bf16_vs_f32=e_dtype, argmax_agreement=agree)
+            log(f"[arch] kimi-k2 {tag}: max |logit| kernel-naive {e_kernel:.4f}, naive bf16-f32 {e_dtype:.4f}, "
+                f"argmax agreement {agree:.4f}")
+            assert e_kernel <= 2.0 * e_dtype, f"kimi-k2 {tag}: kernel differs from naive beyond bf16 noise"
+    del model, lk, ln, lf
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_dense_arch(name, dtype, cut, split, card, frontend_forward=False) -> tuple:
+    """f32 at full width: ``generate()`` sends the frontend config to the
+    ``DecodeEngine``, whose tokens equal ``generate_reference``'s and the
+    naive oracle's under i.i.d. and GE; optionally one forward with a
+    (B, frontend_len, d) ``frontend_embed`` through the adapter."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels.decode_attention import cuda_kernel
+    from repro_torch.launch.serve import generate, generate_reference
+    from repro_torch.models import lm
+
+    cfg = _arch_cfg(name, dtype, cut, split)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[arch] ({card}) {name} at full width (d_model {cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads, hd "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.norm}, frontend {cfg.frontend!r}), "
+        f"{dtype}, {cfg.num_layers} layers{' (cut)' if cut else ''}, split after {cfg.link.split_after_units}: "
+        f"{weights / 1e9:.2f} GB drawn in {time.perf_counter() - t0:.1f} s")
+    key = prng.PRNGKey(1, "cuda")
+    prompts = prng.randint(key, (ARCH_BATCH, ARCH_PROMPT), 0, cfg.vocab_size)
+    out, launches = {"weights_gb": weights / 1e9, "layers": cfg.num_layers}, 0
+    for channel in ("iid", "ge"):
+        before = cuda_kernel.launch_count
+        toks, t = generate(model, cfg, prompts, ARCH_TOKENS, loss_rate=LOSS, key=key, channel=channel)
+        assert "compiled_this_call" in t, f"{name}: generate() did not take the DecodeEngine"
+        launches = cuda_kernel.launch_count - before
+        assert launches == cfg.num_layers * ARCH_TOKENS, f"{name}: {launches} flash-decode launches"
+        ref, tr = generate_reference(model, cfg, prompts, ARCH_TOKENS, loss_rate=LOSS, key=key, channel=channel)
+        naive, _ = generate_reference(model, cfg.with_updates(attn_impl="naive"), prompts, ARCH_TOKENS,
+                                      loss_rate=LOSS, key=key, channel=channel)
+        assert torch.equal(toks, ref) and torch.equal(toks, naive), f"{name} {channel}: tokens differ"
+        out[channel] = dict(engine_s=t["generate_s"], loop_prefill_s=tr["prefill_s"],
+                            loop_decode_ms_per_token=tr["decode_s_per_token"] * 1e3)
+        log(f"[arch] ({card}) {name} {channel}: the DecodeEngine's tokens equal the loop's and the naive oracle's; "
+            f"engine {t['generate_s']:.3f} s a call, loop decode {tr['decode_s_per_token'] * 1e3:.2f} ms/token, "
+            f"{launches} flash-decode launches")
+    if frontend_forward:
+        s = cfg.frontend_len + 44
+        toks = prng.randint(prng.fold_in(key, 1), (2, s), 0, cfg.vocab_size)
+        fe = torch.randn((2, cfg.frontend_len, cfg.d_model), device="cuda") * 0.02
+        with torch.inference_mode():
+            lf, _, _ = lm.forward(model, toks, cfg, frontend_embed=fe)
+            lt, _, _ = lm.forward(model, toks, cfg)
+        assert lf.shape == (2, s, cfg.vocab_size) and bool(torch.isfinite(lf).all())
+        assert not torch.equal(lf[:, -1], lt[:, -1]), f"{name}: the frontend embeddings changed no logit"
+        out["frontend_forward"] = dict(shape=list(lf.shape), last_row_change=float((lf[:, -1] - lt[:, -1]).abs().max()))
+        log(f"[arch] {name}: one forward with a (2, {cfg.frontend_len}, {cfg.d_model}) frontend_embed through the "
+            f"adapter: logits {tuple(lf.shape)} finite, the last row moved by up to "
+            f"{out['frontend_forward']['last_row_change']:.4f}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def time_kimi_decode() -> dict:
+    """Rows 1 and 2 at kimi-k2's decode heads (B 4, KV 8, G 8, hd 112), bf16
+    caches, 64 and 1,024 rows: kernel (graph replay), plain, SDPA, bound."""
+    k = KIMI_DECODE
+    return {"contiguous": [time_flash_decode(k["b"], k["kvh"], k["g"], k["hd"], c, c, "bfloat16") for c in (64, 1024)],
+            "paged": [time_paged_flash_decode([j * 16] * k["b"], b=k["b"], kvh=k["kvh"], g=k["g"], hd=k["hd"], bs=16,
+                                              j=j) for j in (4, 64)]}
+
+
+def run_architectures(report) -> dict:
+    """Phase 17, the attention-family architectures at full width, random
+    weights from a seed, each model freed before the next:
+
+    1. kimi-k2-1t-a32b in bf16, cut to its dense prologue + one MoE unit
+       (``KIMI_CUT``, ~39 GB), the link before the MoE layer:
+       ``generate_reference`` (batch 4, prompt 32, 16 tokens, loss 0.1)
+       twice under i.i.d. (equal tokens: the combine has a fixed order)
+       and under GE, 2 x 16 flash-decode launches at hd 112 a run; the paged
+       pool on 8 requests of prompts 5-127 (8 slots), twice, equal tokens,
+       the paged kernel launched layers x steps; teacher-forced logits of
+       the kernel path within twice the bf16 noise of the naive path's (bf16
+       and int8 KV); the MoE layer's share of a decode step; peak memory;
+    2. qwen2-vl-72b in f32 at full width, 4 layers split after 2 (~24 GB):
+       ``generate()`` takes the DecodeEngine, whose tokens equal the loop's
+       and the naive oracle's under i.i.d. and GE; one forward with a (2,
+       256, 8192) ``frontend_embed`` through the adapter;
+    3. musicgen-medium in f32 at full width and depth (48 layers, ~5.5 GB):
+       the same token checks;
+    4. rows 1 and 2 of the kernel table at kimi-k2's decode heads (hd 112).
+    Returns the flash-decode and paged launches of each path."""
+    card = card_line()
+    log(f"[arch] phase 17 on {card}")
+    t0 = time.perf_counter()
+    kimi, launches = run_kimi_k2(report, card)
+    qwen2vl, launches["qwen2_vl_decode_engine"] = run_dense_arch(
+        "qwen2-vl-72b", "float32", QWEN2VL_CUT, 2, card, frontend_forward=True)
+    musicgen, launches["musicgen_decode_engine"] = run_dense_arch("musicgen-medium", "float32", {}, 6, card)
+    kt = time_kimi_decode()
+    report["architectures"] = dict(card=card, kimi_k2=kimi, qwen2_vl=qwen2vl, musicgen=musicgen, kernel_times=kt,
+                                   launches=launches, seconds=time.perf_counter() - t0)
+    log(f"[arch] phase 17 passed in {time.perf_counter() - t0:.1f} s ({card})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
@@ -3702,6 +4032,9 @@ def main(argv=None) -> int:
                     help="build the decode, link and attention kernels and run phase 15 only")
     ap.add_argument("--serve", action="store_true",
                     help="build the decode, link and attention kernels and run phase 16 only")
+    ap.add_argument("--arch", action="store_true",
+                    help="build the decode, link and attention kernels and run phase 17 only (the attention-family "
+                         "architectures at full width; kimi-k2 needs ~45 GB of the card)")
     ap.add_argument("--bwd-split", nargs="?", const="bfloat16", choices=("bfloat16", "float32"),
                     help="trace the tensor-core backward of this dtype at the training shape only (its kernels' "
                          "device times)")
@@ -3766,6 +4099,26 @@ def main(argv=None) -> int:
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_serve.json").write_text(json.dumps(report, indent=1, default=str))
         log("[serve] phase 16 passed; no result line in --serve mode")
+        return 0
+    if args.arch:
+        from repro_torch.kernels.decode_attention import cuda_kernel as decode_kernel
+        from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
+        from repro_torch.kernels.lossy_link import cuda_kernel as link_kernel
+
+        t0 = time.perf_counter()
+        libs = nvcc.build_libraries([(m.LIB_NAME, m.SOURCES) for m in (decode_kernel, link_kernel, flash_kernel)])
+        log(f"[card] {card_line()}; three libraries built in {time.perf_counter() - t0:.1f} s")
+        text = libs[decode_kernel.LIB_NAME].with_suffix(".log").read_text()
+        for name, line in kernel_resources(text, ("split_decode_kernel", "merge_splits_kernel")):
+            if "Li112E" in name:
+                log(f"[build]   {name}: {line}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        report = {}
+        run_architectures(report)
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_arch.json").write_text(json.dumps(report, indent=1, default=str))
+        log("[arch] phase 17 passed; no result line in --arch mode")
         return 0
     if args.bwd_split:
         from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
@@ -3953,6 +4306,16 @@ def main(argv=None) -> int:
                                 (bwd_records["wgmma"], "flash_attention_bwd", "training_profiled")):
             rec["launches_by_path"] = dict(rec.get("launches_by_path", {}), **{f"serving_layer/{path}":
                                                                                served[path][name]})
+        # Phase 17's paths: kimi-k2's loop and paged pool at hd 112, the
+        # frontend configs' DecodeEngine.
+        archs = run_architectures(report)
+        for path, n in archs.items():
+            rec = paged_record if path == "kimi_paged" else record
+            rec["launches_by_path"] = dict(rec["launches_by_path"], **{f"architectures/{path}": n})
+        kt = report["architectures"]["kernel_times"]
+        for rec, rows in ((record, kt["contiguous"]), (paged_record, kt["paged"])):
+            rec["at_kimi_k2_heads"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                          "library_ms")} for r in rows]
         launches = run_slice(report)
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [

@@ -3,7 +3,8 @@
 The library is built with ``nvcc`` at first use (``kernels/nvcc.py``).
 ``flash_decode`` (contiguous cache) and ``paged_flash_decode`` (block pool
 and table) run one split-KV body, which differs between them only in how a
-logical row becomes a cache row.  Each wrapper refuses inputs that require
+logical row becomes a cache row, at head dims 64, 112 (kimi-k2), 128 and
+256.  Each wrapper refuses inputs that require
 grad (``runtime.forbid_grad``), checks device, dtype, shape, contiguity and
 alignment, allocates the output (and the split scratch) with
 ``torch.empty``, launches on PyTorch's current stream and raises if a
@@ -30,8 +31,11 @@ from repro_torch.kernels import nvcc, runtime
 from repro_torch.kernels.decode_attention.torch_ref import split_rows
 
 LIB_NAME = "flash_decode"
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_decode.cu",)
-HEAD_DIMS = (64, 128, 256)
+# flash_decode.cu builds the body at hd 64 / 128 / 256, flash_decode_hd112.cu
+# at hd 112 (its own unit, so that the other head dims keep their code).
+SOURCES = tuple(Path(__file__).resolve().parent / "csrc" / name
+                for name in ("flash_decode.cu", "flash_decode_hd112.cu"))
+HEAD_DIMS = (64, 112, 128, 256)   # 112: kimi-k2, idle lanes past the row (flash_decode.cuh SplitShape)
 MAX_GROUP = 16
 CACHE_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 Q_TYPES = {torch.bfloat16: 1, torch.float32: 2}

@@ -91,23 +91,28 @@ def generate(model: lm.LM, cfg, prompts: torch.Tensor, num_tokens: int, loss_rat
     """Returns (generated (B, num_tokens) int32, timings), on the prompts'
     device.
 
-    Default (``engine=None``, greedy): the continuous-batching engine
-    (``engine_for``) serves the batch as B independent DI streams; per
-    request ``i``, the tokens equal ``generate_reference(prompts[i:i+1],
-    key=fold_in(key, i))`` token for token.  ``num_shards > 1`` rides the
-    sharded router instead (``sharded_engine``: the shards wrap around the
-    visible cards), with the same per-request contract.  With sampling
-    (``greedy=False``, at ``temperature``) or an explicit ``DecodeEngine``,
+    Default (``engine=None``, greedy, no modality frontend): the
+    continuous-batching engine (``engine_for``) serves the batch as B
+    independent DI streams; per request ``i``, the tokens equal
+    ``generate_reference(prompts[i:i+1], key=fold_in(key, i))`` token for
+    token (for an MoE config, the reference's own slot pool is the bar:
+    capacity routing couples the tokens routed together).
+    ``num_shards > 1`` rides the sharded router instead
+    (``sharded_engine``: the shards wrap around the visible cards), with
+    the same per-request contract.  With sampling (``greedy=False``, at
+    ``temperature``), a frontend config or an explicit ``DecodeEngine``,
     the whole-generation engine serves the batch under one joint link mask
     a round: its greedy tokens equal ``generate_reference`` at the same
     batch under the same key."""
     cfg = _override_link(cfg, loss_rate=loss_rate, channel=channel)
     device = prompts.device
-    if engine is None and greedy and num_shards > 1:
+    if engine is None and greedy and not cfg.frontend and num_shards > 1:
         pool = continuous.PoolConfig(max_prompt=continuous.pow2_bucket(prompts.shape[1]),
                                      max_new=continuous.pow2_bucket(num_tokens, 16))
         engine = router.sharded_engine(cfg, pool, num_shards=num_shards, device=device)
-    if engine is None and greedy:
+    if engine is None and greedy and not cfg.frontend:
+        # Frontend (VLM / audio) configs need an embedding input the slot
+        # pool does not carry: they stay on the whole-generation engine.
         engine = continuous.engine_for(cfg, prompts.shape[1], num_tokens, device=device)
     if isinstance(engine, (ContinuousEngine, ShardedEngine)):
         tokens, timings = engine.generate_batch(model, prompts, num_tokens,

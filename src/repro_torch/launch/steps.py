@@ -90,11 +90,13 @@ def make_prefill_step(cfg: ModelConfig, link_mode: str = "serve", link_spec=None
     """Builds the cache from a prompt; the prompt activation crosses the
     lossy link once, streamed as per-token rounds.  ``link_spec`` (a full
     ``LinkSpec``, e.g. ``use_kernel=True``) overrides the one ``cfg.link``
-    implies."""
+    implies; a frontend config's ``batch["frontend_embed"]``, when given,
+    replaces the first embeddings."""
 
     def prefill_step(model: lm.LM, batch: Dict[str, Any], cache, key):
-        logits, cache, _ = lm.forward(model, batch["tokens"], cfg, cache=cache, cache_index=0,
-                                      link_key=key, link_mode=link_mode, link_spec=link_spec)
+        logits, cache, _ = lm.forward(model, batch["tokens"], cfg, frontend_embed=batch.get("frontend_embed"),
+                                      cache=cache, cache_index=0, link_key=key, link_mode=link_mode,
+                                      link_spec=link_spec)
         return logits[:, -1], cache
 
     return prefill_step

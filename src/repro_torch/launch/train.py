@@ -141,6 +141,9 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, lr: float
     cfg = get_config(arch)
     if not full_size:
         cfg = cfg.reduced()
+    if cfg.frontend or any(s.moe for s in cfg.all_layers()):
+        raise NotImplementedError(f"fine-tuning {cfg.name!r} (MoE aux in the loss, frontend_embed batches) is not "
+                                  "ported yet (ROADMAP A12c); its serving is")
     adam_cfg = AdamConfig(lr=lr, grad_clip_norm=1.0, schedule=schedule.warmup_cosine(max(10, steps // 20), steps))
     key = prng.PRNGKey(seed, device=dev)
     model = lm.init_lm(cfg, seed=seed, device=dev)

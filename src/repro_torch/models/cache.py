@@ -30,7 +30,7 @@ def _attn_lengths(cfg: ModelConfig, max_seq: int) -> List[int]:
     lengths = []
     for spec in cfg.all_layers():
         if spec.kind != "attn":
-            raise NotImplementedError(f"{spec.kind!r} decode state is not ported yet (ROADMAP A12)")
+            raise NotImplementedError(f"{spec.kind!r} decode state is not ported yet (ROADMAP A12b)")
         lengths.append(attention.cache_len(spec, max_seq))
     return lengths
 

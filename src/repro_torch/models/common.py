@@ -1,5 +1,5 @@
 """Shared building blocks: dtypes, the truncated-normal initializers, norms
-and activations (twin of ``repro/models/common.py``)."""
+(RMSNorm and LayerNorm) and activations (twin of ``repro/models/common.py``)."""
 
 from __future__ import annotations
 
@@ -59,6 +59,39 @@ class RMSNorm(nn.Module):
         var = (x32 * x32).mean(dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + 1e-6)
         return (y * (1.0 + self.scale.to(x32.dtype))).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with ``scale`` (ones) and ``bias`` (zeros), eps 1e-5,
+    computed in f32: the biased variance as the mean of the squared
+    deviations, as ``jnp.var`` forms it."""
+
+    def __init__(self, d: int, dtype, device):
+        super().__init__()
+        self.scale = frozen((d,), dtype, device)
+        self.bias = frozen((d,), dtype, device)
+
+    def reset_parameters(self) -> None:
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(acc_dtype(x))
+        mean = x32.mean(dim=-1, keepdim=True)
+        centered = x32 - mean
+        var = (centered * centered).mean(dim=-1, keepdim=True)
+        y = centered * torch.rsqrt(var + 1e-5)
+        return (y * self.scale.to(x32.dtype) + self.bias.to(x32.dtype)).to(x.dtype)
+
+
+def make_norm(kind: str, d: int, dtype, device) -> nn.Module:
+    """The norm ``cfg.norm`` names (the reference's ``init_norm`` /
+    ``apply_norm``)."""
+    if kind == "rmsnorm":
+        return RMSNorm(d, dtype, device)
+    if kind == "layernorm":
+        return LayerNorm(d, dtype, device)
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 def activation(name: str):

@@ -3,10 +3,12 @@
 ``lm_loss``).
 
 ``LM`` holds the weights in the reference's layout (``state_dict`` keys
-``embed``, ``stack.layers.{i}.{norm1,mix,norm2,ffn}.*``, ``final_norm.scale``,
-``link.s_min``/``link.s_max``).  Behaviour (attention path, link) is read
-from the ``cfg`` passed to ``forward``, so one set of weights can be run
-under several configurations, as the reference's functions allow.
+``embed``, ``stack.layers.{i}.{norm1,mix,norm2,ffn}.*``, ``final_norm.*``,
+``link.s_min``/``link.s_max``, and where the config has them ``lm_head``
+(an untied head) and ``frontend.proj`` (the modality adapter)).  Behaviour
+(attention path, link) is read from the ``cfg`` passed to ``forward``, so
+one set of weights can be run under several configurations, as the
+reference's functions allow.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from repro_torch.core.link import scalar_as
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.attention import Cache, Index, PagedIndex
-from repro_torch.models.common import RMSNorm, acc_dtype, dtype_of, frozen, trunc_normal_
+from repro_torch.models.common import acc_dtype, dense_std, dtype_of, frozen, make_norm, trunc_normal_
+from repro_torch.models.frontends import FrontendAdapter, fuse_frontend
 from repro_torch.obs import device as obs_device
 from repro_torch.models.transformer import Stack
 
@@ -66,42 +69,53 @@ class LinkParams(nn.Module):
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("untied LM heads are not ported yet (ROADMAP A12)")
-        if cfg.frontend:
-            raise NotImplementedError("modality frontends are not ported yet (ROADMAP A12)")
         device = resolve_device(device)
         dtype = dtype_of(cfg.dtype)
         self.cfg = cfg
         self.embed = frozen((cfg.vocab_size, cfg.d_model), dtype, device)
         self.stack = Stack(cfg, dtype, device)
-        self.final_norm = RMSNorm(cfg.d_model, dtype, device)
+        self.final_norm = make_norm(cfg.norm, cfg.d_model, dtype, device)
         self.link = LinkParams(cfg, device)
+        self.lm_head = None if cfg.tie_embeddings else frozen((cfg.d_model, cfg.vocab_size), dtype, device)
+        self.frontend = FrontendAdapter(cfg.d_model, dtype, device) if cfg.frontend else None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         trunc_normal_(self.embed, 0.02, gen)
         self.stack.reset_parameters(gen)
         self.final_norm.reset_parameters()
         self.link.reset_parameters(gen)
+        if self.lm_head is not None:
+            trunc_normal_(self.lm_head, dense_std(self.lm_head.shape), gen)
+        if self.frontend is not None:
+            self.frontend.reset_parameters(gen)
 
     def forward(self, tokens: torch.Tensor, cfg: Optional[ModelConfig] = None, *,
                 positions: Optional[torch.Tensor] = None, cache: Optional[List[Cache]] = None,
-                cache_index: Optional[Index] = None, link_fn=None) -> torch.Tensor:
-        """Logits (B, S, V) in f32; ``cache`` (if any) is written in place.
-        Per-row ``cache_index`` lengths (a tensor or ``PagedIndex``) need
-        explicit ``(B, S)`` positions."""
+                cache_index: Optional[Index] = None, link_fn=None, frontend_embed: Optional[torch.Tensor] = None,
+                route_rows: bool = False, return_aux: bool = False):
+        """Logits (B, S, V) in f32, or (logits, aux) with ``return_aux``;
+        ``cache`` (if any) is written in place.  Per-row ``cache_index``
+        lengths (a tensor or ``PagedIndex``) need explicit positions ((B, S),
+        or (B, 3, S) under M-RoPE).  ``frontend_embed`` (B, F, d) replaces
+        the first F embeddings of a frontend config; ``route_rows`` routes
+        each batch row as its own MoE group (the contiguous slot pool)."""
         cfg = cfg or self.cfg
         b, s = tokens.shape
         x = self.embed[tokens]
         if cfg.embed_scale:
             x = x * scalar_as(float(np.sqrt(np.float32(cfg.d_model))), x.dtype)
+        if cfg.frontend and frontend_embed is not None:
+            x = fuse_frontend(self.frontend, x, frontend_embed)
         if positions is None:
             if torch.is_tensor(cache_index) or isinstance(cache_index, PagedIndex):
                 raise ValueError("per-row cache_index lengths need explicit positions")
-            positions = rope_lib.default_positions(b, s, offset=cache_index or 0, device=tokens.device)
-        x = self.stack(x, cfg, positions, cache=cache, cache_index=cache_index, link_fn=link_fn)
+            positions = rope_lib.default_positions(b, s, offset=cache_index or 0, mrope=bool(cfg.mrope_sections),
+                                                   device=tokens.device)
+        x, aux = self.stack(x, cfg, positions, cache=cache, cache_index=cache_index, link_fn=link_fn,
+                            route_rows=route_rows)
         x = self.final_norm(x)
-        return (x @ self.embed.T).to(acc_dtype(x))
+        logits = (x @ self.embed.T if self.lm_head is None else x @ self.lm_head).to(acc_dtype(x))
+        return (logits, aux) if return_aux else logits
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
@@ -198,19 +212,22 @@ def make_slotwise_link_fn(cfg: ModelConfig, model: LM, keys: torch.Tensor, mode:
 
 
 def forward(model: LM, tokens: torch.Tensor, cfg: Optional[ModelConfig] = None, *,
-            positions=None, cache=None, cache_index=None, link_key=None, link_mode: str = "off",
-            loss_rate: Optional[float] = None, link_spec=None, link_rate=None, link_fn=None):
+            positions=None, frontend_embed=None, cache=None, cache_index=None, link_key=None,
+            link_mode: str = "off", loss_rate: Optional[float] = None, link_spec=None, link_rate=None,
+            link_fn=None):
     """``repro.models.lm.forward``'s signature: returns (logits f32, cache, aux)
-    with ``aux`` the zero MoE auxiliary loss.  ``link_mode="train"`` is the
-    fine-tuning graph; ``link_rate`` as in :func:`make_link_fn`.  (The
-    reference's ``mode`` argument only switches its rematerialisation in
-    training, which the port does not do: the card holds the activations.)"""
+    with ``aux`` the f32 sum of the MoE layers' load-balance terms (0 for a
+    dense stack).  ``link_mode="train"`` is the fine-tuning graph;
+    ``link_rate`` as in :func:`make_link_fn`.  (The reference's ``mode``
+    argument only switches its rematerialisation in training, which the
+    port does not do: the card holds the activations.)"""
     cfg = cfg or model.cfg
     if link_fn is None:
         link_fn = make_link_fn(cfg, model, link_key, link_mode, loss_rate=loss_rate, link_spec=link_spec,
                                link_rate=link_rate)
-    logits = model(tokens, cfg, positions=positions, cache=cache, cache_index=cache_index, link_fn=link_fn)
-    return logits, cache, torch.zeros((), dtype=torch.float32, device=logits.device)
+    logits, aux = model(tokens, cfg, positions=positions, cache=cache, cache_index=cache_index, link_fn=link_fn,
+                        frontend_embed=frontend_embed, return_aux=True)
+    return logits, cache, aux
 
 
 def token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

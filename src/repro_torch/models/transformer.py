@@ -1,24 +1,27 @@
 """The decoder stack (twin of ``repro/models/transformer.py``), attention
-layers only.
+layers only (the recurrent kinds are ROADMAP A12b): RMSNorm or LayerNorm,
+and a dense or MoE FFN.
 
 The reference scans ``U`` units of ``unit_pattern`` with stacked params;
 the port unrolls them into one ``nn.ModuleList`` — layer
 ``len(prologue) + u * len(pattern) + j`` — and applies the COMtune link
 after ``split = min(max(split_after_units, 0), U)`` units, as the
-reference's two scan segments do.
+reference's two scan segments do.  The layers' MoE auxiliary losses are
+summed in stack order from an f32 zero, as ``run_stack`` carries them.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.attention import Attention, Cache, Index
-from repro_torch.models.common import RMSNorm
+from repro_torch.models.common import make_norm
 from repro_torch.models.mlp import MLP
+from repro_torch.models.moe import MoE
 
 
 def _has_ffn(cfg: ModelConfig, spec: LayerSpec) -> bool:
@@ -26,21 +29,18 @@ def _has_ffn(cfg: ModelConfig, spec: LayerSpec) -> bool:
 
 
 class Layer(nn.Module):
-    """Pre-norm residual layer: attention, then the dense FFN."""
+    """Pre-norm residual layer: attention, then the dense or MoE FFN."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, dtype, device):
         super().__init__()
         if spec.kind != "attn":
-            raise NotImplementedError(f"layer kind {spec.kind!r} is not ported yet (ROADMAP A12)")
-        if spec.moe:
-            raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP A12)")
-        if cfg.norm != "rmsnorm":
-            raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet (ROADMAP A12)")
-        self.norm1 = RMSNorm(cfg.d_model, dtype, device)
+            raise NotImplementedError(f"layer kind {spec.kind!r} is not ported yet (ROADMAP A12b)")
+        self.norm1 = make_norm(cfg.norm, cfg.d_model, dtype, device)
         self.mix = Attention(cfg, spec, dtype, device)
         if _has_ffn(cfg, spec):
-            self.norm2 = RMSNorm(cfg.d_model, dtype, device)
-            self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.act, dtype, device)
+            self.norm2 = make_norm(cfg.norm, cfg.d_model, dtype, device)
+            self.ffn = (MoE(cfg, dtype, device) if spec.moe
+                        else MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.act, dtype, device))
         else:
             self.norm2 = self.ffn = None
 
@@ -51,11 +51,17 @@ class Layer(nn.Module):
             self.norm2.reset_parameters()
             self.ffn.reset_parameters(gen)
 
-    def forward(self, x, cfg, positions, cache=None, cache_index=None):
+    def forward(self, x, cfg, positions, cache=None, cache_index=None, route_rows=False):
+        """Returns (x, aux): aux the MoE FFN's load-balance term, else None.
+        ``route_rows`` routes each batch row as its own MoE group."""
         x = x + self.mix(self.norm1(x), cfg, positions, cache, cache_index)
-        if self.ffn is not None:
+        aux = None
+        if isinstance(self.ffn, MoE):
+            y, aux = self.ffn(self.norm2(x), cfg, per_row=route_rows)
+            x = x + y
+        elif self.ffn is not None:
             x = x + self.ffn(self.norm2(x))
-        return x
+        return x, aux
 
 
 class Stack(nn.Module):
@@ -69,14 +75,18 @@ class Stack(nn.Module):
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                 cache: Optional[List[Cache]] = None, cache_index: Optional[Index] = None,
-                link_fn=None) -> torch.Tensor:
-        """Run every layer, applying ``link_fn`` at the split point."""
+                link_fn=None, route_rows: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Run every layer, applying ``link_fn`` at the split point; returns
+        (x, aux) with aux the f32 sum of the MoE layers' terms."""
         split = min(max(cfg.link.split_after_units, 0), cfg.resolved_num_units) if link_fn else 0
         at = len(cfg.prologue) + split * len(cfg.unit_pattern)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
             if link_fn is not None and i == at:
                 x = link_fn(x)
-            x = layer(x, cfg, positions, cache[i] if cache is not None else None, cache_index)
+            x, a = layer(x, cfg, positions, cache[i] if cache is not None else None, cache_index, route_rows)
+            if a is not None:
+                aux = aux + a
         if link_fn is not None and at == len(self.layers):
             x = link_fn(x)
-        return x
+        return x, aux

@@ -9,12 +9,17 @@ returns a ``state_dict`` for ``repro_torch.models.lm.LM``:
 * the ``(U, ...)`` leaves of unit position ``j`` become layer
   ``len(prologue) + u * len(unit_pattern) + j``;
 * bfloat16 leaves (numpy ``ml_dtypes.bfloat16``) cross bit for bit, as
-  ``uint16 -> int16 -> torch.bfloat16`` views.
+  ``uint16 -> int16 -> torch.bfloat16`` views;
+* every top-level leaf but the stack keeps its nested name: ``embed``,
+  ``final_norm.{scale,bias}``, ``link.*``, ``lm_head`` (an untied head),
+  ``frontend.proj``; a layer's MoE FFN is ``ffn.{router,w_up,w_gate,
+  w_down}`` (experts leading) with ``ffn.shared.*`` and
+  ``ffn.dense_residual.*``.
 
 ``jax_layout(flat, cfg)`` is the inverse on tensors: it stacks the layers
 of a ``state_dict``-keyed dict (the parameters, or Adam's moments) back
-into the reference's nested ``{"embed", "final_norm", "link", "stack":
-{"prologue": [...], "units": [...]}}`` tree.  ``params_to_jax`` is that
+into the reference's nested ``{"embed", "final_norm", "link", ["lm_head",
+"frontend",] "stack": {"prologue": [...], "units": [...]}}`` tree.  ``params_to_jax`` is that
 tree as numpy arrays, with bfloat16 leaves as ``uint16`` bit views (the
 port has no ``ml_dtypes``; ``.view(jnp.bfloat16)`` recovers them).
 """
@@ -67,8 +72,8 @@ def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    flat: Dict[str, Any] = {"embed": tree["embed"]}
-    _flatten({"final_norm": tree["final_norm"], "link": tree["link"]}, "", flat)
+    flat: Dict[str, Any] = {}
+    _flatten({name: val for name, val in tree.items() if name != "stack"}, "", flat)
     stack = tree["stack"]
     n_pro = len(cfg.prologue)
     for i, layer in enumerate(stack["prologue"]):

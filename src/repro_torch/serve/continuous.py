@@ -13,8 +13,12 @@
   lengths (so per-slot ``n_valid`` in the flash-decode kernel), per-slot
   keys and per-slot link rounds (``lm.make_slotwise_link_fn``).  The
   reference vmaps a batch-1 step; the port writes the slot axis out as the
-  batch, since in-place cache writes and a ctypes kernel do not vmap.
-  Requests join and retire between steps; only slot *data* changes.
+  batch, since in-place cache writes and a ctypes kernel do not vmap.  So
+  that an MoE layer's capacity couples no slots, as under the vmap, the
+  contiguous step routes each slot as its own group; the reference's paged
+  step is one batched forward over all slots, dead ones included, and the
+  port's routes them jointly as it does.  Requests join and retire
+  between steps; only slot *data* changes.
 
 Paged mode (``PoolConfig(paged=True)``) swaps the per-slot caches for a
 shared block pool (``models.cache.init_block_pool``) with per-slot block
@@ -70,7 +74,7 @@ from repro_torch import obs, prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device, synchronize
 from repro_torch.launch.steps import temperature_scale
-from repro_torch.models import cache as cache_lib, lm
+from repro_torch.models import cache as cache_lib, lm, rope as rope_lib
 from repro_torch.models.attention import PagedIndex
 from repro_torch.obs import device as obs_device
 from repro_torch.obs.stats import latency_summary
@@ -249,7 +253,8 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ModelConfig, pool: Optional[PoolConfig] = None, device="cuda"):
         if cfg.frontend:
-            raise NotImplementedError("frontend (VLM/audio) configs are not ported yet (ROADMAP A12)")
+            raise ValueError("frontend (VLM/audio) configs are not supported by the slot-pool engine yet -- use "
+                             "the whole-generation DecodeEngine")
         self.cfg = cfg
         self.pool = pool or PoolConfig()
         self.device = resolve_device(device)
@@ -343,7 +348,8 @@ class ContinuousEngine:
         else:
             index = st["length"]
         with obs_device.tap_link_stats() as tap:
-            logits = model(st["token"], cfg, positions=st["length"][:, None], cache=st["cache"], cache_index=index,
+            logits = model(st["token"], cfg, positions=rope_lib.row_positions(st["length"], bool(cfg.mrope_sections)),
+                           cache=st["cache"], cache_index=index, route_rows=not p.paged,
                            link_fn=lm.make_slotwise_link_fn(cfg, model, sub, "serve", live=live))
         if p.greedy:
             nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)

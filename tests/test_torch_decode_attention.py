@@ -93,6 +93,40 @@ def test_ref_matches_reference_ref_and_kernel(jref, g, quantized, softcap):
     np.testing.assert_array_equal(got[0], 0.0)
 
 
+@pytest.mark.parametrize("hd,g", [(112, 8), (128, 7)], ids=["hd112-g8", "hd128-g7"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_ref_at_kimi_and_arctic_heads(jref, hd, g, quantized, softcap):
+    """kimi-k2's decode heads (hd 112 = 7168 / 64, G 8) and arctic's group
+    (G 7 = 56 / 8) at hd 128, against both reference paths, with n_valid 0,
+    1, block edges and the full cache; the split arithmetic of the CUDA
+    kernel at its planned split count for kimi-k2's 1,024-row shape (4)."""
+    import jax.numpy as jnp
+
+    c = 32
+    raw = _inputs(hd + g + quantized, 5, c, 2, g, hd, quantized)
+    n = np.array([0, 1, BKV - 1, BKV + 1, c], np.int32)
+    targs = _torch_args(*raw)
+    got = flash_decode_ref(*targs, torch.tensor(n)[:, None], block_kv=BKV, softcap=softcap).numpy()
+    split = flash_decode_split_ref(*targs, torch.tensor(n), nsplit=4, softcap=softcap).numpy()
+    jargs = _jax_args(*raw) + (jnp.asarray(n[:, None]),)
+    want_ref = np.asarray(jref.flash_decode_ref(*jargs, block_kv=BKV, softcap=softcap))
+    want_ker = np.asarray(jref.flash_decode_kernel(*jargs, block_kv=BKV, softcap=softcap, interpret=True))
+    tol = TOL_INT8 if quantized else TOL
+    for out in (got, split):
+        np.testing.assert_allclose(out, want_ref, **tol)
+        np.testing.assert_allclose(out, want_ker, **tol)
+        np.testing.assert_array_equal(out[0], 0.0)
+
+
+def test_kimi_heads_are_a_supported_shape():
+    """The wrapper takes hd 112 (kimi-k2) and G up to 16; other head dims
+    still raise before any launch."""
+    assert 112 in cuda_kernel.HEAD_DIMS and cuda_kernel.MAX_GROUP >= 8
+    assert cuda_kernel.decode_plan(4, 8, 8, 1024, sms=132) == dict(nsplit=4, rows_per_split=256, kernels=2)
+    assert cuda_kernel.decode_plan(4, 8, 8, 64, sms=132) == dict(nsplit=1, rows_per_split=64, kernels=1)
+
+
 @pytest.mark.parametrize("nsplit", [1, 2, 3, 7])
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
@@ -200,11 +234,14 @@ def test_device_policy():
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8", "float32"])
 def test_cuda_kernel_matches_plain(dtype):
     """The CUDA kernel against the plain version on the card, at the main
-    path's head shape and gemma3's (G = 2, hd = 256); ragged n_valid rows."""
+    path's head shape, gemma3's (G = 2, hd = 256), kimi-k2's (G 8, hd 112:
+    a row's loads on a power of two of lanes, the rest idle) at 64 and
+    1,024 rows, and arctic's G 7 at hd 128; ragged n_valid rows."""
     from repro_torch.kernels.decode_attention import cuda_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for b, kvh, g, hd, c in ((4, 16, 1, 64, 64), (2, 8, 2, 256, 1024)):
+    for b, kvh, g, hd, c in ((4, 16, 1, 64, 64), (2, 8, 2, 256, 1024), (4, 8, 8, 112, 64), (4, 8, 8, 112, 1024),
+                             (4, 8, 7, 128, 1024)):
         qdt = torch.float32 if dtype == "float32" else torch.bfloat16
         q = torch.randn((b, kvh, g, hd), generator=gen, device="cuda").to(qdt)
         if dtype == "int8":

@@ -115,6 +115,32 @@ def test_ref_matches_reference_ref_and_kernel(jref, g, quantized, softcap):
     np.testing.assert_array_equal(got[0], 0.0)
 
 
+@pytest.mark.parametrize("hd,g", [(112, 8), (128, 7)], ids=["hd112-g8", "hd128-g7"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_ref_at_kimi_and_arctic_heads(jref, hd, g, quantized, softcap):
+    """The paged walk at kimi-k2's decode heads (hd 112, G 8) and arctic's
+    G 7 at hd 128, over a shuffled table, against both reference paths;
+    the split arithmetic at three splits equals the plain walk."""
+    import jax.numpy as jnp
+
+    b, j, kvh, nblk = 6, 4, 2, 32
+    raw = _pool(hd + g + quantized, b, nblk, BS, kvh, g, hd, quantized)
+    bt = _table(hd, b, j, nblk)
+    n = np.array([0, 1, BS - 1, BS, BS + 1, j * BS], np.int32)
+    targs = _torch(*raw) + (torch.tensor(bt), torch.tensor(n))
+    got = paged_flash_decode_ref(*targs, block_size=BS, softcap=softcap).numpy()
+    split = paged_flash_decode_split_ref(*targs, block_size=BS, nsplit=3, softcap=softcap).numpy()
+    jargs = _jax(*raw) + (jnp.asarray(bt), jnp.asarray(n))
+    want_ref = np.asarray(jref.paged_flash_decode_ref(*jargs, block_size=BS, softcap=softcap))
+    want_ker = np.asarray(jref.paged_flash_decode_kernel(*jargs, block_size=BS, softcap=softcap, interpret=True))
+    tol = TOL_INT8 if quantized else TOL
+    for out in (got, split):
+        np.testing.assert_allclose(out, want_ref, **tol)
+        np.testing.assert_allclose(out, want_ker, **tol)
+        np.testing.assert_array_equal(out[0], 0.0)
+
+
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
 @pytest.mark.parametrize("n_valid", [1, BS - 1, BS, 4 * BS])
@@ -267,14 +293,16 @@ def _card_pool(gen, b, j, bs, kvh, g, hd, dtype):
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8", "float32"])
 def test_cuda_kernel_matches_plain(dtype):
     """The paged CUDA kernel against its plain versions on the card, at the
-    engine's main head shape and gemma3's (G = 2, hd = 256), over a shuffled
+    engine's main head shape, gemma3's (G = 2, hd = 256), kimi-k2's (G 8,
+    hd 112) and arctic's G 7 at hd 128, over a shuffled
     table with n_valid rows 0, 1, bs-1, bs, bs+1 and the full table; the
     160-row table is one split, the 320-row one splits (the merge kernel
     after the split kernel)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bs = 16
-    for (b, kvh, g, hd), j in itertools.product(((6, 16, 1, 64), (6, 8, 2, 256)), (10, 20)):
+    for (b, kvh, g, hd), j in itertools.product(((6, 16, 1, 64), (6, 8, 2, 256), (6, 8, 8, 112), (6, 8, 7, 128)),
+                                                (10, 20)):
         q, k, v, ks, vs, bt = _card_pool(gen, b, j, bs, kvh, g, hd, dtype)
         nsplit = cuda_kernel.decode_plan(b, kvh, g, j * bs, sms)["nsplit"]
         assert (nsplit > 1) == (j == 20)

@@ -17,6 +17,7 @@ counters, against the reference's:
 
 import dataclasses
 import functools
+import itertools
 
 import numpy as np
 import pytest
@@ -54,9 +55,14 @@ def _one_torch_thread():
 
 
 def _enabled(reg):
+    """Reset, enable and restart the span ids: ``reset`` keeps a registry's
+    id counter, which a test of either package run earlier in the same
+    process (tests/test_obs.py, say) may have advanced in one registry and
+    not the other."""
     reg.reset()
     reg.enable()
     reg.perf0 = 1000.0
+    reg._ids = itertools.count(1)
 
 
 @pytest.fixture
