@@ -21,6 +21,7 @@ paths.
     python3 chip_smoke.py --net          # the decode, link and attention kernels' build + phase 15 only
     python3 chip_smoke.py --serve        # the decode, link and attention kernels' build + phase 16 only
     python3 chip_smoke.py --arch         # the decode, link and attention kernels' build + phase 17 only
+    python3 chip_smoke.py --recur        # the decode, attention and scan kernels' build + phase 18 only
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
@@ -244,7 +245,31 @@ Phases (any failure raises and the script exits non-zero):
      8, G 8, hd 112; 64 and 1,024 rows) beside their plain versions, SDPA
      and the bytes bound.  Phase 2's decode grid holds hd 112 (G 8) and G 7
      at hd 128, both caches, and phase 1 prints the hd-112 instantiations.
-Phases 9-17 run after phase 3, ahead of the profiled phases 5 and 7; last,
+ 18. the recurrent families (``run_recurrent``), random weights from a
+     seed, each model freed before the next: jamba-v0.1-52b at full width in
+     bf16 (d_model 4096, 32 / 8 heads, d_inner 8192, d_state 16, 16 experts
+     top-2), its depth cut to 2 of 4 units (16 of 32 layers: 14 Mamba, 2
+     attention, 8 MoE; ~52 GB), split after unit 1: ``generate_reference``
+     (batch 4, prompt 32, 16 tokens, loss 0.1) twice under i.i.d. with
+     equal tokens and once under GE, the SSM scan launched Mamba layers x
+     chunks a prefill (its Mamba prefill's first model caller) and flash
+     decode attention layers x steps; each scan launch of one prefill
+     captured and equal to ``ssm_scan_ref`` bit for bit; the contiguous pool
+     on 8 requests of prompts 5-127 through 4 slots twice, equal tokens, one
+     exact-length bucket a prompt length; one 600-token prompt (three scan
+     chunks carrying the state, the flash-attention prefill at hd 128);
+     teacher-forced logits within twice the bf16 noise (the f32 pass reads
+     the bf16 experts upcast in chunks); a Mamba and an MoE layer's device ms
+     at a decode step; peak memory; xlstm-350m in f32 at full width and
+     depth: the loop, the DecodeEngine (called twice), the contiguous pool
+     (against the per-request loops) give equal tokens under i.i.d. and GE,
+     and the naive oracle (the parallel mLSTM prefill, teacher forced on the
+     loop's tokens with its link codes carried) picks the loop's token at
+     every step, its logits within tests/test_decode.py's bar; last, the scan
+     timed at (4, 32, 131,072) and (1, 256, 131,072) f32 beside its plain
+     version and bytes bound.  ``--recur`` runs the scan's phase-2 check and
+     phase 18 alone and prints the scan's kernel record and the last line.
+Phases 9-18 run after phase 3, ahead of the profiled phases 5 and 7; last,
 torch.profiler traces, each in a process of its own (``--bwd-split``),
 split the tensor-core backward's time at the training shape between its
 kernels, bf16 and f32.
@@ -1938,7 +1963,7 @@ def _ssm_inputs(bsz, t, d, seed=9):
 
 def run_ssm_scan_path() -> int:
     """The scan's own entry point (``repro_torch.kernels.ssm_scan.ssm_scan``,
-    the twin of ``repro.kernels.ssm_scan.ssm_scan``; no model calls it) at
+    the twin of ``repro.kernels.ssm_scan.ssm_scan``; phase 18 drives it from jamba's Mamba layers) at
     a jamba mamba layer's flattened state, f32: the counts are zeroed just
     before and read just after; the states are finite, of the right shape,
     and equal the plain version bit for bit."""
@@ -2148,27 +2173,28 @@ def time_flash_attention(b, h, kvh, hd, s, window, dname="bfloat16", stats=False
     return rec
 
 
-def time_ssm_scan() -> dict:
+def time_ssm_scan(bsz: int = 1, t: int = SSM_T) -> dict:
     """Kernel (graph replay and eager), plain and bound times of the scan at
-    a jamba mamba layer's flattened state (B 1, T 512, D 131,072, f32):
-    bytes (a, b, h0 read once, every state written once) over 3.35 TB/s
-    against one FMA (2 flops) a step per lane over the f32 peak.  No single
-    PyTorch call computes the recurrence, so there is no library time."""
+    a jamba mamba layer's flattened state (B ``bsz``, T ``t``, D 131,072,
+    f32; phase 12 at B 1, T 512): bytes (a, b, h0 read once, every state
+    written once) over 3.35 TB/s against one FMA (2 flops) a step per lane
+    over the f32 peak.  No single PyTorch call computes the recurrence, so
+    there is no library time."""
     import torch
 
     from repro_torch.kernels.ssm_scan import cuda_kernel, ssm_scan_ref
 
-    a, b, h0 = _ssm_inputs(1, SSM_T, SSM_D, seed=11)
+    a, b, h0 = _ssm_inputs(bsz, t, SSM_D, seed=11)
     saved = cuda_kernel.launch_count
     call = lambda: cuda_kernel.ssm_scan(a, b, h0)
     ms = time_graph(call, iters=20)
     ms_eager = time_events(call, iters=20, warmup=3)
     cuda_kernel.launch_count = saved
     plain_ms = time_events(lambda: ssm_scan_ref(a, b, h0), iters=3, warmup=1)
-    nbytes = 3 * SSM_T * SSM_D * 4 + SSM_D * 4
-    ops = 2 * SSM_T * SSM_D
+    nbytes = 3 * bsz * t * SSM_D * 4 + bsz * SSM_D * 4
+    ops = 2 * bsz * t * SSM_D
     bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["float32"])
-    rec = dict(shape=dict(B=1, T=SSM_T, D=SSM_D, dtype="float32"), ms=ms, ms_eager=ms_eager, plain_ms=plain_ms,
+    rec = dict(shape=dict(B=bsz, T=t, D=SSM_D, dtype="float32"), ms=ms, ms_eager=ms_eager, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes, ops=ops)
     log(f"[time] ssm_scan {rec['shape']}: kernel {ms * 1e3:.1f} us (graph) / {ms_eager * 1e3:.1f} us (eager), "
         f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B)")
@@ -4022,6 +4048,390 @@ def run_architectures(report) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the recurrent families at full width
+# ---------------------------------------------------------------------------
+
+# jamba-v0.1-52b (src/repro_torch/configs/jamba_v0_1_52b.py, arXiv:2403.19887):
+# d_model 4096, 32 / 8 heads (hd 128), d_inner 8192, d_state 16, 16 experts
+# of width 14,336 top-2 on every other layer, vocab 65,536, untied head.  A
+# unit of 8 layers (7 Mamba, 1 attention; 4 MoE, 4 dense MLPs) is 25.5 GB of
+# bf16 weights, the 4 units 103 GB: cut to 2 units (16 of 32 layers: 14
+# Mamba, 2 attention, 8 MoE; 52.1 GB with the embedding and head), split
+# after unit 1 as the config has it.
+JAMBA_CUT = dict(num_layers=16, num_units=2)
+RECUR_SLOTS = 4
+RECUR_LONG_PROMPT, RECUR_LONG_TOKENS = 600, 4
+# B6 at the loop's prefill (batch 4, prompt 32: one chunk) and at a whole
+# chunk of a long prompt (batch 1, scan_chunk 256).
+SSM_PATH_SHAPES = ((ARCH_BATCH, ARCH_PROMPT), (1, 256))
+
+
+@contextlib.contextmanager
+def _capture_ssm_scan():
+    """Inside, every SSM-scan launch through ``dispatch`` keeps a copy of
+    its inputs and output in the yielded list (harness only)."""
+    from repro_torch.kernels.ssm_scan import cuda_kernel
+
+    real = cuda_kernel.ssm_scan
+    calls = []
+
+    def scan(a, b, h0):
+        out = real(a, b, h0)
+        calls.append((a.clone(), b.clone(), h0.clone(), out.clone()))
+        return out
+
+    cuda_kernel.ssm_scan = scan
+    try:
+        yield calls
+    finally:
+        cuda_kernel.ssm_scan = real
+
+
+@contextlib.contextmanager
+def _mlstm_parallel_prefill():
+    """Inside, the mLSTM prefill runs the stabilised parallel (quadratic)
+    form and hands the closed-form state to the decode steps, in place of
+    the chunked form (the naive oracle of phase 18; harness only).  Only
+    from a fresh state, as the loop's prefill starts."""
+    import torch
+
+    from repro_torch.models import xlstm
+
+    real = xlstm.mlstm_chunked
+
+    def parallel(p, x, cfg, state=None):
+        fresh = xlstm.init_mlstm_cache(x.shape[0], cfg, x.device)
+        assert state is None or all(torch.equal(state[k], fresh[k]) for k in fresh), "not a fresh state"
+        return xlstm.mlstm_parallel(p, x, cfg), xlstm.mlstm_final_state(p, x, cfg, fresh)
+
+    xlstm.mlstm_chunked = parallel
+    try:
+        yield
+    finally:
+        xlstm.mlstm_chunked = real
+
+
+@contextlib.contextmanager
+def _carry_link(outputs: list, replay: bool):
+    """Inside, each ``emulate_link`` output is appended to ``outputs``, or,
+    with ``replay``, the recorded outputs are returned in their order: two
+    f32 paths then differ by their own rounding only, not by the 8-bit link
+    codes that rounding flips at a code boundary (the repository's tests
+    carry the codes the same way; harness only)."""
+    from repro_torch.core import comtune
+
+    real = comtune.emulate_link
+    recorded = iter(list(outputs))
+
+    def link(key, x, spec, mode):
+        if replay:
+            y = next(recorded)
+            assert y.shape == x.shape, f"replayed link output {tuple(y.shape)} for an input {tuple(x.shape)}"
+            return y
+        y = real(key, x, spec, mode)
+        outputs.append(y)
+        return y
+
+    comtune.emulate_link = link
+    try:
+        yield outputs
+    finally:
+        comtune.emulate_link = real
+
+
+def _mamba_decode_ms(model, cfg) -> float:
+    """Device ms of one Mamba layer at a decode step of the loop (B tokens,
+    the step from a carried state)."""
+    import torch
+
+    from repro_torch.models.mamba import Mamba, init_mamba_cache
+
+    mix = next(layer.mix for layer in model.stack.layers if isinstance(layer.mix, Mamba))
+    cache = init_mamba_cache(ARCH_BATCH, cfg, model.embed.dtype, "cuda")
+    x = torch.randn((ARCH_BATCH, 1, cfg.d_model), device="cuda").to(model.embed.dtype)
+    with torch.inference_mode():
+        return time_events(lambda: mix(x, cfg, cache), iters=20, warmup=3)
+
+
+def run_jamba(card) -> tuple:
+    """jamba-v0.1 at full width in bf16 (``JAMBA_CUT``): the loop (tokens
+    repeat; B6 launched Mamba layers x chunks a prefill, each launch of one
+    prefill bit-equal to ``ssm_scan_ref``; B1 launched attention layers x
+    steps), the contiguous pool twice, a 600-token prompt (three chunks, the
+    flash-attention prefill), the forced logits' bar, times and memory.
+    Returns (report, launches by path)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels.ssm_scan import ssm_scan_ref
+    from repro_torch.launch.serve import generate_reference
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import cache as cache_lib, lm
+    from repro_torch.models.moe import MoE
+    from repro_torch.serve import PoolConfig
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    cfg = _arch_cfg("jamba-v0.1-52b", "bfloat16", JAMBA_CUT, 1)
+    specs = cfg.all_layers()
+    n_mamba = sum(s.kind == "mamba" for s in specs)
+    n_attn = sum(s.kind == "attn" for s in specs)
+    n_moe = sum(s.moe for s in specs)
+    chunks = lambda n: -(-n // cfg.scan_chunk)    # noqa: E731
+    log(f"[recur] jamba-v0.1-52b at full width (d_model {cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads, hd "
+        f"{cfg.resolved_head_dim}, d_inner {cfg.mamba_d_inner}, d_state {cfg.mamba_d_state}, {cfg.num_experts} experts "
+        f"top-{cfg.top_k} of width {cfg.moe_dff}, vocab {cfg.vocab_size}), bf16; cut: {cfg.num_layers} of 32 layers "
+        f"({n_mamba} Mamba, {n_attn} attention, {n_moe} MoE), split after unit {cfg.link.split_after_units}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    init_peak = torch.cuda.max_memory_allocated()
+    log(f"[recur] ({card}) jamba weights {weights / 1e9:.2f} GB drawn in {init_s:.1f} s; peak {init_peak / 1e9:.2f} GB "
+        f"({init_peak / total:.1%} of the card)")
+    key = prng.PRNGKey(0, "cuda")
+    prompts = prng.randint(key, (ARCH_BATCH, ARCH_PROMPT), 0, cfg.vocab_size)
+    out = dict(cut=dict(JAMBA_CUT, split_after_units=cfg.link.split_after_units), weights_gb=weights / 1e9,
+               init_s=init_s, layers=dict(mamba=n_mamba, attention=n_attn, moe=n_moe), loop={})
+    launches, forced = {}, None
+
+    # The loop, twice under i.i.d. (the kernels and the MoE combine sum in a
+    # fixed order, so the card repeats its tokens) and once under GE.
+    for channel, reps in (("iid", 2), ("ge", 1)):
+        got = []
+        for _ in range(reps):
+            _zero_counts()
+            toks, t = generate_reference(model, cfg, prompts, ARCH_TOKENS, loss_rate=LOSS, key=key, channel=channel)
+            c = _counts()
+            assert c["ssm_scan"] == n_mamba * chunks(ARCH_PROMPT), f"jamba loop {channel}: {c['ssm_scan']} B6 launches"
+            assert c["flash_decode"] == n_attn * ARCH_TOKENS, f"jamba loop {channel}: {c['flash_decode']} B1 launches"
+            assert toks.shape == (ARCH_BATCH, ARCH_TOKENS) and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size
+            got.append(toks)
+        assert all(torch.equal(got[0], g) for g in got[1:]), "jamba: a second run's tokens differ"
+        forced = got[0] if channel == "iid" else forced
+        launches[f"jamba_loop_{channel}"] = {k: c[k] for k in ("ssm_scan", "flash_decode")}
+        out["loop"][channel] = dict(prefill_s=t["prefill_s"], decode_ms_per_token=t["decode_s_per_token"] * 1e3,
+                                    runs=reps)
+        log(f"[recur] ({card}) jamba loop {channel}: prefill {t['prefill_s']:.3f} s, decode "
+            f"{t['decode_s_per_token'] * 1e3:.2f} ms/token; {c['ssm_scan']} SSM-scan launches ({n_mamba} Mamba layers x "
+            f"{chunks(ARCH_PROMPT)} chunk), {c['flash_decode']} flash-decode launches ({n_attn} layers x {ARCH_TOKENS})"
+            f"{'; tokens equal over two runs' if reps > 1 else ''}")
+
+    # Each B6 launch of one prefill of the loop, captured, against the plain
+    # version on the same card.
+    with _capture_ssm_scan() as calls, torch.inference_mode():
+        cache = cache_lib.init_cache(cfg, ARCH_BATCH, ARCH_PROMPT + 1, device="cuda")
+        make_prefill_step(cfg)(model, {"tokens": prompts}, cache, prng.split(key)[1])
+        torch.cuda.synchronize()
+    assert len(calls) == n_mamba * chunks(ARCH_PROMPT), f"{len(calls)} captured SSM-scan launches"
+    for i, (a, b, h0, h) in enumerate(calls):
+        assert tuple(a.shape) == (ARCH_BATCH, ARCH_PROMPT, SSM_D), f"captured call {i}: {tuple(a.shape)}"
+        assert torch.equal(h, ssm_scan_ref(a, b, h0)), f"captured SSM-scan call {i} differs from ssm_scan_ref"
+    out["captured_ssm_scan_calls_bit_equal"] = len(calls)
+    log(f"[recur] jamba: the {len(calls)} SSM-scan launches of one loop prefill, each ({ARCH_BATCH}, {ARCH_PROMPT}, "
+        f"{SSM_D}) f32, equal ssm_scan_ref on the same card bit for bit")
+    del calls, cache
+
+    mamba_ms, moe_ms = _mamba_decode_ms(model, cfg), _moe_decode_ms(model, cfg)
+    dec_ms = out["loop"]["iid"]["decode_ms_per_token"]
+    out["decode_step"] = dict(loop_ms_per_token=dec_ms, mamba_layer_ms=mamba_ms, mamba_layers_ms=n_mamba * mamba_ms,
+                              moe_layer_ms=moe_ms, moe_layers_ms=n_moe * moe_ms)
+    log(f"[recur] ({card}) jamba at a decode step (B {ARCH_BATCH}): a Mamba layer {mamba_ms:.3f} ms (x {n_mamba} = "
+        f"{n_mamba * mamba_ms:.2f} ms), an MoE layer {moe_ms:.3f} ms (x {n_moe} = {n_moe * moe_ms:.2f} ms), of the "
+        f"loop's {dec_ms:.2f} ms a token")
+
+    # The contiguous pool (generate()'s engine): exact-length buckets, each
+    # slot's MoE routed alone; twice, equal tokens.
+    pool = PoolConfig(max_slots=RECUR_SLOTS, max_new=ARCH_TOKENS, max_prompt=128)
+    rng = np.random.default_rng(0)
+    pr = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32) for n in ARCH_PAGED_PROMPTS]
+    keys = [prng.fold_in(key, i) for i in range(len(pr))]
+    served = []
+    for _ in range(2):
+        _zero_counts()
+        t0 = time.perf_counter()
+        eng, _, toks = _engine_serve(model, cfg, pool, pr, keys, ARCH_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = _counts()
+        want_scan = n_mamba * sum(chunks(n) for n in ARCH_PAGED_PROMPTS)
+        assert c["ssm_scan"] == want_scan, f"jamba pool: {c['ssm_scan']} B6 launches, want {want_scan}"
+        assert c["flash_decode"] == n_attn * eng.steps, f"jamba pool: {c['flash_decode']} B1 launches"
+        assert eng.num_buckets == len(set(ARCH_PAGED_PROMPTS)), f"jamba pool: {eng.num_buckets} buckets"
+        served.append(toks)
+    assert np.array_equal(served[0], served[1]), "jamba pool: a second run's tokens differ"
+    launches["jamba_pool"] = {k: c[k] for k in ("ssm_scan", "flash_decode")}
+    out["pool"] = dict(slots=RECUR_SLOTS, steps=eng.steps, buckets=eng.num_buckets, wall_s=wall,
+                       tokens_per_s=len(pr) * ARCH_TOKENS / wall)
+    log(f"[recur] ({card}) jamba contiguous pool: 8 requests (prompts {min(ARCH_PAGED_PROMPTS)}-"
+        f"{max(ARCH_PAGED_PROMPTS)}) x {ARCH_TOKENS} tokens through {RECUR_SLOTS} slots in {wall:.2f} s "
+        f"({len(pr) * ARCH_TOKENS / wall:.1f} tokens/s), {eng.num_buckets} exact-length buckets, {eng.steps} steps, "
+        f"{c['ssm_scan']} SSM-scan and {c['flash_decode']} flash-decode launches; tokens equal over two runs")
+
+    # One batch-1 prompt of 600 tokens: three Mamba chunks carry h0 on the
+    # card, and the attention prefill runs the flash-attention kernel.
+    lp = prng.randint(prng.fold_in(key, 7), (1, RECUR_LONG_PROMPT), 0, cfg.vocab_size)
+    _zero_counts()
+    ltoks, lt = generate_reference(model, cfg, lp, RECUR_LONG_TOKENS, loss_rate=LOSS, key=key)
+    c = _counts()
+    assert c["ssm_scan"] == n_mamba * chunks(RECUR_LONG_PROMPT), f"jamba long prompt: {c['ssm_scan']} B6 launches"
+    assert c["flash_attention"] == n_attn, f"jamba long prompt: {c['flash_attention']} flash-attention launches"
+    assert c["flash_decode"] == n_attn * RECUR_LONG_TOKENS
+    assert 0 <= int(ltoks.min()) and int(ltoks.max()) < cfg.vocab_size
+    launches["jamba_long_prompt"] = {k: c[k] for k in ("ssm_scan", "flash_attention", "flash_decode")}
+    out["long_prompt"] = dict(prompt=RECUR_LONG_PROMPT, prefill_s=lt["prefill_s"],
+                              decode_ms_per_token=lt["decode_s_per_token"] * 1e3)
+    log(f"[recur] ({card}) jamba prompt {RECUR_LONG_PROMPT} (batch 1): prefill {lt['prefill_s']:.3f} s, "
+        f"{c['ssm_scan']} SSM-scan launches ({n_mamba} x {chunks(RECUR_LONG_PROMPT)} chunks), {c['flash_attention']} "
+        f"flash-attention launches (hd {cfg.resolved_head_dim}), decode {lt['decode_s_per_token'] * 1e3:.2f} ms/token")
+
+    # The bf16 bar of phases 4 and 17: teacher-forced logits of the kernel
+    # path within twice the bf16 noise (naive bf16 against naive f32 on the
+    # same weights) of the naive path's.  The f32 pass casts every weight but
+    # the experts, which it reads through _upcast_expert_bmm.
+    lk = forced_logits(model, cfg.with_updates(attn_impl="flash_decode"), prompts, forced, key).float().cpu()
+    ln = forced_logits(model, cfg.with_updates(attn_impl="naive"), prompts, forced, key).float().cpu()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_share"] = torch.cuda.max_memory_allocated() / total
+    log(f"[recur] ({card}) jamba bf16 peak {out['peak_gb']:.2f} GB ({out['peak_share']:.1%} of the card)")
+    experts = {id(w) for layer in model.stack.layers if isinstance(layer.ffn, MoE)
+               for w in (layer.ffn.w_up, layer.ffn.w_gate, layer.ffn.w_down)}
+    with torch.no_grad():
+        for p in model.parameters():
+            if id(p) not in experts:
+                p.data = p.data.float()
+    with _upcast_expert_bmm():
+        lf = forced_logits(model, cfg.with_updates(dtype="float32", attn_impl="naive"), prompts, forced,
+                           key).float().cpu()
+    assert bool(torch.isfinite(lk).all()), "non-finite logits"
+    e_kernel, e_dtype = float((lk - ln).abs().max()), float((ln - lf).abs().max())
+    agree = float((lk.argmax(-1) == ln.argmax(-1)).float().mean())
+    out["forced"] = dict(kernel_vs_naive=e_kernel, naive_bf16_vs_f32=e_dtype, argmax_agreement=agree,
+                         f32_pass_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[recur] jamba forced logits: max |logit| kernel-naive {e_kernel:.4f}, naive bf16-f32 {e_dtype:.4f}, "
+        f"argmax agreement {agree:.4f}")
+    assert e_kernel <= 2.0 * e_dtype, "jamba: the kernel path differs from naive beyond the bf16 noise"
+    del model, lk, ln, lf
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_xlstm(card) -> dict:
+    """xlstm-350m at full width and depth in f32: ``generate_reference``,
+    the DecodeEngine (called twice) and the contiguous pool give equal
+    greedy tokens under i.i.d. and GE, and the loop's tokens are the naive
+    oracle's argmax (the parallel mLSTM prefill, ``_mlstm_parallel_prefill``,
+    teacher forced on the loop's tokens and link outputs)."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.launch.serve import generate, generate_reference
+    from repro_torch.models import lm
+    from repro_torch.serve import DecodeEngine
+
+    cfg = _arch_cfg("xlstm-350m", "float32", {}, 1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[recur] ({card}) xlstm-350m at full width and depth (d_model {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.xlstm_head_dim}, {cfg.num_layers} layers: "
+        f"{sum(s.kind == 'mlstm' for s in cfg.all_layers())} mLSTM, {sum(s.kind == 'slstm' for s in cfg.all_layers())} "
+        f"sLSTM, vocab {cfg.vocab_size}), f32, split after unit {cfg.link.split_after_units}: {weights / 1e9:.2f} GB "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
+    key = prng.PRNGKey(2, "cuda")
+    prompts = prng.randint(key, (ARCH_BATCH, ARCH_PROMPT), 0, cfg.vocab_size)
+    out = {"weights_gb": weights / 1e9, "layers": cfg.num_layers}
+    for channel in ("iid", "ge"):
+        kw = dict(loss_rate=LOSS, key=key, channel=channel)
+        ref, tr = generate_reference(model, cfg, prompts, ARCH_TOKENS, **kw)
+        eng = DecodeEngine()
+        first, t1 = generate(model, cfg, prompts, ARCH_TOKENS, engine=eng, **kw)
+        second, t2 = generate(model, cfg, prompts, ARCH_TOKENS, engine=eng, **kw)
+        assert (t1["compiled_this_call"], t2["compiled_this_call"]) == (1.0, 0.0)
+        assert torch.equal(first, ref) and torch.equal(second, ref), f"xlstm {channel}: the DecodeEngine's tokens differ"
+        pooled, tp = generate(model, cfg, prompts, ARCH_TOKENS, **kw)
+        assert "slot_occupancy" in tp, "xlstm: generate() did not take the contiguous pool"
+        for i in range(ARCH_BATCH):
+            one, _ = generate_reference(model, cfg, prompts[i:i + 1], ARCH_TOKENS, loss_rate=LOSS,
+                                        key=prng.fold_in(key, i), channel=channel)
+            assert torch.equal(pooled[i], one[0]), f"xlstm {channel}: pool request {i} differs from its loop"
+        # The naive oracle on the loop's tokens and link outputs (teacher
+        # forced, codes carried): its logits within tests/test_decode.py's bar
+        # of the loop path's, its argmax the loop's token at every step.
+        ccfg = cfg.with_updates(link=dataclasses.replace(cfg.link, channel=channel))
+        links = []
+        with _carry_link(links, replay=False):
+            lk = forced_logits(model, ccfg, prompts, ref, key)
+        with _carry_link(links, replay=True), _mlstm_parallel_prefill():
+            lo = forced_logits(model, ccfg, prompts, ref, key)
+        dist, scale = float((lk - lo).abs().max()), float(lk.abs().max())
+        agree = float((lo[:, :ARCH_TOKENS].argmax(-1) == ref).float().mean())
+        assert dist <= 5e-4 * max(1.0, scale), f"xlstm {channel}: the naive oracle's logits differ by {dist}"
+        assert agree == 1.0, f"xlstm {channel}: the loop's tokens differ from the naive oracle's argmax ({agree})"
+        out[channel] = dict(loop_prefill_s=tr["prefill_s"], loop_decode_ms_per_token=tr["decode_s_per_token"] * 1e3,
+                            engine_s=t2["generate_s"], pool_tokens_per_s=tp["tokens_per_s"],
+                            oracle_logit_distance=dist, logit_scale=scale)
+        log(f"[recur] ({card}) xlstm {channel}: the loop, the DecodeEngine (twice) and the naive oracle (parallel "
+            f"mLSTM prefill, link codes carried; max |logit| distance {dist:.2e} of {scale:.2f}) give equal tokens, "
+            f"the pool's equal the per-request loops'; loop prefill {tr['prefill_s']:.3f} s, decode "
+            f"{tr['decode_s_per_token'] * 1e3:.2f} ms/token, engine {t2['generate_s']:.3f} s a call, pool "
+            f"{tp['tokens_per_s']:.1f} tokens/s")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_path_record(rec, launches, times) -> None:
+    """The SSM scan's kernel record from phase 18: launches on jamba's loop
+    (the path's main run, counts zeroed just before) and by path, its time
+    at the loop's shape beside the plain version and bound, and every
+    timed shape."""
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rec.update(launches=launches["jamba_loop_iid"]["ssm_scan"],
+               launches_by_path={f"recurrent/{p}": c["ssm_scan"] for p, c in launches.items()},
+               **{k: times[0][k] for k in keys[1:]}, at_shapes=[{k: t[k] for k in keys} for t in times])
+
+
+def run_recurrent(report) -> dict:
+    """Phase 18, the recurrent families at full width, random weights from a
+    seed, each model freed before the next:
+
+    1. jamba-v0.1-52b in bf16 cut to 2 of its 4 units (``JAMBA_CUT``,
+       ~52 GB), split after unit 1: ``generate_reference`` (batch 4,
+       prompt 32, 16 tokens, loss 0.1) twice under i.i.d. (equal tokens)
+       and once under GE, the SSM scan launched Mamba layers x chunks a
+       prefill and flash decode attention layers x steps; the scan's
+       launches of one prefill captured and held to ``ssm_scan_ref`` bit for
+       bit; the contiguous pool on 8 requests of prompts 5-127 through 4
+       slots, twice, equal tokens, one bucket a prompt length; a 600-token
+       prompt (three chunks, the flash-attention prefill); teacher-forced
+       logits within twice the bf16 noise; a Mamba and an MoE layer's
+       device ms at a decode step; peak memory;
+    2. xlstm-350m in f32 at full width and depth: the loop, the
+       DecodeEngine (twice), the contiguous pool and the naive oracle agree
+       under i.i.d. and GE;
+    3. the SSM scan timed at the path's shapes (``SSM_PATH_SHAPES``) beside
+       its plain version and bytes bound.
+    Returns the kernel launches of each path."""
+    card = card_line()
+    log(f"[recur] phase 18 on {card}")
+    t0 = time.perf_counter()
+    jamba, launches = run_jamba(card)
+    xlstm = run_xlstm(card)
+    times = [time_ssm_scan(b, t) for b, t in SSM_PATH_SHAPES]
+    report["recurrent"] = dict(card=card, jamba=jamba, xlstm=xlstm, ssm_scan_times=times, launches=launches,
+                               seconds=time.perf_counter() - t0)
+    log(f"[recur] phase 18 passed in {time.perf_counter() - t0:.1f} s ({card})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
@@ -4035,6 +4445,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", action="store_true",
                     help="build the decode, link and attention kernels and run phase 17 only (the attention-family "
                          "architectures at full width; kimi-k2 needs ~45 GB of the card)")
+    ap.add_argument("--recur", action="store_true",
+                    help="build the decode, attention and SSM-scan kernels, check the scan and run phase 18 only (the "
+                         "recurrent families at full width; jamba-v0.1 needs ~55 GB of the card)")
     ap.add_argument("--bwd-split", nargs="?", const="bfloat16", choices=("bfloat16", "float32"),
                     help="trace the tensor-core backward of this dtype at the training shape only (its kernels' "
                          "device times)")
@@ -4119,6 +4532,31 @@ def main(argv=None) -> int:
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_arch.json").write_text(json.dumps(report, indent=1, default=str))
         log("[arch] phase 17 passed; no result line in --arch mode")
+        return 0
+    if args.recur:
+        from repro_torch.kernels.decode_attention import cuda_kernel as decode_kernel
+        from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
+        from repro_torch.kernels.ssm_scan import cuda_kernel as scan_kernel
+
+        t0 = time.perf_counter()
+        card = card_line()
+        nvcc.build_libraries([(m.LIB_NAME, m.SOURCES) for m in (decode_kernel, flash_kernel, scan_kernel)])
+        log(f"[card] {card}; three libraries built in {time.perf_counter() - t0:.1f} s")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        ssm_record = dict(name="ssm_scan", route="cuda", source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                          replaces="src/repro/kernels/ssm_scan/kernel.py:55", max_abs_err=check_ssm_scan())
+        report = {"card": card}
+        recur = run_recurrent(report)
+        _ssm_path_record(ssm_record, recur, report["recurrent"]["ssm_scan_times"])
+        report["kernels"] = [ssm_record]
+        report["seconds"] = time.perf_counter() - t0
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_recur.json").write_text(json.dumps(report, indent=1, default=str))
+        log(f"[card] {card}")
+        print(json.dumps({"kernels": report["kernels"]}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
         return 0
     if args.bwd_split:
         from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
@@ -4316,6 +4754,19 @@ def main(argv=None) -> int:
         for rec, rows in ((record, kt["contiguous"]), (paged_record, kt["paged"])):
             rec["at_kimi_k2_heads"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                           "library_ms")} for r in rows]
+        # Phase 18's paths: jamba's loop, pool and long prompt (the SSM scan
+        # on its model path, flash decode and the flash-attention prefill at
+        # hd 128); xlstm launches no kernel.
+        recur = run_recurrent(report)
+        ssm_entry_launches = ssm_record["launches"]
+        _ssm_path_record(ssm_record, recur, report["recurrent"]["ssm_scan_times"])
+        ssm_record["launches_by_path"]["entry_point"] = ssm_entry_launches
+        ssm_record["at_jamba_state_T512"] = {k: stiming[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                                     "bound_by")}
+        for path, counts in recur.items():
+            record["launches_by_path"][f"recurrent/{path}"] = counts["flash_decode"]
+        flash_records["wgmma"]["launches_by_path"]["recurrent/jamba_long_prompt"] = \
+            recur["jamba_long_prompt"]["flash_attention"]
         launches = run_slice(report)
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [

@@ -141,6 +141,10 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, lr: float
     cfg = get_config(arch)
     if not full_size:
         cfg = cfg.reduced()
+    recurrent = sorted({s.kind for s in cfg.all_layers() if s.kind != "attn"})
+    if recurrent:
+        raise NotImplementedError(f"fine-tuning {cfg.name!r} (its {recurrent} layers) is not ported yet (ROADMAP "
+                                  "A12c); its serving is")
     if cfg.frontend or any(s.moe for s in cfg.all_layers()):
         raise NotImplementedError(f"fine-tuning {cfg.name!r} (MoE aux in the loss, frontend_embed batches) is not "
                                   "ported yet (ROADMAP A12c); its serving is")

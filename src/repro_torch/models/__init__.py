@@ -1,1 +1,1 @@
-"""The split LM: attention layers, the decoder stack and its caches."""
+"""The split LM: attention, Mamba and xLSTM layers, the decoder stack and its caches."""

@@ -1,13 +1,16 @@
 """Decode state (twin of ``repro/models/cache.py``): the contiguous KV
-cache, the continuous engine's slot pool and its paged block pool, and the
-byte accounting of each.
+cache and the recurrent layers' states, the continuous engine's slot pool
+and its paged block pool, and the byte accounting of each.
 
-The port keeps one dict per layer in stack order (``k``/``v`` plus
-``k_scale``/``v_scale`` for int8), where the reference keeps a
-prologue/units pytree.  Windowed layers allocate ``min(max_seq, window)``
-rotating slots.  Every pool here is updated **in place** (the reference
-returns new arrays): ``write_slot`` and ``write_prompt_blocks`` copy into
-the pool's own tensors.
+The port keeps one dict per layer in stack order, where the reference
+keeps a prologue/units pytree: ``k``/``v`` (plus ``k_scale``/``v_scale``
+for int8) for attention, ``conv``/``ssm`` for Mamba, ``c``/``n``/``m``
+for mLSTM and ``c``/``n``/``m``/``h`` for sLSTM.  Windowed layers allocate
+``min(max_seq, window)`` rotating slots.  Every pool here is updated **in
+place** (the reference returns new arrays): ``write_slot`` and
+``write_prompt_blocks`` copy into the pool's own tensors, and
+``reset_cache`` restores every leaf's initial value (the xLSTM
+stabilisers ``m`` start at ``NEG_INF``, not 0).
 """
 
 from __future__ import annotations
@@ -18,32 +21,48 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.decode_attention import decode_block_kv
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba, xlstm
 from repro_torch.models.common import dtype_of
 
 
 def _attn_lengths(cfg: ModelConfig, max_seq: int) -> List[int]:
-    """Each layer's rotating cache length; raises for layers without a KV
-    cache, which the port does not build yet."""
-    lengths = []
-    for spec in cfg.all_layers():
-        if spec.kind != "attn":
-            raise NotImplementedError(f"{spec.kind!r} decode state is not ported yet (ROADMAP A12b)")
-        lengths.append(attention.cache_len(spec, max_seq))
-    return lengths
+    """The rotating cache length of each attention layer, in stack order;
+    the recurrent layers hold no rows and are skipped, as the reference's
+    accounting skips them."""
+    return [attention.cache_len(spec, max_seq) for spec in cfg.all_layers() if spec.kind == "attn"]
 
 
-def _kv_caches(cfg: ModelConfig, batch: int, lengths: List[int], device) -> List[attention.Cache]:
-    return [attention.init_kv_cache(batch, length, cfg.num_kv_heads, cfg.resolved_head_dim,
-                                    dtype_of(cfg.dtype), kv_cache_dtype=cfg.kv_cache_dtype, device=device)
-            for length in lengths]
+def _layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int, max_seq: int, device) -> attention.Cache:
+    dtype = dtype_of(cfg.dtype)
+    if spec.kind == "attn":
+        return attention.init_kv_cache(batch, attention.cache_len(spec, max_seq), cfg.num_kv_heads,
+                                       cfg.resolved_head_dim, dtype, kv_cache_dtype=cfg.kv_cache_dtype, device=device)
+    if spec.kind == "mamba":
+        return mamba.init_mamba_cache(batch, cfg, dtype, device)
+    if spec.kind == "mlstm":
+        return xlstm.init_mlstm_cache(batch, cfg, device)
+    if spec.kind == "slstm":
+        return xlstm.init_slstm_cache(batch, cfg, device)
+    raise ValueError(spec.kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> List[attention.Cache]:
-    """Zeroed per-layer caches; layers write into them in place."""
-    return _kv_caches(cfg, batch, _attn_lengths(cfg, max_seq), device)
+    """Per-layer decode states at their initial values; layers write into
+    them in place."""
+    return [_layer_cache(spec, cfg, batch, max_seq, device) for spec in cfg.all_layers()]
+
+
+def reset_cache(cache: List[attention.Cache], cfg: ModelConfig) -> List[attention.Cache]:
+    """Restore every leaf of ``cache`` to its ``init_cache`` value, in place:
+    KV rows, conv and SSM states to 0, the xLSTM stabilisers ``m`` to
+    ``NEG_INF`` (a zeroed ``m`` would change the first step's
+    stabiliser)."""
+    for spec, layer in zip(cfg.all_layers(), cache):
+        for name, t in layer.items():
+            t.fill_(xlstm.NEG_INF if spec.kind in ("mlstm", "slstm") and name == "m" else 0)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +129,9 @@ def init_block_pool(cfg: ModelConfig, num_blocks: int, block_size: int, device="
     if num_blocks < 2:
         raise ValueError(f"init_block_pool: num_blocks={num_blocks} < 2; block 0 is the reserved trash block, "
                          "so a usable pool needs at least one more")
-    return _kv_caches(cfg, num_blocks, [block_size] * len(cfg.all_layers()), device)
+    return [attention.init_kv_cache(num_blocks, block_size, cfg.num_kv_heads, cfg.resolved_head_dim,
+                                    dtype_of(cfg.dtype), kv_cache_dtype=cfg.kv_cache_dtype, device=device)
+            for _ in cfg.all_layers()]
 
 
 def write_prompt_blocks(pool: List[attention.Cache], slot_cache: List[attention.Cache], bt_row: torch.Tensor,
@@ -227,6 +248,23 @@ def block_pool_bytes(cfg: ModelConfig, num_blocks: int, block_size: int) -> int:
     return len(cfg.all_layers()) * num_blocks * block_size * _attn_row_bytes(cfg)
 
 
+def _recurrent_bytes(cfg: ModelConfig, spec: LayerSpec) -> int:
+    """Bytes of one request's state in a recurrent layer: Mamba's conv tail
+    in the model dtype and its f32 SSM state, mLSTM's f32 (C, n, m),
+    sLSTM's f32 (c, n, m, h)."""
+    h, dh = cfg.num_heads, cfg.xlstm_head_dim
+    if spec.kind == "mamba":
+        di = cfg.mamba_d_inner
+        return (cfg.mamba_d_conv - 1) * di * dtype_of(cfg.dtype).itemsize + di * cfg.mamba_d_state * 4
+    if spec.kind == "mlstm":
+        return (h * dh * dh + h * dh + h) * 4
+    if spec.kind == "slstm":
+        return 4 * h * dh * 4
+    raise ValueError(spec.kind)
+
+
 def cache_bytes(cfg: ModelConfig, batch: int, max_seq: int) -> int:
-    """Footprint of ``batch`` contiguous caches of ``max_seq`` in bytes."""
-    return batch * sum(_attn_lengths(cfg, max_seq)) * _attn_row_bytes(cfg)
+    """Footprint of ``batch`` contiguous decode states of ``max_seq`` in
+    bytes: every leaf, the recurrent layers' states included."""
+    recurrent = sum(_recurrent_bytes(cfg, spec) for spec in cfg.all_layers() if spec.kind != "attn")
+    return batch * (sum(_attn_lengths(cfg, max_seq)) * _attn_row_bytes(cfg) + recurrent)

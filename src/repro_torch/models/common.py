@@ -1,5 +1,6 @@
 """Shared building blocks: dtypes, the truncated-normal initializers, norms
-(RMSNorm and LayerNorm) and activations (twin of ``repro/models/common.py``)."""
+(RMSNorm and LayerNorm) and activations (twin of ``repro/models/common.py``),
+with the recurrent layers' ``softplus`` and ``log_sigmoid`` in jax's form."""
 
 from __future__ import annotations
 
@@ -44,8 +45,16 @@ def dense_std(shape) -> float:
     return 1.0 / math.sqrt(fan_in)
 
 
-class RMSNorm(nn.Module):
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """RMSNorm with the (1 + scale) convention, eps 1e-6, computed in f32."""
+    x32 = x.to(acc_dtype(x))
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + 1e-6)
+    return (y * (1.0 + scale.to(x32.dtype))).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """:func:`rmsnorm` with its ``scale`` (zeros at init)."""
 
     def __init__(self, d: int, dtype, device):
         super().__init__()
@@ -55,10 +64,7 @@ class RMSNorm(nn.Module):
         nn.init.zeros_(self.scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.to(acc_dtype(x))
-        var = (x32 * x32).mean(dim=-1, keepdim=True)
-        y = x32 * torch.rsqrt(var + 1e-6)
-        return (y * (1.0 + self.scale.to(x32.dtype))).to(x.dtype)
+        return rmsnorm(x, self.scale)
 
 
 class LayerNorm(nn.Module):
@@ -92,6 +98,19 @@ def make_norm(kind: str, d: int, dtype, device) -> nn.Module:
     if kind == "layernorm":
         return LayerNorm(d, dtype, device)
     raise ValueError(f"unknown norm {kind!r}")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): ``max(x, 0) +
+    log1p(exp(-|x|))``, the same operations in the same order (torch's
+    ``F.softplus`` forms ``log1p(exp(x))`` below its threshold, which rounds
+    otherwise for positive x)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
 
 
 def activation(name: str):

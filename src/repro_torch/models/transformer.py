@@ -1,6 +1,6 @@
-"""The decoder stack (twin of ``repro/models/transformer.py``), attention
-layers only (the recurrent kinds are ROADMAP A12b): RMSNorm or LayerNorm,
-and a dense or MoE FFN.
+"""The decoder stack (twin of ``repro/models/transformer.py``): each layer
+mixes by its kind (attention, Mamba, mLSTM or sLSTM) behind RMSNorm or
+LayerNorm, then runs a dense or MoE FFN where the config has one.
 
 The reference scans ``U`` units of ``unit_pattern`` with stacked params;
 the port unrolls them into one ``nn.ModuleList`` — layer
@@ -20,8 +20,12 @@ import torch.nn as nn
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.attention import Attention, Cache, Index
 from repro_torch.models.common import make_norm
+from repro_torch.models.mamba import Mamba
 from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE
+from repro_torch.models.xlstm import MLSTM, SLSTM
+
+RECURRENT = {"mamba": Mamba, "mlstm": MLSTM, "slstm": SLSTM}
 
 
 def _has_ffn(cfg: ModelConfig, spec: LayerSpec) -> bool:
@@ -29,14 +33,20 @@ def _has_ffn(cfg: ModelConfig, spec: LayerSpec) -> bool:
 
 
 class Layer(nn.Module):
-    """Pre-norm residual layer: attention, then the dense or MoE FFN."""
+    """Pre-norm residual layer: the mixer of ``spec.kind``, then the dense
+    or MoE FFN.  A recurrent mixer reads and writes its cache's state and
+    ignores the positions and ``cache_index``."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, dtype, device):
         super().__init__()
-        if spec.kind != "attn":
-            raise NotImplementedError(f"layer kind {spec.kind!r} is not ported yet (ROADMAP A12b)")
+        self.kind = spec.kind
         self.norm1 = make_norm(cfg.norm, cfg.d_model, dtype, device)
-        self.mix = Attention(cfg, spec, dtype, device)
+        if spec.kind == "attn":
+            self.mix = Attention(cfg, spec, dtype, device)
+        elif spec.kind in RECURRENT:
+            self.mix = RECURRENT[spec.kind](cfg, dtype, device)
+        else:
+            raise ValueError(spec.kind)
         if _has_ffn(cfg, spec):
             self.norm2 = make_norm(cfg.norm, cfg.d_model, dtype, device)
             self.ffn = (MoE(cfg, dtype, device) if spec.moe
@@ -54,7 +64,10 @@ class Layer(nn.Module):
     def forward(self, x, cfg, positions, cache=None, cache_index=None, route_rows=False):
         """Returns (x, aux): aux the MoE FFN's load-balance term, else None.
         ``route_rows`` routes each batch row as its own MoE group."""
-        x = x + self.mix(self.norm1(x), cfg, positions, cache, cache_index)
+        if self.kind == "attn":
+            x = x + self.mix(self.norm1(x), cfg, positions, cache, cache_index)
+        else:
+            x = x + self.mix(self.norm1(x), cfg, cache)
         aux = None
         if isinstance(self.ffn, MoE):
             y, aux = self.ffn(self.norm2(x), cfg, per_row=route_rows)

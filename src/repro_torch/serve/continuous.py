@@ -38,9 +38,11 @@ Retired slots keep stepping: their scalar state is live-masked, and their
 cache writes land where nothing reads before the next admission rewrites
 the slot (contiguous) or in the trash block (paged).
 
-Models whose sliding windows are shorter than the largest bucket use
-exact-length buckets: right padding would evict real rows from the
-rotating cache.
+Models with recurrent layers (Mamba, xLSTM), and models whose sliding
+windows are shorter than the largest bucket, use exact-length buckets:
+right padding would run through the recurrent state or evict real rows
+from the rotating cache.  A one-token prompt then prefills through the
+recurrent layers' decode step, as the reference's does.
 
 Sampling (``PoolConfig(greedy=False)``) follows the reference: the prefill
 splits the request key once more for its first token, and each decode
@@ -261,7 +263,8 @@ class ContinuousEngine:
         if self.pool.paged:
             bad = sorted({s.kind for s in cfg.all_layers() if s.kind != "attn"})
             if bad:
-                raise ValueError(f"paged slot pools support attention-only stacks; {cfg.name!r} has {bad} layers")
+                raise ValueError(f"paged slot pools support attention-only stacks; {cfg.name!r} has {bad} layers "
+                                 "(O(1) recurrent state — nothing to page)")
             if self.pool.total_blocks < 2:
                 raise ValueError("paged pool needs >= 2 blocks (block 0 is the trash block)")
         self._padded = padding_safe(cfg, self.pool.max_bucket)

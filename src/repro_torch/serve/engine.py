@@ -10,11 +10,13 @@ a compiled program is one cache entry per signature, built once on a miss:
   the rounds with the reference's key chain, greedy or sampled);
 * the kernel libraries the path launches, loaded when the entry is built,
   so the nvcc build of a library's first use never lands inside a timed
-  ``generate_s``: flash decode always, flash attention when the prompt is
-  past ``cfg.attn_block_q``, the link kernels under
+  ``generate_s``: flash decode when the stack has attention layers, flash
+  attention when the prompt is also past ``cfg.attn_block_q``, the SSM
+  scan when it has Mamba layers, the link kernels under
   ``LinkSpec(use_kernel=True)``;
-* a decode cache allocated once and zeroed on every call, the counterpart
-  of the reference's donated cache.
+* a decode cache allocated once and reset to its initial values
+  (``models.cache.reset_cache``) on every call, the counterpart of the
+  reference's donated cache.
 
 The signature (``generate_key``) is ``(cfg, batch, prompt_len,
 num_tokens, greedy, temperature, link_spec, device)``: ``cfg`` is frozen
@@ -58,13 +60,19 @@ def _load_libraries(cfg: ModelConfig, prompt_len: int, link_spec, device: torch.
     ``device`` launches; none on the CPU, which runs the plain versions."""
     if device.type != "cuda":
         return ()
-    from repro_torch.kernels.decode_attention import cuda_kernel as decode_kernel
+    mods = []
+    if cfg.has_kind("attn"):
+        from repro_torch.kernels.decode_attention import cuda_kernel as decode_kernel
 
-    mods = [decode_kernel]
-    if cfg.attn_impl in ("blockwise", "flash_decode") and prompt_len > cfg.attn_block_q:
-        from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
+        mods.append(decode_kernel)
+        if cfg.attn_impl in ("blockwise", "flash_decode") and prompt_len > cfg.attn_block_q:
+            from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
 
-        mods.append(flash_kernel)
+            mods.append(flash_kernel)
+    if cfg.has_kind("mamba"):
+        from repro_torch.kernels.ssm_scan import cuda_kernel as scan_kernel
+
+        mods.append(scan_kernel)
     if link_spec is not None and link_spec.use_kernel:
         from repro_torch.kernels.lossy_link import cuda_kernel as link_kernel
 
@@ -80,7 +88,7 @@ class CompiledGenerate:
 
     fn: Callable
     key: Tuple
-    cache: Any = None         # the decode cache, allocated once, zeroed every call
+    cache: Any = None         # the decode cache, allocated once, reset every call
     libraries: Tuple[str, ...] = ()
     traces: int = 0
     compiles: int = 0
@@ -160,9 +168,7 @@ class DecodeEngine:
                                           device) not in self._compiled
         entry = self.get_compiled(cfg, b, s_prompt, num_tokens, greedy=greedy, temperature=temperature,
                                   link_spec=link_spec, device=device)
-        for layer in entry.cache:
-            for t in layer.values():
-                t.zero_()
+        cache_lib.reset_cache(entry.cache, cfg)
         synchronize(device)
         t0 = time.perf_counter()
         tokens, _ = entry.fn(model, prompts, entry.cache, key)

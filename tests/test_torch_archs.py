@@ -85,8 +85,10 @@ def test_config_is_the_reference(arch):
 
 
 def test_registry_holds_the_eight_attention_configs():
-    assert set(T_ARCHS) == set(ARCHS) | {"qwen1.5-0.5b", "gemma3-12b"}
-    assert set(T_ARCHS) <= set(J_ARCHS)
+    """The eight attention configs, and since A12b the two recurrent ones:
+    the reference's whole registry."""
+    assert set(T_ARCHS) == set(ARCHS) | {"qwen1.5-0.5b", "gemma3-12b", "jamba-v0.1-52b", "xlstm-350m"}
+    assert set(T_ARCHS) == set(J_ARCHS)
 
 
 @pytest.mark.parametrize("arch,overrides", VARIANTS, ids=[f"{a}{'-' + '-'.join(map(str, o.values())) if o else ''}"
