@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one H100: builds the kernels,
-holds each (the six kernels, flash attention's forward and backward bodies
-among them, and the CUDA-core flash-attention bodies kept as timing
-baselines) against its plain PyTorch version on the card, serves
-the full-width qwen1.5-0.5b split LM through ``generate_reference``, through
-the continuous-batching engine (contiguous and paged pools), through
-``lm.forward`` with the link kernels (``LinkSpec(use_kernel=True)``) and
-with prompts past ``attn_block_q`` (the flash-attention prefill), drives
-the SSM scan through its entry point, fine-tunes it with the COMtune link
-(``launch.train``, sequences past ``attn_block_q``: the flash-attention
-forward and backward kernels), runs the paper's own experiment (the split
-VGG16 CNN, DI through the egress kernel), and times the kernels and the
-paths.
+holds each (the six kernels and the SSM scan's backward, flash attention's
+forward and backward bodies among them, and the CUDA-core flash-attention
+bodies kept as timing baselines) against its plain PyTorch version on the
+card, serves the full-width qwen1.5-0.5b split LM through
+``generate_reference``, through the continuous-batching engine (contiguous
+and paged pools), through ``lm.forward`` with the link kernels
+(``LinkSpec(use_kernel=True)``) and with prompts past ``attn_block_q`` (the
+flash-attention prefill), drives the SSM scan through its entry point,
+fine-tunes it with the COMtune link (``launch.train``, sequences past
+``attn_block_q``: the flash-attention forward and backward kernels), runs
+the paper's own experiment (the split VGG16 CNN, DI through the egress
+kernel), serves and fine-tunes the MoE, frontend and recurrent families
+(jamba's Mamba layers through the SSM scan and its backward), and times
+the kernels and the paths.
 
     python3 chip_smoke.py            # everything (needs one sm_90 card)
     python3 chip_smoke.py --quick    # build + kernel checks only
@@ -22,6 +24,7 @@ paths.
     python3 chip_smoke.py --serve        # the decode, link and attention kernels' build + phase 16 only
     python3 chip_smoke.py --arch         # the decode, link and attention kernels' build + phase 17 only
     python3 chip_smoke.py --recur        # the decode, attention and scan kernels' build + phase 18 only
+    python3 chip_smoke.py --tune         # the attention and scan kernels' build, B6 / B6' checks + phase 19 only
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
@@ -78,7 +81,11 @@ Phases (any failure raises and the script exits non-zero):
      and the slab kernels; per-body counters, none on the CUDA cores) and
      equal bit for bit on a second call;
      the SSM scan vs ``ssm_scan_ref`` bit for bit at T 1 / 100 / 300 x D 1
-     / 130 / 512;
+     / 130 / 512; its backward (B6') vs ``ssm_scan_bwd_ref`` bit for bit at
+     jamba's training chunk (2, 256, 131,072), (1, 1, 256), (3, 17, 1,000)
+     and (4, 600, 4,096), h0 zero and not, a ``dy`` with zero rows, and
+     ``SSMScanFunction``'s gradients on the card equal to the same Function
+     on CPU copies (one call; three chained calls carrying the state);
   3. threefry link masks (iid, Gilbert–Elliott) drawn on the card equal
      the same draws on the CPU;
   4. full-width qwen1.5-0.5b (random weights from a seed), batch 4, prompt
@@ -269,7 +276,27 @@ Phases (any failure raises and the script exits non-zero):
      timed at (4, 32, 131,072) and (1, 256, 131,072) f32 beside its plain
      version and bytes bound.  ``--recur`` runs the scan's phase-2 check and
      phase 18 alone and prints the scan's kernel record and the last line.
-Phases 9-18 run after phase 3, ahead of the profiled phases 5 and 7; last,
+ 19. fine-tuning the MoE, frontend and recurrent families (``run_tuning``),
+     random weights from a seed, each model freed before the next: first
+     B3 and B3' through ``FlashAttentionFunction`` at jamba's (2 x 1024,
+     32 / 8 heads, hd 128) and musicgen's (4 x 1024, 24 / 24 heads, hd 64)
+     bf16 training shapes, held to phase 2's bf16 bars; then
+     jamba-v0.1-52b at full width in bf16 cut in depth to a prologue Mamba
+     layer with a dense MLP, the link, and one unit of (attention with a
+     dense MLP, Mamba with MoE) (3.96 B parameters), through
+     ``steps.make_train_epoch``: step 1's backward run twice on the same
+     inputs within ``MOE_REPEAT_REL`` of each other (the MoE's atomics),
+     then 3 steps of 2 x 1024 on the synthetic stream with 8 B6 and 8 B6'
+     launches (2 Mamba layers x 4 chunks) and one B3 and B3' (hd 128, the
+     wgmma bodies) a step, finite and falling losses, the peak memory, a
+     step's forward / backward / optimizer split and one Mamba and one MoE
+     layer's forward and backward; ``launch.train.train(full_size=True)``
+     of xlstm-350m (3 steps of 4 x 256; no hand kernel) and
+     musicgen-medium (3 steps of 4 x 1024, the frontend zeros; 48 B3 and
+     B3' at hd 64 a step); B6' timed at the training chunk beside its plain
+     version and bytes bound.  ``--tune`` runs the scan's and its
+     backward's phase-2 checks and phase 19 alone.
+Phases 9-19 run after phase 3, ahead of the profiled phases 5 and 7; last,
 torch.profiler traces, each in a process of its own (``--bwd-split``),
 split the tensor-core backward's time at the training shape between its
 kernels, bf16 and f32.
@@ -1242,7 +1269,7 @@ def _zero_counts():
     from repro_torch.kernels.ssm_scan import cuda_kernel as ss
 
     fd.launch_count = fd.paged_launch_count = ll.egress_launch_count = ll.burst_launch_count = 0
-    fa.launch_count = fa.bwd_launch_count = ss.launch_count = 0
+    fa.launch_count = fa.bwd_launch_count = ss.launch_count = ss.bwd_launch_count = 0
     fa.body_launch_count.update(wgmma=0, tf32x3=0, bf16x6=0, simt=0)
     fa.bwd_body_launch_count.update(wgmma=0, bf16x6=0, simt=0)
 
@@ -1256,7 +1283,7 @@ def _counts() -> dict:
     return dict(flash_decode=fd.launch_count, paged_flash_decode=fd.paged_launch_count,
                 lossy_link_egress=ll.egress_launch_count, burst_mask=ll.burst_launch_count,
                 flash_attention=fa.flash_attention_launch_count(), flash_attention_bwd=fa.bwd_launch_count,
-                ssm_scan=ss.launch_count)
+                ssm_scan=ss.launch_count, ssm_scan_bwd=ss.bwd_launch_count)
 
 
 def run_link_kernels(report) -> dict:
@@ -1288,9 +1315,9 @@ def run_link_kernels(report) -> dict:
     prompts = prng.randint(key, (BATCH, PROMPT), 0, base.vocab_size)
     spec = lambda channel, kernel=True: LinkSpec(loss_rate=LOSS, channel=channel, use_kernel=kernel)
     want = {"iid": dict(flash_decode=per_run, paged_flash_decode=0, lossy_link_egress=TOKENS, burst_mask=0,
-                        flash_attention=0, flash_attention_bwd=0, ssm_scan=0),
+                        flash_attention=0, flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0),
             "ge": dict(flash_decode=per_run, paged_flash_decode=0, lossy_link_egress=0, burst_mask=PROMPT + TOKENS,
-                       flash_attention=0, flash_attention_bwd=0, ssm_scan=0)}
+                       flash_attention=0, flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0)}
     out = {}
     main_launches = {}
     for dtype in ("float32", "bfloat16"):
@@ -1818,6 +1845,90 @@ def check_ssm_scan() -> float:
     return 0.0
 
 
+# B6' at jamba's training chunk (B 2, L 256, D 131,072), one step, T not a
+# multiple of the unroll (17) with D ragged against a block (1,000), and a
+# long scan at a mid width.
+SSM_BWD_SHAPES = ((2, 256, 131072), (1, 1, 256), (3, 17, 1000), (4, 600, 4096))
+
+
+def _ssm_bwd_inputs(gen, bsz, t, d, dt=None, hdt=None, h0_zero=False, zero_rows=False):
+    """Decays in [0.8, 1), increments, h0 (zero or not) and a ``dy`` whose
+    every third row is zero (with ``zero_rows``), on the card."""
+    import torch
+
+    dt, hdt = dt or torch.float32, hdt or torch.float32
+    a = (0.8 + 0.2 * torch.rand((bsz, t, d), generator=gen, device="cuda")).to(dt)
+    b = (0.1 * torch.randn((bsz, t, d), generator=gen, device="cuda")).to(dt)
+    h0 = torch.zeros((bsz, d), device="cuda", dtype=hdt) if h0_zero else \
+        torch.randn((bsz, d), generator=gen, device="cuda").to(hdt)
+    dy = torch.randn((bsz, t, d), generator=gen, device="cuda")
+    if zero_rows:
+        dy[:, ::3] = 0.0
+    return a, b, h0, dy
+
+
+def check_ssm_scan_bwd() -> float:
+    """B6' (``cuda_kernel.ssm_scan_bwd``) vs ``ssm_scan_bwd_ref`` on the card,
+    bit for bit (``torch.equal``) at ``SSM_BWD_SHAPES``, h0 zero and not,
+    a ``dy`` with zero rows, f32 (and bf16 decays and h0 at the small
+    shapes); then ``SSMScanFunction``'s gradients on the card against the
+    same Function on CPU copies, bit for bit: one call, and three chained
+    calls, each from the state the one before left (``dh0`` reaching the
+    chunk before)."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import SSMScanFunction, cuda_kernel, ssm_scan_bwd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    n_cases = 0
+    for bsz, t, d in SSM_BWD_SHAPES:
+        dts = ((torch.float32, torch.float32),) if d > 4096 else \
+            ((torch.float32, torch.float32), (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+        for dt, hdt in dts:
+            for h0_zero, zero_rows in ((False, True), (True, False)):
+                a, b, h0, dy = _ssm_bwd_inputs(gen, bsz, t, d, dt, hdt, h0_zero, zero_rows)
+                out = cuda_kernel.ssm_scan(a, b, h0)
+                got = cuda_kernel.ssm_scan_bwd(a, dy, out, h0)
+                want = ssm_scan_bwd_ref(a, dy, out, h0)
+                torch.cuda.synchronize()
+                for name, g, w in zip(("da", "db", "dh0"), got, want):
+                    if not torch.equal(g, w):
+                        err = float((g - w).abs().max())
+                        raise AssertionError(f"ssm_scan_bwd {(bsz, t, d, str(dt), str(hdt), h0_zero)} {name}: "
+                                             f"kernel differs from the plain version (max |err| {err:.3e})")
+                n_cases += 1
+                del a, b, h0, dy, out, got, want
+    torch.cuda.empty_cache()
+    log(f"[kernel] ssm_scan_bwd vs ssm_scan_bwd_ref: {n_cases} cases bit for bit "
+        f"(shapes {list(SSM_BWD_SHAPES)}; h0 zero and not; dy with zero rows)")
+
+    def grads(device, leaves, dys, chain):
+        leaves = [[x.to(device).requires_grad_() for x in leaf] for leaf in leaves]
+        h, loss = leaves[0][2], 0.0
+        for (a, b, h0), dy in zip(leaves, dys):
+            out = SSMScanFunction.apply(a, b, h if chain else h0)
+            loss = loss + (out * dy.to(device)).sum()
+            h = out[:, -1]
+        return torch.autograd.grad(loss, [x for leaf in leaves for x in leaf], allow_unused=True)
+
+    n_fn = 0
+    for bsz, t, d, n in ((2, 40, 1000, 1), (3, 17, 1000, 3)):
+        leaves, dys = [], []
+        for _ in range(n):
+            a, b, h0, dy = _ssm_bwd_inputs(gen, bsz, t, d, zero_rows=True)
+            leaves.append((a, b, h0))
+            dys.append(dy)
+        got = grads("cuda", leaves, dys, chain=n > 1)
+        want = grads("cpu", leaves, dys, chain=n > 1)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if (g is None) != (w is None) or (g is not None and not torch.equal(g.cpu(), w)):
+                raise AssertionError(f"SSMScanFunction {(bsz, t, d, n)}: gradient {i} differs from the CPU's")
+        n_fn += 1
+    log(f"[kernel] SSMScanFunction on the card vs the same Function on CPU copies: {n_fn} cases bit for bit "
+        "(one call; three chained calls carrying the state)")
+    return 0.0
+
+
 # ---------------------------------------------------------------------------
 # Phase 11: the long-prompt slice (prefill past attn_block_q) at full width
 # ---------------------------------------------------------------------------
@@ -1863,7 +1974,7 @@ def run_long_prefill(report) -> dict:
     toks, timings = generate_reference(model32, cfg32, prompts, LONG_TOKENS, loss_rate=LOSS, key=key, channel="iid")
     launches = _counts()
     want = dict(flash_decode=n_layers * LONG_TOKENS, paged_flash_decode=0, lossy_link_egress=0, burst_mask=0,
-                flash_attention=n_layers, flash_attention_bwd=0, ssm_scan=0)
+                flash_attention=n_layers, flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0)
     assert launches == want, f"long generate_reference: launches {launches}, want {want}"
     assert fa.body_launch_count == {"wgmma": 0, "tf32x3": n_layers, "bf16x6": 0, "simt": 0}, \
         f"f32 prefill bodies {fa.body_launch_count}"
@@ -1896,7 +2007,7 @@ def run_long_prefill(report) -> dict:
     n_long = sum(r.bucket > base.attn_block_q for r in reqs)
     assert [r.bucket for r in reqs] == [1024, 1024, 512, 64] and n_long == 2
     want = dict(flash_decode=0, paged_flash_decode=n_layers * eng.steps, lossy_link_egress=0, burst_mask=0,
-                flash_attention=n_layers * n_long, flash_attention_bwd=0, ssm_scan=0)
+                flash_attention=n_layers * n_long, flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0)
     assert engine_launches == want, f"long engine: launches {engine_launches}, want {want}"
     assert fa.body_launch_count == {"wgmma": 0, "tf32x3": n_layers * n_long, "bf16x6": 0, "simt": 0}, \
         f"bodies {fa.body_launch_count}"
@@ -2201,6 +2312,36 @@ def time_ssm_scan(bsz: int = 1, t: int = SSM_T) -> dict:
     return rec
 
 
+def time_ssm_scan_bwd(bsz: int = 2, t: int = 256) -> dict:
+    """B6' (graph replay and eager), its plain version and its bound at
+    jamba's training chunk (B ``bsz``, T ``t``, D 131,072, f32): bytes (a,
+    dy and out read once, da and db written once, h0 read and dh0 written)
+    over 3.35 TB/s against two flops a step for g and one each for da
+    (db is g, no operation) over the f32 peak.  No single PyTorch call
+    computes it, so there is no library time."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import cuda_kernel, ssm_scan_bwd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    a, b, h0, dy = _ssm_bwd_inputs(gen, bsz, t, SSM_D)
+    saved = (cuda_kernel.launch_count, cuda_kernel.bwd_launch_count)
+    out = cuda_kernel.ssm_scan(a, b, h0)
+    call = lambda: cuda_kernel.ssm_scan_bwd(a, dy, out, h0)
+    ms = time_graph(call, iters=20)
+    ms_eager = time_events(call, iters=20, warmup=3)
+    cuda_kernel.launch_count, cuda_kernel.bwd_launch_count = saved
+    plain_ms = time_events(lambda: ssm_scan_bwd_ref(a, dy, out, h0), iters=3, warmup=1)
+    nbytes = 5 * bsz * t * SSM_D * 4 + 2 * bsz * SSM_D * 4
+    ops = 3 * bsz * t * SSM_D
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_OPS["float32"])
+    rec = dict(shape=dict(B=bsz, T=t, D=SSM_D, dtype="float32"), ms=ms, ms_eager=ms_eager, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes, ops=ops)
+    log(f"[time] ssm_scan_bwd {rec['shape']}: kernel {ms * 1e3:.1f} us (graph) / {ms_eager * 1e3:.1f} us (eager), "
+        f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}, {nbytes} B)")
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # Phase 13: COMtune fine-tuning at full width
 # ---------------------------------------------------------------------------
@@ -2323,7 +2464,8 @@ def run_training(report) -> dict:
     wall = time.perf_counter() - t0
     launches = _counts()
     want = dict(flash_decode=0, paged_flash_decode=0, lossy_link_egress=0, burst_mask=0,
-                flash_attention=n_layers * TRAIN_STEPS, flash_attention_bwd=n_layers * TRAIN_STEPS, ssm_scan=0)
+                flash_attention=n_layers * TRAIN_STEPS, flash_attention_bwd=n_layers * TRAIN_STEPS, ssm_scan=0,
+                ssm_scan_bwd=0)
     assert launches == want, f"training run: launches {launches}, want {want}"
     assert fa.body_launch_count == {"wgmma": n_layers * TRAIN_STEPS, "tf32x3": 0, "bf16x6": 0, "simt": 0}, \
         fa.body_launch_count
@@ -2872,7 +3014,7 @@ def run_paper_experiment(report) -> int:
     torch.cuda.synchronize()
     launches = _counts()
     want = dict(flash_decode=0, paged_flash_decode=0, lossy_link_egress=2 * n_evals + len(quant_acc), burst_mask=0,
-                flash_attention=0, flash_attention_bwd=0, ssm_scan=0)
+                flash_attention=0, flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0)
     assert launches == want, f"paper experiment: launches {launches}, want {want}"
 
     # Checks (their launches are not the path's).
@@ -3404,7 +3546,7 @@ def run_serving_layer(report) -> dict:
     key = prng.PRNGKey(16, "cuda")
     prompts = prng.randint(key, (BATCH, PROMPT), 0, base.vocab_size)
     zeros = dict(flash_decode=0, paged_flash_decode=0, lossy_link_egress=0, burst_mask=0, flash_attention=0,
-                 flash_attention_bwd=0, ssm_scan=0)
+                 flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0)
     out, paths = {}, {}
     t_phase = time.perf_counter()
 
@@ -4432,6 +4574,335 @@ def run_recurrent(report) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: fine-tuning the MoE, frontend and recurrent families at full width
+# ---------------------------------------------------------------------------
+
+# jamba-v0.1-52b cut in depth only, every width kept (d_model 4096, 32 / 8
+# heads, d_inner 8192, d_state 16, 16 experts of 14,336 top-2, vocab 65,536,
+# untied head): a prologue Mamba layer with a dense MLP, the link after it
+# (split_after_units 0), then one unit of (attention with a dense MLP, Mamba
+# with MoE): each of jamba's layer kinds once, 3.96 B parameters.
+TUNE_STEPS, TUNE_BATCH, TUNE_SEQ = 3, 2, 1024
+XLSTM_TUNE, MUSICGEN_TUNE = dict(batch=4, seq=256), dict(batch=4, seq=1024)
+# The MoE's gradient gathers back into the token rows with atomics on the
+# card (a token's k = 2 expert rows and zero rows of empty slots added into
+# one row); phase 19 runs step 1's backward twice on the same weights, key
+# and batch and holds every gradient leaf to the first run's within one
+# bf16 ulp of the leaf's largest |g| (2^-8 relative), logging whether the
+# two were equal bit for bit.
+MOE_REPEAT_REL = 2.0 ** -8
+
+
+def _jamba_tune_cfg():
+    import dataclasses
+
+    from repro_torch.configs import LayerSpec, get_config
+
+    base = get_config("jamba-v0.1-52b")
+    return base.with_updates(dtype="bfloat16", prologue=(LayerSpec(kind="mamba"),),
+                             unit_pattern=(LayerSpec(kind="attn"), LayerSpec(kind="mamba", moe=True)),
+                             num_units=1, num_layers=3,
+                             link=dataclasses.replace(base.link, split_after_units=0, loss_rate=LOSS))
+
+
+def _step_grads(model, cfg, tokens, key):
+    """The train step's loss and gradients (``make_train_step``'s graph)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    params = dict(model.named_parameters())
+    logits, _, aux = lm.forward(model, tokens, cfg, link_key=key, link_mode="train")
+    loss = lm.lm_loss(logits, tokens, aux, cfg.router_aux_coef)
+    del logits
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), grads)}
+
+
+def _layer_fwd_bwd_ms(layer, x, cfg) -> dict:
+    """Device ms of one layer's mixer or FFN forward and of its backward
+    (``autograd.grad`` into its parameters and input) at the step's shape,
+    by CUDA events."""
+    import torch
+
+    params = [p for p in layer.parameters()]
+    xg = x.detach().requires_grad_()
+
+    def fwd():
+        out = layer(xg, cfg)
+        return out[0] if isinstance(out, tuple) else out
+
+    with torch.no_grad():
+        fwd_ms = time_events(fwd, iters=3, warmup=1)
+
+    def fwd_bwd():
+        out = fwd()
+        torch.autograd.grad(out.float().sum(), params + [xg])
+
+    return dict(forward_ms=fwd_ms, forward_backward_ms=time_events(fwd_bwd, iters=3, warmup=1))
+
+
+def run_jamba_tuning(card) -> tuple:
+    """jamba-v0.1 at full width (``_jamba_tune_cfg``) in bf16 through
+    ``steps.make_train_epoch``: the MoE repeat bar on step 1, then 3 steps
+    of 2 x 1024 on the synthetic stream (counts zeroed just before: 8 B6
+    and 8 B6' launches a step, one B3 and one B3' on the wgmma bodies),
+    finite and falling losses, the peak memory; then a step's split
+    (forward, backward, optimizer by CUDA events) and one Mamba and one MoE
+    layer's forward and backward.  Returns (report, launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.data import lm_batch_iterator, make_lm_dataset
+    from repro_torch.kernels.flash_attention import cuda_kernel as fa
+    from repro_torch.launch.steps import make_train_epoch
+    from repro_torch.models import lm
+    from repro_torch.models.mamba import Mamba
+    from repro_torch.models.moe import MoE
+    from repro_torch.optim import AdamConfig, adam_update, init_adam
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    cfg = _jamba_tune_cfg()
+    specs = cfg.all_layers()
+    n_mamba = sum(s.kind == "mamba" for s in specs)
+    n_attn = sum(s.kind == "attn" for s in specs)
+    chunks = -(-TUNE_SEQ // cfg.scan_chunk)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed=0, device="cuda").requires_grad_(True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[tune] ({card}) jamba-v0.1-52b at full width (d_model {cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} "
+        f"heads, d_inner {cfg.mamba_d_inner}, d_state {cfg.mamba_d_state}, {cfg.num_experts} experts top-{cfg.top_k} of "
+        f"{cfg.moe_dff}, vocab {cfg.vocab_size}), bf16, cut to {[(s.kind, s.moe) for s in specs]}, the link after "
+        f"the prologue: {n_params / 1e9:.3f} B parameters, {weights / 1e9:.2f} GB, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    stream = make_lm_dataset(cfg.vocab_size, n_tokens=TUNE_BATCH * TUNE_SEQ * 50)
+    it = lm_batch_iterator(stream, TUNE_BATCH, TUNE_SEQ, seed=0)
+    tokens = torch.from_numpy(np.stack([next(it) for _ in range(TUNE_STEPS)])).to("cuda")
+    key = prng.PRNGKey(0, "cuda")
+    out = dict(cut=[(s.kind, s.moe) for s in specs], params_b=n_params / 1e9, weights_gb=weights / 1e9,
+               batch=TUNE_BATCH, seq=TUNE_SEQ, steps=TUNE_STEPS)
+
+    # The MoE repeat bar: step 1's backward twice on the same inputs.
+    sub = prng.split(key)[1]
+    loss_a, grads_a = _step_grads(model, cfg, tokens[0], sub)
+    loss_b, grads_b = _step_grads(model, cfg, tokens[0], sub)
+    worst, equal = 0.0, torch.equal(loss_a, loss_b)
+    for name, g in grads_a.items():
+        scale = float(g.float().abs().max())
+        diff = float((g.float() - grads_b[name].float()).abs().max())
+        equal = equal and diff == 0.0
+        worst = max(worst, diff / scale if scale > 0 else diff)
+    del grads_a, grads_b
+    assert worst <= MOE_REPEAT_REL, f"jamba: step 1 repeated differs by {worst:.3e} of a leaf's largest |g|"
+    out["repeat"] = dict(bit_equal=bool(equal), worst_leaf_rel=worst, bar=MOE_REPEAT_REL)
+    log(f"[tune] jamba step 1 run twice (the MoE's gather backward adds with atomics): "
+        f"{'bit for bit equal' if equal else f'worst leaf {worst:.3e} of its largest |g|'} (bar {MOE_REPEAT_REL:.3e})")
+    torch.cuda.empty_cache()
+
+    # The main path: make_train_epoch, 3 steps, counts zeroed just before.
+    adam_cfg = AdamConfig(lr=1e-3, grad_clip_norm=1.0)
+    opt = init_adam(dict(model.named_parameters()), adam_cfg)
+    epoch = make_train_epoch(cfg, adam_cfg)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, opt, key, metrics = epoch(model, opt, {"tokens": tokens}, key)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    per_step = {k: v / TUNE_STEPS for k, v in launches.items()}
+    want = dict(ssm_scan=n_mamba * chunks, ssm_scan_bwd=n_mamba * chunks, flash_attention=n_attn,
+                flash_attention_bwd=n_attn)
+    assert all(per_step[k] == v for k, v in want.items()), f"jamba epoch: launches {launches}, want {want} a step"
+    assert fa.bwd_body_launch_count["wgmma"] == n_attn * TUNE_STEPS, fa.bwd_body_launch_count
+    losses = metrics["loss"].float().cpu().numpy()
+    norms = metrics["grad_norm"].float().cpu().numpy()
+    assert np.isfinite(losses).all() and np.isfinite(norms).all(), (losses, norms)
+    assert losses[-1] < losses[0], f"jamba: losses do not fall: {losses}"
+    out.update(losses=losses.tolist(), grad_norms=norms.tolist(), epoch_wall_s=wall, launches=launches,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, peak_share=torch.cuda.max_memory_allocated() / total)
+    log(f"[tune] ({card}) jamba epoch ({TUNE_STEPS} x {TUNE_BATCH} x {TUNE_SEQ}, dropout link, Adam f32 moments): "
+        f"losses {[round(float(x), 4) for x in losses]}, grad norms {[round(float(x), 3) for x in norms]}, "
+        f"{wall:.2f} s; launches a step: B6 {per_step['ssm_scan']:g}, B6' {per_step['ssm_scan_bwd']:g} "
+        f"({n_mamba} Mamba layers x {chunks} chunks), B3 {per_step['flash_attention']:g}, B3' "
+        f"{per_step['flash_attention_bwd']:g}; peak {out['peak_gb']:.2f} GB ({out['peak_share']:.1%} of the card)")
+
+    # A step's split by CUDA events (step 4 of the stream), then the layers.
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    batch = torch.from_numpy(next(it)).to("cuda")
+    params = dict(model.named_parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    _, grads = _step_grads(model, cfg, batch, prng.split(key)[1])
+    ev[1].record()
+    adam_update(grads, params, opt, adam_cfg)
+    ev[2].record()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del grads
+    out["step"] = dict(step_s=step_s, forward_backward_ms=ev[0].elapsed_time(ev[1]),
+                       optimizer_ms=ev[1].elapsed_time(ev[2]), tokens_per_s=TUNE_BATCH * TUNE_SEQ / step_s)
+    x = torch.randn((TUNE_BATCH, TUNE_SEQ, cfg.d_model), device="cuda").to(torch.bfloat16)
+    mamba = next(layer.mix for layer in model.stack.layers if isinstance(layer.mix, Mamba))
+    moe = next(layer.ffn for layer in model.stack.layers if isinstance(layer.ffn, MoE))
+    out["mamba_layer"] = _layer_fwd_bwd_ms(mamba, x, cfg)
+    out["moe_layer"] = _layer_fwd_bwd_ms(moe, x, cfg)
+    # The forward alone, under no_grad, for the forward / backward split.
+    with torch.no_grad():
+        out["step"]["forward_ms"] = time_events(
+            lambda: lm.forward(model, batch, cfg, link_key=key, link_mode="train"), iters=2, warmup=1)
+    out["step"]["backward_ms"] = out["step"]["forward_backward_ms"] - out["step"]["forward_ms"]
+    st, ml, mo = out["step"], out["mamba_layer"], out["moe_layer"]
+    log(f"[tune] ({card}) jamba step (2 x 1024): {st['step_s'] * 1e3:.1f} ms ({st['tokens_per_s']:.0f} tokens/s): "
+        f"forward {st['forward_ms']:.1f} ms (no-grad), backward {st['backward_ms']:.1f} ms, optimizer "
+        f"{st['optimizer_ms']:.1f} ms; a Mamba layer {ml['forward_ms']:.2f} ms forward / "
+        f"{ml['forward_backward_ms']:.2f} ms forward + backward (x {n_mamba}), the MoE layer {mo['forward_ms']:.2f} / "
+        f"{mo['forward_backward_ms']:.2f} ms")
+    del model, opt, params, x
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def check_tuning_attention() -> dict:
+    """B3 and B3' at the shapes phase 19's paths give them, through
+    ``FlashAttentionFunction`` as the attention layer calls it (the
+    forward with its row statistics, then ``autograd.grad``): jamba's
+    (B 2, S 1024, 32 / 8 heads, hd 128) and musicgen's (B 4, S 1024,
+    24 / 24 heads, hd 64), bf16, causal, each layer's window and softcap.
+    Both must run on the wgmma bodies, once each; the output is held to
+    phase 2's bf16 bar against ``gqa_flash_attention_ref`` in f32 on the
+    same inputs, dQ, dK and dV to the backward's bf16 bar against
+    ``flash_attention_bwd_ref`` in f32 (its noise from f64 in the bar).
+    Returns each shape's worst ratio to its bar and max |err|."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (cuda_kernel, flash_attention, flash_attention_bwd_ref,
+                                                     gqa_flash_attention_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    out = {}
+    for arch, cfg, bsz, seq in (("jamba", _jamba_tune_cfg(), TUNE_BATCH, TUNE_SEQ),
+                                ("musicgen", get_config("musicgen-medium"), MUSICGEN_TUNE["batch"],
+                                 MUSICGEN_TUNE["seq"])):
+        spec = next(s for s in cfg.all_layers() if s.kind == "attn")
+        hd, dt = cfg.resolved_head_dim, getattr(torch, cfg.dtype)
+        assert seq > cfg.attn_block_q, (arch, seq, cfg.attn_block_q)
+        kw = dict(causal=True, window=spec.window, q_offset=0, softcap=cfg.logit_softcap)
+        mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+        q, k, v = (mk(bsz, seq, h, hd).requires_grad_() for h in (cfg.num_heads, cfg.num_kv_heads,
+                                                                   cfg.num_kv_heads))
+        dout = mk(bsz, seq, cfg.num_heads, hd)
+        fwd0, bwd0 = dict(cuda_kernel.body_launch_count), dict(cuda_kernel.bwd_body_launch_count)
+        got = flash_attention(q, k, v, **kw)
+        grads = torch.autograd.grad(got, (q, k, v), dout)
+        moved = ({n: cuda_kernel.body_launch_count[n] - fwd0[n] for n in fwd0},
+                 {n: cuda_kernel.bwd_body_launch_count[n] - bwd0[n] for n in bwd0})
+        assert moved == ({n: int(n == "wgmma") for n in fwd0}, {n: int(n == "wgmma") for n in bwd0}), \
+            f"{arch}: bodies {moved}"
+        got = got.detach()
+        q32, k32, v32, o32, d32 = (t.detach().float() for t in (q, k, v, got, dout))
+        want32 = gqa_flash_attention_ref(q32, k32, v32, **kw)
+        ratio = {"out": float(((got.float() - want32).abs() / (BF16_REL * want32.abs() + BF16_ABS)).max())}
+        err = {"out": float((got.float() - want32).abs().max())}
+        del want32
+        w32 = flash_attention_bwd_ref(q32, k32, v32, o32, d32, **kw)
+        w64 = flash_attention_bwd_ref(*(t.double() for t in (q32, k32, v32, o32, d32)), **kw)
+        for name, a, x32, x64 in zip(("dq", "dk", "dv"), grads, w32, w64):
+            assert a.dtype == dt and a.shape == x32.shape, (arch, name, a.dtype, tuple(a.shape))
+            noise = float((x32.double() - x64).abs().max())
+            ratio[name] = float(((a.float() - x32).abs() / (BF16_REL * x32.abs() + BWD_F32_FACTOR * noise)).max())
+            err[name] = float((a.float() - x32).abs().max())
+        del w32, w64
+        torch.cuda.synchronize()
+        assert max(ratio.values()) <= 1.0, f"{arch}: attention at the training shape, ratios to the bf16 bar {ratio}"
+        out[arch] = dict(shape=(bsz, seq, cfg.num_heads, cfg.num_kv_heads, hd), dtype=cfg.dtype, bar_ratio=ratio,
+                         max_abs_err=err)
+        log(f"[kernel] flash_attention + flash_attention_bwd at {arch}'s training shape (B {bsz}, S {seq}, "
+            f"{cfg.num_heads} / {cfg.num_kv_heads} heads, hd {hd}, {cfg.dtype}) through FlashAttentionFunction, wgmma "
+            f"bodies: output and dQ, dK, dV at {({n: round(r, 3) for n, r in ratio.items()})} of the bf16 bar, "
+            f"max |err| {({n: f'{e:.3e}' for n, e in err.items()})}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_trainer_tuning(arch, want_attn, card, **shape) -> tuple:
+    """``launch.train.train(arch, full_size=True)`` for 3 steps, counts
+    zeroed just before: finite losses, ``want_attn`` B3 and B3' launches a
+    step (the wgmma bodies), no SSM-scan launch; the wall and the peak."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda_kernel as fa
+    from repro_torch.launch import train as t_train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    model, losses, cfg = t_train.train(arch, steps=TUNE_STEPS, full_size=True, log_every=10 ** 6, device="cuda",
+                                       **shape)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    n_attn = sum(s.kind == "attn" for s in cfg.all_layers())
+    assert n_attn == want_attn and launches["flash_attention"] == launches["flash_attention_bwd"] == \
+        want_attn * TUNE_STEPS, f"{arch}: launches {launches}"
+    assert fa.bwd_body_launch_count["wgmma"] == want_attn * TUNE_STEPS and launches["ssm_scan"] == 0
+    assert len(losses) == TUNE_STEPS and np.isfinite(losses).all(), losses
+    n_params = sum(p.numel() for p in model.parameters())
+    out = dict(dtype=cfg.dtype, layers=cfg.num_layers, params_b=n_params / 1e9, losses=losses, wall_s_with_setup=wall,
+               launches=launches, peak_gb=torch.cuda.max_memory_allocated() / 1e9, **shape)
+    log(f"[tune] ({card}) {arch} at full width and depth ({cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+        f"parameters, {cfg.dtype}{', the frontend zeros' if cfg.frontend else ''}), {TUNE_STEPS} steps of "
+        f"{shape['batch']} x {shape['seq']}: losses {[round(x, 4) for x in losses]}, {wall:.1f} s with set-up; "
+        f"B3 / B3' {launches['flash_attention']} / {launches['flash_attention_bwd']}; peak {out['peak_gb']:.2f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_tuning(report) -> dict:
+    """Phase 19, fine-tuning the A12 families at full width (random weights
+    from a seed, each model freed before the next): jamba-v0.1 cut in depth
+    through ``make_train_epoch`` (B6 and B6' on its Mamba layers, B3 / B3'
+    at hd 128), xlstm-350m (f32 moments, bf16, 24 layers; no hand kernel)
+    and musicgen-medium (48 layers, the frontend zeros; B3 / B3' at hd 64)
+    through ``launch.train.train``; first B3 / B3' held to their plain
+    versions at jamba's and musicgen's training shapes, last B6' timed at
+    the training chunk.  Returns the launches of each path."""
+    card = card_line()
+    log(f"[tune] phase 19 on {card}")
+    t0 = time.perf_counter()
+    attention = check_tuning_attention()
+    jamba, launches = run_jamba_tuning(card)
+    xlstm, x_launches = run_trainer_tuning("xlstm-350m", 0, card, **XLSTM_TUNE)
+    musicgen, m_launches = run_trainer_tuning("musicgen-medium", 48, card, **MUSICGEN_TUNE)
+    bwd_time = time_ssm_scan_bwd(TUNE_BATCH, 256)
+    paths = {"jamba": launches, "xlstm": x_launches, "musicgen": m_launches}
+    report["tuning"] = dict(card=card, attention_check=attention, jamba=jamba, xlstm=xlstm, musicgen=musicgen, ssm_scan_bwd_time=bwd_time,
+                            launches=paths, seconds=time.perf_counter() - t0)
+    log(f"[tune] phase 19 passed in {time.perf_counter() - t0:.1f} s ({card})")
+    return paths
+
+
+def _ssm_bwd_record(max_err, tune_report) -> dict:
+    t = tune_report["ssm_scan_bwd_time"]
+    return dict(name="ssm_scan_bwd", route="cuda", source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                replaces="src/repro/models/mamba.py:75 (the gradient of _chunked_selective_scan's associative scan, "
+                         "by autodiff)",
+                max_abs_err=max_err, launches=tune_report["launches"]["jamba"]["ssm_scan_bwd"],
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+                shape=t["shape"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
@@ -4448,6 +4919,10 @@ def main(argv=None) -> int:
     ap.add_argument("--recur", action="store_true",
                     help="build the decode, attention and SSM-scan kernels, check the scan and run phase 18 only (the "
                          "recurrent families at full width; jamba-v0.1 needs ~55 GB of the card)")
+    ap.add_argument("--tune", action="store_true",
+                    help="build the attention and SSM-scan kernels, check the scan and its backward and run phase 19 "
+                         "only (fine-tuning the MoE, frontend and recurrent families at full width; jamba-v0.1 "
+                         "needs ~60 GB of the card)")
     ap.add_argument("--bwd-split", nargs="?", const="bfloat16", choices=("bfloat16", "float32"),
                     help="trace the tensor-core backward of this dtype at the training shape only (its kernels' "
                          "device times)")
@@ -4558,6 +5033,36 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return 0
+    if args.tune:
+        from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
+        from repro_torch.kernels.ssm_scan import cuda_kernel as scan_kernel
+
+        t0 = time.perf_counter()
+        card = card_line()
+        libs = nvcc.build_libraries([(m.LIB_NAME, m.SOURCES) for m in (flash_kernel, scan_kernel)])
+        log(f"[card] {card}; two libraries built in {time.perf_counter() - t0:.1f} s")
+        for name, line in kernel_resources(libs[scan_kernel.LIB_NAME].with_suffix(".log").read_text(),
+                                           ("ssm_scan_bwd_kernel",)):
+            log(f"[build]   {name}: {line}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        scan_err, bwd_err = check_ssm_scan(), check_ssm_scan_bwd()
+        report = {"card": card}
+        tune = run_tuning(report)
+        stime = time_ssm_scan(TUNE_BATCH, 256)
+        ssm_record = dict(name="ssm_scan", route="cuda", source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                          replaces="src/repro/kernels/ssm_scan/kernel.py:55", max_abs_err=scan_err,
+                          launches=tune["jamba"]["ssm_scan"], **{k: stime[k] for k in (
+                              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")})
+        report["kernels"] = [ssm_record, _ssm_bwd_record(bwd_err, report["tuning"])]
+        report["seconds"] = time.perf_counter() - t0
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_tune.json").write_text(json.dumps(report, indent=1, default=str))
+        log(f"[card] {card}")
+        print(json.dumps({"kernels": report["kernels"]}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if args.bwd_split:
         from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
 
@@ -4654,6 +5159,8 @@ def main(argv=None) -> int:
         rec["baseline"] = "no route reaches it; launched directly for its time and check"
     ssm_record = dict(name="ssm_scan", route="cuda", source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                       replaces="src/repro/kernels/ssm_scan/kernel.py:55", max_abs_err=check_ssm_scan())
+    ssm_bwd_err = check_ssm_scan_bwd()
+    ssm_bwd_record = dict(name="ssm_scan_bwd", route="cuda", source=ssm_record["source"], max_abs_err=ssm_bwd_err)
     if not args.quick:
         check_masks()
         # Phases 9-14 run ahead of the profiled phases, so that their
@@ -4767,6 +5274,16 @@ def main(argv=None) -> int:
             record["launches_by_path"][f"recurrent/{path}"] = counts["flash_decode"]
         flash_records["wgmma"]["launches_by_path"]["recurrent/jamba_long_prompt"] = \
             recur["jamba_long_prompt"]["flash_attention"]
+        # Phase 19's paths: jamba's epoch (B6 and B6' on its Mamba layers, B3
+        # / B3' at hd 128), musicgen's (B3 / B3' at hd 64); xlstm launches no
+        # kernel.
+        tune = run_tuning(report)
+        ssm_bwd_record = _ssm_bwd_record(ssm_bwd_err, report["tuning"])
+        ssm_bwd_record["launches_by_path"] = {"tuning/jamba": tune["jamba"]["ssm_scan_bwd"]}
+        ssm_record["launches_by_path"]["tuning/jamba"] = tune["jamba"]["ssm_scan"]
+        for rec, name in ((flash_records["wgmma"], "flash_attention"), (bwd_records["wgmma"], "flash_attention_bwd")):
+            rec.setdefault("launches_by_path", {}).update(
+                {f"tuning/{path}": tune[path][name] for path in ("jamba", "musicgen")})
         launches = run_slice(report)
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [
@@ -4791,7 +5308,7 @@ def main(argv=None) -> int:
                             library_ms=ptiming["library_ms"])
         run_bwd_kernel_split(report)
     report["kernels"] = [record, paged_record, egress_record, burst_record, *flash_records.values(),
-                         *bwd_records.values(), ssm_record]
+                         *bwd_records.values(), ssm_record, ssm_bwd_record]
     if not args.quick:
         # Every kernel of a path was launched on it; the CUDA-core bodies,
         # which no route reaches, are the timing baselines and carry 0.

@@ -14,9 +14,11 @@ A wrapper's output, filled through ``ctypes``, carries no ``grad_fn``.  So
 each wrapper first calls ``forbid_grad``: with grad enabled, an input that
 requires grad raises instead of losing its gradient without a word.  Flash
 attention's gradient runs through ``kernels.flash_attention.dispatch.
-FlashAttentionFunction``, whose backward is a kernel too; the link kernels'
-masks carry no gradient in the fine-tuning graph, and no other kernel is
-on a path that differentiates.  The plain versions stay differentiable.
+FlashAttentionFunction`` and the SSM scan's through ``kernels.ssm_scan.
+dispatch.SSMScanFunction``, whose backwards are kernels too; the link
+kernels' masks carry no gradient in the fine-tuning graph, and no other
+kernel is on a path that differentiates.  The plain versions stay
+differentiable.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def forbid_grad(name: str, *tensors) -> None:
         raise RuntimeError(
             f"{name}: an input requires grad, but this kernel's gradient is not ported; "
             f"call it under torch.no_grad() or torch.inference_mode(), use its plain version, "
-            f"or, for flash attention, FlashAttentionFunction (forward and backward kernels)"
+            f"or, for flash attention and the SSM scan, FlashAttentionFunction and SSMScanFunction (forward and "
+            f"backward kernels)"
         )
 
 

@@ -22,6 +22,23 @@
 // the reference's a * h + b, so the kernel equals the reference and the
 // port's plain version bit for bit.  A chunked two-pass scan (parallel
 // over T) is the later work for speed at small B * D.
+//
+// ssm_scan_bwd_kernel, the gradient of the same function.  It replaces no
+// Pallas kernel: the reference differentiates the Mamba layer's
+// lax.associative_scan by autodiff (repro/models/mamba.py:75-126
+// _chunked_selective_scan).  With g[t] the total adjoint of h[t]:
+//   g[T-1] = dy[T-1],  g[t] = a[t+1] * g[t+1] + dy[t],
+//   db[t] = g[t],  da[t] = g[t] * h[t-1]  (h[-1] = h0),  dh0 = a[0] * g[0],
+// B6's own recurrence run in reverse with a shifted by one.  Layouts: a
+// (B, T, D) bf16 or f32, dy and out (B, T, D) f32 (out = the forward's
+// states), h0 (B, D) bf16 or f32; da, db (B, T, D) f32, dh0 (B, D) f32.
+// Bound: bytes, 20 an element (a, dy and out read; da and db written).
+// Design: the forward's layout and rounding rule.  One thread owns one
+// (b, d) lane and walks t from T-1 down to 0 in place (no flipped copies),
+// keeping g and a[t+1] in registers and reading h[t-1] from out; a warp
+// covers 32 consecutive d, so every access is coalesced.  The g step is one
+// __fmaf_rn and each product one __fmul_rn, so the kernel equals the plain
+// reverse scan (torch_ref.ssm_scan_bwd_ref) bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,6 +69,28 @@ ssm_scan_kernel(const AT* __restrict__ a, const AT* __restrict__ b, const HT* __
 }
 
 template <typename AT, typename HT>
+__global__ void __launch_bounds__(kThreads)
+ssm_scan_bwd_kernel(const AT* __restrict__ a, const float* __restrict__ dy, const float* __restrict__ out,
+                    const HT* __restrict__ h0, float* __restrict__ da, float* __restrict__ db,
+                    float* __restrict__ dh0, int T, int D) {
+  const int d = blockIdx.x * kThreads + threadIdx.x;
+  const int bi = blockIdx.y;
+  if (d >= D) return;
+  const size_t lane = static_cast<size_t>(bi) * D + d;
+  float g = 0.0f, a_next = 0.0f;
+  size_t i = static_cast<size_t>(bi) * T * D + static_cast<size_t>(T - 1) * D + d;
+#pragma unroll 8
+  for (int t = T - 1; t >= 0; --t, i -= D) {
+    g = __fmaf_rn(a_next, g, dy[i]);
+    const float h_prev = t > 0 ? out[i - D] : to_f32(h0[lane]);
+    db[i] = g;
+    da[i] = __fmul_rn(g, h_prev);
+    a_next = to_f32(a[i]);
+  }
+  dh0[lane] = __fmul_rn(a_next, g);
+}
+
+template <typename AT, typename HT>
 int launch(const void* a, const void* b, const void* h0, void* out, int B, int T, int D,
            cudaStream_t stream) {
   const dim3 grid((D + kThreads - 1) / kThreads, B);
@@ -74,6 +113,29 @@ int launch_h(int h_type, const void* a, const void* b, const void* h0, void* out
   }
 }
 
+template <typename AT, typename HT>
+int launch_bwd(const void* a, const void* dy, const void* out, const void* h0, void* da, void* db, void* dh0,
+               int B, int T, int D, cudaStream_t stream) {
+  const dim3 grid((D + kThreads - 1) / kThreads, B);
+  ssm_scan_bwd_kernel<AT, HT><<<grid, kThreads, 0, stream>>>(
+      static_cast<const AT*>(a), static_cast<const float*>(dy), static_cast<const float*>(out),
+      static_cast<const HT*>(h0), static_cast<float*>(da), static_cast<float*>(db), static_cast<float*>(dh0), T, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename AT>
+int launch_bwd_h(int h_type, const void* a, const void* dy, const void* out, const void* h0, void* da, void* db,
+                 void* dh0, int B, int T, int D, cudaStream_t stream) {
+  switch (h_type) {
+    case 1:
+      return launch_bwd<AT, __nv_bfloat16>(a, dy, out, h0, da, db, dh0, B, T, D, stream);
+    case 2:
+      return launch_bwd<AT, float>(a, dy, out, h0, da, db, dh0, B, T, D, stream);
+    default:
+      return kUnsupported;
+  }
+}
+
 }  // namespace
 
 // Type codes 1 = bf16, 2 = f32: ab_type for a and b, h_type for h0.
@@ -89,6 +151,23 @@ extern "C" int ssm_scan_launch(const void* a, const void* b, const void* h0, voi
       return launch_h<__nv_bfloat16>(h_type, a, b, h0, out, B, T, D, s);
     case 2:
       return launch_h<float>(h_type, a, b, h0, out, B, T, D, s);
+    default:
+      return kUnsupported;
+  }
+}
+
+// The backward: a_type for a (1 = bf16, 2 = f32), h_type for h0; dy and out
+// are f32.  Same return codes and stream rule as ssm_scan_launch.
+extern "C" int ssm_scan_bwd_launch(const void* a, const void* dy, const void* out, const void* h0, void* da,
+                                   void* db, void* dh0, int B, int T, int D, int a_type, int h_type,
+                                   void* stream) {
+  if (B <= 0 || T <= 0 || D <= 0 || B > 65535) return kUnsupported;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (a_type) {
+    case 1:
+      return launch_bwd_h<__nv_bfloat16>(h_type, a, dy, out, h0, da, db, dh0, B, T, D, s);
+    case 2:
+      return launch_bwd_h<float>(h_type, a, dy, out, h0, da, db, dh0, B, T, D, s);
     default:
       return kUnsupported;
   }

@@ -35,7 +35,9 @@ def make_train_step(cfg: ModelConfig, adam_cfg: AdamConfig, link_mode: str = "tr
     baseline.  ``link_spec`` (a full ``LinkSpec``) selects the train-time
     emulation (Eq. 7 dropout or the deployment channel); None derives it
     from ``cfg.link``.  A ``batch["link_rate"]`` 0-d tensor, when present,
-    overrides the emulation rate (the per-step curriculum).
+    overrides the emulation rate (the per-step curriculum); a frontend
+    config's ``batch["frontend_embed"]`` (B, F, d) replaces the first
+    embeddings, as the reference's step passes it.
 
     ``train_step(model, opt_state, batch, key) -> (model, opt_state,
     metrics)`` updates the model's parameters in place; they must require
@@ -46,8 +48,9 @@ def make_train_step(cfg: ModelConfig, adam_cfg: AdamConfig, link_mode: str = "tr
     def train_step(model: lm.LM, opt_state: AdamState, batch: Dict[str, Any], key):
         params = dict(model.named_parameters())
         with obs_device.tap_link_stats() as tap:
-            logits, _, aux = lm.forward(model, batch["tokens"], cfg, link_key=key, link_mode=link_mode,
-                                        link_spec=link_spec, link_rate=batch.get("link_rate"))
+            logits, _, aux = lm.forward(model, batch["tokens"], cfg, frontend_embed=batch.get("frontend_embed"),
+                                        link_key=key, link_mode=link_mode, link_spec=link_spec,
+                                        link_rate=batch.get("link_rate"))
         link = tap.totals(logits.device)
         loss = lm.lm_loss(logits, batch["tokens"], aux, cfg.router_aux_coef)
         del logits
@@ -67,7 +70,7 @@ def make_train_epoch(cfg: ModelConfig, adam_cfg: AdamConfig, link_mode: str = "t
     """K train steps on the reference's key chain.  ``epoch_fn(model,
     opt_state, batches, key) -> (model, opt_state, key, metrics)``:
     ``batches`` holds ``tokens`` (K, B, S) and optionally ``link_rate`` (K,)
-    (the per-step curriculum); ``metrics`` holds (K,) ``loss``,
+    (the per-step curriculum) and ``frontend_embed`` (K, B, F, d); ``metrics`` holds (K,) ``loss``,
     ``grad_norm`` and ``LINK_KEYS`` tensors, read by the caller only where
     it logs; the returned key continues the chain, so consecutive epochs
     compose to one long loop."""

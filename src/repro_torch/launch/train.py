@@ -19,7 +19,12 @@ dropped, FEC-recovered packets); the run logs their totals and, with the
 ``--profile-dir DIR`` wraps the run in ``torch.profiler`` and writes a
 Chrome trace into DIR (``obs.exporters.torch_profile``).
 
-Not ported: ``--sharded`` / ``--fsdp`` (ROADMAP A13); each raises.
+Every LM config trains: the dense stacks, the MoE configs (the router's
+load-balance term in the loss, ``router_aux_coef``), the frontend configs
+(on the reference trainer's f32 zero ``frontend_embed``) and the recurrent
+ones (jamba's Mamba layers through the SSM-scan kernel and its backward on
+the card; xlstm's mLSTM and sLSTM layers).  Not ported: ``--sharded`` /
+``--fsdp`` (ROADMAP A13); each raises.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
@@ -141,13 +146,6 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, lr: float
     cfg = get_config(arch)
     if not full_size:
         cfg = cfg.reduced()
-    recurrent = sorted({s.kind for s in cfg.all_layers() if s.kind != "attn"})
-    if recurrent:
-        raise NotImplementedError(f"fine-tuning {cfg.name!r} (its {recurrent} layers) is not ported yet (ROADMAP "
-                                  "A12c); its serving is")
-    if cfg.frontend or any(s.moe for s in cfg.all_layers()):
-        raise NotImplementedError(f"fine-tuning {cfg.name!r} (MoE aux in the loss, frontend_embed batches) is not "
-                                  "ported yet (ROADMAP A12c); its serving is")
     adam_cfg = AdamConfig(lr=lr, grad_clip_norm=1.0, schedule=schedule.warmup_cosine(max(10, steps // 20), steps))
     key = prng.PRNGKey(seed, device=dev)
     model = lm.init_lm(cfg, seed=seed, device=dev)
@@ -195,6 +193,10 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, lr: float
         return link_spec if rate is None else link_spec.with_train_rate(rate)
 
     rates = torch.tensor(curriculum_rates(steps, curriculum), device=dev) if per_step else None
+    # A frontend config trains on the reference trainer's stub: f32 zeros
+    # for the (B, F, d) patch or frame embeddings, every step.
+    fe = (torch.zeros((batch, cfg.frontend_len, cfg.d_model), dtype=torch.float32, device=dev)
+          if cfg.frontend else None)
     losses: list = []
     t0 = time.time()
     done = 0
@@ -219,6 +221,8 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, lr: float
                 continue    # fully covered by the restored checkpoint
             if epoch_scan and chunk_start >= start_step:
                 batches = {"tokens": torch.from_numpy(np.stack([next(it) for _ in range(n_steps)])).to(dev)}
+                if fe is not None:
+                    batches["frontend_embed"] = fe.expand((n_steps,) + fe.shape)
                 if per_step:
                     batches["link_rate"] = rates[chunk_start:chunk_start + n_steps]
                     rate = None
@@ -241,6 +245,8 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, lr: float
                     if step_global <= start_step:
                         continue
                     b = {"tokens": torch.from_numpy(next(it)).to(dev)}
+                    if fe is not None:
+                        b["frontend_embed"] = fe
                     if per_step:
                         b["link_rate"] = rates[step_global - 1]
                     key, sub = prng.split(key)

@@ -23,6 +23,12 @@ def acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.promote_types(t.dtype, torch.float32)
 
 
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in :func:`acc_dtype`: the reference's ``astype(float32)``, which
+    leaves an f64 oracle in f64."""
+    return t.to(acc_dtype(t))
+
+
 def frozen(shape, dtype, device) -> nn.Parameter:
     """An uninitialized parameter, built without grad: the serving paths
     never differentiate the weights, and the trainer turns grad on

@@ -6,7 +6,8 @@ positions, each chunk's decays ``exp(dt A)`` and increments ``dt B x``
 formed as ``(B, L, d_inner, d_state)`` tensors and handed, as the ``(B, L,
 d_inner * d_state)`` view, to the linear-recurrence scan
 ``kernels.ssm_scan`` (the hand CUDA kernel on the card, its plain version
-on a CPU tensor), which returns every prefix state from the carried one.
+on a CPU tensor), which returns every prefix state from the carried one;
+under autograd its gradient is the hand backward kernel on the card.
 The reference runs the same recurrence as a ``lax.associative_scan`` a
 chunk (its docstring names the Pallas kernel as implementing it); the two
 differ by rounding only.  Decode is one recurrent update of the carried
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import ssm_scan
-from repro_torch.models.common import dense_std, frozen, softplus, trunc_normal_
+from repro_torch.models.common import dense_std, frozen, softplus, trunc_normal_, upcast
 
 Cache = Dict[str, torch.Tensor]
 
@@ -67,17 +68,29 @@ def _chunked_selective_scan(dt: torch.Tensor, a: torch.Tensor, b_ssm: torch.Tens
                             x: torch.Tensor, chunk: int,
                             h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """dt (B, S, di), a (di, N), b_ssm / c_ssm (B, S, N), x (B, S, di), all
-    f32; h0 (B, di, N) -> (y (B, S, di), h_final (B, di, N)).
+    f32 (f64 in the gradient oracle); h0 (B, di, N) -> (y (B, S, di),
+    h_final (B, di, N)).
 
     One ``ssm_scan`` call a chunk of ``min(chunk, S)`` positions, from the
     state the chunk before left.  The last chunk scans its real rows only:
     the reference pads it with ``dt = 0`` rows (``a = 1``, ``b = 0``), which
-    leave the state as it is, and drops their outputs."""
+    leave the state as it is, and drops their outputs.
+
+    Under autograd each call goes through ``SSMScanFunction`` (B6 forward,
+    B6' backward on the card).  The carried ``h = h_all[:, -1]`` is a view
+    of a chunk's output, so the ``dh0`` of the chunk after adds to that
+    chunk's last row of ``dy``.  What a chunk of ``L`` rows holds for the
+    backward, at ``M = B * L * di * N`` f32 elements: the decays ``da``
+    (saved by the Function and by ``exp``, one tensor), the states
+    ``h_all`` (saved by the Function and by the ``einsum`` with C, one
+    tensor) and the product ``dt * B`` (saved by the multiply by ``x``),
+    so 3 M; ``dbx`` is not kept.  At jamba's training chunk (B 2, L 256,
+    di 8192, N 16) that is 3 x 268 MB a chunk."""
     bsz, s, di = x.shape
     n = a.shape[-1]
     chunk = min(chunk, s)
     h = (h0.reshape(bsz, di * n) if h0 is not None
-         else torch.zeros((bsz, di * n), dtype=torch.float32, device=x.device))
+         else torch.zeros((bsz, di * n), dtype=x.dtype, device=x.device))
     ys = []
     for lo in range(0, s, chunk):
         hi = min(lo + chunk, s)
@@ -128,8 +141,8 @@ class Mamba(nn.Module):
         B and C (..., N) f32."""
         r, n = cfg.mamba_dt_rank, cfg.mamba_d_state
         dt_low, b_ssm, c_ssm = torch.split(x_conv @ self.x_proj, [r, n, n], dim=-1)
-        dt = softplus((dt_low @ self.dt_proj).float() + self.dt_bias.float())
-        return dt, -torch.exp(self.A_log), b_ssm.float(), c_ssm.float()
+        dt = softplus(upcast(dt_low @ self.dt_proj) + upcast(self.dt_bias))
+        return dt, -torch.exp(self.A_log), upcast(b_ssm), upcast(c_ssm)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Cache] = None) -> torch.Tensor:
         """x (B, S, d) -> (B, S, d).  With a cache, one position takes the
@@ -141,11 +154,11 @@ class Mamba(nn.Module):
             x_conv, conv_state = _conv_step(x_in[:, 0], cache["conv"].to(x_in.dtype), self.conv_w, self.conv_b)
             x_conv = F.silu(x_conv)
             dt, a, b_ssm, c_ssm = self._ssm_params(x_conv, cfg)                 # dt (B, di); B, C (B, N)
-            xf = x_conv.float()
+            xf = upcast(x_conv)
             da = torch.exp(dt[..., None] * a)                                    # (B, di, N)
             dbx = dt[..., None] * b_ssm[:, None, :] * xf[..., None]
             h = da * cache["ssm"] + dbx
-            y = torch.einsum("bdn,bn->bd", h, c_ssm) + self.D.float() * xf
+            y = torch.einsum("bdn,bn->bd", h, c_ssm) + upcast(self.D) * xf
             out = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None, :]
             cache["conv"].copy_(conv_state)
             cache["ssm"].copy_(h)
@@ -153,10 +166,10 @@ class Mamba(nn.Module):
 
         x_conv = F.silu(_causal_conv(x_in, self.conv_w, self.conv_b))
         dt, a, b_ssm, c_ssm = self._ssm_params(x_conv, cfg)
-        xf = x_conv.float()
+        xf = upcast(x_conv)
         y, h_final = _chunked_selective_scan(dt, a, b_ssm, c_ssm, xf, cfg.scan_chunk,
                                              h0=cache["ssm"] if cache is not None else None)
-        y = y + self.D.float() * xf
+        y = y + upcast(self.D) * xf
         out = y.to(x.dtype) * F.silu(z)
         if cache is not None:
             dc = cfg.mamba_d_conv

@@ -35,7 +35,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import activation, dense_std, frozen, trunc_normal_
+from repro_torch.models.common import activation, dense_std, frozen, trunc_normal_, upcast
 from repro_torch.models.mlp import MLP
 
 
@@ -66,7 +66,7 @@ def route(logits: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     gates, expert_ids = vals[..., :k], ids[..., :k]
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
 
-    top1 = torch.nn.functional.one_hot(expert_ids[..., 0], e).to(torch.float32)
+    top1 = torch.nn.functional.one_hot(expert_ids[..., 0], e).to(probs.dtype)
     aux = float(e) * torch.sum(top1.mean(dim=1) * probs.mean(dim=1), dim=-1)
 
     cap = capacity(t, cfg)
@@ -121,7 +121,7 @@ class MoE(nn.Module):
         groups = b if per_row else 1
         t = b * s // groups
         xt = x.reshape(groups, t, d)
-        logits = (xt @ self.router).to(torch.float32)
+        logits = upcast(xt @ self.router)
         r = route(logits, cfg)
         out = self._dispatch(xt, r, cfg).reshape(b * s, d)
         flat = x.reshape(b * s, d)

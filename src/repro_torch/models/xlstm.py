@@ -10,7 +10,8 @@ parallel form (``mlstm_parallel``) and the closed-form state
 update (``mlstm_step``).  sLSTM is sequential (h_{t-1} feeds the gates) and
 runs as a loop over time.  The products are ``torch.einsum`` /
 ``torch.matmul`` in f32, as the reference leaves them to XLA outside any
-Pallas kernel.
+Pallas kernel (in f64 for a model cast with ``.double()``, the gradient
+oracle: every upcast is ``common.upcast``).
 
 The functions take the layer module as ``p`` and return new state dicts;
 the modules (``MLSTM``, ``SLSTM``) write a given cache in place, as the
@@ -27,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_std, frozen, log_sigmoid, rmsnorm, trunc_normal_
+from repro_torch.models.common import acc_dtype, dense_std, frozen, log_sigmoid, rmsnorm, trunc_normal_, upcast
 
 NEG_INF = -1.0e30
 State = Dict[str, torch.Tensor]
@@ -42,12 +43,13 @@ def _copy_state(cache: State, state: State) -> None:
 # mLSTM
 # ---------------------------------------------------------------------------
 
-def init_mlstm_cache(batch: int, cfg: ModelConfig, device) -> State:
+def init_mlstm_cache(batch: int, cfg: ModelConfig, device, dtype=torch.float32) -> State:
+    """A fresh state in f32 (``dtype`` f64 for the gradient oracle's)."""
     h, dh = cfg.num_heads, cfg.xlstm_head_dim
     return {
-        "c": torch.zeros((batch, h, dh, dh), dtype=torch.float32, device=device),
-        "n": torch.zeros((batch, h, dh), dtype=torch.float32, device=device),
-        "m": torch.full((batch, h), NEG_INF, dtype=torch.float32, device=device),
+        "c": torch.zeros((batch, h, dh, dh), dtype=dtype, device=device),
+        "n": torch.zeros((batch, h, dh), dtype=dtype, device=device),
+        "m": torch.full((batch, h), NEG_INF, dtype=dtype, device=device),
     }
 
 
@@ -97,8 +99,8 @@ def _mlstm_qkv(p: MLSTM, x: torch.Tensor, cfg: ModelConfig):
     root = torch.sqrt(torch.tensor(float(dh), dtype=x.dtype, device=x.device))
     k = (x @ p.wk).reshape(b, s, h, dh) / root
     v = (x @ p.wv).reshape(b, s, h, dh)
-    i_pre = (x @ p.wi).float()                                              # (B, S, H)
-    f_pre = (x @ p.wf).float() + p.f_bias.float()
+    i_pre = upcast(x @ p.wi)                                                # (B, S, H)
+    f_pre = upcast(x @ p.wf) + upcast(p.f_bias)
     o_gate = torch.sigmoid(x @ p.wo).reshape(b, s, h, dh)
     return q, k, v, i_pre, f_pre, o_gate
 
@@ -119,10 +121,10 @@ def mlstm_parallel(p: MLSTM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     d_mat = torch.where(_causal(s, x.device)[None, :, :, None], d_mat, NEG_INF)
     m = d_mat.amax(dim=2)                                                   # (B, T, H)
     decay = torch.exp(d_mat - m[:, :, None, :]).permute(0, 3, 1, 2)          # (B, H, T, S)
-    weights = torch.einsum("bthd,bshd->bhts", q, k).float() * decay
+    weights = upcast(torch.einsum("bthd,bshd->bhts", q, k)) * decay
     norm = torch.maximum(weights.sum(dim=-1).abs(), torch.exp(-m.permute(0, 2, 1)))
     weights = weights / torch.clamp_min(norm, 1e-6)[..., None]
-    h_out = torch.einsum("bhts,bshd->bthd", weights, v.float())
+    h_out = torch.einsum("bhts,bshd->bthd", weights, upcast(v))
     h_out = h_out.to(x.dtype) * o_gate
     return rmsnorm(h_out.reshape(b, s, h * dh), p.norm_scale) @ p.w_out
 
@@ -145,15 +147,15 @@ def _mlstm_chunk(p: MLSTM, cfg: ModelConfig, carry: State, x_chunk: torch.Tensor
     m_cross = f_cum + m_in[:, None, :]                                      # (B, L, H)
     m_t = torch.maximum(d_intra.amax(dim=2), m_cross)
     w_intra = torch.exp(d_intra - m_t[:, :, None, :]).permute(0, 3, 1, 2)   # (B, H, T, S)
-    intra = torch.einsum("bthd,bshd->bhts", q, k).float() * w_intra
+    intra = upcast(torch.einsum("bthd,bshd->bhts", q, k)) * w_intra
 
     cross_scale = torch.exp(m_cross - m_t)                                  # (B, L, H)
-    qf = q.float()
+    qf = upcast(q)
     num_cross = torch.einsum("bhvk,bthk->bthv", c_in, qf) * cross_scale[..., None]
     qn_cross = torch.einsum("bhk,bthk->bth", n_in, qf) * cross_scale
     row_sum = intra.sum(dim=-1).permute(0, 2, 1)                            # (B, T, H)
     denom = torch.clamp_min(torch.maximum((row_sum + qn_cross).abs(), torch.exp(-m_t)), 1e-6)
-    h_intra = torch.einsum("bhts,bshd->bthd", intra, v.float())
+    h_intra = torch.einsum("bhts,bshd->bthd", intra, upcast(v))
     h_out = ((h_intra + num_cross) / denom[..., None]).to(x_chunk.dtype) * o_gate
 
     f_total = f_cum[:, -1, :]                                               # (B, H)
@@ -161,7 +163,7 @@ def _mlstm_chunk(p: MLSTM, cfg: ModelConfig, carry: State, x_chunk: torch.Tensor
     m_old = f_total + m_in
     m_new = torch.maximum(d_s.amax(dim=1), m_old)
     w_s = torch.exp(d_s - m_new[:, None, :])
-    kf, vf = k.float(), v.float()
+    kf, vf = upcast(k), upcast(v)
     c_seq = torch.einsum("bsh,bshv,bshk->bhvk", w_s, vf, kf)
     n_seq = torch.einsum("bsh,bshk->bhk", w_s, kf)
     old_scale = torch.exp(m_old - m_new)
@@ -182,7 +184,7 @@ def mlstm_chunked(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
         x = F.pad(x, (0, 0, 0, pad))
     nc = x.shape[1] // chunk
     valid = (torch.arange(nc * chunk, device=x.device) < s).reshape(nc, chunk)
-    carry = state if state is not None else init_mlstm_cache(b, cfg, x.device)
+    carry = state if state is not None else init_mlstm_cache(b, cfg, x.device, acc_dtype(x))
     causal = _causal(chunk, x.device)
     outs = []
     for i in range(nc):
@@ -203,7 +205,7 @@ def mlstm_final_state(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, cache: State)
     m_old = f_total + cache["m"]
     m_new = torch.maximum(d_s.amax(dim=1), m_old)
     w = torch.exp(d_s - m_new[:, None, :])
-    kf, vf = k.float(), v.float()
+    kf, vf = upcast(k), upcast(v)
     c_seq = torch.einsum("bsh,bshv,bshk->bhvk", w, vf, kf)
     n_seq = torch.einsum("bsh,bshk->bhk", w, kf)
     old_scale = torch.exp(m_old - m_new)
@@ -222,7 +224,7 @@ def mlstm_step(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, cache: State) -> Tup
     m_new = torch.maximum(log_f + cache["m"], i_pre)
     i_g = torch.exp(i_pre - m_new)
     f_g = torch.exp(log_f + cache["m"] - m_new)
-    kf, vf, qf = k.float(), v.float(), q.float()
+    kf, vf, qf = upcast(k), upcast(v), upcast(q)
     c_new = f_g[..., None, None] * cache["c"] + i_g[..., None, None] * (vf[..., :, None] * kf[..., None, :])
     n_new = f_g[..., None] * cache["n"] + i_g[..., None] * kf
     num = torch.einsum("bhvk,bhk->bhv", c_new, qf)
@@ -237,10 +239,11 @@ def mlstm_step(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, cache: State) -> Tup
 # sLSTM
 # ---------------------------------------------------------------------------
 
-def init_slstm_cache(batch: int, cfg: ModelConfig, device) -> State:
+def init_slstm_cache(batch: int, cfg: ModelConfig, device, dtype=torch.float32) -> State:
+    """A fresh state in f32 (``dtype`` f64 for the gradient oracle's)."""
     h, dh = cfg.num_heads, cfg.xlstm_head_dim
-    zeros = lambda: torch.zeros((batch, h, dh), dtype=torch.float32, device=device)   # noqa: E731
-    return {"c": zeros(), "n": zeros(), "m": torch.full((batch, h, dh), NEG_INF, dtype=torch.float32, device=device),
+    zeros = lambda: torch.zeros((batch, h, dh), dtype=dtype, device=device)   # noqa: E731
+    return {"c": zeros(), "n": zeros(), "m": torch.full((batch, h, dh), NEG_INF, dtype=dtype, device=device),
             "h": zeros()}
 
 
@@ -283,12 +286,12 @@ def _slstm_cell(p: SLSTM, cfg: ModelConfig, x_t: torch.Tensor, state: State) -> 
     h_prev = state["h"]                                                     # (B, H, dh) f32
 
     def rec(w):  # the block-diagonal recurrent product
-        return torch.einsum("bhk,hkv->bhv", h_prev, w.float())
+        return torch.einsum("bhk,hkv->bhv", h_prev, upcast(w))
 
-    xz = (x_t @ p.wz).reshape(b, h, dh).float()
-    xi = (x_t @ p.wi).reshape(b, h, dh).float()
-    xf = ((x_t @ p.wf) + p.f_bias).reshape(b, h, dh).float()
-    xo = (x_t @ p.wo).reshape(b, h, dh).float()
+    xz = upcast((x_t @ p.wz).reshape(b, h, dh))
+    xi = upcast((x_t @ p.wi).reshape(b, h, dh))
+    xf = upcast(((x_t @ p.wf) + p.f_bias).reshape(b, h, dh))
+    xo = upcast((x_t @ p.wo).reshape(b, h, dh))
     z = torch.tanh(xz + rec(p.rz))
     i_pre = xi + rec(p.ri)
     f_pre = xf + rec(p.rf)
@@ -308,7 +311,7 @@ def slstm_forward(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
     state when a cache was given, else None)."""
     b, s, _ = x.shape
     h, dh = cfg.num_heads, cfg.xlstm_head_dim
-    state = cache if cache is not None else init_slstm_cache(b, cfg, x.device)
+    state = cache if cache is not None else init_slstm_cache(b, cfg, x.device, acc_dtype(x))
     hs = []
     for t in range(s):
         state = _slstm_cell(p, cfg, x[:, t], state)

@@ -2,7 +2,6 @@ from repro_torch.optim.adam import (  # noqa: F401
     AdamConfig,
     AdamState,
     adam_update,
-    clip_by_global_norm,
     global_norm,
     init_adam,
 )

@@ -2,9 +2,10 @@
 
 A wrapper fills its output through ``ctypes``, so an output would carry
 no ``grad_fn`` and a gradient would be lost without a word.  Each of the
-six ``cuda_kernel`` wrappers therefore raises first when grad is enabled
-and an input requires grad (flash attention's gradient goes through
-``FlashAttentionFunction`` instead).
+``cuda_kernel`` wrappers (the six kernels' and the SSM scan's backward)
+therefore raises first when grad is enabled and an input requires grad
+(flash attention's and the SSM scan's gradients go through
+``FlashAttentionFunction`` and ``SSMScanFunction`` instead).
 Here, on CPU tensors, that error comes before the wrapper's device check;
 under ``torch.no_grad()`` the same call reaches the device check instead
 (``ValueError``: the wrappers take CUDA tensors only).  The plain versions
@@ -61,6 +62,12 @@ def _ssm_scan(grad):
     return scan_kernel.ssm_scan, (a, torch.randn(1, 5, 3), torch.randn(1, 3, requires_grad=grad)), {}
 
 
+def _ssm_scan_bwd(grad):
+    a = torch.rand(1, 5, 3)
+    return scan_kernel.ssm_scan_bwd, (a, torch.randn(1, 5, 3, requires_grad=grad), torch.randn(1, 5, 3),
+                                      torch.randn(1, 3)), {}
+
+
 WRAPPERS = {
     "flash_decode": _flash_decode,
     "paged_flash_decode": _paged_flash_decode,
@@ -68,6 +75,7 @@ WRAPPERS = {
     "burst_mask": _burst_mask,
     "flash_attention": _flash_attention,
     "ssm_scan": _ssm_scan,
+    "ssm_scan_bwd": _ssm_scan_bwd,
 }
 
 

@@ -14,8 +14,10 @@ forward) and reduced xlstm-350m, f32:
 * the byte accounting (``cache_bytes``, ``decode_read_bytes`` and its
   tensor twin, ``admission_write_bytes``) equals the reference's ints,
   recurrent leaves counted where the reference counts them;
-* the paged pool refuses the stacks with the reference's error, and the
-  trainer refuses them naming ROADMAP A12c;
+* the paged pool refuses the stacks with the reference's error; the
+  trainer takes them (ROADMAP A12c; their training parity is in
+  tests/test_torch_train_{jamba,xlstm}.py) and refuses only the sharded
+  trainer (A13);
 * the serving CLI serves both configs on the CPU.
 
 The parity of each entry point's tokens with the reference's is in the
@@ -169,7 +171,9 @@ def test_byte_accounting_matches_the_reference(arch, kv):
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
 def test_paged_pool_and_trainer_refuse(arch):
     """The paged pool raises the reference's ``ValueError`` (and the block
-    pool refuses the stack); the trainer names ROADMAP A12c."""
+    pool refuses the stack); the trainer, which takes them since ROADMAP
+    A12c (a step on the CPU gives a finite loss), refuses only the sharded
+    trainer, naming ROADMAP A13."""
     jcfg, tcfg = J_ARCHS[arch].reduced(), T_ARCHS[arch].reduced()
     with pytest.raises(ValueError, match="attention-only") as want:
         JEngine(jcfg, JPool(paged=True))
@@ -178,8 +182,10 @@ def test_paged_pool_and_trainer_refuse(arch):
     assert str(got.value) == str(want.value).replace(jcfg.name, tcfg.name)
     with pytest.raises(ValueError, match="attention-only"):
         t_cache.init_block_pool(tcfg, 8, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12c"):
-        t_train.train(arch, steps=1, batch=1, seq=8, device="cpu")
+    _, losses, _ = t_train.train(arch, steps=1, batch=1, seq=8, device="cpu")
+    assert len(losses) == 1 and np.isfinite(losses).all()
+    with pytest.raises(NotImplementedError, match="A13"):
+        t_train.main(["--arch", arch, "--steps", "1", "--device", "cpu", "--sharded"])
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
