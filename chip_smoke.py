@@ -13,18 +13,19 @@ fine-tunes it with the COMtune link (``launch.train``, sequences past
 the paper's own experiment (the split VGG16 CNN, DI through the egress
 kernel), serves and fine-tunes the MoE, frontend and recurrent families
 (jamba's Mamba layers through the SSM scan and its backward), and times
-the kernels and the paths.
+the kernels and the paths, and trains sharded over the machine's cards.
 
     python3 chip_smoke.py            # everything (needs one sm_90 card)
     python3 chip_smoke.py --quick    # build + kernel checks only
     python3 chip_smoke.py --link-round   # one link round, timed and traced
-    python3 chip_smoke.py --bwd-split [bfloat16|float32]   # a tensor-core backward's kernels, traced
+    python3 chip_smoke.py --bwd-split [bfloat16|float32|all]   # a tensor-core backward's kernels, traced
     python3 chip_smoke.py --paper        # the link kernels' build + phase 14 only
     python3 chip_smoke.py --net          # the decode, link and attention kernels' build + phase 15 only
     python3 chip_smoke.py --serve        # the decode, link and attention kernels' build + phase 16 only
     python3 chip_smoke.py --arch         # the decode, link and attention kernels' build + phase 17 only
     python3 chip_smoke.py --recur        # the decode, attention and scan kernels' build + phase 18 only
     python3 chip_smoke.py --tune         # the attention and scan kernels' build, B6 / B6' checks + phase 19 only
+    python3 chip_smoke.py --shard        # the attention and scan kernels' build and checks + phase 20 only
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
@@ -296,10 +297,24 @@ Phases (any failure raises and the script exits non-zero):
      B3' at hd 64 a step); B6' timed at the training chunk beside its plain
      version and bytes bound.  ``--tune`` runs the scan's and its
      backward's phase-2 checks and phase 19 alone.
-Phases 9-19 run after phase 3, ahead of the profiled phases 5 and 7; last,
-torch.profiler traces, each in a process of its own (``--bwd-split``),
+ 20. the sharded trainer (``run_sharded_training``): one rank a visible
+     card, spawned by ``torch.multiprocessing`` over NCCL (a world of one
+     on a one-card machine), each on its rows of the global batch;
+     qwen1.5-0.5b at full width in bf16 through ``train(sharded=True)``
+     (4 x 1024, 3 steps) with fsdp off, on and expert, beside the
+     unsharded ``train`` before and after (the step wall in turns), 24 x 3
+     B3 and B3' launches a run, the runs' own peak memory, one fsdp-on step
+     traced for its NCCL kernels' device time; jamba-v0.1's phase-19 cut
+     through ``make_train_epoch`` on ``shard_model(moe_shard_map=True)``
+     (3 x 2 x 1024) beside the unsharded epoch.  In a world of one every
+     run must equal its unsharded run bit for bit (losses, gradient norms,
+     final weights); across cards the losses and gradient norms within
+     twice their bf16 noise.  ``--shard`` runs phase 19's attention check,
+     the scan's checks and phase 20 alone.
+Phases 9-20 run after phase 3, ahead of the profiled phases 5 and 7; last,
+torch.profiler traces in a process of their own (``--bwd-split all``)
 split the tensor-core backward's time at the training shape between its
-kernels, bf16 and f32.
+kernels, bf16 then f32.
 
 The card's name and power limit are printed first and again before the
 kernels' JSON record, which is the line before the last; the last line is
@@ -327,8 +342,27 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12, "tf32x3": 494
 TOKENS, PROMPT, BATCH, LOSS = 32, 32, 4, 0.1
 
 
+_T0 = time.perf_counter()
+_LOG = []
+
+
 def log(msg: str) -> None:
+    """Print ``msg``, and keep it with the seconds since the start for the
+    run's timeline (``chiprun_out/chip_smoke.log``, written by ``main``)."""
     print(msg, flush=True)
+    _LOG.append(f"[{time.perf_counter() - _T0:8.1f} s] {msg}")
+
+
+_LAST_MARK = [time.perf_counter()]
+
+
+def mark(report: dict, name: str) -> None:
+    """Log and keep the seconds since the previous mark under ``name``: the
+    full run's time a phase."""
+    now = time.perf_counter()
+    report.setdefault("phase_seconds", {})[name] = now - _LAST_MARK[0]
+    log(f"[time] {name}: {now - _LAST_MARK[0]:.1f} s")
+    _LAST_MARK[0] = now
 
 
 def card_line() -> str:
@@ -397,6 +431,27 @@ def time_graph(fn, iters=200) -> float:
     return start.elapsed_time(end) / (5 * iters)
 
 
+def _device_events(prof) -> list:
+    """(name, us) of every device event of a finished ``torch.profiler``
+    trace: the card's events of ``prof.events()`` and their times, read from
+    the trace's raw kineto events, without the tree of FunctionEvents that
+    ``prof.events()`` builds over every host op (~0.5 ms of host time an
+    event, minutes for a decode window)."""
+    from torch._C._autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    names, out = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_hidden_event():
+            continue
+        raw = e.name()
+        if raw not in names:
+            names[raw] = None if _filter_name(raw) else _rewrite_name(name=raw, with_wildcard=True)
+        if names[raw] is not None:
+            out.append((names[raw], e.duration_ns() / 1e3))
+    return out
+
+
 def device_profile(fn) -> dict:
     """Run ``fn`` under torch.profiler: device time summed over the card's
     kernels, their number, the top eight by device time, and the host wall
@@ -409,14 +464,15 @@ def device_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    kernels = _device_events(prof)
     if not kernels:
         return {"device_busy_share": "not measured (no device events in the trace)"}
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us in kernels:
+        by_name[name] = by_name.get(name, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     return dict(wall_ms=wall_s * 1e3, device_busy_ms=busy_ms, kernels=len(kernels),
+                nccl_ms=sum(v for k, v in by_name.items() if "nccl" in k.lower()) / 1e3,
                 top_kernels_ms={k[:80]: v / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]})
 
 
@@ -1438,7 +1494,7 @@ def link_round() -> dict:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 call(kernel)
                 torch.cuda.synchronize()
-            names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+            names = [name for name, _ in _device_events(prof)]
             traced_egress = sum("egress_kernel" in n for n in names)
             launched = ll.egress_launch_count - before
             out[name] = dict(ms=float(np.median(samples[kernel])), ms_samples=samples[kernel],
@@ -2510,9 +2566,8 @@ def run_training(report) -> dict:
     # The forward's device kernels: its split and the attention; the
     # backward's: its split, dQ and dK/dV, and no statistics kernel.
     fa_kernels = {}
-    for e in prof.events():
-        found = re.search(r"(fa_bwd|bf16x6_split|flash_attention)\w*?_kernel", e.name) \
-            if e.device_type.name == "CUDA" else None
+    for name, _ in _device_events(prof):
+        found = re.search(r"(fa_bwd|bf16x6_split|flash_attention)\w*?_kernel", name)
         if found:
             fa_kernels[found.group(0)] = fa_kernels.get(found.group(0), 0) + 1
     del prof
@@ -2837,19 +2892,19 @@ def bwd_kernel_split(b, h, hd, s, dname) -> dict:
 
 
 def run_bwd_kernel_split(report) -> None:
-    """``bwd_kernel_split`` at the training shape, bf16 and f32, each in a
-    process of its own."""
-    split = {}
-    for dname in ("bfloat16", "float32"):
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--bwd-split", dname],
-                              capture_output=True, text=True, timeout=600)
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("BWD_SPLIT ")]
-        if proc.returncode != 0 or not lines:
-            raise RuntimeError(f"--bwd-split {dname} failed (exit {proc.returncode}):\n{proc.stdout[-4000:]}\n"
-                               f"{proc.stderr[-4000:]}")
-        split[dname] = json.loads(lines[-1].split(" ", 1)[1])
+    """``bwd_kernel_split`` at the training shape, bf16 then f32, in a
+    process of its own (``--bwd-split all``: no other phase's trace before
+    them)."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--bwd-split", "all"],
+                          capture_output=True, text=True, timeout=600)
+    lines = [ln.split(" ", 2) for ln in proc.stdout.splitlines() if ln.startswith("BWD_SPLIT ")]
+    if proc.returncode != 0 or len(lines) != 2:
+        raise RuntimeError(f"--bwd-split all failed (exit {proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                           f"{proc.stderr[-4000:]}")
+    split = {dname: json.loads(text) for _, dname, text in lines}
+    for dname, times in split.items():
         log(f"[time] flash_attention_bwd ({dname}, B {TRAIN_BATCH}, S {TRAIN_SEQ}, H 16, hd 64) by kernel "
-            f"(profiler, 10 calls, a process of its own): {({k: round(t, 1) for k, t in split[dname].items()})} us")
+            f"(profiler, 10 calls, a process of its own): {({k: round(t, 1) for k, t in times.items()})} us")
     report["flash_attention_bwd_split_us"] = split
 
 
@@ -3476,6 +3531,58 @@ def _serve_oracle_link(model, cfg, jobs):
     return tot
 
 
+def _cpu_gumbel_argmax(keys, scaled, chunk: int = 128):
+    """The CPU side of part 2's full-vocabulary check: for each key of
+    ``keys`` (K, 2), argmax(gumbel(key, V) + ``scaled``) and whether its top
+    two lie within ``SERVE_TIE``.  The draws are ``prng.gumbel``'s (the
+    partitionable threefry, its uniform on [tiny, 1), -log(-log(u))), with
+    the threefry's 32-bit adds, rotations and xors done in place on int32
+    words rather than masked int64 ones, which takes a fraction of the host
+    time; the noise is held to ``prng.gumbel``'s bit for bit on the first
+    four keys first."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+
+    v = scaled.shape[-1]
+    idx = torch.arange(v, dtype=torch.int32)
+
+    def bits(kk):
+        w = kk.to(torch.int64).numpy().astype(np.uint32).view(np.int32)
+        k0, k1 = torch.from_numpy(w[:, :1].copy()), torch.from_numpy(w[:, 1:].copy())
+        ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+        x0 = torch.zeros((kk.shape[0], v), dtype=torch.int32) + ks[0]
+        x1 = idx[None] + ks[1]
+        for i in range(5):
+            for r in prng._ROTATIONS[i % 2]:
+                x0 += x1
+                x1 = (x1 << r) | ((x1 >> (32 - r)) & ((1 << r) - 1))
+                x1 ^= x0
+            x0 += ks[(i + 1) % 3]
+            x1 += ks[(i + 2) % 3] + (i + 1)
+        return x0 ^ x1
+
+    tiny = float(np.finfo(np.float32).tiny)
+
+    def gumbel(kk):
+        b = bits(kk)
+        f = (((b >> 9) & 0x7FFFFF) | 0x3F800000).view(torch.float32) - 1.0
+        # prng.uniform(minval=tiny, maxval=1) rounds f * (1 - tiny) + tiny
+        # once to f32, and 1 - tiny is 1.0 in f32: f itself where f > 0
+        # (a multiple of 2**-23), tiny where f = 0.
+        return -torch.log(-torch.log(torch.clamp(f, min=tiny)))
+
+    assert torch.equal(gumbel(keys[:4]), prng.gumbel(keys[:4], (v,))), "the int32 draws != prng.gumbel"
+    samples, ties = [], 0
+    for i in range(0, keys.shape[0], chunk):
+        pert = gumbel(keys[i:i + chunk]) + scaled
+        top2 = torch.topk(pert, 2, dim=-1).values
+        ties += int(((top2[:, 0] - top2[:, 1]) < SERVE_TIE).sum())
+        samples.append(torch.argmax(pert, dim=-1))
+    return torch.cat(samples), ties
+
+
 def run_serving_layer(report) -> dict:
     """Phase 16, the serving layer on the card: full-width qwen1.5-0.5b
     (random weights from seed 0), counts zeroed just before each path and
@@ -3632,14 +3739,7 @@ def run_serving_layer(report) -> dict:
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu_scaled = scaled.cpu()
-    cpu, ties = [], 0
-    for i in range(0, SERVE_SAMPLE_KEYS, SERVE_SAMPLE_CHUNK):
-        pert = prng.gumbel(keys[i:i + SERVE_SAMPLE_CHUNK], (base.vocab_size,)) + cpu_scaled
-        top2 = torch.topk(pert, 2, dim=-1).values
-        ties += int(((top2[:, 0] - top2[:, 1]) < SERVE_TIE).sum())
-        cpu.append(torch.argmax(pert, dim=-1))
-    cpu = torch.cat(cpu)
+    cpu, ties = _cpu_gumbel_argmax(keys, scaled.cpu())
     cpu_s = time.perf_counter() - t0
     same = int((card == cpu).sum())
     log(f"[serve] 2 full-vocabulary row ({base.vocab_size} logits, T {SERVE_TEMPERATURE}), {SERVE_SAMPLE_KEYS} keys: "
@@ -3756,8 +3856,8 @@ def run_serving_layer(report) -> dict:
         for _ in range(SERVE_STEP_WINDOW):
             eng.step(model16)
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    dtoh = [e.name for e in events if "DtoH" in e.name or "Device -> Pageable" in e.name]
+    events = [name for name, _ in _device_events(prof)]
+    dtoh = [name for name in events if "DtoH" in name or "Device -> Pageable" in name]
     assert events, "the profiled window holds no device event"
     assert not dtoh, f"device-to-host copies in a window of decode steps: {dtoh[:4]}"
     eng.run(model16)
@@ -4903,6 +5003,330 @@ def _ssm_bwd_record(max_err, tune_report) -> dict:
                 shape=t["shape"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the sharded trainer over the machine's cards
+# ---------------------------------------------------------------------------
+
+# One rank a visible card (torch.multiprocessing, NCCL; a world of one on a
+# one-card machine), each on its rows of the global batch.  qwen1.5-0.5b at
+# full width in bf16 through ``launch.train.train(sharded=True)``, phase
+# 13's 4 x 1024, 3 steps, fsdp off / on / expert, beside the unsharded
+# ``train`` (``make_train_epoch``) on the same card; jamba-v0.1 cut as in
+# phase 19 through ``make_train_epoch`` on ``shard_model(moe_shard_map=True)``,
+# 3 steps of 2 x 1024, beside the unsharded epoch.  At a world of one each
+# run must be the unsharded one bit for bit (losses, gradient norms, final
+# weights); across cards the losses and gradient norms are held within
+# twice their bf16 noise (the bf16 model's step-1 loss and gradient norm
+# against its f32 copy's).
+SHARD_STEPS = 3
+SHARD_FSDP = ("off", "on", "expert")
+SHARD_WORLD_S = 600           # the spawned world's limit (the process group's own is 60 s a collective)
+
+
+def _bf16_noise(model, cfg, tokens, key) -> dict:
+    """|bf16 - f32| of one step's loss and gradient norm (the step-1 batch
+    and key), the model upcast to f32 for the second: the bars of the runs
+    across cards are twice these."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.optim.adam import global_norm
+
+    def step(m, c):
+        m.requires_grad_(True)
+        logits, _, aux = lm.forward(m, tokens, c, link_key=key, link_mode="train")
+        loss = lm.lm_loss(logits, tokens, aux, c.router_aux_coef)
+        del logits
+        params = dict(m.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        norm = global_norm({n: g for n, g in zip(params, grads) if g is not None})
+        return float(loss), float(norm)
+
+    l16, g16 = step(model, cfg)
+    l32, g32 = step(copy.deepcopy(model).float(), cfg.with_updates(dtype="float32"))
+    torch.cuda.empty_cache()
+    return dict(loss=abs(l16 - l32), grad_norm=abs(g16 - g32))
+
+
+def _same(name, world, got, want, bar=None) -> dict:
+    """World of one: ``got`` equals ``want`` bit for bit; else within ``bar``."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = float(np.abs(got - want).max())
+    if world == 1:
+        assert np.array_equal(got, want), f"{name}: {got} against the unsharded {want}"
+    else:
+        assert diff <= bar, f"{name}: {got} against the unsharded {want}, off by {diff:.3e} (bar {bar:.3e})"
+    return dict(max_diff=diff, bar=None if world == 1 else bar)
+
+
+def _sharded_qwen(rank, world, card) -> dict:
+    """qwen1.5-0.5b at full width: the unsharded trainer, then the sharded
+    one with each fsdp mode (counts zeroed just before each), then the
+    unsharded again (the step wall in turns); one fsdp-on step traced for
+    its collectives' device time."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import make_train_step, shard_model
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamConfig, init_adam
+
+    kw = dict(steps=SHARD_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, full_size=True, log_every=1000, device="cuda")
+    cfg = get_config("qwen1.5-0.5b")
+    n_attn = sum(s.kind == "attn" for s in cfg.all_layers())
+    runs = {}
+
+    def run(name, **extra):
+        hist = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _zero_counts()
+        model, losses, _ = train("qwen1.5-0.5b", history=hist, **kw, **extra)
+        torch.cuda.synchronize()
+        counts = _counts()
+        # The run's own peak: above what this process held when it started.
+        runs[name] = dict(losses=losses, grad_norms=hist["grad_norm"].tolist(),
+                          link={k: hist[k].tolist() for k in ("link_elems", "link_dropped", "fec_recovered_packets")},
+                          step_ms=hist["steps_s"] / SHARD_STEPS * 1e3,
+                          peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9,
+                          launches={k: counts[k] for k in ("flash_attention", "flash_attention_bwd")})
+        return model
+
+    base = run("unsharded") if rank == 0 else None
+    ref = {n: p.detach().clone() for n, p in base.named_parameters()} if base is not None else None
+    del base
+    noise = dict(loss=0.0, grad_norm=0.0)
+    if world > 1 and rank == 0:
+        from repro_torch.data import lm_batch_iterator, make_lm_dataset
+
+        stream = make_lm_dataset(cfg.vocab_size, n_tokens=max(100_000, TRAIN_BATCH * TRAIN_SEQ * 50))
+        toks = torch.from_numpy(next(lm_batch_iterator(stream, TRAIN_BATCH, TRAIN_SEQ, seed=0))).cuda()
+        noise = _bf16_noise(lm.init_lm(cfg, seed=0, device="cuda"), cfg, toks,
+                            prng.split(prng.PRNGKey(0, "cuda"))[1])
+    torch.distributed.barrier()
+    for fsdp in SHARD_FSDP:
+        model = run(f"fsdp_{fsdp}", sharded=True, fsdp=fsdp)
+        r = runs[f"fsdp_{fsdp}"]
+        want = SHARD_STEPS * n_attn
+        assert r["launches"] == dict(flash_attention=want, flash_attention_bwd=want), \
+            f"qwen fsdp {fsdp}: launches {r['launches']}, want {want} each"
+        assert np.isfinite(r["losses"]).all(), r["losses"]
+        if rank == 0:
+            u = runs["unsharded"]
+            r["vs_unsharded"] = {k: _same(f"qwen fsdp {fsdp} {key}", world, r[key], u[key], 2 * noise[k])
+                                 for k, key in (("loss", "losses"), ("grad_norm", "grad_norms"))}
+            if world == 1:
+                bad = [n for n, p in model.named_parameters() if not torch.equal(p, ref[n])]
+                assert not bad, f"qwen fsdp {fsdp}: final weights differ from the unsharded run's: {bad[:5]}"
+                r["vs_unsharded"]["weights"] = "bit-equal"
+            assert r["link"] == u["link"], f"qwen fsdp {fsdp}: link counters {r['link']} against {u['link']}"
+        if fsdp != SHARD_FSDP[-1]:
+            del model
+    if rank == 0:
+        run("unsharded_again")
+    # One fsdp-on step traced: the collectives' device time beside the step's.
+    mesh = mesh_lib.make_host_mesh()
+    sharded = shard_model(model, cfg, mesh, "on")
+    adam = AdamConfig(lr=3e-4, grad_clip_norm=1.0)
+    opt = init_adam(sharded.shards, adam)
+    step = make_train_step(cfg, adam)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), device="cuda")}
+    key = prng.PRNGKey(1, "cuda")
+    step(sharded, opt, batch, key)
+    prof = device_profile(lambda: step(sharded, opt, batch, key))
+    del sharded, opt, model, ref
+    torch.cuda.empty_cache()
+    return dict(card=card, world=world, layers=n_attn, runs=runs, bf16_noise=noise, fsdp_on_step_profile=prof)
+
+
+def _sharded_jamba(rank, world, card) -> dict:
+    """jamba-v0.1 cut as phase 19's: ``make_train_epoch`` on the model, then
+    on ``shard_model(moe_shard_map=True)`` (fsdp off; counts zeroed just
+    before), 3 steps of 2 x 1024 on the synthetic stream."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.data import lm_batch_iterator, make_lm_dataset
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import make_train_epoch, shard_model
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamConfig, init_adam
+
+    cfg = _jamba_tune_cfg()
+    specs = cfg.all_layers()
+    n_mamba, n_attn = sum(s.kind == "mamba" for s in specs), sum(s.kind == "attn" for s in specs)
+    chunks = -(-TUNE_SEQ // cfg.scan_chunk)
+    stream = make_lm_dataset(cfg.vocab_size, n_tokens=TUNE_BATCH * TUNE_SEQ * 50)
+    it = lm_batch_iterator(stream, TUNE_BATCH, TUNE_SEQ, seed=0)
+    tokens = torch.from_numpy(np.stack([next(it) for _ in range(TUNE_STEPS)])).to("cuda")
+    adam = AdamConfig(lr=1e-3, grad_clip_norm=1.0)
+    out = dict(card=card, world=world, cut=[(s.kind, s.moe) for s in specs], batch=TUNE_BATCH, seq=TUNE_SEQ,
+               steps=TUNE_STEPS)
+
+    def fresh():
+        torch.cuda.empty_cache()
+        return lm.init_lm(cfg, seed=0, device="cuda").requires_grad_(True)
+
+    if rank == 0:
+        model = fresh()
+        opt = init_adam(dict(model.named_parameters()), adam)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, opt, _, m = make_train_epoch(cfg, adam)(model, opt, {"tokens": tokens}, prng.PRNGKey(0, "cuda"))
+        torch.cuda.synchronize()
+        out["unsharded"] = dict(losses=m["loss"].float().cpu().tolist(), grad_norms=m["grad_norm"].float().cpu().tolist(),
+                                epoch_s=time.perf_counter() - t0, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del opt
+        if world > 1:
+            out["bf16_noise"] = _bf16_noise(model, cfg, tokens[0], prng.split(prng.PRNGKey(0, "cuda"))[1])
+        ref = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        del model, m
+    torch.distributed.barrier()
+    model = fresh()
+    mesh = mesh_lib.make_host_mesh()
+    sharded = shard_model(model, cfg, mesh, "off", moe_shard_map=True)
+    opt = init_adam(sharded.shards, adam)
+    epoch = make_train_epoch(cfg, adam)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    sharded, opt, _, m = epoch(sharded, opt, {"tokens": tokens}, prng.PRNGKey(0, "cuda"))
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = dict(ssm_scan=n_mamba * chunks, ssm_scan_bwd=n_mamba * chunks, flash_attention=n_attn,
+                flash_attention_bwd=n_attn)
+    assert all(launches[k] == v * TUNE_STEPS for k, v in want.items()), f"jamba sharded: {launches}, want {want} a step"
+    r = dict(losses=m["loss"].float().cpu().tolist(), grad_norms=m["grad_norm"].float().cpu().tolist(),
+             epoch_s=time.perf_counter() - t0, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches={k: launches[k] for k in want})
+    assert np.isfinite(r["losses"]).all(), r["losses"]
+    model = sharded.materialize()
+    if rank == 0:
+        u, noise = out["unsharded"], out.get("bf16_noise", dict(loss=0.0, grad_norm=0.0))
+        r["vs_unsharded"] = {k: _same(f"jamba moe_shard_map {key}", world, r[key], u[key], 2 * noise[k])
+                             for k, key in (("loss", "losses"), ("grad_norm", "grad_norms"))}
+        if world == 1:
+            bad = [n for n, p in model.named_parameters() if not torch.equal(p.cpu(), ref[n])]
+            assert not bad, f"jamba moe_shard_map: final weights differ from the unsharded epoch's: {bad[:5]}"
+            r["vs_unsharded"]["weights"] = "bit-equal"
+    out["moe_shard_map"] = r
+    del model, sharded, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shard_rank(rank, world, store, out_dir) -> None:
+    """One rank of phase 20 (a spawned process on card ``rank``)."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, _ = mesh_lib.init_world("cuda", rank=rank, world_size=world, init_method=f"file://{store}")
+    try:
+        assert dev == torch.device("cuda", rank) and torch.distributed.get_backend() == "nccl", (dev, rank)
+        card = card_line()
+        res = dict(qwen=_sharded_qwen(rank, world, card), jamba=_sharded_jamba(rank, world, card))
+        Path(out_dir, f"shard_rank{rank}.json").write_text(json.dumps(res, default=str))
+    finally:
+        mesh_lib.close_world()
+
+
+def run_sharded_training(report) -> dict:
+    """Phase 20: one rank a visible card (``torch.multiprocessing``, NCCL),
+    qwen1.5-0.5b through ``train(sharded=True)`` in each fsdp mode and
+    jamba's cut through the expert-parallel MoE, each held to its unsharded
+    run (module notes above).  Returns the launches of each path."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    card = card_line()
+    world = torch.cuda.device_count()
+    log(f"[shard] phase 20 on {card}: a world of {world} rank(s), one a card, NCCL")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()          # the ranks need the card's memory
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        ctx = mp.start_processes(_shard_rank, args=(world, str(Path(tmp) / "store"), tmp), nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.perf_counter() + SHARD_WORLD_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    raise RuntimeError(f"phase 20: the world of {world} outlived {SHARD_WORLD_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        res = json.loads(Path(tmp, "shard_rank0.json").read_text())
+    q, j = res["qwen"], res["jamba"]
+    for name, r in q["runs"].items():
+        log(f"[shard] ({card}, world {world}) qwen1.5-0.5b {name}: losses {[round(x, 4) for x in r['losses']]}, "
+            f"step {r['step_ms']:.1f} ms, peak {r['peak_gb']:.2f} GB, B3 / B3' launches "
+            f"{r['launches']['flash_attention']} / {r['launches']['flash_attention_bwd']}"
+            + (f", against the unsharded run {r['vs_unsharded']}" if "vs_unsharded" in r else ""))
+    prof = q["fsdp_on_step_profile"]
+    log(f"[shard] ({card}) a traced fsdp-on step: device busy {prof.get('device_busy_ms', 'not measured')} ms, "
+        f"collectives (NCCL kernels) {prof.get('nccl_ms', 'not measured')} ms, wall {prof.get('wall_ms', '?')} ms")
+    jr = j["moe_shard_map"]
+    log(f"[shard] ({card}, world {world}) jamba cut, moe_shard_map: losses {[round(x, 4) for x in jr['losses']]} "
+        f"(unsharded {[round(x, 4) for x in j['unsharded']['losses']]}), epoch {jr['epoch_s']:.2f} s (unsharded "
+        f"{j['unsharded']['epoch_s']:.2f} s), peak {jr['peak_gb']:.2f} GB, launches {jr['launches']}, "
+        f"{jr['vs_unsharded']}")
+    report["sharded"] = dict(res, seconds=time.perf_counter() - t0)
+    log(f"[shard] phase 20 passed in {time.perf_counter() - t0:.1f} s ({card}, world {world})")
+    paths = {f"qwen_fsdp_{f}": q["runs"][f"fsdp_{f}"]["launches"] for f in SHARD_FSDP}
+    paths["jamba_moe_shard_map"] = jr["launches"]
+    return paths
+
+
+def _shard_records(report, paths, attention, scan_err, bwd_err) -> list:
+    """``--shard``'s kernel records: the four kernels phase 20 runs, each with
+    its launches on phase 20's paths and its times at the paths' shapes
+    (B3 / B3' at qwen's training shape, B6 / B6' at jamba's chunk)."""
+    flash_dir = "src/repro_torch/kernels/flash_attention/csrc/"
+    scan_src = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    fwd_t = time_flash_attention(TRAIN_BATCH, 16, 16, 64, TRAIN_SEQ, 0)
+    bwd_t = time_flash_attention_bwd(TRAIN_BATCH, 16, 16, 64, TRAIN_SEQ, "bfloat16")
+    scan_t, scan_bwd_t = time_ssm_scan(TUNE_BATCH, 256), time_ssm_scan_bwd(TUNE_BATCH, 256)
+    fa_err = max(a["max_abs_err"]["out"] for a in attention.values())
+    fa_bwd_err = max(max(a["max_abs_err"][k] for k in ("dq", "dk", "dv")) for a in attention.values())
+    recs = []
+    for name, src, replaces, err, t, kname in (
+            ("flash_attention", flash_dir + "flash_attention_wgmma.cu", "src/repro/kernels/flash_attention/kernel.py:106",
+             fa_err, fwd_t, "flash_attention"),
+            ("flash_attention_bwd_wgmma", flash_dir + "flash_attention_bwd_wgmma.cu",
+             "src/repro/models/attention.py:162 (the gradient of _blockwise_attn, by autodiff)", fa_bwd_err, bwd_t,
+             "flash_attention_bwd"),
+            ("ssm_scan", scan_src, "src/repro/kernels/ssm_scan/kernel.py:55", scan_err, scan_t, "ssm_scan"),
+            ("ssm_scan_bwd", scan_src, "src/repro/models/mamba.py:75 (the gradient of _chunked_selective_scan's "
+             "associative scan, by autodiff)", bwd_err, scan_bwd_t, "ssm_scan_bwd")):
+        by_path = {f"sharded/{p}": c[kname] for p, c in paths.items() if kname in c}
+        recs.append(dict(name=name, route="cuda", source=src, replaces=replaces, max_abs_err=err,
+                         launches=sum(by_path.values()), launches_by_path=by_path,
+                         **{k: t.get(k) for k in keys}))
+    return recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
@@ -4923,9 +5347,12 @@ def main(argv=None) -> int:
                     help="build the attention and SSM-scan kernels, check the scan and its backward and run phase 19 "
                          "only (fine-tuning the MoE, frontend and recurrent families at full width; jamba-v0.1 "
                          "needs ~60 GB of the card)")
-    ap.add_argument("--bwd-split", nargs="?", const="bfloat16", choices=("bfloat16", "float32"),
-                    help="trace the tensor-core backward of this dtype at the training shape only (its kernels' "
-                         "device times)")
+    ap.add_argument("--shard", action="store_true",
+                    help="build the attention and SSM-scan kernels, check them at the training shapes and run phase "
+                         "20 only (the sharded trainer, one rank a card; jamba's cut needs ~65 GB of each card)")
+    ap.add_argument("--bwd-split", nargs="?", const="bfloat16", choices=("bfloat16", "float32", "all"),
+                    help="trace the tensor-core backward of this dtype (all: bf16, then f32) at the training shape "
+                         "only (its kernels' device times)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5063,11 +5490,35 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return 0
+    if args.shard:
+        from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
+        from repro_torch.kernels.ssm_scan import cuda_kernel as scan_kernel
+
+        t0 = time.perf_counter()
+        card = card_line()
+        nvcc.build_libraries([(m.LIB_NAME, m.SOURCES) for m in (flash_kernel, scan_kernel)])
+        log(f"[card] {card}; two libraries built in {time.perf_counter() - t0:.1f} s")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        attention = check_tuning_attention()
+        scan_err, bwd_err = check_ssm_scan(), check_ssm_scan_bwd()
+        report = {"card": card, "attention_check": attention}
+        paths = run_sharded_training(report)
+        report["kernels"] = _shard_records(report, paths, attention, scan_err, bwd_err)
+        report["seconds"] = time.perf_counter() - t0
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_shard.json").write_text(json.dumps(report, indent=1, default=str))
+        log(f"[card] {card}")
+        print(json.dumps({"kernels": report["kernels"]}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if args.bwd_split:
         from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
 
         nvcc.build_libraries([(flash_kernel.LIB_NAME, flash_kernel.SOURCES)])
-        print("BWD_SPLIT " + json.dumps(bwd_kernel_split(TRAIN_BATCH, 16, 64, TRAIN_SEQ, args.bwd_split)))
+        for dname in (("bfloat16", "float32") if args.bwd_split == "all" else (args.bwd_split,)):
+            print(f"BWD_SPLIT {dname} " + json.dumps(bwd_kernel_split(TRAIN_BATCH, 16, 64, TRAIN_SEQ, dname)))
         return 0
 
     t0 = time.perf_counter()
@@ -5105,6 +5556,7 @@ def main(argv=None) -> int:
             log(f"[build]   {name}: {line}")
 
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s}
+    mark(report, "start and build")
     max_err = check_flash_decode()
     record = dict(name="flash_decode", route="cuda",
                   source="src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu",
@@ -5161,19 +5613,23 @@ def main(argv=None) -> int:
                       replaces="src/repro/kernels/ssm_scan/kernel.py:55", max_abs_err=check_ssm_scan())
     ssm_bwd_err = check_ssm_scan_bwd()
     ssm_bwd_record = dict(name="ssm_scan_bwd", route="cuda", source=ssm_record["source"], max_abs_err=ssm_bwd_err)
+    mark(report, "phase 2")
     if not args.quick:
         check_masks()
+        mark(report, "phase 3")
         # Phases 9-14 run ahead of the profiled phases, so that their
         # host-clock times are taken before any profiler trace.
         link_launches = run_link_kernels(report)
         run_link_round(report)
         link_times = time_lossy_link()
         report["link_kernel_times"] = link_times
+        mark(report, "phases 9-10")
         for rec, channel in ((egress_record, "iid"), (burst_record, "ge")):
             t = link_times[rec["name"]]
             rec.update(launches=link_launches[channel][rec["name"]], ms=t["ms"], plain_ms=t["plain_ms"],
                        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
         long_launches, long_bf16_launches = run_long_prefill(report)
+        mark(report, "phase 11")
         ssm_launches = run_ssm_scan_path()
         entry = run_zero_fill_entry_point(report)
         gl = GEMMA_LOCAL
@@ -5203,7 +5659,9 @@ def main(argv=None) -> int:
         report["ssm_scan_times"] = stiming
         ssm_record.update(launches=ssm_launches, ms=stiming["ms"], plain_ms=stiming["plain_ms"],
                           bound_ms=stiming["bound_ms"], bound_by=stiming["bound_by"], library_ms=None)
+        mark(report, "phase 12")
         trained = run_training(report)
+        mark(report, "phase 13")
         flash_records["bf16x6"]["launches"] = trained["bf16x6_forward"]
         bwd_launches = dict(wgmma=trained["wgmma"], bf16x6=trained["bf16x6"], simt=0,
                             bf16x6_hd256=entry[f"float32_hd{gl['hd']}"]["backward_bodies"]["bf16x6"])
@@ -5226,7 +5684,9 @@ def main(argv=None) -> int:
             bwd_records[body].update(launches=bwd_launches[body], ms=t["simt_ms"] if body == "simt" else t["ms"],
                                      plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                                      library_ms=t["library_ms"])
+        mark(report, "phase 13 backward times")
         paper_launches = run_paper_experiment(report)
+        mark(report, "phase 14")
         pe = report["paper_experiment"]["egress"]
         egress_record.update(launches=egress_record["launches"] + paper_launches,
                              launches_by_path={"link_slice_iid": link_launches["iid"]["lossy_link_egress"],
@@ -5234,12 +5694,14 @@ def main(argv=None) -> int:
                              at_cnn_split={k: pe[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")})
         # Phase 15's paths: serving over fading + FEC, fine-tuning on GE + FEC.
         net = run_network_stack(report)
+        mark(report, "phase 15")
         for rec, n in ((record, net["serving"]["flash_decode"]), (paged_record, net["serving"]["paged_flash_decode"]),
                        (flash_records["wgmma"], net["training"]["flash_attention"]),
                        (bwd_records["wgmma"], net["training"]["flash_attention_bwd"])):
             rec["launches_by_path"] = dict(rec.get("launches_by_path", {}), network_stack=n)
         # Phase 16's paths: the DecodeEngine (and under use_kernel), the router.
         served = run_serving_layer(report)
+        mark(report, "phase 16")
         for rec, name, path in ((record, "flash_decode", "decode_engine_iid"),
                                 (record, "flash_decode", "decode_engine_ge"),
                                 (paged_record, "paged_flash_decode", "router_iid"),
@@ -5254,6 +5716,7 @@ def main(argv=None) -> int:
         # Phase 17's paths: kimi-k2's loop and paged pool at hd 112, the
         # frontend configs' DecodeEngine.
         archs = run_architectures(report)
+        mark(report, "phase 17")
         for path, n in archs.items():
             rec = paged_record if path == "kimi_paged" else record
             rec["launches_by_path"] = dict(rec["launches_by_path"], **{f"architectures/{path}": n})
@@ -5265,6 +5728,7 @@ def main(argv=None) -> int:
         # on its model path, flash decode and the flash-attention prefill at
         # hd 128); xlstm launches no kernel.
         recur = run_recurrent(report)
+        mark(report, "phase 18")
         ssm_entry_launches = ssm_record["launches"]
         _ssm_path_record(ssm_record, recur, report["recurrent"]["ssm_scan_times"])
         ssm_record["launches_by_path"]["entry_point"] = ssm_entry_launches
@@ -5278,13 +5742,26 @@ def main(argv=None) -> int:
         # / B3' at hd 128), musicgen's (B3 / B3' at hd 64); xlstm launches no
         # kernel.
         tune = run_tuning(report)
+        mark(report, "phase 19")
         ssm_bwd_record = _ssm_bwd_record(ssm_bwd_err, report["tuning"])
         ssm_bwd_record["launches_by_path"] = {"tuning/jamba": tune["jamba"]["ssm_scan_bwd"]}
         ssm_record["launches_by_path"]["tuning/jamba"] = tune["jamba"]["ssm_scan"]
         for rec, name in ((flash_records["wgmma"], "flash_attention"), (bwd_records["wgmma"], "flash_attention_bwd")):
             rec.setdefault("launches_by_path", {}).update(
                 {f"tuning/{path}": tune[path][name] for path in ("jamba", "musicgen")})
+        # Phase 20's paths: the sharded trainer (qwen in each fsdp mode, B3 /
+        # B3'; jamba's cut through the expert-parallel MoE, B6 / B6' and B3 /
+        # B3' at hd 128).
+        shard = run_sharded_training(report)
+        mark(report, "phase 20")
+        for path, counts in shard.items():
+            for rec, name in ((flash_records["wgmma"], "flash_attention"),
+                              (bwd_records["wgmma"], "flash_attention_bwd")):
+                rec["launches_by_path"][f"sharded/{path}"] = counts[name]
+        for rec, name in ((ssm_record, "ssm_scan"), (ssm_bwd_record, "ssm_scan_bwd")):
+            rec["launches_by_path"]["sharded/jamba_moe_shard_map"] = shard["jamba_moe_shard_map"][name]
         launches = run_slice(report)
+        mark(report, "phases 4-5")
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
         report["kernel_times"] = [timing] + [
             time_flash_decode(*shape) for shape in (
@@ -5296,7 +5773,9 @@ def main(argv=None) -> int:
         record.update(launches=launches, ms=timing["ms"], plain_ms=timing["plain_ms"],
                       bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
                       library_ms=timing["library_ms"])
+        mark(report, "phase 6")
         paged_launches = run_engine(report)
+        mark(report, "phase 7")
         # Mid-generation rows of the main path: prompt + 16 generated + 1.
         mid = [p + 17 for p in (5, 13, 29, 61, 127, 5, 13, 29)]
         # 2 splits: the planner's choice at 160 rows before SPLIT_FROM_ROWS.
@@ -5306,7 +5785,9 @@ def main(argv=None) -> int:
         paged_record.update(launches=paged_launches, ms=ptiming["ms"], plain_ms=ptiming["plain_ms"],
                             bound_ms=ptiming["bound_ms"], bound_by=ptiming["bound_by"],
                             library_ms=ptiming["library_ms"])
+        mark(report, "phase 8")
         run_bwd_kernel_split(report)
+        mark(report, "the backward's split")
     report["kernels"] = [record, paged_record, egress_record, burst_record, *flash_records.values(),
                          *bwd_records.values(), ssm_record, ssm_bwd_record]
     if not args.quick:
@@ -5325,6 +5806,8 @@ def main(argv=None) -> int:
     if args.quick:
         log("[quick] kernel checks passed; no result line in --quick mode")
         return 0
+    log(f"[time] the phases' seconds: {json.dumps({k: round(v, 1) for k, v in report['phase_seconds'].items()})}")
+    (out / "chip_smoke.log").write_text("\n".join(_LOG) + "\n")
     log(f"[card] {card}")
     print(json.dumps({"kernels": report["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,12 +56,18 @@ def init_adam(params: Tree, cfg: AdamConfig) -> AdamState:
                      nu={n: zeros(p) for n, p in params.items()})
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, reduce: Optional[Callable[[Tree], Tree]] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares (leaves summed in
-    the dict's order)."""
+    the dict's order).  ``reduce`` maps the leaves' sums of squares to the
+    whole model's when ``tree`` holds this rank's shards (the sharded
+    trainer's ``ShardedModel.reduce_partials``: each summed over the mesh
+    axes that split its leaf)."""
+    partial = {n: torch.sum(torch.square(x.float())) for n, x in tree.items()}
+    if reduce is not None:
+        partial = reduce(partial)
     total = 0
-    for x in tree.values():
-        total = total + torch.sum(torch.square(x.float()))
+    for x in partial.values():
+        total = total + x
     return torch.sqrt(total)
 
 
@@ -80,13 +86,16 @@ def _row_slices(t: torch.Tensor):
 
 
 @torch.no_grad()
-def adam_update(grads: Tree, params: Tree, state: AdamState, cfg: AdamConfig) -> Tuple[Tree, AdamState, torch.Tensor]:
+def adam_update(grads: Tree, params: Tree, state: AdamState, cfg: AdamConfig,
+                norm_reduce: Optional[Callable[[Tree], Tree]] = None) -> Tuple[Tree, AdamState, torch.Tensor]:
     """Returns (params, state, grad_norm); ``params`` and the state's
     moments are updated in place.  ``grads`` holds a gradient for every
     parameter (a zero tensor where the loss does not reach it).  The clip
     multiplies each gradient by the reference's ``clip_by_global_norm``
-    scale in the gradient's dtype, a slice at a time."""
-    gnorm = global_norm(grads)
+    scale in the gradient's dtype, a slice at a time.  On shards (the
+    sharded trainer) every element's update is the same; the clip's norm is
+    the global one, through ``norm_reduce`` (see :func:`global_norm`)."""
+    gnorm = global_norm(grads, norm_reduce)
     scale = _clip_scale(gnorm, cfg.grad_clip_norm) if cfg.grad_clip_norm > 0 else None
     step = state.step + 1
     lr = cfg.lr if cfg.schedule is None else cfg.lr * cfg.schedule(step)

@@ -30,8 +30,10 @@ lands on one shard); ``PoolExhausted``'s fields sum over shards.
 
 A pure host layer over the engines: host mirrors and the public engine
 API only, no device read (the reference's lint rule RPA007 holds its copy
-to that; review keeps this one to it).  ``mesh=`` (the reference's device
-mesh) is not ported (ROADMAP A13).
+to that; review keeps this one to it).  ``mesh=`` (a ``launch.mesh.Mesh``)
+places one shard a device of its data axis (``sharding.rules.
+pool_shard_devices``), and refuses a ``model`` axis wider than 1, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import canonical_device
 from repro_torch.serve.continuous import ContinuousEngine, PoolConfig, PoolExhausted, Request, build_request
 from repro_torch.serve.scheduler import SLA
+from repro_torch.sharding.rules import pool_shard_devices
 
 
 def _same_device(a, b) -> bool:
@@ -70,12 +73,13 @@ def shard_devices(num_shards: int = 0, device="cuda") -> List[torch.device]:
 
 class ShardedEngine:
     """Occupancy-routed fleet of ``ContinuousEngine`` shards, one a device
-    of ``devices`` (which may repeat a device; None: one shard a card)."""
+    of ``devices`` (which may repeat a device; None: one a device of
+    ``mesh``'s data axis, else one a card)."""
 
     def __init__(self, cfg: ModelConfig, pool: Optional[PoolConfig] = None, *,
                  devices: Optional[Sequence] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("device meshes are not ported yet (ROADMAP A13); pass devices=")
+        if devices is None and mesh is not None:
+            devices = pool_shard_devices(mesh)
         devices = [torch.device(d) for d in (shard_devices() if devices is None else devices)]
         if not devices:
             raise ValueError("ShardedEngine: empty device list")

@@ -19,8 +19,8 @@ reduced.
 * The parameter bridge carries every new leaf both ways.
 * ``generate()`` sends frontend configs to the ``DecodeEngine``, and the
   trainer takes the MoE and frontend families (ROADMAP A12c; their
-  training parity is in tests/test_torch_train_{moe,frontend}.py) and
-  refuses only the sharded trainer (A13).
+  training parity is in tests/test_torch_train_{moe,frontend}.py), and so
+  does the sharded trainer (A13a; tests/test_torch_sharded_train.py).
 """
 
 import dataclasses
@@ -228,9 +228,9 @@ def test_prefill_step_takes_frontend_embed(arch):
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "arctic-480b", "qwen2-vl-72b", "musicgen-medium"])
 def test_trainer_refuses_moe_and_frontend_configs(arch):
     """Since ROADMAP A12c the trainer takes these configs (a step on the CPU
-    gives a finite loss); what it still refuses is the sharded trainer,
-    naming ROADMAP A13."""
+    gives a finite loss), and since A13a the sharded trainer too: in a
+    world of one its loss is the unsharded step's bit for bit."""
     _, losses, _ = t_train.train(arch, steps=1, batch=1, seq=8, device="cpu")
     assert len(losses) == 1 and np.isfinite(losses).all()
-    with pytest.raises(NotImplementedError, match="A13"):
-        t_train.main(["--arch", arch, "--steps", "1", "--device", "cpu", "--sharded"])
+    _, sharded, _ = t_train.train(arch, steps=1, batch=1, seq=8, device="cpu", sharded=True, fsdp="on")
+    assert sharded == losses

@@ -16,8 +16,8 @@ forward) and reduced xlstm-350m, f32:
   recurrent leaves counted where the reference counts them;
 * the paged pool refuses the stacks with the reference's error; the
   trainer takes them (ROADMAP A12c; their training parity is in
-  tests/test_torch_train_{jamba,xlstm}.py) and refuses only the sharded
-  trainer (A13);
+  tests/test_torch_train_{jamba,xlstm}.py), and so does the sharded
+  trainer (A13a);
 * the serving CLI serves both configs on the CPU.
 
 The parity of each entry point's tokens with the reference's is in the
@@ -171,9 +171,9 @@ def test_byte_accounting_matches_the_reference(arch, kv):
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
 def test_paged_pool_and_trainer_refuse(arch):
     """The paged pool raises the reference's ``ValueError`` (and the block
-    pool refuses the stack); the trainer, which takes them since ROADMAP
-    A12c (a step on the CPU gives a finite loss), refuses only the sharded
-    trainer, naming ROADMAP A13."""
+    pool refuses the stack); the trainer takes them since ROADMAP A12c (a
+    step on the CPU gives a finite loss), and the sharded trainer since
+    A13a (in a world of one, the unsharded step's loss bit for bit)."""
     jcfg, tcfg = J_ARCHS[arch].reduced(), T_ARCHS[arch].reduced()
     with pytest.raises(ValueError, match="attention-only") as want:
         JEngine(jcfg, JPool(paged=True))
@@ -184,8 +184,8 @@ def test_paged_pool_and_trainer_refuse(arch):
         t_cache.init_block_pool(tcfg, 8, 4, device="cpu")
     _, losses, _ = t_train.train(arch, steps=1, batch=1, seq=8, device="cpu")
     assert len(losses) == 1 and np.isfinite(losses).all()
-    with pytest.raises(NotImplementedError, match="A13"):
-        t_train.main(["--arch", arch, "--steps", "1", "--device", "cpu", "--sharded"])
+    _, sharded, _ = t_train.train(arch, steps=1, batch=1, seq=8, device="cpu", sharded=True)
+    assert sharded == losses
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])

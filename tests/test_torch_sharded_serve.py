@@ -258,7 +258,8 @@ def test_router_gauges_and_counters():
 def test_generate_and_cli_route_to_the_router(caplog):
     """``generate(num_shards=2)`` serves through the router (shards wrap
     around the device: two pools on the CPU) with the per-request contract;
-    the CLI's ``--num-shards`` does the same; ``mesh=`` names A13."""
+    the CLI's ``--num-shards`` does the same; ``devices=`` wins over
+    ``mesh=``."""
     jcfg, tcfg = _cfgs()
     params, model = _weights()
     clear_routers()
@@ -272,10 +273,37 @@ def test_generate_and_cli_route_to_the_router(caplog):
                                             key=jax.random.fold_in(jax.random.PRNGKey(8), i))
         np.testing.assert_array_equal(toks[i].numpy(), np.asarray(ref)[0])
     assert shard_devices(3, "cpu") == [torch.device("cpu")] * 3
-    with pytest.raises(NotImplementedError, match="A13"):
-        ShardedEngine(tcfg, devices=["cpu"], mesh=object())
+    # devices= wins over mesh= (the reference's order): this mesh's model
+    # axis of 2 would be refused.
+    from repro_torch.launch.mesh import make_host_mesh
+
+    assert ShardedEngine(tcfg, devices=["cpu"], mesh=make_host_mesh(2, devices=["cpu"] * 2)).devices == \
+        [torch.device("cpu")]
     caplog.set_level("INFO", logger="repro_torch.launch.serve")
     t_serve.main(["--arch", "qwen1.5-0.5b", "--batch", "2", "--prompt-len", "4", "--tokens", "2", "--num-shards",
                   "2", "--device", "cpu"])
     assert "num_shards: 2.00000" in caplog.text
     clear_routers()
+
+
+def test_a_mesh_places_one_shard_a_data_device():
+    """``ShardedEngine(mesh=)`` (the reference's ``pool_shard_devices``): a
+    (2, 1) host mesh gives the two shards of ``devices=["cpu", "cpu"]`` and
+    serves their tokens, request for request; a model axis of 2 raises."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    _, tcfg = _cfgs()
+    _, model = _weights()
+    pool = PoolConfig(max_slots=2, max_new=8, max_prompt=16)
+    engines = [ShardedEngine(tcfg, pool, mesh=make_host_mesh(devices=["cpu", "cpu"])), _two_shard(tcfg, pool)]
+    assert engines[0].devices == engines[1].devices == [torch.device("cpu")] * 2
+    tokens = []
+    for eng in engines:
+        reqs = [eng.submit(_prompt(i, n, tcfg.vocab_size), 4, key=prng.PRNGKey(70 + i))
+                for i, n in enumerate((6, 11, 8))]
+        eng.run(model)
+        assert all(c > 0 for c in eng.placement_counts), eng.placement_counts
+        tokens.append([list(r.tokens) for r in reqs])
+    assert tokens[0] == tokens[1]
+    with pytest.raises(ValueError, match="model axis of size 2"):
+        ShardedEngine(tcfg, pool, mesh=make_host_mesh(2, devices=["cpu", "cpu"]))

@@ -2,8 +2,9 @@
 and epoch (``repro_torch.launch.steps``) against ``make_train_epoch`` on
 the reference's own weights, the trainer (``repro_torch.launch.train``),
 and the twins of ``tests/test_system.py::TestLMComtuneTraining`` and of the
-applicable cases of ``tests/test_channel_training.py`` (sharding stays out:
-ROADMAP A13; its FEC, adaptive and protocol cases are twinned in
+applicable cases of ``tests/test_channel_training.py`` (its sharded cases
+are twinned in ``tests/test_torch_sharded_train*.py``; its FEC, adaptive
+and protocol cases in
 ``tests/test_torch_fec.py`` and ``tests/test_torch_protocol.py``).
 
 Bars:
@@ -234,9 +235,12 @@ def test_cli_trains_on_cpu_and_needs_a_card_by_default(caplog, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_train.main(["--arch", "qwen1.5-0.5b", "--steps", "1"])
-    for flags, item in ((["--sharded"], "A13"), (["--fsdp", "on"], "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_train.main(["--arch", "qwen1.5-0.5b", "--steps", "1", "--device", "cpu", *flags])
+    # --sharded trains in a world of one on the CPU (gloo), every placement.
+    for fsdp in ("off", "on", "expert"):
+        caplog.clear()
+        t_train.main(["--arch", "qwen1.5-0.5b", "--steps", "2", "--batch", "2", "--seq", "16", "--device", "cpu",
+                      "--sharded", "--fsdp", fsdp])
+        assert "final loss" in caplog.text and not torch.distributed.is_initialized()
     # --profile-dir writes a Chrome trace of the run (CPU activity only here),
     # and the run logs its link counters.
     caplog.clear()
@@ -443,6 +447,35 @@ class TestCheckpointResume:
         os.remove(os.path.join(d, "train_00000008.npz"))
         _, tail, _ = t_train.train("qwen1.5-0.5b", resume=True, **kw)
         np.testing.assert_array_equal(np.asarray(full[4:]), np.asarray(tail))
+
+
+    @pytest.mark.parametrize("first, then", [(True, False), (False, True)], ids=["sharded-then-plain",
+                                                                                "plain-then-sharded"])
+    def test_sharded_and_unsharded_checkpoints_resume_each_other(self, tmp_path, first, then):
+        """A sharded run (a world of one, fsdp on: whole tensors gathered
+        into the unsharded trainer's format) resumes in the unsharded
+        trainer, and the other way round (the restored tensors cut into
+        shards), on the unsharded run's trajectory bit for bit."""
+        d = str(tmp_path)
+        kw = dict(steps=6, batch=2, seq=16, log_every=1000, steps_per_epoch=3, ckpt_every=3, device="cpu")
+        _, full, _ = t_train.train("qwen1.5-0.5b", **kw)
+        t_train.train("qwen1.5-0.5b", ckpt_dir=d, sharded=first, fsdp="on", **kw)
+        os.remove(os.path.join(d, "train_00000006.npz"))
+        _, tail, _ = t_train.train("qwen1.5-0.5b", resume=True, ckpt_dir=d, sharded=then, fsdp="on", **kw)
+        np.testing.assert_array_equal(np.asarray(full[3:]), np.asarray(tail))
+
+
+    def test_history_holds_each_steps_metrics(self):
+        """``train(history=)``: a step's gradient norm and link counters; the
+        sharded trainer's (a world of one) equal the unsharded one's."""
+        hists = [{}, {}]
+        for hist, sharded in zip(hists, (False, True)):
+            t_train.train("qwen1.5-0.5b", steps=2, batch=2, seq=16, log_every=1000, device="cpu", sharded=sharded,
+                          history=hist)
+        for k in ("grad_norm", "link_elems", "link_dropped", "fec_recovered_packets"):
+            assert hists[0][k].shape == (2,)
+            np.testing.assert_array_equal(hists[0][k], hists[1][k])
+        assert hists[0]["link_elems"][0] == 2 * 16 * 256 and hists[0]["steps_s"] > 0
 
 
 class TestPerStepCurriculum:
