@@ -26,6 +26,7 @@ the kernels and the paths, and trains sharded over the machine's cards.
     python3 chip_smoke.py --recur        # the decode, attention and scan kernels' build + phase 18 only
     python3 chip_smoke.py --tune         # the attention and scan kernels' build, B6 / B6' checks + phase 19 only
     python3 chip_smoke.py --shard        # the attention and scan kernels' build and checks + phase 20 only
+    python3 chip_smoke.py --tp           # the decode, attention and scan kernels' build, B6 check + phase 21 only
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
@@ -311,7 +312,20 @@ Phases (any failure raises and the script exits non-zero):
      final weights); across cards the losses and gradient norms within
      twice their bf16 noise.  ``--shard`` runs phase 19's attention check,
      the scan's checks and phase 20 alone.
-Phases 9-20 run after phase 3, ahead of the profiled phases 5 and 7; last,
+ 21. sharded serving (``run_sharded_serving``): B1 and B3 against their
+     plain versions at the KV heads a rank of the production mesh holds of
+     qwen1.5-0.5b (1 on ``model`` 16, 4 on ``model`` 4; hd 64) on the
+     phase's shapes, and timed there; then, in a world of one over NCCL
+     in this process, qwen1.5-0.5b at full width in bf16 through
+     ``build_sharded_step``'s prefill (4 x 2,048 tokens: 24 B3 launches)
+     and 16 greedy decode steps (a 32,768-row cache, ``decode_32k``'s
+     length at batch 4: 384 B1 launches), beside the unsharded
+     ``make_prefill_step`` / ``make_serve_step`` on the same weights: every
+     step's logits and tokens bit-equal, the wall times and peak memory;
+     last, the dry run's report of qwen1.5-0.5b x train_4k, prefill_32k
+     and decode_32k on the placeholder production mesh (on the host).
+     ``--tp`` runs phase 21 alone.
+Phases 9-21 run after phase 3, ahead of the profiled phases 5 and 7; last,
 torch.profiler traces in a process of their own (``--bwd-split all``)
 split the tensor-core backward's time at the training shape between its
 kernels, bf16 then f32.
@@ -5327,6 +5341,198 @@ def _shard_records(report, paths, attention, scan_err, bwd_err) -> list:
     return recs
 
 
+# Phase 21: the serving shape (batch, prompt, cache rows, decode steps) and
+# the KV heads a production-mesh rank holds of qwen1.5-0.5b (16 heads over
+# model 16 and model 4).
+TP_BATCH, TP_PROMPT, TP_SEQ, TP_STEPS = 4, 2048, 32768, 16
+TP_RANK_HEADS = (1, 4)
+# jamba-v0.1's phase-19 cut (a Mamba layer, attention, Mamba with MoE) served
+# through the expert-parallel prefill: (batch, prompt, cache rows, steps).
+TP_JAMBA = (2, 520, 1024, 4)
+
+
+def check_rank_heads() -> dict:
+    """B1 and B3 against their plain versions at a production-mesh rank's
+    KV heads (``TP_RANK_HEADS``, G 1, hd 64, bf16) on phase 21's shapes,
+    with phase 2's bars: B1 over the 4 x 32,768-row cache at n_valid 2,048
+    / 2,049 / 2,063 (the decode's) and the full cache, B3 causal over 4 x
+    2,048.  Returns the worst |err| by kernel."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import cuda_kernel as fd
+    from repro_torch.kernels.decode_attention import flash_decode_ref
+    from repro_torch.kernels.flash_attention import cuda_kernel as fa
+    from repro_torch.kernels.flash_attention import gqa_flash_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst = dict(flash_decode=0.0, flash_attention=0.0)
+    for kvh in TP_RANK_HEADS:
+        q, k, v, _, _ = _decode_inputs(gen, TP_BATCH, kvh, 1, 64, TP_SEQ, torch.bfloat16, "bfloat16")
+        n = torch.tensor([TP_PROMPT, TP_PROMPT + 1, TP_PROMPT + TP_STEPS - 1, TP_SEQ], dtype=torch.int32,
+                         device="cuda")
+        got = fd.flash_decode(q, k, v, None, None, n)
+        want = flash_decode_ref(q, k, v, None, None, n[:, None], block_kv=64)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-5,
+                                   msg=lambda m: f"flash_decode at KV {kvh}: {m}")
+        worst["flash_decode"] = max(worst["flash_decode"], float((got.float() - want.float()).abs().max()))
+        mk = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = mk(TP_BATCH, TP_PROMPT, kvh, 64), mk(TP_BATCH, TP_PROMPT, kvh, 64), mk(TP_BATCH, TP_PROMPT, kvh, 64)
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = gqa_flash_attention_ref(q, k, v, causal=True)
+        want32 = gqa_flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=FLASH_TOL["bfloat16"],
+                                   msg=lambda m: f"flash_attention at KV {kvh}: {m}")
+        ratio = float(((got.float() - want32).abs() / (BF16_REL * want32.abs() + BF16_ABS)).max())
+        assert ratio <= 1.0, f"flash_attention at KV {kvh}: off the f32 plain value by {ratio:.2f} bf16 ulps"
+        worst["flash_attention"] = max(worst["flash_attention"], float((got.float() - want.float()).abs().max()))
+        del q, k, v, got, want, want32
+    log(f"[tp] B1 and B3 at a rank's KV heads {TP_RANK_HEADS} (hd 64, bf16) agree with their plain versions: "
+        f"max |err| {worst}")
+    return worst
+
+
+def _tp_serve(state, fns, cfg, mesh, cache, prompts, key, steps) -> dict:
+    """A prefill and ``steps`` greedy decode steps: every step's logits and
+    tokens (on the card), the wall times."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.launch.steps import greedy_tokens
+
+    prefill, decode = fns
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = prefill(state, {"tokens": prompts}, cache, key)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, toks = [logits], [greedy_tokens(logits, cfg, mesh)]
+        for i in range(steps):
+            logits, cache = decode(state, toks[-1], cache, prompts.shape[1] + i, prng.fold_in(key, i))
+            out.append(logits)
+            toks.append(greedy_tokens(logits, cfg, mesh))
+        torch.cuda.synchronize()
+    return dict(logits=out, tokens=torch.cat(toks, dim=1), prefill_s=t1 - t0,
+                decode_ms=(time.perf_counter() - t1) / steps * 1e3)
+
+
+def _tp_pair(cfg, mesh, batch, prompt, seq, steps, want, moe_shard_map=False) -> dict:
+    """``cfg`` served unsharded, then through ``build_sharded_step`` on the
+    state its ``place`` makes (the kernels' counts zeroed
+    just before, read just after), each on a copy of seed 0's weights: the two
+    runs' logits and tokens equal bit for bit, the sharded run's launches
+    ``want``.  Returns each run's times, peak memory and launches."""
+    import copy
+
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_sharded_step, init_cache_shards, make_prefill_step, make_serve_step
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device="cuda", dtype=torch.int32)
+    key = prng.PRNGKey(21, "cuda")
+    runs = {}
+    drawn = lm.init_lm(cfg, seed=0, device="cuda")
+    # The sharded state takes its model apart: each run gets its own copy.
+    models = {"unsharded": copy.deepcopy(drawn), "sharded": drawn}
+    del drawn
+    for name in ("unsharded", "sharded"):
+        model = models.pop(name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        if name == "unsharded":
+            state, fns = model, (make_prefill_step(cfg), make_serve_step(cfg))
+            cache = cache_lib.init_cache(cfg, batch, seq, device="cuda")
+        else:
+            fns = tuple(build_sharded_step(cfg, ShapeConfig(f"phase21_{kind}", seq, batch, kind), mesh,
+                                           moe_shard_map=moe_shard_map)[0] for kind in ("prefill", "decode"))
+            state = fns[0].place(model)
+            cache = init_cache_shards(cfg, ShapeConfig("phase21", seq, batch, "decode"), mesh, "cuda")
+            _zero_counts()
+        r = _tp_serve(state, fns, cfg, mesh, cache, prompts, key, steps)
+        r["peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        r["cache_gb"] = sum(t.numel() * t.element_size() for layer in cache for t in layer.values()) / 1e9
+        if name == "sharded":
+            counts = _counts()
+            r["launches"] = {k: counts[k] for k in want}
+        runs[name] = r
+        del state, fns, cache, model
+        torch.cuda.empty_cache()
+    u, sh = runs["unsharded"], runs["sharded"]
+    assert sh["launches"] == want, f"{cfg.name}: launches {sh['launches']}, want {want}"
+    assert torch.equal(sh["tokens"], u["tokens"]), f"{cfg.name}: tokens {sh['tokens']} against {u['tokens']}"
+    for i, (a, b) in enumerate(zip(sh["logits"], u["logits"])):
+        assert torch.equal(a, b), f"{cfg.name}: step {i}'s logits differ from the unsharded step's"
+    assert all(torch.isfinite(x).all() for x in u["logits"])
+    sh["first_tokens"] = sh["tokens"][0, :8].tolist()
+    return {n: {k: v for k, v in r.items() if k not in ("logits", "tokens")} for n, r in runs.items()}
+
+
+def run_sharded_serving(report) -> dict:
+    """Phase 21 (module notes above).  Returns the sharded run's launches:
+    {"prefill": counts, "decode": counts}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    card = card_line()
+    checks = check_rank_heads()
+    times = dict(flash_decode=[time_flash_decode(TP_BATCH, kvh, 1, 64, TP_SEQ, TP_PROMPT + TP_STEPS, "bfloat16")
+                               for kvh in TP_RANK_HEADS],
+                 flash_attention=[time_flash_attention(TP_BATCH, kvh, kvh, 64, TP_PROMPT, 0) for kvh in TP_RANK_HEADS])
+    cfg = get_config("qwen1.5-0.5b")
+    n_layers = len(cfg.all_layers())
+    jcfg = _jamba_tune_cfg()
+    kinds = [s.kind for s in jcfg.all_layers()]
+    jchunks = -(-TP_JAMBA[1] // jcfg.scan_chunk)
+    torch.cuda.empty_cache()
+    _, started = mesh_lib.init_world("cuda")
+    try:
+        mesh = mesh_lib.make_production_mesh()
+        world = torch.distributed.get_world_size()
+        runs = {"qwen1.5-0.5b": _tp_pair(cfg, mesh, TP_BATCH, TP_PROMPT, TP_SEQ, TP_STEPS,
+                                         dict(flash_attention=n_layers, flash_decode=n_layers * TP_STEPS)),
+                "jamba-v0.1-52b cut": _tp_pair(jcfg, mesh, *TP_JAMBA, dict(
+                    ssm_scan=kinds.count("mamba") * jchunks, flash_attention=kinds.count("attn"),
+                    flash_decode=kinds.count("attn") * TP_JAMBA[3]), moe_shard_map=True)}
+    finally:
+        if started:
+            mesh_lib.close_world()
+    for arch, pair in runs.items():
+        for name, r in pair.items():
+            log(f"[tp] ({card}, world {world}, mesh {dict(mesh.shape)}) {arch} {name}: prefill {r['prefill_s'] * 1e3:.1f} "
+                f"ms, decode {r['decode_ms']:.2f} ms a step, cache {r['cache_gb']:.2f} GB, peak {r['peak_gb']:.2f} GB"
+                + (f", launches {r['launches']}, tokens {r['first_tokens']}... bit-equal to the unsharded run's"
+                   if "launches" in r else ""))
+    dry = {}
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        d = dryrun.run_one("qwen1.5-0.5b", shape)
+        dry[shape] = {k: d[k] for k in ("mesh", "flops", "hbm_bytes", "raw_cost_flops", "collective_bytes",
+                                        "collective_by_axis", "bytes_per_device", "compute_s", "memory_s",
+                                        "collective_s", "bottleneck", "useful_flops_frac", "trace_s")}
+        log(f"[tp] dry run qwen1.5-0.5b x {shape} on {d['mesh']} (host, {d['trace_s']} s): compute "
+            f"{d['compute_s']:.3e} s, memory {d['memory_s']:.3e} s, collective {d['collective_s']:.3e} s -> "
+            f"{d['bottleneck']}; {d['bytes_per_device'] / 1e9:.2f} GB a device")
+    report["sharded_serving"] = dict(card=card, world=world, checks=checks, kernel_times=times, dryrun=dry,
+                                     runs=runs, seconds=time.perf_counter() - t0)
+    log(f"[tp] phase 21 passed in {time.perf_counter() - t0:.1f} s ({card})")
+    q, j = runs["qwen1.5-0.5b"]["sharded"]["launches"], runs["jamba-v0.1-52b cut"]["sharded"]["launches"]
+    return dict(qwen=q, jamba=j)
+
+
+def _rank_head_rows(report, name) -> list:
+    return [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in report["sharded_serving"]["kernel_times"][name]]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
@@ -5350,6 +5556,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shard", action="store_true",
                     help="build the attention and SSM-scan kernels, check them at the training shapes and run phase "
                          "20 only (the sharded trainer, one rank a card; jamba's cut needs ~65 GB of each card)")
+    ap.add_argument("--tp", action="store_true",
+                    help="build the decode, attention and SSM-scan kernels, check the scan and run phase 21 only "
+                         "(sharded serving and the dry run; ~30 GB of the card)")
     ap.add_argument("--bwd-split", nargs="?", const="bfloat16", choices=("bfloat16", "float32", "all"),
                     help="trace the tensor-core backward of this dtype (all: bf16, then f32) at the training shape "
                          "only (its kernels' device times)")
@@ -5508,6 +5717,45 @@ def main(argv=None) -> int:
         report["seconds"] = time.perf_counter() - t0
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_shard.json").write_text(json.dumps(report, indent=1, default=str))
+        log(f"[card] {card}")
+        print(json.dumps({"kernels": report["kernels"]}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if args.tp:
+        from repro_torch.kernels.decode_attention import cuda_kernel as decode_kernel
+        from repro_torch.kernels.flash_attention import cuda_kernel as flash_kernel
+        from repro_torch.kernels.ssm_scan import cuda_kernel as scan_kernel
+
+        t0 = time.perf_counter()
+        card = card_line()
+        nvcc.build_libraries([(m.LIB_NAME, m.SOURCES) for m in (decode_kernel, flash_kernel, scan_kernel)])
+        log(f"[card] {card}; three libraries built in {time.perf_counter() - t0:.1f} s")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        scan_err = check_ssm_scan()
+        report = {"card": card}
+        paths = run_sharded_serving(report)
+        checks = dict(report["sharded_serving"]["checks"], ssm_scan=scan_err)
+        stime = time_ssm_scan(TP_JAMBA[0], 256)
+        recs = []
+        for name, src, replaces in (
+                ("flash_decode", "src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu",
+                 "src/repro/kernels/decode_attention/kernel.py:120"),
+                ("flash_attention", "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
+                 "src/repro/kernels/flash_attention/kernel.py:106"),
+                ("ssm_scan", "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan/kernel.py:55")):
+            by_path = {f"sharded_serving/{arch}": c[name] for arch, c in paths.items() if name in c}
+            rows = _rank_head_rows(report, name) if name != "ssm_scan" else [stime]
+            recs.append(dict(name=name, route="cuda", source=src, replaces=replaces, max_abs_err=checks[name],
+                             launches=sum(by_path.values()), launches_by_path=by_path,
+                             **{k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                             shape=rows[0]["shape"], **({"at_rank_heads": rows} if name != "ssm_scan" else {})))
+        report["kernels"] = recs
+        report["seconds"] = time.perf_counter() - t0
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_tp.json").write_text(json.dumps(report, indent=1, default=str))
         log(f"[card] {card}")
         print(json.dumps({"kernels": report["kernels"]}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5760,6 +6008,16 @@ def main(argv=None) -> int:
                 rec["launches_by_path"][f"sharded/{path}"] = counts[name]
         for rec, name in ((ssm_record, "ssm_scan"), (ssm_bwd_record, "ssm_scan_bwd")):
             rec["launches_by_path"]["sharded/jamba_moe_shard_map"] = shard["jamba_moe_shard_map"][name]
+        # Phase 21's paths: sharded serving's prefill (B3) and decode (B1),
+        # and the two kernels at a production-mesh rank's heads.
+        tp = run_sharded_serving(report)
+        mark(report, "phase 21")
+        for arch, counts in tp.items():
+            record["launches_by_path"][f"sharded_serving/{arch}"] = counts["flash_decode"]
+            flash_records["wgmma"]["launches_by_path"][f"sharded_serving/{arch}"] = counts["flash_attention"]
+        ssm_record["launches_by_path"]["sharded_serving/jamba"] = tp["jamba"]["ssm_scan"]
+        record["at_rank_heads"] = _rank_head_rows(report, "flash_decode")
+        flash_records["wgmma"]["at_rank_heads"] = _rank_head_rows(report, "flash_attention")
         launches = run_slice(report)
         mark(report, "phases 4-5")
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")

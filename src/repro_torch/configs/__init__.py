@@ -16,7 +16,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.arctic_480b import CONFIG as _arctic
-from repro_torch.configs.base import LayerSpec, LinkConfig, ModelConfig
+from repro_torch.configs.base import INPUT_SHAPES, LayerSpec, LinkConfig, ModelConfig, ShapeConfig
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as _codeqwen
 from repro_torch.configs.gemma3_12b import CONFIG as _gemma3
 from repro_torch.configs.gemma_7b import CONFIG as _gemma7b
@@ -38,4 +38,9 @@ def get_config(name: str) -> ModelConfig:
     return ARCHITECTURES[name]
 
 
-__all__ = ["ARCHITECTURES", "LayerSpec", "LinkConfig", "ModelConfig", "get_config"]
+def get_shape(name: str) -> ShapeConfig:
+    return INPUT_SHAPES[name]
+
+
+__all__ = ["ARCHITECTURES", "INPUT_SHAPES", "LayerSpec", "LinkConfig", "ModelConfig", "ShapeConfig", "get_config",
+           "get_shape"]

@@ -1,4 +1,5 @@
-"""Model / link configuration schema — a copy of ``repro/configs/base.py``.
+"""Model / shape / link configuration schema — a copy of
+``repro/configs/base.py``.
 
 The port keeps its own copy so that it imports nothing from the JAX
 package.  Every architecture is a repeating ``unit_pattern`` of
@@ -243,3 +244,25 @@ class ModelConfig:
         s1 = half // 4
         s2 = (half - s1) // 2
         return (s1, s2, half - s1 - s2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -217,7 +217,9 @@ def streamed_channel_link(key: torch.Tensor, msg: torch.Tensor, spec: LinkSpec) 
     with ``fold_in(key, i)``, except position 0, which keeps the raw key (so
     a one-position message matches the decode round's draw).  Each round
     records into the ambient collector, which sums them as the reference's
-    per-position taps do."""
+    per-position taps do.  On ``meta`` (shapes only) the rounds are one."""
+    if msg.is_meta:
+        return channel_link(key, msg, spec)
     rounds = []
     for i in range(msg.shape[1]):
         k = key if i == 0 else prng.fold_in(key, i)

@@ -57,7 +57,8 @@ def decode_attention(
         out = cuda_kernel.flash_decode(qh, k, v, k_scale, v_scale, n, softcap=softcap)
         return out[:, None]
     c = k.shape[1]
-    bkv = decode_block_kv(c, block_kv)
+    # On meta (shapes only) the walk takes the whole cache as one block.
+    bkv = c if q.is_meta else decode_block_kv(c, block_kv)
     pad = (-c) % bkv
     if pad:
         # Padded rows sit at k_pos >= C >= n_valid, so the mask never reads them.

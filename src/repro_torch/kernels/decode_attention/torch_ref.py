@@ -33,10 +33,12 @@ import torch
 NEG_INF = -1.0e30
 
 
-def _walk(q: torch.Tensor, n_valid: torch.Tensor, block: int, fetch, softcap: float) -> torch.Tensor:
+def _walk(q: torch.Tensor, n_valid: torch.Tensor, block: int, fetch, softcap: float,
+          max_blocks: int) -> torch.Tensor:
     """The online softmax over ``ceil(n_valid / block)`` blocks per row.
     ``fetch(kj)`` returns block ``kj`` of every row as f32 ``(B, block, KV,
-    hd)`` k and v, already dequantized."""
+    hd)`` k and v, already dequantized.  On ``meta`` tensors, whose lengths
+    cannot be read, the walk takes all ``max_blocks`` blocks there are."""
     b, kvh, g, hd = q.shape
     qf = q.float()
     scale = float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(hd))))
@@ -45,7 +47,7 @@ def _walk(q: torch.Tensor, n_valid: torch.Tensor, block: int, fetch, softcap: fl
     acc = torch.zeros((b, kvh, g, hd), dtype=torch.float32, device=q.device)
     m = torch.full((b, kvh, g), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kvh, g), dtype=torch.float32, device=q.device)
-    steps = int(n_blocks.max()) if b else 0
+    steps = max_blocks if n_valid.is_meta else (int(n_blocks.max()) if b else 0)
     iota = torch.arange(block, device=q.device)
     for kj in range(steps):
         kb, vb = fetch(kj)
@@ -94,7 +96,7 @@ def flash_decode_ref(
         return (_dequant(k[:, sl], k_scale[:, sl] if quantized else None),
                 _dequant(v[:, sl], v_scale[:, sl] if quantized else None))
 
-    return _walk(q, n_valid, block_kv, fetch, softcap)
+    return _walk(q, n_valid, block_kv, fetch, softcap, k.shape[1] // block_kv)
 
 
 def paged_flash_decode_ref(
@@ -122,7 +124,7 @@ def paged_flash_decode_ref(
         return (_dequant(k[pid], k_scale[pid] if quantized else None),
                 _dequant(v[pid], v_scale[pid] if quantized else None))
 
-    return _walk(q, n, block_size, fetch, softcap)
+    return _walk(q, n, block_size, fetch, softcap, bt.shape[1])
 
 
 def split_rows(cache_len: int, nsplit: int) -> int:

@@ -22,11 +22,20 @@ each KV head.  Given the forward's row statistics (``stats``: each row's
 max m in log2 units and sum l, as the wgmma forward writes them and the
 wgmma backward reads them), it forms p = exp2(s log2(e) - m) / l from them
 instead of a softmax; the two agree to f32 rounding.
+
+On ``meta`` tensors (the dry run, ``launch.dryrun``) both compute shapes
+only, through two shape-only operators whose FLOPs
+``torch.utils.flop_counter`` counts as the plain versions' products: the
+forward's two, ``4 B H Sq Skv hd``, and the backward's five, ``10 B H Sq
+Skv hd``, with its row sums of dO * O, ``2 B Sq H hd`` (the whole square,
+as the plain versions form it).  Nothing of size ``Sq x Skv`` is made, and
+the backward keeps what the kernels keep.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 NEG_INF = -1.0e30
 LOG2E = 1.4426950408889634
@@ -54,6 +63,42 @@ def flash_attention_ref(
     return torch.einsum("bqk,bkh->bqh", p, v.to(acc)).to(q.dtype)
 
 
+@torch.library.custom_op("repro_torch::attention_shapes", mutates_args=())
+def _attention_shapes(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(q)
+
+
+@_attention_shapes.register_fake
+def _(q, k):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::attention_bwd_shapes", mutates_args=())
+def _attention_bwd_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                                                                      torch.Tensor]:
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@_attention_bwd_shapes.register_fake
+def _(q, k, v):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _square(q_shape, k_shape) -> int:
+    b, sq, h, hd = q_shape
+    return b * h * sq * k_shape[1] * hd
+
+
+@register_flop_formula(torch.ops.repro_torch.attention_shapes)
+def _attention_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    return 4 * _square(q_shape, k_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.attention_bwd_shapes)
+def _attention_bwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    return 10 * _square(q_shape, k_shape) + 2 * q_shape[0] * q_shape[1] * q_shape[2] * q_shape[3]
+
+
 def _acc_dtype(q: torch.Tensor) -> torch.dtype:
     return torch.float64 if q.dtype == torch.float64 else torch.float32
 
@@ -79,6 +124,8 @@ def gqa_flash_attention_ref(
     """``flash_attention_ref`` on the (B, S, H, hd) layout, KV head ``kv``
     repeated to query heads ``kv * G .. kv * G + G - 1``; returns
     (B, Sq, H, hd) in q's dtype."""
+    if q.is_meta:
+        return torch.ops.repro_torch.attention_shapes(q, k)
     b, sq, h, hd = q.shape
     g = h // k.shape[2]
     if g > 1:
@@ -104,6 +151,8 @@ def flash_attention_bwd_ref(
     """(dQ, dK, dV) of ``gqa_flash_attention_ref``, each in its input's
     dtype, computed in f32 (f64 for f64 inputs), P from ``stats`` where
     given."""
+    if q.is_meta:
+        return torch.ops.repro_torch.attention_bwd_shapes(q, k, v)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh

@@ -3,6 +3,9 @@
 One rule, decided by the tensor a wrapper is handed:
 
 * a CPU tensor -> the kernel's plain PyTorch version (the tests' path);
+* a ``meta`` tensor -> the plain version too, which on ``meta`` computes
+  shapes only (the dry run, ``launch.dryrun``, traces a rank's program on
+  ``meta`` tensors and counts its operations);
 * a CUDA tensor on a card of capability (9, 0) (Hopper, ``sm_90a``) -> the
   hand-written kernel;
 * a CUDA tensor on any other card, or any other device -> ``RuntimeError``.
@@ -29,8 +32,9 @@ KERNEL_CAPABILITY = (9, 0)
 
 
 def use_kernel(t: torch.Tensor) -> bool:
-    """True -> launch the hand kernel; False -> the plain version (CPU)."""
-    if t.device.type == "cpu":
+    """True -> launch the hand kernel; False -> the plain version (CPU, or
+    shapes only on ``meta``)."""
+    if t.device.type in ("cpu", "meta"):
         return False
     if t.device.type == "cuda":
         cap = torch.cuda.get_device_capability(t.device)

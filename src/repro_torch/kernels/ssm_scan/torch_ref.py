@@ -39,6 +39,8 @@ def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Te
     acc = _acc(a, b, h0)
     h = h0.to(acc)
     out = torch.empty(a.shape, dtype=acc, device=a.device)
+    if out.is_meta:
+        return out          # shapes only: the steps hold no product to count
     for t in range(a.shape[-2]):
         h = (a[..., t, :].double() * h.double() + b[..., t, :].double()).to(acc)
         out[..., t, :] = h

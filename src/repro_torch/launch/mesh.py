@@ -1,5 +1,5 @@
 """Device meshes and the process world of the sharded trainer and the
-sharded serving router (twin of ``repro/launch/mesh.py:45-94``).
+sharded serving router (twin of ``repro/launch/mesh.py:38-94``).
 
 A :class:`Mesh` plays the role of a jax ``Mesh``: a named ``("data",
 "model")`` grid of ``torch.device``s with ``.shape[axis]``,
@@ -10,7 +10,14 @@ world is flat grid position ``r``; :meth:`Mesh.device_mesh` builds the
 the grid's) and :meth:`Mesh.group` its process group along an axis.
 
 On the card the grid holds ``cuda:i`` for rank ``i`` (one rank a card); on
-the CPU, N times ``cpu``.  :func:`init_world` starts the world: from
+the CPU, N times ``cpu``.  A grid of ``meta`` devices is a *placeholder*
+mesh (:func:`make_production_mesh` outside a world, the dry run): it stands
+for ranks that do not exist, its groups are ``sharding.comm``'s placeholder
+groups, whose collectives move no data, and :meth:`Mesh.coordinate` takes
+the rank explicitly (or the one ``comm.placeholder_world`` traces).  An
+axis argument (``size_of``, ``index_of``, ``group``) is one axis name or a
+tuple of them, as a placement's entry is (``("pod", "data")``: pod-major).
+:func:`init_world` starts the world: from
 ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) when
 present, else a world of one, over NCCL for ``cuda`` and gloo for ``cpu``
 (no other backend), and refuses more CUDA ranks than cards.
@@ -23,12 +30,15 @@ devices the world exposes).
 from __future__ import annotations
 
 import datetime
+import math
 import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.sharding import comm
 
 HOST_DEVICES_ENV = "REPRO_HOST_DEVICES"
 AXES = ("data", "model")
@@ -49,15 +59,38 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, devices.shape))
         self.size = int(devices.size)
+        self.placeholder = all(torch.device(d).type == "meta" for d in devices.flat)
         self._device_mesh = None
 
     def __repr__(self) -> str:
+        if self.placeholder:
+            return f"Mesh({self.shape}, placeholder)"
         return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
 
     def coordinate(self, rank: Optional[int] = None) -> Dict[str, int]:
-        """Grid position of ``rank`` (this process's rank by default), by axis."""
-        rank = dist.get_rank() if rank is None else rank
+        """Grid position of ``rank`` by axis: by default this process's rank,
+        or on a placeholder mesh the rank ``comm.placeholder_world`` traces
+        (without one, a placeholder mesh needs ``rank``)."""
+        if rank is None:
+            if self.placeholder:
+                rank = comm.placeholder_rank()
+                if rank is None:
+                    raise ValueError("a placeholder mesh stands for no process: pass the rank, or trace under "
+                                     "sharding.comm.placeholder_world(rank)")
+            else:
+                rank = dist.get_rank()
         return {a: int(i) for a, i in zip(self.axis_names, np.unravel_index(rank, self.devices.shape))}
+
+    def size_of(self, axes) -> int:
+        """The number of ranks along ``axes`` (1 for None)."""
+        return math.prod(self.shape[a] for a in _names(axes))
+
+    def index_of(self, axes, rank: Optional[int] = None) -> int:
+        """``rank``'s position along ``axes``, the first axis major."""
+        coord, idx = self.coordinate(rank), 0
+        for a in _names(axes):
+            idx = idx * self.shape[a] + coord[a]
+        return idx
 
     def device_mesh(self):
         """The ``DeviceMesh`` over the initialised world, rank ``r`` at flat
@@ -75,9 +108,51 @@ class Mesh:
             self._device_mesh = DeviceMesh(kind, grid, mesh_dim_names=self.axis_names)
         return self._device_mesh
 
-    def group(self, axis: str):
-        """The process group of this rank's line along ``axis``."""
-        return self.device_mesh().get_group(axis)
+    def group(self, axes):
+        """The process group of this rank's line along ``axes`` (one axis,
+        or all of them: the world); on a placeholder mesh, a placeholder
+        group of that size."""
+        names = _names(axes)
+        label = "+".join(names)
+        if self.placeholder:
+            return comm.PlaceholderGroup(label, self.size_of(names))
+        if len(names) == 1:
+            group = self.device_mesh().get_group(names[0])
+        elif set(names) == set(self.axis_names):
+            self.device_mesh()
+            group = dist.group.WORLD
+        else:
+            raise NotImplementedError(f"a process group over axes {names} of a real world")
+        return comm.name_group(group, label)
+
+
+def _names(axes) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh: ``(16, 16)`` ``("data", "model")`` (256 cards a
+    pod), or ``(2, 16, 16)`` with ``"pod"`` first.  Outside a world it is a
+    placeholder grid of ``meta`` devices (the dry run).  In an initialised
+    world it spans the world's ranks, whatever their number: ``model`` is
+    ``gcd(world, 16)`` wide, the rest ``data`` (and, multi-pod, 2 pods)."""
+    axes = ("pod", "data", "model") if multi_pod else AXES
+    if not dist.is_initialized():
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        grid = np.empty(math.prod(shape), dtype=object)
+        grid[:] = [torch.device("meta")] * grid.size
+        return Mesh(grid.reshape(shape), axes)
+    devices = world_devices()
+    n = len(devices)
+    m = math.gcd(n, 16)
+    if multi_pod and (n // m) % 2:
+        raise ValueError(f"a multi-pod mesh needs an even number of data rows; the world has {n} rank(s)")
+    shape = (2, n // m // 2, m) if multi_pod else (n // m, m)
+    grid = np.empty(n, dtype=object)
+    grid[:] = devices
+    return Mesh(grid.reshape(shape), axes)
 
 
 def world_devices() -> list:

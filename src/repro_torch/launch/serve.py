@@ -17,8 +17,16 @@ reports the uplink's latency under a ``net.protocol`` policy
 (``--protocol``), and with ``--deadline`` the probability that the policy
 delivers the whole uplink in time.
 
+``generate_sharded`` (``--tensor-parallel``) serves greedily through
+``launch.steps.build_sharded_step``'s prefill and decode on this rank of a
+mesh: the production mesh over the world's ranks (``torchrun``, one rank a
+card), each rank computing its ``model`` slices of the attention, MLPs and
+vocabulary and its ``data`` rows, with ``generate_reference``'s key chain;
+in a world of one its tokens are ``generate_reference``'s.
+
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --full-size \
         [--channel iid|ge|fading] [--protocol unreliable|arq|fec_arq] [--deadline 0.05] [--num-shards 2]
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen1.5-0.5b --tensor-parallel
 """
 
 from __future__ import annotations
@@ -167,6 +175,54 @@ def generate_reference(model: lm.LM, cfg, prompts: torch.Tensor, num_tokens: int
     return torch.cat(out, dim=1), timings
 
 
+@torch.inference_mode()
+def generate_sharded(cfg, prompts: torch.Tensor, num_tokens: int, mesh, key: torch.Tensor | None = None,
+                     moe_shard_map: bool = False):
+    """Greedy DI serving through ``build_sharded_step`` on this rank of
+    ``mesh`` (module notes): the weights are ``init_lm(cfg, seed=0)``'s,
+    held as this rank's shards (fsdp on); every rank passes the global
+    ``prompts``.
+    Returns (the global tokens (B, num_tokens) int32, gathered over the data
+    rows on every rank, timings)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.sharding import comm, rules
+
+    device = prompts.device
+    key = key if key is not None else prng.PRNGKey(0, device)
+    b, s_prompt = prompts.shape
+    shape = dict(seq_len=s_prompt + num_tokens, global_batch=b)
+    prefill, _ = steps.build_sharded_step(cfg, ShapeConfig("prefill", kind="prefill", **shape), mesh,
+                                          moe_shard_map=moe_shard_map)
+    step, _ = steps.build_sharded_step(cfg, ShapeConfig("decode", kind="decode", **shape), mesh,
+                                       moe_shard_map=moe_shard_map)
+    state = prefill.place(lm.init_lm(cfg, seed=0, device=device))
+    cache = steps.init_cache_shards(cfg, ShapeConfig("decode", kind="decode", **shape), mesh, device)
+    rows = rules.batch_spec(mesh, b)
+
+    def whole(token):
+        return token if rows is None else comm.all_gather_along(token, mesh.group(rows), 0)
+
+    key, sub = prng.split(key)
+    synchronize(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(state, {"tokens": prompts}, cache, sub)
+    token = whole(steps.greedy_tokens(logits, cfg, mesh))
+    synchronize(device)
+    t_prefill = time.perf_counter() - t0
+    out = []
+    t0 = time.perf_counter()
+    for i in range(num_tokens):
+        out.append(token)
+        key, sub = prng.split(key)
+        logits, cache = step(state, token, cache, s_prompt + i, sub)
+        token = whole(steps.greedy_tokens(logits, cfg, mesh))
+    synchronize(device)
+    t_decode = time.perf_counter() - t0
+    return torch.cat(out, dim=1), {"prefill_s": t_prefill, "decode_s_per_token": t_decode / max(1, num_tokens),
+                                   "tokens_per_s": (b * num_tokens) / max(t_decode, 1e-9)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", choices=sorted(ARCHITECTURES), required=True)
@@ -188,9 +244,14 @@ def main(argv=None):
     ap.add_argument("--num-shards", type=int, default=0,
                     help="serve through the sharded router with this many slot-pool shards (0 / 1: one "
                     "engine); the shards wrap around the visible cards")
+    ap.add_argument("--tensor-parallel", action="store_true",
+                    help="serve greedily through build_sharded_step on the production mesh over the world's ranks "
+                    "(torchrun, one rank a card; a world of one without it)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    if args.tensor_parallel:
+        return _serve_tensor_parallel(args)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -208,6 +269,27 @@ def main(argv=None):
     for k, v in timings.items():
         log.info(f"{k}: {v:.5f}")
     protocol_report(cfg, args.batch, args.loss_rate, args.channel, args.protocol, args.deadline)
+
+
+def _serve_tensor_parallel(args) -> None:
+    from repro_torch.launch import mesh as mesh_lib
+
+    device, started = mesh_lib.init_world(resolve_device(args.device))
+    try:
+        mesh = mesh_lib.make_production_mesh()
+        cfg = get_config(args.arch) if args.full_size else get_config(args.arch).reduced()
+        cfg = _override_link(cfg, loss_rate=args.loss_rate, channel=args.channel)
+        key = prng.PRNGKey(0, device)
+        prompts = prng.randint(key, (args.batch, args.prompt_len), 0, cfg.vocab_size)
+        toks, timings = generate_sharded(cfg, prompts, args.tokens, mesh, key=key)
+        if torch.distributed.get_rank() == 0:
+            log.info(f"mesh {mesh.shape} over {torch.distributed.get_world_size()} rank(s) on {device}")
+            log.info(f"generated: {toks[:, :10].cpu().numpy()} ...")
+            for k, v in timings.items():
+                log.info(f"{k}: {v:.5f}")
+    finally:
+        if started:
+            mesh_lib.close_world()
 
 
 def protocol_report(cfg, batch: int, loss_rate: float, channel: str, protocol: str, deadline=None) -> dict:

@@ -27,6 +27,13 @@ tables and decode always runs the paged flash decode).
 
 Caches are dicts of tensors updated **in place** (the reference returns
 new arrays); ``Attention.forward`` returns only the layer's output.
+
+Tensor parallel (the sharded serving steps, ``sharding.ctx.
+use_tensor_parallel``): when ``wq``/``wk``/``wv`` (and the biases) hold
+this rank's columns, its ``H / m`` query and ``KV / m`` KV heads, and
+``w_out`` the matching rows, the layer attends over those heads only,
+with a cache of those KV heads, and sums its partial output over
+``model``.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from repro_torch.kernels.decode_attention import decode_attention, paged_decode_
 from repro_torch.kernels.flash_attention import grouped_flash_attention
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import acc_dtype, dense_std, frozen, trunc_normal_
+from repro_torch.sharding import ctx as shard_ctx
 
 NEG_INF = -1.0e30
 Cache = Dict[str, torch.Tensor]
@@ -320,7 +328,9 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                 cache: Optional[Cache] = None, cache_index: Optional[Index] = None) -> torch.Tensor:
         b, s, _ = x.shape
-        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        hd = cfg.resolved_head_dim
+        # This rank's heads: all of them, unless the projections are its slice.
+        h, kvh = self.wq.shape[1] // hd, self.wk.shape[1] // hd
         q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
         if self.bq is not None:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
@@ -349,7 +359,8 @@ class Attention(nn.Module):
         else:
             if cfg.attn_impl in ("blockwise", "flash_decode") and s > cfg.attn_block_q:
                 kw = dict(causal=True, window=self.spec.window, q_offset=0, softcap=cfg.logit_softcap)
-                if runtime.use_kernel(qg):
+                if runtime.use_kernel(qg) or qg.is_meta:
+                    # The kernels on the card; on meta, shapes only.
                     out = grouped_flash_attention(qg, k, v, **kw)
                 else:
                     out = _blockwise_attn(qg, k, v, block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv, **kw)
@@ -361,5 +372,6 @@ class Attention(nn.Module):
                 out = _naive_attn(qg, k, v, msk[None, None, None], cfg.logit_softcap)
             if cache is not None:
                 _write_prefill(cache, k, v)
-        return out.reshape(b, s, h * hd) @ self.w_out
+        y = out.reshape(b, s, h * hd) @ self.w_out
+        return y if h == cfg.num_heads else shard_ctx.sum_over_model(y)
 

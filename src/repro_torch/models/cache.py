@@ -54,6 +54,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> Lis
     return [_layer_cache(spec, cfg, batch, max_seq, device) for spec in cfg.all_layers()]
 
 
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> List[attention.Cache]:
+    """The cache's structure, shapes and dtypes on the ``meta`` device (no
+    allocation): :func:`init_cache`'s leaves, leaf for leaf."""
+    return init_cache(cfg, batch, max_seq, device="meta")
+
+
 def reset_cache(cache: List[attention.Cache], cfg: ModelConfig) -> List[attention.Cache]:
     """Restore every leaf of ``cache`` to its ``init_cache`` value, in place:
     KV rows, conv and SSM states to 0, the xLSTM stabilisers ``m`` to
@@ -132,6 +138,16 @@ def init_block_pool(cfg: ModelConfig, num_blocks: int, block_size: int, device="
     return [attention.init_kv_cache(num_blocks, block_size, cfg.num_kv_heads, cfg.resolved_head_dim,
                                     dtype_of(cfg.dtype), kv_cache_dtype=cfg.kv_cache_dtype, device=device)
             for _ in cfg.all_layers()]
+
+
+def block_pool_spec(cfg: ModelConfig, num_blocks: int, block_size: int) -> List[attention.Cache]:
+    """The block pool's structure, shapes and dtypes on ``meta`` (no
+    allocation): :func:`init_block_pool`'s leaves, leaf for leaf."""
+    return init_block_pool(cfg, num_blocks, block_size, device="meta")
+
+
+def _leaf_bytes(tree: List[attention.Cache]) -> int:
+    return sum(t.numel() * t.element_size() for layer in tree for t in layer.values())
 
 
 def write_prompt_blocks(pool: List[attention.Cache], slot_cache: List[attention.Cache], bt_row: torch.Tensor,
@@ -244,27 +260,13 @@ def admission_write_bytes(cfg: ModelConfig, max_seq: int, bucket: int, paged: bo
 
 
 def block_pool_bytes(cfg: ModelConfig, num_blocks: int, block_size: int) -> int:
-    """Footprint of a block pool in bytes."""
-    return len(cfg.all_layers()) * num_blocks * block_size * _attn_row_bytes(cfg)
-
-
-def _recurrent_bytes(cfg: ModelConfig, spec: LayerSpec) -> int:
-    """Bytes of one request's state in a recurrent layer: Mamba's conv tail
-    in the model dtype and its f32 SSM state, mLSTM's f32 (C, n, m),
-    sLSTM's f32 (c, n, m, h)."""
-    h, dh = cfg.num_heads, cfg.xlstm_head_dim
-    if spec.kind == "mamba":
-        di = cfg.mamba_d_inner
-        return (cfg.mamba_d_conv - 1) * di * dtype_of(cfg.dtype).itemsize + di * cfg.mamba_d_state * 4
-    if spec.kind == "mlstm":
-        return (h * dh * dh + h * dh + h) * 4
-    if spec.kind == "slstm":
-        return 4 * h * dh * 4
-    raise ValueError(spec.kind)
+    """Footprint of a block pool in bytes (the leaves of
+    :func:`block_pool_spec`)."""
+    return _leaf_bytes(block_pool_spec(cfg, num_blocks, block_size))
 
 
 def cache_bytes(cfg: ModelConfig, batch: int, max_seq: int) -> int:
     """Footprint of ``batch`` contiguous decode states of ``max_seq`` in
-    bytes: every leaf, the recurrent layers' states included."""
-    recurrent = sum(_recurrent_bytes(cfg, spec) for spec in cfg.all_layers() if spec.kind != "attn")
-    return batch * (sum(_attn_lengths(cfg, max_seq)) * _attn_row_bytes(cfg) + recurrent)
+    bytes: every leaf of :func:`cache_spec`, the recurrent layers' states
+    included."""
+    return _leaf_bytes(cache_spec(cfg, batch, max_seq))

@@ -9,6 +9,12 @@
 (attention path, link) is read from the ``cfg`` passed to ``forward``, so
 one set of weights can be run under several configurations, as the
 reference's functions allow.
+
+Vocabulary parallel (the sharded serving steps): when ``embed`` (and
+``lm_head``) hold this rank's ``V / m`` vocabulary rows (columns), a token
+outside them reads zeros and the sum over ``model`` puts each token's row
+together (one nonzero term, so the sum is exact); the logits come out as
+the rank's vocabulary slice.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from repro_torch.models.common import acc_dtype, dense_std, dtype_of, frozen, ma
 from repro_torch.models.frontends import FrontendAdapter, fuse_frontend
 from repro_torch.obs import device as obs_device
 from repro_torch.models.transformer import Stack
+from repro_torch.sharding import ctx as shard_ctx
 
 
 class LinkParams(nn.Module):
@@ -101,7 +108,7 @@ class LM(nn.Module):
         each batch row as its own MoE group (the contiguous slot pool)."""
         cfg = cfg or self.cfg
         b, s = tokens.shape
-        x = self.embed[tokens]
+        x = self.lookup(tokens, cfg.vocab_size)
         if cfg.embed_scale:
             x = x * scalar_as(float(np.sqrt(np.float32(cfg.d_model))), x.dtype)
         if cfg.frontend and frontend_embed is not None:
@@ -116,6 +123,18 @@ class LM(nn.Module):
         x = self.final_norm(x)
         logits = (x @ self.embed.T if self.lm_head is None else x @ self.lm_head).to(acc_dtype(x))
         return (logits, aux) if return_aux else logits
+
+
+    def lookup(self, tokens: torch.Tensor, vocab_size: int) -> torch.Tensor:
+        """The embeddings of ``tokens``; from a vocabulary slice, summed over
+        ``model``."""
+        rows = self.embed.shape[0]
+        if rows == vocab_size:
+            return self.embed[tokens]
+        local = tokens.long() - shard_ctx.model_rank() * rows
+        inside = ((local >= 0) & (local < rows))[..., None]
+        x = self.embed[torch.where(inside[..., 0], local, 0)]
+        return shard_ctx.sum_over_model(torch.where(inside, x, torch.zeros((), dtype=x.dtype, device=x.device)))
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:

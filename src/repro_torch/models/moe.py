@@ -143,7 +143,7 @@ class MoE(nn.Module):
             return self.forward_shard_map(x, cfg, mesh)
         shard = shard_ctx.batch_shard()
         if shard is not None and shard.split and not per_row:
-            out, aux = self._forward_dense(comm.gather_rows(x, shard.mesh.group("data")), cfg)
+            out, aux = self._forward_dense(comm.gather_rows(x, shard.group()), cfg)
             return shard.mine(out), aux
         return self._forward_dense(x, cfg, per_row)
 
@@ -179,7 +179,7 @@ class MoE(nn.Module):
         e = cfg.num_experts
         e_loc = e // mesh.shape["model"]
         first = mesh.coordinate()["model"] * e_loc
-        mgroup, dgroup = mesh.group("model"), mesh.group("data")
+        mgroup, dgroup = mesh.group("model"), mesh.group(shard_ctx.mesh_axes(mesh)[0])
         xt = x.reshape(1, b * s, d)
         r = route(upcast(xt @ self.router), cfg)
         aux = float(e) * torch.sum(comm.all_mean(r["f_e"], dgroup) * comm.all_mean(r["p_e"], dgroup), dim=-1)

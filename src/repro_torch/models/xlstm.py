@@ -312,6 +312,13 @@ def slstm_forward(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     h, dh = cfg.num_heads, cfg.xlstm_head_dim
     state = cache if cache is not None else init_slstm_cache(b, cfg, x.device, acc_dtype(x))
+    if x.is_meta and s > 1:
+        # Shapes only (the dry run): the S steps as one, batched over time,
+        # which performs the same products.
+        rows = _slstm_cell(p, cfg, x.reshape(b * s, -1), {k: v.repeat_interleave(s, 0) for k, v in state.items()})
+        out = rows["h"].to(x.dtype).reshape(b, s, h * dh)
+        last = {k: v.reshape((b, s) + v.shape[1:])[:, -1] for k, v in rows.items()}
+        return rmsnorm(out, p.norm_scale) @ p.w_out, (last if cache is not None else None)
     hs = []
     for t in range(s):
         state = _slstm_cell(p, cfg, x[:, t], state)

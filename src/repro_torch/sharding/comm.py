@@ -22,9 +22,26 @@ size.)
 The plain helpers (:func:`all_gather_along`, :func:`reduce_scatter_along`)
 move parameters and gradients outside autograd, along any dim.  On a group
 of one rank every collective returns its input's values unchanged.
+
+The placeholder world (the dry run, ``launch.dryrun``): a
+:class:`PlaceholderGroup` (what a placeholder ``launch.mesh.Mesh`` hands
+out) stands for ranks that do not exist, and each collective on it returns
+an uninitialised ``meta`` tensor of its output's shape.
+:func:`placeholder_world` names the rank a trace stands for.  A
+:class:`Tally` (:func:`tally`) adds up every collective's output bytes by
+kind (the reference's ``all-gather`` / ``reduce-scatter`` / ``all-reduce``)
+and by mesh axis, the placeholder's and a real world's alike (a real
+group is named by the mesh that made it, ``name_group``).  Each call is
+counted once: the port has no scanned layer body whose collectives would
+repeat unseen.
 """
 
 from __future__ import annotations
+
+import collections
+import contextlib
+from contextvars import ContextVar
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -33,27 +50,114 @@ _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_t
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
+class PlaceholderGroup:
+    """A group of ``n`` ranks along mesh axes ``axes`` (a label such as
+    ``"model"`` or ``"pod+data"``) that do not exist: the dry run's."""
+
+    def __init__(self, axes: str, n: int):
+        self.axes, self.n = axes, n
+
+    def __repr__(self) -> str:
+        return f"PlaceholderGroup({self.axes!r}, {self.n})"
+
+
+_RANK: ContextVar = ContextVar("repro_torch_placeholder_rank", default=None)
+_TALLIES: ContextVar = ContextVar("repro_torch_tallies", default=())
+_NAMES: Dict[int, str] = {}
+
+
+@contextlib.contextmanager
+def placeholder_world(rank: int = 0):
+    """Trace as rank ``rank`` of a placeholder mesh's world."""
+    token = _RANK.set(rank)
+    try:
+        yield
+    finally:
+        _RANK.reset(token)
+
+
+def placeholder_rank() -> Optional[int]:
+    return _RANK.get()
+
+
+def name_group(group, axes: str):
+    """Label a real process group with its mesh axes (for the tally);
+    returns the group."""
+    _NAMES[id(group)] = axes
+    return group
+
+
+class Tally:
+    """Collective output bytes, by kind and by mesh axis (``by_axis[axes]
+    [kind]``), and the number of calls."""
+
+    def __init__(self):
+        self.by_kind: Dict[str, int] = collections.Counter()
+        self.by_axis: Dict[str, Dict[str, int]] = collections.defaultdict(collections.Counter)
+        self.calls: Dict[str, Dict[str, int]] = collections.defaultdict(collections.Counter)
+
+    @property
+    def total(self) -> int:
+        return sum(self.by_kind.values())
+
+    def add(self, kind: str, axes: str, nbytes: int) -> None:
+        self.by_kind[kind] += nbytes
+        self.by_axis[axes][kind] += nbytes
+        self.calls[axes][kind] += 1
+
+
+@contextlib.contextmanager
+def tally():
+    """Count the collectives of the enclosed code; yields a :class:`Tally`."""
+    t = Tally()
+    token = _TALLIES.set(_TALLIES.get() + (t,))
+    try:
+        yield t
+    finally:
+        _TALLIES.reset(token)
+
+
+def _record(kind: str, group, out: torch.Tensor) -> None:
+    tallies = _TALLIES.get()
+    if tallies:
+        axes = group.axes if isinstance(group, PlaceholderGroup) else _NAMES.get(id(group), "world")
+        for t in tallies:
+            t.add(kind, axes, out.numel() * out.element_size())
+
+
+def group_size(group) -> int:
+    return group.n if isinstance(group, PlaceholderGroup) else dist.get_world_size(group)
+
+
 def all_gather_along(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The group's ``t``s concatenated along ``dim``, in rank order."""
-    n = dist.get_world_size(group)
+    n = group_size(group)
     src = t.movedim(dim, 0).contiguous()
-    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=t.dtype, device=t.device)
-    _all_gather(out, src, group=group)
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=t.dtype,
+                      device="meta" if isinstance(group, PlaceholderGroup) else t.device)
+    if not isinstance(group, PlaceholderGroup):
+        _all_gather(out, src, group=group)
+    _record("all-gather", group, out)
     return out.movedim(0, dim).contiguous() if dim else out
 
 
 def reduce_scatter_along(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The group's sum of ``t``, this rank's ``1/n`` slice of it along ``dim``."""
-    n = dist.get_world_size(group)
+    n = group_size(group)
     src = t.movedim(dim, 0).contiguous()
-    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=t.dtype, device=t.device)
-    _reduce_scatter(out, src, group=group)
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=t.dtype,
+                      device="meta" if isinstance(group, PlaceholderGroup) else t.device)
+    if not isinstance(group, PlaceholderGroup):
+        _reduce_scatter(out, src, group=group)
+    _record("reduce-scatter", group, out)
     return out.movedim(0, dim).contiguous() if dim else out
 
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """Sum over the group, in place; returns ``t``."""
-    dist.all_reduce(t, group=group)
+    if not isinstance(group, PlaceholderGroup):
+        dist.all_reduce(t, group=group)
+    _record("all-reduce", group, t)
     return t
 
 
@@ -72,11 +176,11 @@ class _AllMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return all_reduce_(x.clone(), group) / dist.get_world_size(group)
+        return all_reduce_(x.clone(), group) / group_size(group)
 
     @staticmethod
     def backward(ctx, dy):
-        return all_reduce_(dy.clone(), ctx.group) / dist.get_world_size(ctx.group), None
+        return all_reduce_(dy.clone(), ctx.group) / group_size(ctx.group), None
 
 
 class _CopyTo(torch.autograd.Function):

@@ -6,8 +6,10 @@ A parameter whose spec names a mesh axis is *stored* as the rank's slice
 all-gathers it into the model for the step's compute and
 :meth:`ShardedModel.release` frees that copy afterwards.  A parameter
 computed where it is stored (the expert-parallel MoE's experts along
-``model``) is gathered along its other axes only.  A replicated parameter
-is stored whole: the model's own tensor.
+``model``; with ``tensor_parallel``, the serving steps' attention, MLP and
+vocabulary slices, ``launch.steps.shard_model``) is gathered along its
+other axes only.  A replicated parameter is stored whole: the model's own
+tensor.
 
 :meth:`ShardedModel.reduce_grads` brings the step's gradients back to the
 shards: summed over ``data`` (a reduce-scatter along a dim the spec puts on
@@ -23,10 +25,9 @@ from __future__ import annotations
 from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.sharding import comm
-from repro_torch.sharding.rules import P
+from repro_torch.sharding.rules import P, data_axes
 
 
 class ShardedModel:
@@ -38,12 +39,15 @@ class ShardedModel:
     def __init__(self, model: torch.nn.Module, mesh, specs: Mapping[str, P],
                  local: Optional[Mapping[str, Iterable[str]]] = None, moe_shard_map: bool = False):
         self.model, self.mesh, self.moe_shard_map = model, mesh, moe_shard_map
+        self._whole: list = []
         self.specs = {n: P(*specs[n].padded(p.dim())) for n, p in model.named_parameters()}
         self.params = dict(model.named_parameters())
         self.coord = mesh.coordinate()
         local = {n: set(a) for n, a in (local or {}).items()}
-        # (axis, dim) pairs a parameter is all-gathered along before use.
-        self.plan = {n: [(a, d) for d, a in enumerate(s) if a is not None and a not in local.get(n, ())]
+        # (axis, dim) pairs a parameter is all-gathered along before use; an
+        # axis of one rank splits nothing, so it is no pair.
+        self.plan = {n: [(a, d) for d, a in enumerate(s)
+                         if a is not None and a not in local.get(n, ()) and mesh.size_of(a) > 1]
                      for n, s in self.specs.items()}
         self.local = {n: [(a, d) for d, a in enumerate(s) if a is not None and a in local.get(n, ())]
                       for n, s in self.specs.items()}
@@ -53,16 +57,16 @@ class ShardedModel:
                 if self.plan[name]:
                     self.shards[name] = self.shard_of(name, p.data)
                 else:
-                    if self.local[name] and any(self.mesh.shape[a] > 1 for a, _ in self.local[name]):
+                    if self.local[name] and any(self.mesh.size_of(a) > 1 for a, _ in self.local[name]):
                         p.data = self._cut(p.data, self.local[name]).clone()
                     self.shards[name] = p.data
         self.release()
 
     # -- slicing ---------------------------------------------------------
 
-    def _chunk(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-        n = self.mesh.shape[axis]
-        return t.narrow(dim, self.coord[axis] * (t.shape[dim] // n), t.shape[dim] // n)
+    def _chunk(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        n = self.mesh.size_of(axis)
+        return t.narrow(dim, self.mesh.index_of(axis) * (t.shape[dim] // n), t.shape[dim] // n)
 
     def _cut(self, t: torch.Tensor, pairs) -> torch.Tensor:
         for axis, dim in pairs:
@@ -82,9 +86,15 @@ class ShardedModel:
     # -- the step --------------------------------------------------------
 
     @torch.no_grad()
-    def gather(self) -> None:
-        """Put each parameter's compute tensor into the model."""
-        for name, pairs in self.plan.items():
+    def gather(self, whole: Iterable[str] = ()) -> None:
+        """Put each parameter's compute tensor into the model; the names in
+        ``whole`` are gathered along the axes they are computed on where
+        stored too (the decode step's dense MoE over experts stored along
+        ``model``)."""
+        split = {n: [(a, d) for a, d in self.local[n] if self.mesh.size_of(a) > 1] for n in whole}
+        self._whole = [n for n in whole if split[n]]
+        for name in self.params:
+            pairs = self.plan[name] + (split[name] if name in self._whole else [])
             if pairs:
                 t = self.shards[name]
                 for axis, dim in pairs:
@@ -95,24 +105,27 @@ class ShardedModel:
         """Free the gathered copies (the model's gathered parameters become
         empty until the next :meth:`gather`)."""
         for name, pairs in self.plan.items():
+            p = self.params[name]
             if pairs:
-                p = self.params[name]
                 p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+            elif name in self._whole:
+                p.data = self.shards[name]
+        self._whole = []
 
     @torch.no_grad()
     def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The step's gradients (of the compute tensors) as the shards'
         gradients, summed over ``data``.  ``grads`` is consumed."""
-        data = self.mesh.group("data")
+        data = self.mesh.group(data_axes(self.mesh))
         out = {}
         for name in list(grads):
             g = grads.pop(name)
-            on_data = [(a, d) for a, d in self.plan[name] if a == "data"]
+            on_data = [(a, d) for a, d in self.plan[name] if a != "model"]
             if on_data:
-                g = comm.reduce_scatter_along(g, data, on_data[0][1])
+                g = comm.reduce_scatter_along(g, self.mesh.group(on_data[0][0]), on_data[0][1])
             else:
                 g = comm.all_reduce_(g, data)
-            out[name] = self._cut(g, [(a, d) for a, d in self.plan[name] if a != "data"]).contiguous()
+            out[name] = self._cut(g, [(a, d) for a, d in self.plan[name] if a == "model"]).contiguous()
             del g
         return out
 
@@ -122,12 +135,12 @@ class ShardedModel:
         ``optim.global_norm``'s ``reduce``."""
         by_axes: Dict[Tuple[str, ...], list] = {}
         for n in partial:
-            axes = tuple(sorted({a for a in self.specs[n] if a is not None}))
+            axes = tuple(sorted({a for e in self.specs[n] if e is not None for a in ((e,) if isinstance(e, str) else e)}))
             if axes:
                 by_axes.setdefault(axes, []).append(n)
         out = dict(partial)
         for axes, names in by_axes.items():
-            group = self.mesh.group(axes[0]) if len(axes) == 1 else dist.group.WORLD
+            group = self.mesh.group(axes)
             summed = comm.all_reduce_(torch.stack([partial[n] for n in names]), group)
             for i, n in enumerate(names):
                 out[n] = summed[i]

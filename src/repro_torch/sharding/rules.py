@@ -1,5 +1,6 @@
-"""Placement rules for parameters, optimizer state and the batch over a
-``("data", "model")`` mesh (twin of ``repro/sharding/rules.py``).
+"""Placement rules for parameters, optimizer state, the batch, the logits
+and the decode caches over a ``("data", "model")`` mesh (twin of
+``repro/sharding/rules.py``).
 
 Axis roles, as the reference's:
 
@@ -19,10 +20,11 @@ never an error (arctic's 56 heads, kimi-k2's 384 experts).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.configs.base import LayerSpec, ModelConfig, ShapeConfig
 from repro_torch.optim.adam import AdamState
 
 
@@ -148,6 +150,68 @@ def batch_spec(mesh, batch: int) -> Optional[Tuple[str, ...]]:
 
 def token_pspec(mesh, batch: int) -> P:
     return P(batch_spec(mesh, batch), None)
+
+
+def logits_spec(cfg: ModelConfig, mesh, batch: int) -> P:
+    """The (B, V) logits of the serving steps: rows as the tokens', the
+    vocabulary on ``model`` when it divides (``steps.py:365``)."""
+    return P(batch_spec(mesh, batch), "model" if cfg.vocab_size % mesh.shape["model"] == 0 else None)
+
+
+def _kv_head_axes(mesh, kv_heads: int, head_dim: int):
+    """(kv_axis, hd_axis): KV heads over ``model`` when it divides them,
+    else the head dim, else replicated."""
+    m = mesh.shape["model"]
+    if kv_heads % m == 0:
+        return "model", None
+    if head_dim % m == 0:
+        return None, "model"
+    return None, None
+
+
+def _cache_len(spec: LayerSpec, max_seq: int) -> int:
+    return min(max_seq, spec.window) if spec.window > 0 else max_seq
+
+
+def cache_pspecs(cfg: ModelConfig, shape_cfg: ShapeConfig, mesh) -> List[Dict[str, P]]:
+    """One dict of :class:`P` a layer, mirroring ``models.cache.init_cache``'s
+    list: the batch over the data axes; KV heads over ``model``, or the head
+    dim where the heads do not divide; when the batch cannot be split
+    (``long_500k``), the KV sequence over the data axes (context-parallel
+    decode) where they divide its length; the recurrent states' feature
+    dims over ``model`` where they divide."""
+    bs = batch_spec(mesh, shape_cfg.global_batch)
+    seq_ax = (data_axes(mesh) or None) if bs is None else None
+    kv_ax, hd_ax = _kv_head_axes(mesh, cfg.num_kv_heads, cfg.resolved_head_dim)
+    m = mesh.shape["model"]
+
+    def feat_ax(dim):
+        return "model" if dim % m == 0 else None
+
+    def attn(spec: LayerSpec):
+        length = _cache_len(spec, shape_cfg.seq_len)
+        s_ax = seq_ax if (seq_ax and length % _axis_size(mesh, seq_ax) == 0) else None
+        kv = P(bs, s_ax, kv_ax, hd_ax)
+        out = {"k": kv, "v": kv}
+        if cfg.kv_cache_dtype == "int8":
+            out["k_scale"] = out["v_scale"] = P(bs, s_ax, kv_ax)
+        return out
+
+    def layer(spec: LayerSpec):
+        if spec.kind == "attn":
+            return attn(spec)
+        if spec.kind == "mamba":
+            di = cfg.mamba_d_inner
+            return {"conv": P(bs, None, feat_ax(di)), "ssm": P(bs, feat_ax(di), None)}
+        dh = cfg.xlstm_head_dim
+        if spec.kind == "mlstm":
+            return {"c": P(bs, None, feat_ax(dh), None), "n": P(bs, None, feat_ax(dh)), "m": P(bs, None)}
+        if spec.kind == "slstm":
+            v = P(bs, None, feat_ax(dh))
+            return {"c": v, "n": v, "m": v, "h": v}
+        raise ValueError(spec.kind)
+
+    return [layer(spec) for spec in cfg.all_layers()]
 
 
 def pool_shard_devices(mesh) -> list:

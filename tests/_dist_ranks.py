@@ -12,6 +12,7 @@ the suite.  The process group itself times out after 60 s
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -57,12 +58,14 @@ def run_ranks(case: str, world: int, tmp_path, timeout: float = 150.0, **kw) -> 
 # The ranks' cases (run in the rank processes)
 # ---------------------------------------------------------------------------
 
-def _cfg(arch, **overrides):
-    from repro_torch.configs import ARCHITECTURES
+def _cfg(arch, registry=None, **overrides):
+    """The reduced config of the port's registry (or ``registry``'s)."""
+    if registry is None:
+        from repro_torch.configs import ARCHITECTURES as registry
 
     over = dict(ARCTIC) if arch == "arctic-480b" else {}
     over.update(overrides)
-    return ARCHITECTURES[arch].reduced(**over)
+    return registry[arch].reduced(**over)
 
 
 def _tokens(cfg):
@@ -135,7 +138,259 @@ def case_epochs(runs):
     return [_epoch(**kw) for kw in runs]
 
 
-CASES = {"epochs": case_epochs, "moe": case_moe}
+# The sharded serving steps' test size: prompt P, cache S, batch B.
+SERVE_B, SERVE_S, SERVE_P, SERVE_STEPS = 4, 16, 6, 8
+
+
+def serve_inputs(cfg):
+    """(prompts (B, P), the key) of the serving runs."""
+    import numpy as np
+
+    from repro_torch import prng
+
+    rng = np.random.default_rng(11)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_P)).astype(np.int32)
+    return prompts, prng.PRNGKey(5)
+
+
+def serve_run(cfg, state=None, fns=None, forced=None):
+    """The prefill and SERVE_STEPS decode steps in this process: the
+    unsharded steps on the model, or with ``state`` and ``fns`` = (prefill,
+    decode) the sharded ones on a world of one; each step's logits and
+    greedy tokens, and the cache.  ``forced`` (B, SERVE_STEPS) feeds the
+    decode steps instead of the greedy tokens."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models import lm
+
+    if state is None:
+        model, cache = lm.init_lm(cfg, seed=0, device="cpu"), cache_lib.init_cache(cfg, SERVE_B, SERVE_S, device="cpu")
+        fns = steps.make_prefill_step(cfg), steps.make_serve_step(cfg)
+    else:
+        model = state
+        cache = steps.init_cache_shards(cfg, ShapeConfig("d", SERVE_S, SERVE_B, "decode"), M.make_host_mesh(),
+                                        device="cpu")
+    prefill, decode = fns
+    prompts, key = serve_inputs(cfg)
+    logits_all, tokens = [], []
+    with torch.no_grad():
+        logits, cache = prefill(model, {"tokens": torch.from_numpy(prompts)}, cache, key)
+        for i in range(SERVE_STEPS + 1):
+            logits_all.append(logits)
+            tokens.append(torch.argmax(logits, dim=-1)[:, None].to(torch.int32))
+            if i == SERVE_STEPS:
+                break
+            feed = tokens[-1] if forced is None else torch.tensor(forced)[:, i:i + 1]
+            logits, cache = decode(model, feed, cache, SERVE_P + i, prng.fold_in(key, i))
+    return logits_all, tokens, cache
+
+
+def reference_serve(arch, **overrides):
+    """The reference's ``make_prefill_step`` and SERVE_STEPS greedy
+    ``make_serve_step`` (jitted) on the port's seed-0 weights
+    (``params_to_jax``), on ``serve_inputs`` with the key of step ``i``
+    ``fold_in(key, i)``: each step's logits (numpy), the greedy tokens
+    (B, SERVE_STEPS + 1) and each step's split link as (its input, its
+    output) tensors, read out of the compiled steps by a debug callback.
+    Runs in the test process (it imports jax)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs import ARCHITECTURES as J_ARCHS
+    from repro.launch import steps as j_steps
+    from repro.models import cache as j_cache
+    from repro.models import lm as j_lm
+    from repro_torch.models import lm
+    from repro_torch.params import params_to_jax, to_tensor
+
+    cfg, jcfg = _cfg(arch, **overrides), _cfg(arch, J_ARCHS, **overrides)
+    params = jax.tree_util.tree_map(jnp.asarray, params_to_jax(lm.init_lm(cfg, seed=0, device="cpu").state_dict(),
+                                                               cfg))
+    prompts, _ = serve_inputs(cfg)
+    key = jax.random.PRNGKey(5)
+    links, make_link_fn = [], j_lm.make_link_fn
+
+    def recording(*args, **kw):
+        fn = make_link_fn(*args, **kw)
+
+        def record(x):
+            y = fn(x)
+            jax.debug.callback(lambda x, y: links.append((to_tensor(x), to_tensor(y))), x, y)
+            return y
+
+        return record
+
+    out, tokens = [], []
+    j_lm.make_link_fn = recording
+    try:
+        prefill, decode = jax.jit(j_steps.make_prefill_step(jcfg)), jax.jit(j_steps.make_serve_step(jcfg))
+        logits, cache = prefill(params, {"tokens": jnp.asarray(prompts)}, j_cache.init_cache(jcfg, SERVE_B, SERVE_S),
+                                key)
+        for i in range(SERVE_STEPS + 1):
+            out.append(np.asarray(logits))
+            tokens.append(np.asarray(jnp.argmax(logits, axis=-1))[:, None].astype(np.int32))
+            if i == SERVE_STEPS:
+                break
+            logits, cache = decode(params, jnp.asarray(tokens[-1]), cache, SERVE_P + i, jax.random.fold_in(key, i))
+        jax.effects_barrier()
+    finally:
+        j_lm.make_link_fn = make_link_fn
+    assert len(links) == SERVE_STEPS + 1, len(links)
+    return out, np.concatenate(tokens, axis=1), links
+
+
+# The split activation (|x| < 6.1) against the reference's: torch's CPU sums
+# run in another order than XLA's, over up to 16 layers before the split
+# (the unsharded port measured 1.17e-5 from the reference on reduced jamba,
+# 4.8e-6 on kimi-k2, 3.3e-6 on qwen1.5-0.5b).
+LINK_INPUT_TOL = dict(rtol=0, atol=2e-5)
+# The link's dequantized output against the jitted reference's on the same
+# input: XLA fuses the dequantization (1.9e-6 apart at most measured on the
+# reduced configs), while one code step is ~0.05 there.  An output further
+# from the reference's than this is a flipped code.
+LINK_OUTPUT_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def pinned_link(links):
+    """Carry the reference's link outputs (``reference_serve``'s ``links``,
+    a step each) into the port's steps run inside: 8-bit link codes are a
+    step function, and f32 noise between two correct programs flips one now
+    and then.  Each call of the split link checks the port's input against
+    the reference's within ``LINK_INPUT_TOL`` and the port's link on the
+    reference's input against the reference's output within
+    ``LINK_OUTPUT_ATOL``, counts the outputs of the port's link on its own
+    input that miss the reference's by more (the flipped codes), and
+    returns the reference's output.  Yields the list of those counts, a
+    call each."""
+    import numpy as np
+
+    from repro_torch.models import lm
+
+    make_link_fn, calls, flips = lm.make_link_fn, iter(links), []
+
+    def pinned(*args, **kw):
+        fn = make_link_fn(*args, **kw)
+
+        def carry(x):
+            x_ref, y_ref = next(calls)
+            np.testing.assert_allclose(x.numpy(), x_ref.numpy(), **LINK_INPUT_TOL)
+            np.testing.assert_allclose(fn(x_ref).numpy(), y_ref.numpy(), rtol=0, atol=LINK_OUTPUT_ATOL)
+            flips.append(int(((fn(x) - y_ref).abs() > LINK_OUTPUT_ATOL).sum()))
+            return y_ref.clone()
+
+        return carry
+
+    lm.make_link_fn = pinned
+    try:
+        yield flips
+    finally:
+        lm.make_link_fn = make_link_fn
+
+
+def _full(t, mesh, vocab_dim: bool):
+    """Every rank's (rows, vocabulary slice) put together: over ``model``
+    along the last dim when ``vocab_dim``, then over the data rows."""
+    from repro_torch.sharding import comm, rules
+
+    if vocab_dim and mesh.shape["model"] > 1:
+        t = comm.all_gather_along(t, mesh.group("model"), t.dim() - 1)
+    axes = rules.batch_spec(mesh, SERVE_B)
+    if axes is not None:
+        t = comm.all_gather_along(t, mesh.group(axes), 0)
+    return t
+
+
+def _serve(forced, arch="qwen1.5-0.5b", model_axis=1, fsdp="on", moe_shard_map=False, cfg_over=None,
+           pinned=None):
+    """The sharded prefill, then SERVE_STEPS decode steps (the step's key
+    ``fold_in(key, i)``) fed ``forced[:, i]`` (teacher forcing): the whole
+    logits of each step, each step's greedy tokens (``steps.greedy_tokens``)
+    and the tally of the real collectives, by axis.  ``pinned``: the path of
+    ``reference_serve``'s ``links``, carried by :func:`pinned_link`; the
+    flipped codes a step are then ``flips``."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.sharding import comm
+
+    cfg = _cfg(arch, **(cfg_over or {}))
+    mesh = M.make_host_mesh(model_axis)
+    kw = dict(fsdp=fsdp, moe_shard_map=moe_shard_map)
+    prefill, _ = steps.build_sharded_step(cfg, ShapeConfig("p", SERVE_S, SERVE_B, "prefill"), mesh, **kw)
+    decode, _ = steps.build_sharded_step(cfg, ShapeConfig("d", SERVE_S, SERVE_B, "decode"), mesh, **kw)
+    state = prefill.place(lm.init_lm(cfg, seed=0, device="cpu"))
+    cache = steps.init_cache_shards(cfg, ShapeConfig("d", SERVE_S, SERVE_B, "decode"), mesh, device="cpu")
+    prompts, key = serve_inputs(cfg)
+    out = {"logits": [], "tokens": [], "tally": {}, "calls": {}, "flips": []}
+
+    def counted(fn, *args):
+        # Only the steps' own collectives are tallied.
+        with comm.tally() as tally:
+            res = fn(*args)
+        for field, by_axis in (("tally", tally.by_axis), ("calls", tally.calls)):
+            for axes, kinds in by_axis.items():
+                for kind, n in kinds.items():
+                    out[field].setdefault(axes, {}).setdefault(kind, 0)
+                    out[field][axes][kind] += n
+        return res
+
+    links = contextlib.nullcontext([]) if pinned is None else pinned_link(torch.load(pinned))
+    with torch.no_grad(), links as out["flips"]:
+        logits, cache = counted(prefill, state, {"tokens": torch.from_numpy(prompts)}, cache, key)
+        for i in range(SERVE_STEPS + 1):
+            out["logits"].append(_full(logits, mesh, True))
+            out["tokens"].append(_full(steps.greedy_tokens(logits, cfg, mesh), mesh, False))
+            if i == SERVE_STEPS:
+                break
+            feed = torch.tensor(forced)[:, i:i + 1]
+            logits, cache = counted(decode, state, feed, cache, SERVE_P + i, prng.fold_in(key, i))
+    return out
+
+
+def same_on_every_rank(ranks) -> None:
+    """Every rank put together the same logits and tokens."""
+    import torch
+
+    for r in ranks[1:]:
+        for a, b in zip(r["logits"] + r["tokens"], ranks[0]["logits"] + ranks[0]["tokens"]):
+            assert torch.equal(a, b)
+
+
+def _generate(tokens=4):
+    """``launch.serve.generate_sharded`` (the CLI's ``--tensor-parallel``)
+    on reduced qwen1.5-0.5b over ``make_production_mesh`` (the world's
+    ranks): the mesh's shape and the global tokens."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve import generate_sharded
+
+    import torch
+
+    cfg = _cfg("qwen1.5-0.5b")
+    prompts, key = serve_inputs(cfg)
+    mesh = M.make_production_mesh()
+    toks, _ = generate_sharded(cfg, torch.from_numpy(prompts), tokens, mesh, key=key)
+    return {"tokens": toks, "mesh": dict(mesh.shape)}
+
+
+def case_serve(runs):
+    """Sharded serving runs in one world, one dict a run: ``_serve``'s
+    keywords, or with ``generate=True`` ``_generate``'s."""
+    return [_generate(**{k: v for k, v in kw.items() if k != "generate"}) if kw.get("generate") else _serve(**kw)
+            for kw in runs]
+
+
+CASES = {"epochs": case_epochs, "moe": case_moe, "serve": case_serve}
 
 
 def _main(case, rank, world, tmp, args):

@@ -11,6 +11,8 @@ scales up to 0.06), where one f32 ulp is ~5e-7, and torch's einsum sums the
 block in another order than XLA's dot, which leaves a few such ulps.
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -224,10 +226,12 @@ def test_scalar_n_valid_broadcasts():
 
 
 def test_device_policy():
-    """CPU tensors take the plain version; devices without a kernel raise."""
+    """CPU tensors take the plain version, and so do meta tensors (shapes
+    only: the dry run); devices without a kernel raise."""
     assert runtime.use_kernel(torch.zeros(1)) is False
+    assert runtime.use_kernel(torch.zeros(1, device="meta")) is False
     with pytest.raises(RuntimeError):
-        runtime.use_kernel(torch.zeros(1, device="meta"))
+        runtime.use_kernel(types.SimpleNamespace(device=torch.device("mps")))
 
 
 @pytest.mark.usefixtures("hopper")
