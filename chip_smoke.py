@@ -27,6 +27,7 @@ the kernels and the paths, and trains sharded over the machine's cards.
     python3 chip_smoke.py --tune         # the attention and scan kernels' build, B6 / B6' checks + phase 19 only
     python3 chip_smoke.py --shard        # the attention and scan kernels' build and checks + phase 20 only
     python3 chip_smoke.py --tp           # the decode, attention and scan kernels' build, B6 check + phase 21 only
+    python3 chip_smoke.py --cp           # the decode kernels' build and phase-2 check + phase 22 only
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel library (one ``nvcc -c`` a source, all started
@@ -112,10 +113,10 @@ Phases (any failure raises and the script exits non-zero):
      the paged pool, launch counts zeroed just before): TTFT and TPOT per
      request, tokens/s, peak blocks; one request per bucket, teacher
      forced through the naive oracle, picks the oracle's argmax to within
-     4x the bf16 noise, and so does the contiguous pool (the same split-KV
-     body and plan) on the same requests, whose bf16 tokens equal the paged
-     pool's; a profiled window of that path
-     (device-busy share) and the link's rounds timed alone;
+     4x the bf16 noise; the contiguous pool (the same split-KV body and
+     plan) serves the same requests with bf16 tokens equal to the paged
+     pool's (so the same oracle result); a profiled window of that path (4
+     tokens a request; device-busy share) and the link's rounds timed alone;
   8. paged-kernel, plain and library times at the engine's shape (mid
      generation bf16 and int8, full 160 rows) with the split plan and
      device kernels a call, the bytes bound, and the bf16 shapes' times at
@@ -223,7 +224,7 @@ Phases (any failure raises and the script exits non-zero):
      repeat under a key, the uniforms and a full-vocabulary row's samples on
      the card equal the CPU's under 1,024 keys, a 16-way row's frequencies
      within 4 sigma of the softmax); the sharded router (two paged shards on
-     cuda:0) behind an ``SLAScheduler``, 16 requests in two classes, a
+     cuda:0) behind an ``SLAScheduler``, 12 requests in two classes, a
      forced preemption resumed on the other shard, tokens equal the
      per-request loop's (f32, i.i.d. and GE); the device counters against a
      replay of the draws and the analytic counts, the registry's toggle
@@ -325,7 +326,25 @@ Phases (any failure raises and the script exits non-zero):
      last, the dry run's report of qwen1.5-0.5b x train_4k, prefill_32k
      and decode_32k on the placeholder production mesh (on the host).
      ``--tp`` runs phase 21 alone.
-Phases 9-21 run after phase 3, ahead of the profiled phases 5 and 7; last,
+ 22. context-parallel decode (``run_context_parallel``): B1's partial
+     entry point and the cross-rank merge at long_500k's rank shapes, the
+     KV sequence over 16 data ranks simulated in turn on the card (one
+     process, no collective: NCCL takes one rank a card): jamba-v0.1's
+     attention layer (KV 8, G 4, hd 128, 524,288 bf16 rows, 32,768 a rank)
+     and a qwen1.5-0.5b+swa rank (KV 1, G 1, hd 64, 8,192 rows, 512 a rank;
+     bf16 and int8); the 16 ranks' partials merged against whole-cache
+     ``flash_decode`` and both against the plain versions (bf16 bars) at
+     n_valid inside rank 0 (15 empty ranks), at a rank boundary, midway and
+     full, and timed beside SDPA on the whole cache and the bytes bounds;
+     then, in a world of one over NCCL in this process, qwen1.5-0.5b+swa's
+     long_500k pair through the sharded steps with the 16 x 16 production
+     mesh's cache placement (the KV sequence on ``data``, so every layer
+     decodes through the partials and the merge: 24 of each a step), a
+     64-token prompt and 8 steps at indices 524,280-524,287, and kimi-k2's
+     decode (``KIMI_CUT``) through ``build_sharded_step`` on the experts
+     stored along ``model``, each bit-equal to the unsharded steps.
+     ``--cp`` runs phase 2's B1 check and phase 22 alone.
+Phases 9-22 run after phase 3, ahead of the profiled phases 5 and 7; last,
 torch.profiler traces in a process of their own (``--bwd-split all``)
 split the tensor-core backward's time at the training shape between its
 kernels, bf16 then f32.
@@ -1006,12 +1025,13 @@ def run_engine(report) -> int:
     # are their greedy tokens.
     assert np.array_equal(ctoks, toks), "bf16: contiguous-pool tokens differ from the paged pool's"
     main["oracle"] = hold_to_oracle(model16, cfg16, prompts[:5], keys[:5], toks[:5])
-    log("[engine] the contiguous pool's tokens against the same oracle:")
-    main["contiguous"]["oracle"] = hold_to_oracle(model16, cfg16, prompts[:5], keys[:5], ctoks[:5])
+    # The contiguous pool's tokens are the paged pool's (asserted above), so
+    # the oracle holds them to the same result.
+    main["contiguous"]["oracle"] = main["oracle"]
     # Where the main path's time goes: a short window of it under the
-    # profiler (one request per bucket, 8 tokens each; the full run's half a
+    # profiler (one request per bucket, 4 tokens each; the full run's half a
     # million kernels take the profiler minutes to process).
-    prof = device_profile(lambda: _engine_serve(model16, cfg16, main_pool, prompts[:5], keys[:5], 8))
+    prof = device_profile(lambda: _engine_serve(model16, cfg16, main_pool, prompts[:5], keys[:5], 4))
     if "kernels" in prof:
         prof["device_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
     # The link's share: one decode step's 8 slot-wise rounds, and one
@@ -1339,6 +1359,7 @@ def _zero_counts():
     from repro_torch.kernels.ssm_scan import cuda_kernel as ss
 
     fd.launch_count = fd.paged_launch_count = ll.egress_launch_count = ll.burst_launch_count = 0
+    fd.partials_launch_count = fd.merge_launch_count = 0
     fa.launch_count = fa.bwd_launch_count = ss.launch_count = ss.bwd_launch_count = 0
     fa.body_launch_count.update(wgmma=0, tf32x3=0, bf16x6=0, simt=0)
     fa.bwd_body_launch_count.update(wgmma=0, bf16x6=0, simt=0)
@@ -3508,7 +3529,8 @@ SERVE_SAMPLE_TOKENS = 16
 SERVE_SAMPLE_KEYS, SERVE_SAMPLE_CHUNK = 1024, 64      # the full-vocabulary row's keys; CPU keys a chunk
 SERVE_FREQ_KEYS, SERVE_FREQ_CLASSES = 4096, 16
 SERVE_TIE = 1e-5                         # near tie: the top two perturbed logits closer than this
-SERVE_ROUTER_REQUESTS, SERVE_ROUTER_TOKENS = 16, 8
+# 12 requests: the full run's time, with phase 22 in it, stays under the limit.
+SERVE_ROUTER_REQUESTS, SERVE_ROUTER_TOKENS = 12, 8
 SERVE_STEP_WINDOW = 8                    # decode steps a timed or profiled window
 
 
@@ -3615,7 +3637,7 @@ def run_serving_layer(report) -> dict:
        sample equals the CPU's under 1,024 keys, near ties counted; on a
        16-way row, 4,096 keys, every class within 4 sigma of the softmax;
     3. the router and the scheduler: two paged shards on cuda:0, an
-       ``SLAScheduler`` with two priority classes, 16 requests; a forced
+       ``SLAScheduler`` with two priority classes, 12 requests; a forced
        preemption whose request resumes on the other shard; in f32 under
        i.i.d. and GE every request's tokens equal the per-request
        ``generate_reference``'s; placements and each shard's buckets;
@@ -5533,6 +5555,372 @@ def _rank_head_rows(report, name) -> list:
             for r in report["sharded_serving"]["kernel_times"][name]]
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: context-parallel decode (long_500k), B1's partials and the
+# cross-rank merge
+# ---------------------------------------------------------------------------
+
+# long_500k (batch 1) on the production mesh: every attention layer's KV
+# sequence over the 16 data ranks.  (name, B, KV, G, hd, C, cache): jamba-
+# v0.1's attention layer (8 KV heads of hd 128, G 4; 32,768 rows a rank),
+# and a rank of qwen1.5-0.5b+swa (its 8,192-row window; 1 of 16 KV heads
+# on model 16, G 1, hd 64; 512 rows a rank), in bf16 and int8.
+CP_RANKS, CP_SEQ = 16, 524288
+CP_SHAPES = (("jamba-v0.1 attention", 1, 8, 4, 128, CP_SEQ, "bfloat16"),
+             ("qwen1.5-0.5b+swa rank", 1, 1, 1, 64, 8192, "bfloat16"),
+             ("qwen1.5-0.5b+swa rank, int8", 1, 1, 1, 64, 8192, "int8"))
+# The long_500k pair in a world of one: a prompt, then decode steps at
+# indices 524,287 - k; kimi-k2's decode (KIMI_CUT): (batch, prompt, cache
+# rows, steps).
+CP_PROMPT, CP_STEPS = 64, 8
+CP_KIMI = (4, 64, 1024, 4)
+
+
+def _cp_ranks(q, k, v, ks, vs, n, ranks=CP_RANKS):
+    """The ``ranks`` data ranks of a sequence-split cache simulated in turn
+    on this card: each rank's ``flash_decode_partials`` on its rows at its
+    local n_valid, the buffers stacked as the all-gather delivers them,
+    ``merge_decode_partials`` over them.  (output, gathered acc, ml)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import cuda_kernel as fd
+    from repro_torch.kernels.decode_attention import partials_buffer
+
+    rows = k.shape[1] // ranks
+    bufs = []
+    for r in range(ranks):
+        sl = slice(r * rows, (r + 1) * rows)
+        acc, ml = fd.flash_decode_partials(q, k[:, sl], v[:, sl], None if ks is None else ks[:, sl],
+                                           None if vs is None else vs[:, sl], torch.clamp(n - r * rows, 0, rows))
+        bufs.append(partials_buffer(acc, ml))
+    acc_all, ml_all = fd.split_partials(torch.stack(bufs), tuple(acc.shape[:4]), acc.shape[-1])
+    return fd.merge_decode_partials(acc_all, ml_all, q.dtype), acc_all, ml_all
+
+
+def _cp_plain(q, k, v, ks, vs, n, ranks=CP_RANKS):
+    """The plain versions of :func:`_cp_ranks`, at the kernel's split plan."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import cuda_kernel as fd
+    from repro_torch.kernels.decode_attention import flash_decode_partials_ref, merge_partials_ref
+
+    b, kvh, g, _ = q.shape
+    rows = k.shape[1] // ranks
+    nsplit = fd.decode_plan(b, kvh, g, rows, torch.cuda.get_device_properties(0).multi_processor_count)["nsplit"]
+    parts = []
+    for r in range(ranks):
+        sl = slice(r * rows, (r + 1) * rows)
+        parts.append(flash_decode_partials_ref(q, k[:, sl], v[:, sl], None if ks is None else ks[:, sl],
+                                               None if vs is None else vs[:, sl], torch.clamp(n - r * rows, 0, rows),
+                                               nsplit=nsplit))
+    return merge_partials_ref(torch.stack([a for a, _ in parts]), torch.stack([m for _, m in parts]), q.dtype)
+
+
+def check_context_parallel_kernels() -> dict:
+    """Part 1: at each of ``CP_SHAPES``, the 16 ranks' partials merged
+    (:func:`_cp_ranks`) against whole-cache ``flash_decode`` and both
+    against their plain versions (``_cp_plain``; ``flash_decode_split_ref``
+    at the whole cache's plan), with phase 2's bf16 bars, at n_valid inside
+    rank 0 only (15 empty ranks: their partials m = -1e30, l = 0, acc = 0),
+    at a rank boundary, midway and full; nothing NaN.  Then each timed at
+    the full cache: one rank's partial call and its library calls (the
+    memory-efficient and flash attention ops with their log-sum-exp on the
+    rank's rows, checked against the partial), the merge of 16, the 16 calls and the
+    merge in turn, whole-cache ``flash_decode``, SDPA on the whole cache
+    (yardstick), the plain versions and the bytes bounds.  Returns
+    the worst |err| and the timings."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import cuda_kernel as fd
+    from repro_torch.kernels.decode_attention import (flash_decode_partials_ref, flash_decode_split_ref,
+                                                      merge_partials_ref, partials_buffer)
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bar = dict(rtol=2.0 ** -7, atol=1e-5)
+    worst, times = 0.0, []
+    saved = (fd.launch_count, fd.partials_launch_count, fd.merge_launch_count)
+    for name, b, kvh, g, hd, c, cache in CP_SHAPES:
+        q, k, v, ks, vs = _decode_inputs(gen, b, kvh, g, hd, c, torch.bfloat16, cache)
+        rows = c // CP_RANKS
+        whole_plan = fd.decode_plan(b, kvh, g, c, sms)
+        for nv in (rows // 3, rows, c // 2 + rows // 3, c):
+            n = torch.full((b,), nv, dtype=torch.int32, device="cuda")
+            got, acc_all, ml_all = _cp_ranks(q, k, v, ks, vs, n)
+            whole = fd.flash_decode(q, k, v, ks, vs, n)
+            plain = _cp_plain(q, k, v, ks, vs, n)
+            plain_whole = flash_decode_split_ref(q, k, v, ks, vs, n, nsplit=whole_plan["nsplit"])
+            torch.cuda.synchronize()
+            for t in (got, acc_all, ml_all, whole):
+                assert bool(torch.isfinite(t).all()), f"{name} at n_valid {nv}: a non-finite value"
+            empty = [r for r in range(CP_RANKS) if nv <= r * rows]
+            for r in empty:
+                assert bool((ml_all[r][..., 0] == -1.0e30).all() and (ml_all[r][..., 1] == 0).all()
+                            and (acc_all[r] == 0).all()), f"{name}: rank {r} holds no row but its partial is not empty"
+            for a, w, what in ((got, whole, "merged vs whole-cache flash_decode"), (got, plain, "merged vs plain"),
+                               (whole, plain_whole, "flash_decode vs plain")):
+                torch.testing.assert_close(a.float(), w.float(), **bar, msg=lambda m: f"{name} n_valid {nv} {what}: {m}")
+                worst = max(worst, float((a.float() - w.float()).abs().max()))
+            del got, acc_all, ml_all, whole, plain, plain_whole
+        log(f"[cp] {name} (B {b}, KV {kvh}, G {g}, hd {hd}, C {c} {cache}, {rows} rows a rank of {CP_RANKS}): "
+            f"merged partials agree with whole-cache flash_decode and the plain versions, empty ranks hold m = -1e30, "
+            f"l = 0, acc = 0; worst |err| so far {worst:.3e}")
+
+        # Times at the full cache, every rank's rows valid.
+        n = torch.full((b,), c, dtype=torch.int32, device="cuda")
+        n_rank = torch.full((b,), rows, dtype=torch.int32, device="cuda")
+        sl = slice(0, rows)
+        ks0, vs0 = (None, None) if ks is None else (ks[:, sl], vs[:, sl])
+        part = lambda: fd.flash_decode_partials(q, k[:, sl], v[:, sl], ks0, vs0, n_rank)
+        plan = fd.decode_plan(b, kvh, g, rows, sms)
+        bufs = []
+        for r in range(CP_RANKS):
+            acc, ml = fd.flash_decode_partials(q, k[:, r * rows:(r + 1) * rows], v[:, r * rows:(r + 1) * rows],
+                                               None if ks is None else ks[:, r * rows:(r + 1) * rows],
+                                               None if vs is None else vs[:, r * rows:(r + 1) * rows], n_rank)
+            bufs.append(partials_buffer(acc, ml))
+        gathered = torch.stack(bufs)
+        acc_all, ml_all = fd.split_partials(gathered, tuple(acc.shape[:4]), hd)
+        merge = lambda: fd.merge_decode_partials(acc_all, ml_all, q.dtype)
+        # The kernels by CUDA-graph replay (device time, as phase 6), eager
+        # beside; the plain versions by CUDA events.
+        ranks = lambda: _cp_ranks(q, k, v, ks, vs, n)
+        whole = lambda: fd.flash_decode(q, k, v, ks, vs, n)
+        rec = dict(name=name, shape=dict(B=b, KV=kvh, G=g, hd=hd, C=c, ranks=CP_RANKS, rows_a_rank=rows, cache=cache),
+                   plan_a_rank=plan, partial_ms=time_graph(part, iters=100), partial_ms_eager=time_events(part, iters=50),
+                   merge_ms=time_graph(merge, iters=100), merge_ms_eager=time_events(merge, iters=50),
+                   ranks_and_merge_ms=time_graph(ranks, iters=5), ranks_and_merge_ms_eager=time_events(ranks, iters=5,
+                                                                                                     warmup=2),
+                   whole_ms=time_graph(whole, iters=20), whole_ms_eager=time_events(whole, iters=20))
+        rec["partial_plain_ms"] = time_events(lambda: flash_decode_partials_ref(
+            q, k[:, sl], v[:, sl], ks0, vs0, n_rank, nsplit=plan["nsplit"]), iters=5, warmup=1)
+        rec["merge_plain_ms"] = time_events(lambda: merge_partials_ref(acc_all, ml_all, q.dtype), iters=20, warmup=2)
+        if ks is not None:
+            kd, vd = (k.float() * ks.float()[..., None]).bfloat16(), (v.float() * vs.float()[..., None]).bfloat16()
+        else:
+            kd, vd = k, v
+        # The library calls for one rank's partial: PyTorch's memory-efficient
+        # and flash attention ops over the rank's rows with their
+        # log-sum-exp, a KV head's G query heads as the query length.  Their
+        # (output, lse) is the rank's partial as one split (acc = out * l,
+        # m = lse, l = 1); the faster is the row's library time.  Each is
+        # held to the kernel's partial (merged alone; its lse from (m, l))
+        # within 2**-6 of the output's and 2**-7 of the lse's largest
+        # magnitude: the library rounds the probabilities to bf16 before
+        # P.V and reads an int8 cache as a bf16 dequantized copy, so it is a
+        # bf16 ulp or so off.
+        kr, vr = kd[:, sl].transpose(1, 2).contiguous(), vd[:, sl].transpose(1, 2).contiguous()
+        libs = {"efficient": lambda: torch.ops.aten._scaled_dot_product_efficient_attention(q, kr, vr, None, True),
+                "flash": lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, kr, vr)}
+        acc0, ml0 = part()
+        m_max = ml0[..., 0].amax(-1)
+        lse0 = m_max + torch.log((ml0[..., 1] * torch.exp(ml0[..., 0] - m_max[..., None])).sum(-1))
+        out0 = fd.merge_decode_partials(acc0, ml0, q.dtype).float()
+        for op, lib in libs.items():
+            lib_out, lib_lse = lib()[:2]
+            for got, want, rel, what in ((lib_out.float(), out0, 2.0 ** -6, "output"),
+                                         (lib_lse[..., :g].float(), lse0, 2.0 ** -7, "log-sum-exp")):
+                err, scale = float((got - want).abs().max()), float(want.abs().max())
+                assert err <= rel * scale, (f"{name}: the library's {op} rank {what} {err:.3e} from the partial's "
+                                            f"(|x| {scale:.3e})")
+            rec[f"partial_{op}_ms"] = time_graph(lib, iters=100)
+        rec["partial_library_ms"] = min(rec[f"partial_{op}_ms"] for op in libs)
+        del kr, vr, lib_out, lib_lse, acc0, ml0, out0
+        qs = q.reshape(b, kvh * g, 1, hd)
+        kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+        del kd, vd
+        rec["sdpa_whole_ms"] = time_graph(lambda: F.scaled_dot_product_attention(qs, kt, vt, enable_gqa=True), iters=20)
+        del kt, vt
+        elem = {"bfloat16": 2, "int8": 1}[cache]
+        n_part = b * kvh * g * plan["nsplit"] * (hd + 2)
+        # One rank: its valid K / V rows (and scales) once, q, n_valid, the partial buffer written.
+        p_bytes = 2 * rows * b * kvh * hd * elem + (2 * rows * b * kvh * 2 if cache == "int8" else 0) \
+            + b * kvh * g * hd * 2 + 4 * b + 4 * n_part
+        p_ops = 4 * rows * b * kvh * g * hd
+        # The merge: the 16 ranks' partials read once, the output written.
+        m_bytes = 4 * CP_RANKS * n_part + b * kvh * g * hd * 2
+        m_ops = CP_RANKS * plan["nsplit"] * b * kvh * g * (2 * hd + 4)
+        for key, nbytes, ops, peak in (("partial", p_bytes, p_ops, PEAK_OPS[cache]), ("merge", m_bytes, m_ops,
+                                                                                      PEAK_OPS["float32"])):
+            t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / peak
+            rec[f"{key}_bound_ms"] = max(t_b, t_o) * 1e3
+            rec[f"{key}_bound_by"] = "bytes" if t_b >= t_o else "operations"
+            rec[f"{key}_bytes"] = nbytes
+        times.append(rec)
+        log(f"[cp] ({card_line()}) {name} (graph replay; eager: partial {rec['partial_ms_eager'] * 1e3:.2f}, merge "
+            f"{rec['merge_ms_eager'] * 1e3:.2f}, 16 + merge {rec['ranks_and_merge_ms_eager'] * 1e3:.1f}, whole "
+            f"{rec['whole_ms_eager'] * 1e3:.1f} us): a rank's partial call {rec['partial_ms'] * 1e3:.2f} us ({plan['nsplit']} "
+            f"splits of {plan['rows_per_split']} rows; bound {rec['partial_bound_ms'] * 1e3:.2f} us, "
+            f"{rec['partial_bound_by']}; plain {rec['partial_plain_ms'] * 1e3:.1f} us; the library's attention with "
+            f"its log-sum-exp on the rank's rows: efficient {rec['partial_efficient_ms'] * 1e3:.2f} us, flash "
+            f"{rec['partial_flash_ms'] * 1e3:.2f} us), the merge of {CP_RANKS} "
+            f"{rec['merge_ms'] * 1e3:.2f} us (bound {rec['merge_bound_ms'] * 1e3:.3f} us; plain "
+            f"{rec['merge_plain_ms'] * 1e3:.1f} us); {CP_RANKS} partial calls and the merge in turn "
+            f"{rec['ranks_and_merge_ms'] * 1e3:.1f} us; whole-cache flash_decode {rec['whole_ms'] * 1e3:.1f} us "
+            f"({whole_plan['nsplit']} splits), SDPA on the whole cache {rec['sdpa_whole_ms'] * 1e3:.1f} us")
+        del q, k, v, ks, vs, gathered, acc_all, ml_all, bufs
+        torch.cuda.empty_cache()
+    fd.launch_count, fd.partials_launch_count, fd.merge_launch_count = saved
+    return dict(max_abs_err=worst, times=times)
+
+
+def _cp_serve(model, fns, cache, prompts, key, indices) -> dict:
+    """A prefill and greedy decode steps at ``indices``: every step's
+    logits and tokens, the wall times."""
+    import torch
+
+    from repro_torch import prng
+
+    prefill, decode = fns
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = prefill(model, {"tokens": prompts}, cache, key)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, toks = [logits], [torch.argmax(logits, dim=-1)[:, None].to(torch.int32)]
+        for i, index in enumerate(indices):
+            logits, cache = decode(model, toks[-1], cache, index, prng.fold_in(key, i))
+            out.append(logits)
+            toks.append(torch.argmax(logits, dim=-1)[:, None].to(torch.int32))
+        torch.cuda.synchronize()
+    return dict(logits=out, tokens=torch.cat(toks, dim=1), prefill_s=t1 - t0,
+                decode_ms=(time.perf_counter() - t1) / len(indices) * 1e3)
+
+
+def _cp_pair(name, model, cfg, unsharded_fns, unsharded_cache, sharded_fns, state, cache, batch, prompt, indices,
+             want) -> dict:
+    """The unsharded steps, then the sharded ones (the kernels' counts
+    zeroed just before, read just after): every step's logits and tokens
+    bit-equal, the sharded run's launches ``want``."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels.decode_attention import cuda_kernel as fd
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device="cuda", dtype=torch.int32)
+    key = prng.PRNGKey(22, "cuda")
+    u = _cp_serve(model, unsharded_fns, unsharded_cache, prompts, key, indices)
+    _zero_counts()
+    sh = _cp_serve(state, sharded_fns, cache, prompts, key, indices)
+    counts = dict(_counts(), flash_decode_partials=fd.partials_launch_count,
+                  merge_decode_partials=fd.merge_launch_count)
+    sh["launches"] = {k: counts[k] for k in want}
+    assert sh["launches"] == want, f"{name}: launches {sh['launches']}, want {want}"
+    assert torch.equal(sh["tokens"], u["tokens"]), f"{name}: tokens {sh['tokens']} against {u['tokens']}"
+    for i, (a, b) in enumerate(zip(sh["logits"], u["logits"])):
+        assert torch.equal(a, b), f"{name}: step {i}'s logits differ from the unsharded step's"
+    assert all(bool(torch.isfinite(x).all()) for x in u["logits"])
+    out = {"unsharded": {k: u[k] for k in ("prefill_s", "decode_ms")},
+           "sharded": {k: sh[k] for k in ("prefill_s", "decode_ms", "launches")}}
+    out["sharded"]["first_tokens"] = sh["tokens"][0, :8].tolist()
+    return out
+
+
+def run_context_parallel(report) -> dict:
+    """Phase 22 (module notes): the kernels at a production-mesh rank's
+    long_500k shapes (part 1), then, in a world of one over NCCL in this
+    process, qwen1.5-0.5b+swa's long_500k pair through the sharded steps
+    with the production mesh's cache placement (its KV sequence on
+    ``data``: every attention layer decodes through the partials and the
+    merge) and kimi-k2's decode (``KIMI_CUT``) through the dense MoE on the
+    experts stored along ``model``, each bit-equal to the unsharded steps.
+    Returns the sharded runs' launches by path."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models import lm
+    from repro_torch.sharding import rules
+
+    t0 = time.perf_counter()
+    card = card_line()
+    kernels = check_context_parallel_kernels()
+    shape = INPUT_SHAPES["long_500k"]
+    cfg, variant = dryrun.resolve_config("qwen1.5-0.5b", "long_500k")
+    # The placement a rank of the 16 x 16 production mesh holds (batch 1:
+    # the KV sequence on data), taken outside the world.
+    specs = rules.cache_pspecs(cfg, shape, mesh_lib.make_production_mesh())
+    assert all(layer["k"][1] == ("data",) for layer in specs), "long_500k: the KV sequence is not on data"
+    n_layers = len(cfg.all_layers())
+    indices = [CP_SEQ - CP_STEPS + i for i in range(CP_STEPS)]
+    kcfg = _arch_cfg("kimi-k2-1t-a32b", "bfloat16", KIMI_CUT, 0)
+    kb, kp, kc, ksteps = CP_KIMI
+    torch.cuda.empty_cache()
+    _, started = mesh_lib.init_world("cuda")
+    try:
+        mesh = mesh_lib.make_production_mesh()
+        world = torch.distributed.get_world_size()
+        model = lm.init_lm(cfg, seed=0, device="cuda")
+        unsharded = copy.deepcopy(model)
+        state = steps.build_sharded_step(cfg, shape, mesh)[0].place(model)
+        runs = {f"qwen1.5-0.5b ({variant}) x long_500k": _cp_pair(
+            "qwen long_500k", unsharded, cfg, (steps.make_prefill_step(cfg), steps.make_serve_step(cfg)),
+            cache_lib.init_cache(cfg, 1, CP_SEQ, device="cuda"),
+            (steps.make_prefill_step(cfg, cache_specs=specs), steps.make_serve_step(cfg, cache_specs=specs)), state,
+            steps.shard_cache(cache_lib.init_cache(cfg, 1, CP_SEQ, device="cuda"), specs, mesh), 1, CP_PROMPT,
+            indices, dict(flash_decode_partials=n_layers * CP_STEPS, merge_decode_partials=n_layers * CP_STEPS,
+                          flash_decode=0))}
+        del model, unsharded, state
+        torch.cuda.empty_cache()
+        # kimi-k2: the unsharded steps and then the sharded ones on the same
+        # weights (a world of one holds the model's own tensors as its shards).
+        kshape = ShapeConfig("phase22_kimi", kc, kb, "decode")
+        kmodel = lm.init_lm(kcfg, seed=0, device="cuda")
+        prefill_fn, _ = steps.build_sharded_step(kcfg, ShapeConfig("phase22_kimi", kc, kb, "prefill"), mesh)
+        decode_fn, _ = steps.build_sharded_step(kcfg, kshape, mesh)
+        runs["kimi-k2 cut decode"] = _cp_pair(
+            "kimi-k2", kmodel, kcfg, (steps.make_prefill_step(kcfg), steps.make_serve_step(kcfg)),
+            cache_lib.init_cache(kcfg, kb, kc, device="cuda"), (prefill_fn, decode_fn), prefill_fn.place(kmodel),
+            steps.init_cache_shards(kcfg, kshape, mesh, "cuda"), kb, kp, [kp + i for i in range(ksteps)],
+            dict(flash_decode=len(kcfg.all_layers()) * ksteps))
+        del kmodel
+        torch.cuda.empty_cache()
+    finally:
+        if started:
+            mesh_lib.close_world()
+    for arch, r in runs.items():
+        log(f"[cp] ({card}, world {world}, mesh {dict(mesh.shape)}) {arch}: unsharded prefill "
+            f"{r['unsharded']['prefill_s'] * 1e3:.1f} ms, decode {r['unsharded']['decode_ms']:.2f} ms a step; sharded "
+            f"{r['sharded']['prefill_s'] * 1e3:.1f} ms, {r['sharded']['decode_ms']:.2f} ms a step, launches "
+            f"{r['sharded']['launches']}, tokens {r['sharded']['first_tokens']}... bit-equal to the unsharded run's")
+    report["context_parallel"] = dict(card=card, world=world, kernels=kernels, runs=runs,
+                                      seconds=time.perf_counter() - t0)
+    log(f"[cp] phase 22 passed in {time.perf_counter() - t0:.1f} s ({card})")
+    return {arch: r["sharded"]["launches"] for arch, r in runs.items()}
+
+
+def _cp_records(report, launches) -> list:
+    """The kernels line's records of the partial entry point and the
+    cross-rank merge, at jamba's attention layer (phase 22's first shape)."""
+    cp = report["context_parallel"]["kernels"]
+    t = cp["times"][0]
+    qwen = next(v for k, v in launches.items() if "long_500k" in k)
+    src = "src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu"
+    recs = []
+    for name, key in (("flash_decode_partials", "partial"), ("merge_decode_partials", "merge")):
+        lib = f"{key}_library_ms"
+        recs.append(dict(name=name, route="cuda", source=src, replaces="src/repro/kernels/decode_attention/kernel.py:120",
+                         launches=qwen[name], launches_by_path={"context_parallel/qwen_long_500k": qwen[name]},
+                         max_abs_err=cp["max_abs_err"], ms=t[f"{key}_ms"], plain_ms=t[f"{key}_plain_ms"],
+                         bound_ms=t[f"{key}_bound_ms"], bound_by=t[f"{key}_bound_by"], library_ms=t.get(lib),
+                         shape=t["shape"],
+                         at_shapes=[{k: r[k] for k in ("name", "shape", f"{key}_ms", f"{key}_plain_ms",
+                                                      f"{key}_bound_ms", f"{key}_bound_by", lib,
+                                                      f"{key}_efficient_ms", f"{key}_flash_ms") if k in r}
+                                    for r in cp["times"]],
+                         context_parallel_ms={k: t[k] for k in ("ranks_and_merge_ms", "whole_ms", "sdpa_whole_ms")}))
+    return recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--quick", action="store_true", help="build and check the kernels only")
@@ -5559,6 +5947,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tp", action="store_true",
                     help="build the decode, attention and SSM-scan kernels, check the scan and run phase 21 only "
                          "(sharded serving and the dry run; ~30 GB of the card)")
+    ap.add_argument("--cp", action="store_true",
+                    help="build the decode kernels, check them and run phase 22 only (context-parallel decode: the "
+                         "partials and the cross-rank merge at long_500k's rank shapes, qwen1.5-0.5b+swa's long_500k "
+                         "pair and kimi-k2's decode in a world of one; kimi-k2 needs ~45 GB of the card)")
     ap.add_argument("--bwd-split", nargs="?", const="bfloat16", choices=("bfloat16", "float32", "all"),
                     help="trace the tensor-core backward of this dtype (all: bf16, then f32) at the training shape "
                          "only (its kernels' device times)")
@@ -5756,6 +6148,31 @@ def main(argv=None) -> int:
         report["seconds"] = time.perf_counter() - t0
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_tp.json").write_text(json.dumps(report, indent=1, default=str))
+        log(f"[card] {card}")
+        print(json.dumps({"kernels": report["kernels"]}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if args.cp:
+        from repro_torch.kernels.decode_attention import cuda_kernel as decode_kernel
+
+        t0 = time.perf_counter()
+        card = card_line()
+        libs = nvcc.build_libraries([(decode_kernel.LIB_NAME, decode_kernel.SOURCES)])
+        log(f"[card] {card}; the decode library built in {time.perf_counter() - t0:.1f} s")
+        for name, line in kernel_resources(libs[decode_kernel.LIB_NAME].with_suffix(".log").read_text(),
+                                           ("split_decode_kernel", "merge_splits_kernel")):
+            log(f"[build]   {name}: {line}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        decode_err = check_flash_decode()
+        report = {"card": card}
+        launches = run_context_parallel(report)
+        report["kernels"] = _cp_records(report, launches)
+        report["flash_decode_check"] = decode_err
+        report["seconds"] = time.perf_counter() - t0
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_cp.json").write_text(json.dumps(report, indent=1, default=str))
         log(f"[card] {card}")
         print(json.dumps({"kernels": report["kernels"]}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6018,6 +6435,12 @@ def main(argv=None) -> int:
         ssm_record["launches_by_path"]["sharded_serving/jamba"] = tp["jamba"]["ssm_scan"]
         record["at_rank_heads"] = _rank_head_rows(report, "flash_decode")
         flash_records["wgmma"]["at_rank_heads"] = _rank_head_rows(report, "flash_attention")
+        # Phase 22's paths: long_500k's context-parallel decode (the partials
+        # and the cross-rank merge), kimi-k2's decode on the stored experts (B1).
+        cp = run_context_parallel(report)
+        mark(report, "phase 22")
+        record["launches_by_path"]["context_parallel/kimi_decode"] = cp["kimi-k2 cut decode"]["flash_decode"]
+        cp_records = _cp_records(report, cp)
         launches = run_slice(report)
         mark(report, "phases 4-5")
         timing = time_flash_decode(BATCH, 16, 1, 64, PROMPT + TOKENS, PROMPT + TOKENS, "bfloat16")
@@ -6046,8 +6469,8 @@ def main(argv=None) -> int:
         mark(report, "phase 8")
         run_bwd_kernel_split(report)
         mark(report, "the backward's split")
-    report["kernels"] = [record, paged_record, egress_record, burst_record, *flash_records.values(),
-                         *bwd_records.values(), ssm_record, ssm_bwd_record]
+    report["kernels"] = [record, paged_record, *(cp_records if not args.quick else ()), egress_record, burst_record,
+                         *flash_records.values(), *bwd_records.values(), ssm_record, ssm_bwd_record]
     if not args.quick:
         # Every kernel of a path was launched on it; the CUDA-core bodies,
         # which no route reaches, are the timing baselines and carry 0.

@@ -57,8 +57,25 @@
 //       M = max m_s,  out = sum acc_s e^(m_s - M) / max(sum l_s e^(m_s - M), 1e-20);
 //     a split that sees no row has m = -1e30, l = 0, acc = 0 and adds nothing.
 //
+// Context-parallel decode (the KV sequence split over ranks; no TPU kernel
+// of its own: the reference's GSPMD program partitions flash_decode_kernel's
+// caller over the sequence) uses the same two kernels apart:
+//   * flash_decode_partials_launch (flash_decode_partials.cu) runs the split
+//     kernel alone over a rank's rows and always writes the f32 partials,
+//     also at one split (a rank with no valid row writes m = -1e30, l = 0,
+//     acc = 0, never NaN);
+//   * merge_decode_partials_launch runs merge_splits_kernel over the R ranks'
+//     gathered partials, R x nsplit splits in rank order, rank r's at a
+//     rank stride from rank r - 1's (what an all-gather of each rank's one
+//     partial buffer delivers), so no copy puts them side by side.  The
+//     merge's arithmetic is the one-call merge's: the max, then e^(m - M),
+//     then the sums in split order.
+// Bound: the partials' split kernel reads what flash decode reads (the
+// rank's valid rows); the merge reads R x nsplit x (hd + 2) f32 a row.
+//
 // The body and the merge live in flash_decode.cuh; this unit builds them at
-// hd 64, 128 and 256, flash_decode_hd112.cu at hd 112.
+// hd 64, 128 and 256, flash_decode_hd112.cu at hd 112, and
+// flash_decode_partials.cu the partial entry point's body at all four.
 
 #include "flash_decode.cuh"
 
@@ -91,6 +108,18 @@ int launch_cache(int cache_type, int HD, const Args& a) {
       return launch_hd<QT, __nv_bfloat16>(HD, a);
     case 2:
       return launch_hd<QT, float>(HD, a);
+    default:
+      return kUnsupported;
+  }
+}
+
+template <int HD>
+int merge_q(const flash_decode_host::MergeArgs& m, int q_type) {
+  switch (q_type) {
+    case 1:
+      return run_merge<__nv_bfloat16, HD>(m);
+    case 2:
+      return run_merge<float, HD>(m);
     default:
       return kUnsupported;
   }
@@ -150,6 +179,31 @@ extern "C" int paged_flash_decode_launch(const void* q, const void* k, const voi
                static_cast<float*>(part_ml), B, KV, G, J * bs, bs, J, nsplit, rows_per_split,
                softcap, static_cast<cudaStream_t>(stream)};
   return dispatch(a, HD, cache_type, q_type);
+}
+
+// The merge of nrank ranks' partials of `rows` output rows (B * KV * G) of
+// nsplit splits each, rank r's at part_acc / part_ml + r * rank_stride
+// floats; out (rows, hd) in q_type.
+extern "C" int merge_decode_partials_launch(const void* part_acc, const void* part_ml, void* out,
+                                            int rows, int HD, int q_type, int nsplit, int nrank,
+                                            long long rank_stride, void* stream) {
+  if (rows <= 0 || nsplit < 1 || nrank < 1 || part_acc == nullptr || part_ml == nullptr || out == nullptr)
+    return kUnsupported;
+  const flash_decode_host::MergeArgs m{static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
+                                       out, rows, nsplit, nrank, rank_stride,
+                                       static_cast<cudaStream_t>(stream)};
+  switch (HD) {
+    case 64:
+      return merge_q<64>(m, q_type);
+    case 112:
+      return flash_decode_host::merge_hd112(m, q_type);
+    case 128:
+      return merge_q<128>(m, q_type);
+    case 256:
+      return merge_q<256>(m, q_type);
+    default:
+      return kUnsupported;
+  }
 }
 
 extern "C" const char* flash_decode_error_string(int code) {

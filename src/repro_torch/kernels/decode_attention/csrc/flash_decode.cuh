@@ -1,10 +1,12 @@
 // The split-KV decode body (split_decode_kernel) and the merge
-// (merge_splits_kernel) with their launch templates, shared by the two
+// (merge_splits_kernel) with their launch templates, shared by the three
 // translation units of the decode library: flash_decode.cu instantiates them
 // at head dims 64, 128 and 256, flash_decode_hd112.cu at 112 (kimi-k2,
-// 7168 / 64 heads).  Each unit compiles its own head dims, so adding one
+// 7168 / 64 heads), flash_decode_partials.cu the body's partial entry point
+// at all four.  Each unit compiles its own instantiations, so adding one
 // leaves the others' code as it was.  flash_decode.cu says what the body
-// computes and why it is built this way.
+// computes and why it is built this way, and how the partial entry point and
+// the cross-rank merge of context-parallel decode use them.
 
 #pragma once
 
@@ -27,8 +29,8 @@ struct Args {
   const void* v_scale;
   const int* block_table;  // (B, J), paged only
   const int* n_valid;
-  void* out;
-  float* part_acc;         // (B * KV * G, nsplit, hd), nsplit > 1 only
+  void* out;               // null for the partial entry point
+  float* part_acc;         // (B * KV * G, nsplit, hd); nsplit > 1 or the partial entry point
   float* part_ml;          // (B * KV * G, nsplit, 2)
   int B, KV, G;
   int rows;                // logical rows a request addresses: C, or J * bs
@@ -38,8 +40,20 @@ struct Args {
   cudaStream_t stream;
 };
 
+// A merge of gathered partials: nrank ranks' (rows, nsplit) splits, rank r's
+// at part_acc / part_ml + r * rank_stride floats.
+struct MergeArgs {
+  const float* part_acc;
+  const float* part_ml;
+  void* out;               // (rows, hd) in the query's type
+  int rows, nsplit, nrank;
+  long long rank_stride;
+  cudaStream_t stream;
+};
+
 // hd 112, built in flash_decode_hd112.cu: 0, a cudaError_t, or -1.
 int launch_hd112(const Args& a, int cache_type, int q_type);
+int merge_hd112(const MergeArgs& m, int q_type);
 
 }  // namespace flash_decode_host
 
@@ -120,8 +134,11 @@ struct SplitShape {
 
 // GT: query heads of a block's group tile (1, 2 or 4).  kPaged: rows come
 // through block_table (B, J) over blocks of bs rows; else row p of request
-// b is cache row b * rows + p.
-template <typename QT, typename KT, int HD, int GT, bool kPaged>
+// b is cache row b * rows + p.  kPartials: every split writes its partial,
+// also at nsplit 1 (context-parallel decode's partial entry point, built in
+// flash_decode_partials.cu, so that the other instantiations keep their
+// code and registers).
+template <typename QT, typename KT, int HD, int GT, bool kPaged, bool kPartials>
 __global__ void __launch_bounds__(kSplitThreads)
 split_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
                     const __nv_bfloat16* __restrict__ k_scale,
@@ -337,7 +354,7 @@ split_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k, const KT
       asum += sm_acc[w][g][d] * f;
     }
     const size_t orow = static_cast<size_t>(bh) * G + g0 + g;
-    if (nsplit == 1) {
+    if (!kPartials && nsplit == 1) {
       out[orow * HD + d] = from_f32<QT>(asum / fmaxf(lsum, 1e-20f));
     } else {
       const size_t prow = orow * nsplit + split;
@@ -350,32 +367,45 @@ split_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k, const KT
   }
 }
 
-// One block of HD threads per output row (b, h, g): combine its splits.
-template <typename QT, int HD>
+// One block of HD threads per output row (b, h, g): combine the nsplit
+// splits of each of nrank ranks in rank-major split order, rank r's
+// partials rank_stride floats after rank r - 1's: context-parallel decode's
+// cross-rank merge (kRanks), or one call's own merge (one rank).  Without
+// kRanks the rank loop is one pass at compile time: the same loop over a
+// run-time nrank of 1 took the one-call merge at 1,024 rows from 7.57 to
+// 8.07 us (scripts/decode_ab.py, NVIDIA H100 80GB HBM3, 700 W).
+template <typename QT, int HD, bool kRanks>
 __global__ void __launch_bounds__(HD)
 merge_splits_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                    QT* __restrict__ out, int nsplit) {
+                    QT* __restrict__ out, int nsplit, int nrank, long long rank_stride) {
   const size_t row = blockIdx.x;
   const int d = threadIdx.x;
-  const float* ml = part_ml + row * nsplit * 2;
+  const int ranks = kRanks ? nrank : 1;
   float mx = kNegInf;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, ml[2 * s]);
+  for (int r = 0; r < ranks; ++r) {
+    const float* ml = part_ml + r * rank_stride + row * nsplit * 2;
+    for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, ml[2 * s]);
+  }
   float lsum = 0.f;
   float asum = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float f = expf(ml[2 * s] - mx);
-    lsum += ml[2 * s + 1] * f;
-    asum += part_acc[(row * nsplit + s) * HD + d] * f;
+  for (int r = 0; r < ranks; ++r) {
+    const float* ml = part_ml + r * rank_stride + row * nsplit * 2;
+    const float* acc = part_acc + r * rank_stride + row * nsplit * HD;
+    for (int s = 0; s < nsplit; ++s) {
+      const float f = expf(ml[2 * s] - mx);
+      lsum += ml[2 * s + 1] * f;
+      asum += acc[s * HD + d] * f;
+    }
   }
   out[row * HD + d] = from_f32<QT>(asum / fmaxf(lsum, 1e-20f));
 }
 
-template <typename QT, typename KT, int HD>
+template <typename QT, typename KT, int HD, bool kPartials = false>
 struct SplitLaunch {
   template <int GT, bool kPaged>
   static int run_tile(const Args& a) {
     const dim3 grid(a.B * a.KV, (a.G + GT - 1) / GT, a.nsplit);
-    split_decode_kernel<QT, KT, HD, GT, kPaged><<<grid, kSplitThreads, 0, a.stream>>>(
+    split_decode_kernel<QT, KT, HD, GT, kPaged, kPartials><<<grid, kSplitThreads, 0, a.stream>>>(
         static_cast<const QT*>(a.q), static_cast<const KT*>(a.k), static_cast<const KT*>(a.v),
         static_cast<const __nv_bfloat16*>(a.k_scale), static_cast<const __nv_bfloat16*>(a.v_scale),
         a.block_table, a.n_valid, static_cast<QT*>(a.out), a.part_acc, a.part_ml, a.rows, a.bs, a.J,
@@ -390,14 +420,27 @@ struct SplitLaunch {
   static int run(const Args& a) {
     if (a.nsplit < 1 || a.rows_per_split < 1 || a.nsplit > 65535 ||
         static_cast<long long>(a.nsplit) * a.rows_per_split < a.rows ||
-        (a.nsplit > 1 && (a.part_acc == nullptr || a.part_ml == nullptr)))
+        ((kPartials || a.nsplit > 1) && (a.part_acc == nullptr || a.part_ml == nullptr)) ||
+        (kPartials && a.block_table != nullptr))
       return kUnsupported;
-    int err = a.block_table != nullptr ? run_cache<true>(a) : run_cache<false>(a);
-    if (err != 0 || a.nsplit == 1) return err;
-    merge_splits_kernel<QT, HD><<<a.B * a.KV * a.G, HD, 0, a.stream>>>(
-        a.part_acc, a.part_ml, static_cast<QT*>(a.out), a.nsplit);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (kPartials) {
+      // The partials: the split kernel alone, over a contiguous cache.
+      return run_cache<false>(a);
+    } else {
+      int err = a.block_table != nullptr ? run_cache<true>(a) : run_cache<false>(a);
+      if (err != 0 || a.nsplit == 1) return err;
+      merge_splits_kernel<QT, HD, false><<<a.B * a.KV * a.G, HD, 0, a.stream>>>(
+          a.part_acc, a.part_ml, static_cast<QT*>(a.out), a.nsplit, 1, 0);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
 };
+
+template <typename QT, int HD>
+int run_merge(const flash_decode_host::MergeArgs& m) {
+  merge_splits_kernel<QT, HD, true><<<m.rows, HD, 0, m.stream>>>(m.part_acc, m.part_ml, static_cast<QT*>(m.out),
+                                                                 m.nsplit, m.nrank, m.rank_stride);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace

@@ -1,5 +1,6 @@
 // Flash decode at head dim 112 (kimi-k2-1t-a32b: d_model 7168 over 64
-// heads), contiguous and paged: the split-KV body and merge of
+// heads), contiguous and paged, and the cross-rank merge of context-parallel
+// decode: the split-KV body and merge of
 // flash_decode.cuh instantiated at HD = 112, in a translation unit of its
 // own so that the power-of-two head dims of flash_decode.cu keep their code.
 //
@@ -34,6 +35,12 @@ int launch_hd112(const Args& a, int cache_type, int q_type) {
     default:
       return kUnsupported;
   }
+}
+
+int merge_hd112(const MergeArgs& m, int q_type) {
+  if (q_type == 1) return run_merge<__nv_bfloat16, 112>(m);
+  if (q_type == 2) return run_merge<float, 112>(m);
+  return kUnsupported;
 }
 
 }  // namespace flash_decode_host

@@ -16,6 +16,13 @@ Both split the logical rows across blocks as ``decode_plan`` says, the
 same plan for a contiguous cache of C rows and a table of J * bs rows:
 with one split a call launches one kernel; with more it launches the split
 kernel and the merge, two device kernels for one call (one count).
+
+Context-parallel decode (a KV sequence split over ranks) runs the two
+kernels apart: ``flash_decode_partials`` (``partials_launch_count``) runs
+the split kernel over a rank's rows, its splits planned by those rows, and
+returns the f32 partials (m, l and the unnormalised sums) of every split;
+``merge_decode_partials`` (``merge_launch_count``) merges the partials the
+ranks' all-gather delivers, with a rank stride, into the output.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,9 +39,11 @@ from repro_torch.kernels.decode_attention.torch_ref import split_rows
 
 LIB_NAME = "flash_decode"
 # flash_decode.cu builds the body at hd 64 / 128 / 256, flash_decode_hd112.cu
-# at hd 112 (its own unit, so that the other head dims keep their code).
+# at hd 112 (its own unit, so that the other head dims keep their code),
+# flash_decode_partials.cu the partial entry point's body (a unit of its own
+# for the same reason).
 SOURCES = tuple(Path(__file__).resolve().parent / "csrc" / name
-                for name in ("flash_decode.cu", "flash_decode_hd112.cu"))
+                for name in ("flash_decode.cu", "flash_decode_hd112.cu", "flash_decode_partials.cu"))
 HEAD_DIMS = (64, 112, 128, 256)   # 112: kimi-k2, idle lanes past the row (flash_decode.cuh SplitShape)
 MAX_GROUP = 16
 CACHE_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -47,6 +56,8 @@ H100_SMS = 132
 
 launch_count: int = 0
 paged_launch_count: int = 0
+partials_launch_count: int = 0
+merge_launch_count: int = 0
 _lib = None
 
 
@@ -58,7 +69,12 @@ def _library():
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
         lib.paged_flash_decode_launch.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-        for fn in (lib.flash_decode_launch, lib.paged_flash_decode_launch):
+        lib.flash_decode_partials_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+        lib.merge_decode_partials_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p])
+        for fn in (lib.flash_decode_launch, lib.paged_flash_decode_launch, lib.flash_decode_partials_launch,
+                   lib.merge_decode_partials_launch):
             fn.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
@@ -108,6 +124,17 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _check_contiguous_call(q, k, v, k_scale, v_scale, n_valid) -> None:
+    b, kvh, g, hd = q.shape
+    c = k.shape[1]
+    tensors = [q, k, v, n_valid] + ([k_scale, v_scale] if k_scale is not None else [])
+    _check_common(q, k, v, tensors)
+    _check(tuple(k.shape) == (b, c, kvh, hd) and tuple(v.shape) == (b, c, kvh, hd),
+           f"cache shape {tuple(k.shape)} vs q {tuple(q.shape)}")
+    _check(n_valid.dtype == torch.int32 and tuple(n_valid.shape) == (b,), "n_valid must be (B,) int32")
+    _check_scales(k, k_scale, v_scale, (b, c, kvh))
+
+
 def flash_decode(
     q: torch.Tensor,                     # (B, KV, G, hd) bf16/f32
     k: torch.Tensor,                     # (B, C, KV, hd) int8/bf16/f32
@@ -124,12 +151,7 @@ def flash_decode(
     runtime.forbid_grad("flash_decode", q, k, v, k_scale, v_scale)
     b, kvh, g, hd = q.shape
     c = k.shape[1]
-    tensors = [q, k, v, n_valid] + ([k_scale, v_scale] if k_scale is not None else [])
-    _check_common(q, k, v, tensors)
-    _check(tuple(k.shape) == (b, c, kvh, hd) and tuple(v.shape) == (b, c, kvh, hd),
-           f"cache shape {tuple(k.shape)} vs q {tuple(q.shape)}")
-    _check(n_valid.dtype == torch.int32 and tuple(n_valid.shape) == (b,), "n_valid must be (B,) int32")
-    _check_scales(k, k_scale, v_scale, (b, c, kvh))
+    _check_contiguous_call(q, k, v, k_scale, v_scale, n_valid)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -145,6 +167,89 @@ def flash_decode(
     _raise_on(err, "flash_decode")
     launch_count += 1
     return out
+
+
+def flash_decode_partials(
+    q: torch.Tensor,                     # (B, KV, G, hd) bf16/f32
+    k: torch.Tensor,                     # (B, C_r, KV, hd) int8/bf16/f32: this rank's rows
+    v: torch.Tensor,
+    k_scale: Optional[torch.Tensor],     # (B, C_r, KV) bf16, int8 caches only
+    v_scale: Optional[torch.Tensor],
+    n_valid: torch.Tensor,               # (B,) int32: valid rows among this rank's
+    *,
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A rank's flash-decode partials on the card: the split kernel over
+    its ``C_r`` rows, planned by ``decode_plan`` on those rows, writing
+    every split's f32 partial, also at one split.  Returns ``acc`` (B, KV,
+    G, S, hd), the unnormalised sums, and ``ml`` (B, KV, G, S, 2), (m, l),
+    views of one flat buffer, ``acc`` first (:func:`partials_buffer`), so
+    that one all-gather moves both.  A split with no valid row holds m =
+    -1e30, l = 0, acc = 0."""
+    global partials_launch_count
+    runtime.forbid_grad("flash_decode_partials", q, k, v, k_scale, v_scale)
+    b, kvh, g, hd = q.shape
+    c = k.shape[1]
+    _check_contiguous_call(q, k, v, k_scale, v_scale, n_valid)
+    plan = decode_plan(b, kvh, g, c, _sms(q.device.index))
+    nsplit = plan["nsplit"]
+    buf = torch.empty((b * kvh * g * nsplit * (hd + 2),), dtype=torch.float32, device=q.device)
+    acc, ml = split_partials(buf, (b, kvh, g, nsplit), hd)
+    if buf.numel() == 0:
+        return acc, ml
+    quantized = k_scale is not None
+    err = _library().flash_decode_partials_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
+        n_valid.data_ptr(), acc.data_ptr(), ml.data_ptr(),
+        b, c, kvh, g, hd, CACHE_TYPES[k.dtype], Q_TYPES[q.dtype], nsplit, plan["rows_per_split"],
+        float(softcap), _stream(q),
+    )
+    _raise_on(err, "flash_decode_partials")
+    partials_launch_count += 1
+    return acc, ml
+
+
+def merge_decode_partials(acc: torch.Tensor, ml: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The merge of R ranks' gathered partials on the card: ``acc`` (R, B,
+    KV, G, S, hd) and ``ml`` (R, B, KV, G, S, 2) f32 (or without R: one
+    rank), each rank's block contiguous and both at one rank stride (the
+    views :func:`split_partials` makes of an all-gather's ``(R, n)``
+    output), merged over the R x S splits in rank order; returns (B, KV,
+    G, hd) in ``dtype``."""
+    global merge_launch_count
+    runtime.forbid_grad("merge_decode_partials", acc, ml)
+    if acc.dim() == 5:
+        acc, ml = acc[None], ml[None]
+    _check(acc.dim() == 6 and tuple(ml.shape) == tuple(acc.shape[:5]) + (2,),
+           f"partials {tuple(acc.shape)} / {tuple(ml.shape)}")
+    r, b, kvh, g, s, hd = acc.shape
+    _check(acc.is_cuda and ml.device == acc.device, "the partials must be on one CUDA device")
+    _check(acc.dtype == torch.float32 and ml.dtype == torch.float32, "the partials are f32")
+    _check(acc[0].is_contiguous() and ml[0].is_contiguous(), "each rank's partials must be contiguous")
+    _check(r == 1 or acc.stride(0) == ml.stride(0), "acc and ml must share the rank stride")
+    _check(dtype in Q_TYPES and hd in HEAD_DIMS, f"output dtype {dtype} / head_dim {hd} unsupported")
+    out = torch.empty((b, kvh, g, hd), dtype=dtype, device=acc.device)
+    if out.numel() == 0:
+        return out
+    _check(s >= 1 and r * s <= INT32_MAX, f"{r} x {s} splits")
+    err = _library().merge_decode_partials_launch(
+        acc.data_ptr(), ml.data_ptr(), out.data_ptr(), b * kvh * g, hd, Q_TYPES[dtype], s, r,
+        acc.stride(0) if r > 1 else 0, _stream(acc))
+    _raise_on(err, "merge_decode_partials")
+    merge_launch_count += 1
+    return out
+
+
+def split_partials(buf: torch.Tensor, lead: Tuple[int, ...], hd: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(acc, ml)`` views of a partial buffer whose last dim holds one
+    rank's ``acc`` (lead + (hd,)) then its ``ml`` (lead + (2,)): a flat
+    buffer, or the all-gathered ``(R, n)`` one (then each gets a leading
+    R dim)."""
+    n_acc = int(torch.Size(lead).numel()) * hd
+    rank = tuple(buf.shape[:-1])
+    return (buf[..., :n_acc].view(rank + tuple(lead) + (hd,)),
+            buf[..., n_acc:].view(rank + tuple(lead) + (2,)))
 
 
 def paged_flash_decode(

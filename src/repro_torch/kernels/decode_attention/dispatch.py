@@ -10,19 +10,27 @@ only the valid rows and masks the ragged tail itself; a CPU tensor goes to
 the plain version, with the reference's block choice and pad path for
 contiguous cache lengths that share no usable divisor with the block (65,
 100, ...).
+
+Context-parallel decode (the KV sequence split over ranks) takes the two
+halves apart: ``decode_attention_partials`` gives a rank's partials over
+its rows (the kernel's splits on the card, one split on the CPU), as views
+of one flat buffer (``partials_buffer``) that one all-gather moves, and
+``merge_decode_partials`` merges the ranks' gathered partials.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Union
+from typing import Any, Dict, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.decode_attention import cuda_kernel
-from repro_torch.kernels.decode_attention.torch_ref import flash_decode_ref, paged_flash_decode_ref
+from repro_torch.kernels.decode_attention.cuda_kernel import split_partials
+from repro_torch.kernels.decode_attention.torch_ref import (flash_decode_partials_ref, flash_decode_ref,
+                                                           merge_partials_ref, paged_flash_decode_ref)
 
 
 def decode_block_kv(cache_len: int, block_kv: int) -> int:
@@ -32,6 +40,13 @@ def decode_block_kv(cache_len: int, block_kv: int) -> int:
     bkv = min(block_kv, cache_len)
     g = math.gcd(bkv, cache_len)
     return g if g >= min(16, bkv) else bkv
+
+
+def _lengths(n_valid: Union[int, torch.Tensor], b: int, device) -> torch.Tensor:
+    """(B,) int32 on ``device`` from a scalar or per-row count."""
+    if isinstance(n_valid, int):
+        return torch.full((b,), n_valid, dtype=torch.int32, device=device)
+    return n_valid.to(device=device, dtype=torch.int32).reshape(-1).expand(b).contiguous()
 
 
 def decode_attention(
@@ -48,10 +63,7 @@ def decode_attention(
     assert s == 1, f"decode attention is the s == 1 path, got S={s}"
     k, v = cache["k"], cache["v"]
     k_scale, v_scale = cache.get("k_scale"), cache.get("v_scale")
-    if isinstance(n_valid, int):
-        n = torch.full((b,), n_valid, dtype=torch.int32, device=q.device)
-    else:
-        n = n_valid.to(device=q.device, dtype=torch.int32).reshape(-1).expand(b).contiguous()
+    n = _lengths(n_valid, b, q.device)
     qh = q[:, 0]                                             # (B, KV, G, hd)
     if runtime.use_kernel(q):
         out = cuda_kernel.flash_decode(qh, k, v, k_scale, v_scale, n, softcap=softcap)
@@ -67,6 +79,49 @@ def decode_attention(
         if k_scale is not None:
             k_scale, v_scale = grow(k_scale), grow(v_scale)
     out = flash_decode_ref(qh, k, v, k_scale, v_scale, n[:, None], block_kv=bkv, softcap=softcap)
+    return out[:, None]
+
+
+def decode_attention_partials(
+    q: torch.Tensor,                     # (B, 1, KV, G, hd) grouped query
+    cache: Dict[str, Any],               # k/v (B, C_r, KV, hd) [+ k/v_scale]: this rank's rows
+    n_valid: Union[int, torch.Tensor],   # scalar or (B,): valid rows among them
+    *,
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A rank's decode partials over its cache rows: ``acc`` (B, KV, G, S,
+    hd) and ``ml`` (B, KV, G, S, 2) f32, views of one flat buffer
+    (:func:`partials_buffer`).  The card splits the rows as
+    ``cuda_kernel.decode_plan`` says; the CPU takes them as one split."""
+    b, s, kvh, g, hd = q.shape
+    assert s == 1, f"decode attention is the s == 1 path, got S={s}"
+    k, v = cache["k"], cache["v"]
+    k_scale, v_scale = cache.get("k_scale"), cache.get("v_scale")
+    n = _lengths(n_valid, b, q.device)
+    if runtime.use_kernel(q):
+        return cuda_kernel.flash_decode_partials(q[:, 0], k, v, k_scale, v_scale, n, softcap=softcap)
+    acc, ml = flash_decode_partials_ref(q[:, 0], k, v, k_scale, v_scale, n, nsplit=1, softcap=softcap)
+    return split_partials(torch.cat([acc.reshape(-1), ml.reshape(-1)]), (b, kvh, g, 1), hd)
+
+
+def partials_buffer(acc: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
+    """The one flat f32 buffer a rank's ``acc`` and ``ml`` (from
+    :func:`decode_attention_partials`) are views of, ``acc`` first; no
+    copy."""
+    if not (ml.storage_offset() == acc.storage_offset() + acc.numel() and acc.is_contiguous()
+            and ml.is_contiguous()):
+        raise ValueError("acc and ml are not views of one partial buffer")
+    return acc.as_strided((acc.numel() + ml.numel(),), (1,), acc.storage_offset())
+
+
+def merge_decode_partials(acc: torch.Tensor, ml: torch.Tensor, dtype) -> torch.Tensor:
+    """R ranks' gathered partials ``acc`` (R, B, KV, G, S, hd) / ``ml`` (R,
+    B, KV, G, S, 2), merged over their R x S splits in rank order; returns
+    ``(B, 1, KV, G, hd)`` in ``dtype``."""
+    if runtime.use_kernel(acc):
+        out = cuda_kernel.merge_decode_partials(acc, ml, dtype)
+    else:
+        out = merge_partials_ref(acc, ml, dtype)
     return out[:, None]
 
 

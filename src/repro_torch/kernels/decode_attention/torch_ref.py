@@ -17,7 +17,9 @@ versions the CUDA kernels are held against on the card.
 
 ``flash_decode_split_ref`` is the plain version of the CUDA split-KV
 body's arithmetic: per split of ``split_rows(C, nsplit)`` rows the partial
-(m, l, acc), then the merge.  Both pools run that one body on the card, so
+(m, l, acc) (``flash_decode_partials_ref``), then the merge
+(``merge_partials_ref``), which also takes R ranks' gathered partials in
+rank order: context-parallel decode's plain version.  Both pools run that one body on the card, so
 ``paged_flash_decode_split_ref`` gathers the table's blocks into a
 request-major cache and takes the same splits.  The tests hold both to
 ``flash_decode_ref`` / ``paged_flash_decode_ref`` and to the reference;
@@ -26,7 +28,7 @@ the model never calls them.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -132,7 +134,7 @@ def split_rows(cache_len: int, nsplit: int) -> int:
     return -(-cache_len // nsplit)
 
 
-def flash_decode_split_ref(
+def flash_decode_partials_ref(
     q: torch.Tensor,                     # (B, KV, G, hd)
     k: torch.Tensor,                     # (B, C, KV, hd)
     v: torch.Tensor,
@@ -142,12 +144,12 @@ def flash_decode_split_ref(
     *,
     nsplit: int,
     softcap: float = 0.0,
-) -> torch.Tensor:
-    """Split-KV decode attention: split ``s`` takes the valid rows of
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-KV partials: split ``s`` takes the valid rows of
     ``[s * r, (s + 1) * r)`` (``r = split_rows(C, nsplit)``) to
     ``m_s = max score`` (-1e30 when it sees none), ``l_s = sum e^(s - m_s)``
-    and ``acc_s = sum e^(s - m_s) v``; then ``M = max m_s`` and
-    ``out = sum acc_s e^(m_s - M) / max(sum l_s e^(m_s - M), 1e-20)``."""
+    and ``acc_s = sum e^(s - m_s) v``.  Returns ``acc`` (B, KV, G, nsplit,
+    hd) and ``ml`` (B, KV, G, nsplit, 2) = (m, l), f32."""
     b, kvh, g, hd = q.shape
     c = k.shape[1]
     rows = split_rows(c, nsplit)
@@ -167,10 +169,40 @@ def flash_decode_split_ref(
     p = torch.where(msk, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)
     acc = torch.einsum("bkgnr,bnrkh->bkgnh", p, vf)
+    return acc, torch.stack([m, l], dim=-1)
+
+
+def merge_partials_ref(acc: torch.Tensor, ml: torch.Tensor, dtype) -> torch.Tensor:
+    """``M = max m_s``, ``out = sum acc_s e^(m_s - M) / max(sum l_s
+    e^(m_s - M), 1e-20)`` in ``dtype``, over the splits of ``acc`` (B, KV,
+    G, S, hd) / ``ml`` (B, KV, G, S, 2), or of R ranks' gathered partials
+    (R, B, KV, G, S, hd) / (R, ..., 2), their R x S splits in rank order."""
+    if acc.dim() == 6:
+        r, b, kvh, g, s, hd = acc.shape
+        acc = acc.movedim(0, 3).reshape(b, kvh, g, r * s, hd)
+        ml = ml.movedim(0, 3).reshape(b, kvh, g, r * s, 2)
+    m, l = ml[..., 0], ml[..., 1]
     big = m.amax(dim=-1, keepdim=True)
     w = torch.exp(m - big)
     out = (acc * w[..., None]).sum(dim=3) / torch.clamp((l * w).sum(dim=-1), min=1e-20)[..., None]
-    return out.to(q.dtype)
+    return out.to(dtype)
+
+
+def flash_decode_split_ref(
+    q: torch.Tensor,                     # (B, KV, G, hd)
+    k: torch.Tensor,                     # (B, C, KV, hd)
+    v: torch.Tensor,
+    k_scale: Optional[torch.Tensor],     # (B, C, KV) or None
+    v_scale: Optional[torch.Tensor],
+    n_valid: torch.Tensor,               # (B,) or (B, 1) int32
+    *,
+    nsplit: int,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Split-KV decode attention: the merge of ``nsplit`` splits'
+    partials (:func:`flash_decode_partials_ref`, :func:`merge_partials_ref`)."""
+    acc, ml = flash_decode_partials_ref(q, k, v, k_scale, v_scale, n_valid, nsplit=nsplit, softcap=softcap)
+    return merge_partials_ref(acc, ml, q.dtype)
 
 
 def paged_flash_decode_split_ref(

@@ -22,10 +22,12 @@ each when its storage is freed (a finalizer on the storage, whose Python
 object torch keeps as long as the storage lives, so tensors autograd saves
 count until the backward frees them).
 
-A pair whose cache puts the KV sequence on an axis wider than one (the
+A pair whose cache puts the KV sequence on the data axes (the
 ``long_500k`` pairs with attention layers: batch 1 cannot be split over
-``data``) raises ``NotImplementedError`` (ROADMAP A13c), reported as an
-error; the CLI then exits 1.
+``data``) traces context-parallel decode: each attention layer's rank
+holds its rows of the cache and all-gathers flash decode's partials over
+``data``.  A pair that raises is reported as an error; the CLI then exits
+1.
 
 Usage (the CPU, no card):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape decode_32k

@@ -23,7 +23,7 @@ hold, and the split link and the dense MoE take the global rows
 (``sharding.ctx.use_batch_shard``: the link's masks and the MoE's routing
 are the unsharded step's), or the MoE its expert-parallel form
 (``moe_shard_map``; prefill and train only: decode keeps the dense form,
-as the reference does, its experts gathered).
+as the reference does).
 
 * The train step's loss is its rows' share of the global mean NLL plus
   ``1 / n_data`` of the load-balance term, so the ranks' losses and
@@ -41,12 +41,19 @@ as the reference does, its experts gathered).
   the reference's program reduces; the logits come back as the rank's
   rows and vocabulary slice (``rules.logits_spec``), and
   :func:`greedy_tokens` takes the argmax over the whole vocabulary.  The
-  rest (Mamba, mLSTM, sLSTM, the MoE, attention whose KV heads ``model``
-  does not divide) runs on gathered parameters, its cache leaves placed
-  on ``model`` by ``rules.cache_pspecs`` gathered for the step and cut
-  back after it when ``model`` is wider than one rank (ROADMAP A13c).  A
-  KV sequence placed on an axis wider than one (context-parallel decode,
-  ``long_500k``) raises ``NotImplementedError``.
+  dense MoE's experts, where ``model`` divides their count, are computed
+  where stored too: every ``model`` rank routes the global rows, runs its
+  ``E / m`` experts and the partial outputs are summed over ``model``
+  (``models.moe``).  The rest (Mamba, mLSTM, sLSTM, the MoE whose experts
+  ``model`` does not divide, attention whose KV heads ``model`` does not
+  divide) runs on gathered parameters, its cache leaves placed on
+  ``model`` by ``rules.cache_pspecs`` gathered for the step and cut back
+  after it when ``model`` is wider than one rank (ROADMAP A13d).
+* Where the batch cannot be split over the data axes (``long_500k``),
+  ``rules.cache_pspecs`` puts an attention layer's KV sequence on them:
+  each such layer gets a ``sharding.ctx.ContextShard`` (context-parallel
+  decode: the rank's rows of the cache, flash decode's partials merged
+  across the data ranks, ``models.attention``).
 
 On a world of one every collective returns its input and every added
 factor is 1.0: each sharded step is the unsharded one bit for bit.
@@ -101,7 +108,7 @@ def make_train_step(cfg: ModelConfig, adam_cfg: AdamConfig, link_mode: str = "tr
     def train_step(state, opt_state: AdamState, batch: Dict[str, Any], key):
         if isinstance(state, ShardedModel) and _computes_model_slices(state):
             raise NotImplementedError("the train step computes over 'model' on gathered parameters: shard the model "
-                                      "with tensor_parallel=False (tensor-parallel training is ROADMAP A13c)")
+                                      "with tensor_parallel=False (tensor-parallel training is ROADMAP A13d)")
         part = _Shards(state, batch) if isinstance(state, ShardedModel) else _Whole(state, batch)
         model, params, rows = part.model, part.params, part.rows
         with part.scope():
@@ -237,16 +244,17 @@ def shard_model(model: lm.LM, cfg: ModelConfig, mesh, fsdp="on", moe_shard_map: 
                 tensor_parallel: bool = False) -> ShardedModel:
     """``model`` held as this rank's shards under ``rules.param_pspecs(fsdp)``
     over ``mesh``: the state of the sharded steps.  With ``moe_shard_map``
-    the train and prefill steps run the expert-parallel MoE, and the experts
-    stay where they are stored along ``model`` when ``model`` divides their
-    count (``models.moe.MoE.forward``'s test).  With ``tensor_parallel``
-    (the prefill and decode steps) the attention layers whose KV heads
-    ``model`` divides, the dense MLPs and, when ``model`` divides the
-    vocabulary, the embedding and the head are computed where they are
-    stored along ``model``.  A model to train must require grad."""
+    the train and prefill steps run the expert-parallel MoE.  With
+    ``moe_shard_map`` or ``tensor_parallel`` the experts stay where they are
+    stored along ``model`` when ``model`` divides their count
+    (``models.moe.MoE.forward``'s test).  With ``tensor_parallel`` (the
+    prefill and decode steps) the attention layers whose KV heads ``model``
+    divides, the dense MLPs and, when ``model`` divides the vocabulary, the
+    embedding and the head are computed where they are stored along
+    ``model`` too.  A model to train must require grad."""
     specs = rules.param_pspecs(dict(model.named_parameters()), mesh, fsdp=fsdp)
     local = {}
-    if moe_shard_map and cfg.num_experts and cfg.num_experts % mesh.shape["model"] == 0:
+    if (moe_shard_map or tensor_parallel) and cfg.num_experts and cfg.num_experts % mesh.shape["model"] == 0:
         local = {n: ("model",) for n in _expert_names({n: p.shape for n, p in model.named_parameters()})}
     if tensor_parallel:
         local.update({n: ("model",) for n in _tensor_parallel_names(model, cfg, mesh)})
@@ -288,7 +296,9 @@ class _ServeView:
     ``ShardedModel``: the parameters gathered but for the ``model`` slices
     computed where stored, this rank's rows, the link on the global rows,
     the cache leaves placed on ``model`` of the layers computed whole
-    gathered for the step and cut back after it."""
+    gathered for the step and cut back after it, and a ``ContextShard``
+    for each attention layer whose cache puts its KV sequence on the data
+    axes."""
 
     def __init__(self, state, cfg: ModelConfig, n_rows: int, cache_specs, decode: bool):
         self.sharded = state if isinstance(state, ShardedModel) else None
@@ -304,10 +314,16 @@ class _ServeView:
         mesh = state.mesh
         self.model, self.mesh, self.cache_specs, self.decode = state.model, mesh, cache_specs, decode
         self.shard = shard_ctx.BatchShard(mesh, rules.batch_spec(mesh, n_rows))
-        # Decode keeps the dense MoE: its experts gathered whole.
-        self.whole = _expert_names(state.specs) if decode else ()
         self.local_layers = {i for i in range(len(cfg.all_layers())) if state.local.get(f"stack.layers.{i}.mix.wk")}
         self.model_split = mesh.size_of("model") > 1
+        # The attention layers whose KV sequence sits on the data axes.
+        self.seq_axes = {i: specs["k"][1] for i, (spec, specs) in enumerate(zip(cfg.all_layers(), cache_specs))
+                         if spec.kind == "attn" and specs["k"][1] is not None}
+
+    def _context_shards(self, cache) -> Dict[Any, shard_ctx.ContextShard]:
+        layers = self.model.stack.layers
+        return {layers[i].mix: shard_ctx.ContextShard(self.mesh, axes, cache[i]["k"].shape[1])
+                for i, axes in self.seq_axes.items()}
 
     @contextlib.contextmanager
     def scope(self, batch: Dict[str, Any], cache):
@@ -315,7 +331,7 @@ class _ServeView:
         if self.sharded is None:
             yield self.model, batch, cache
             return
-        self.sharded.gather(whole=self.whole)
+        self.sharded.gather()
         try:
             work = self._open(cache)
             with contextlib.ExitStack() as ctx:
@@ -323,6 +339,7 @@ class _ServeView:
                 ctx.enter_context(shard_ctx.use_shard_map_mesh(moe_mesh))
                 ctx.enter_context(shard_ctx.use_batch_shard(self.shard))
                 ctx.enter_context(shard_ctx.use_tensor_parallel(self.mesh))
+                ctx.enter_context(shard_ctx.use_context_shards(self._context_shards(work)))
                 yield self.model, {k: self.shard.mine(v) for k, v in batch.items()}, work
             self._close(cache, work)
         finally:
@@ -487,15 +504,6 @@ def init_cache_shards(cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, device="cu
     return cache_lib.reset_cache(out, cfg)
 
 
-def _check_context_parallel(cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, cache_specs) -> None:
-    for spec, layer in zip(cfg.all_layers(), cache_specs):
-        if spec.kind == "attn" and layer["k"][1] is not None and mesh.size_of(layer["k"][1]) > 1:
-            raise NotImplementedError(
-                f"{cfg.name} x {shape_cfg.name}: the batch of {shape_cfg.global_batch} cannot be split over "
-                f"{rules.data_axes(mesh)}, so rules.cache_pspecs puts the KV sequence on them; context-parallel "
-                "decode (merging flash decode's partial softmax across ranks) is ROADMAP A13c")
-
-
 def build_sharded_step(cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, adam_cfg: Optional[AdamConfig] = None,
                        link_mode: Optional[str] = None, link_spec=None, fsdp="on", moe_shard_map: bool = False):
     """(fn, abstract_args) for the (arch x shape) pair on ``mesh``, with the
@@ -509,9 +517,8 @@ def build_sharded_step(cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, adam_cfg:
     state (this rank's shards).  ``abstract_args`` are this rank's
     arguments on ``meta``: the sharded state, the optimizer state over its
     shards (train), the global batch (each rank takes its rows), the cache
-    shards, the last cache row as the decode index, and a key.  A KV
-    sequence placed on an axis wider than one raises
-    ``NotImplementedError`` (ROADMAP A13c)."""
+    shards (a KV sequence on the data axes: the rank's rows of it), the
+    last cache row as the decode index, and a key."""
     adam_cfg = adam_cfg or AdamConfig(state_dtype="bfloat16")
     args, kind = input_specs(cfg, shape_cfg, adam_cfg)
     place = functools.partial(shard_model, cfg=cfg, mesh=mesh, fsdp=fsdp, moe_shard_map=moe_shard_map,
@@ -522,7 +529,6 @@ def build_sharded_step(cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, adam_cfg:
         abstract = (state, init_adam(state.shards, adam_cfg)) + args[2:]
     else:
         c_spec = rules.cache_pspecs(cfg, shape_cfg, mesh)
-        _check_context_parallel(cfg, shape_cfg, mesh, c_spec)
         cache = shard_cache(args[2], c_spec, mesh)
         if kind == "prefill":
             fn = make_prefill_step(cfg, link_mode=link_mode or "serve", link_spec=link_spec, cache_specs=c_spec)

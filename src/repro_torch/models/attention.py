@@ -34,6 +34,18 @@ this rank's columns, its ``H / m`` query and ``KV / m`` KV heads, and
 ``w_out`` the matching rows, the layer attends over those heads only,
 with a cache of those KV heads, and sums its partial output over
 ``model``.
+
+Context parallel (``sharding.ctx.use_context_shards``: the sharded steps
+where the batch cannot be split over the data axes, as ``long_500k``):
+the layer's cache holds the rank's rows ``[first, first + C_r)`` of its
+``C``.  Prefill computes the whole prompt on every data rank and stores
+the rank's rows of the rotating slots; a decode token at ``index`` goes to
+slot ``index % C``, written by the rank that owns it; each rank attends
+over its ``clamp(min(index + 1, C) - first, 0, C_r)`` valid rows to flash
+decode's partials (m, l and the unnormalised sums), which are
+all-gathered over the data axes and merged in rank order
+(``kernels.decode_attention``: the partial kernel and the cross-rank
+merge on the card), whatever ``cfg.attn_impl``.
 """
 
 from __future__ import annotations
@@ -47,10 +59,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import runtime
-from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention, decode_attention_partials,
+                                                  merge_decode_partials, paged_decode_attention, partials_buffer,
+                                                  split_partials)
 from repro_torch.kernels.flash_attention import grouped_flash_attention
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import acc_dtype, dense_std, frozen, trunc_normal_
+from repro_torch.sharding import comm
 from repro_torch.sharding import ctx as shard_ctx
 
 NEG_INF = -1.0e30
@@ -231,9 +246,14 @@ def _parts(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
     return {"k": k, "v": v}
 
 
-def _write_decode(cache: Cache, k: torch.Tensor, v: torch.Tensor, index) -> Cache:
+def _write_decode(cache: Cache, k: torch.Tensor, v: torch.Tensor, index,
+                  shard: Optional[shard_ctx.ContextShard] = None) -> Cache:
     """Write one position (S == 1) at rotating slot ``index % C``, in place;
-    a ``(B,)`` tensor index writes each row at its own slot."""
+    a ``(B,)`` tensor index writes each row at its own slot.  With a
+    ``shard`` (context parallel) the slot is the layer's whole ``C``'s and
+    only the rank holding it writes, at its local row ``slot - first``."""
+    if shard is not None:
+        return _write_decode_shard(cache, k, v, index, shard)
     c = cache["k"].shape[1]
     if not torch.is_tensor(index):
         slot = int(index) % c
@@ -247,6 +267,27 @@ def _write_decode(cache: Cache, k: torch.Tensor, v: torch.Tensor, index) -> Cach
     return cache
 
 
+def _write_decode_shard(cache: Cache, k: torch.Tensor, v: torch.Tensor, index,
+                        shard: shard_ctx.ContextShard) -> Cache:
+    c = cache["k"].shape[1]
+    if not torch.is_tensor(index):
+        row = int(index) % shard.length - shard.first
+        if 0 <= row < c:
+            for name, val in _parts(cache, k, v).items():
+                cache[name][:, row:row + 1] = val
+        return cache
+    # A tensor index: each row rewrites its slot's old value where another
+    # rank owns the slot (no host sync on which rows are this rank's).
+    rows = torch.arange(k.shape[0], device=k.device)
+    local = index.to(device=k.device, dtype=torch.int64) % shard.length - shard.first
+    mine = (local >= 0) & (local < c)
+    at = torch.clamp(local, 0, c - 1)
+    for name, val in _parts(cache, k[:, 0], v[:, 0]).items():
+        keep = mine.reshape(mine.shape + (1,) * (val.dim() - mine.dim()))
+        cache[name][rows, at] = torch.where(keep, val, cache[name][rows, at])
+    return cache
+
+
 def _write_decode_paged(cache: Cache, k: torch.Tensor, v: torch.Tensor, plan: PagedPlan) -> Cache:
     """Paged twin of :func:`_write_decode`, in place, at the rows ``plan``
     maps the step's rotating writes to; dead slots write trash block 0."""
@@ -255,17 +296,28 @@ def _write_decode_paged(cache: Cache, k: torch.Tensor, v: torch.Tensor, plan: Pa
     return cache
 
 
-def _n_valid(cache_index, c: int):
+def _n_valid(cache_index, c: int, shard: Optional[shard_ctx.ContextShard] = None):
     """Rows each request attends over: ``min(index + 1, C)``, an int for an
-    int index and ``(B,)`` int32 for per-row lengths."""
+    int index and ``(B,)`` int32 (or 0-d) for a tensor index.  With a
+    ``shard``, the valid rows among the rank's ``c``:
+    ``clamp(min(index + 1, C) - first, 0, c)``."""
+    if shard is not None:
+        if not torch.is_tensor(cache_index):
+            return max(0, min(min(int(cache_index) + 1, shard.length) - shard.first, c))
+        n = torch.clamp(cache_index.to(torch.int32) + 1, max=shard.length) - shard.first
+        return torch.clamp(n, min=0, max=c)
     if not torch.is_tensor(cache_index):
         return min(int(cache_index) + 1, c)
     return torch.clamp(cache_index.to(torch.int32) + 1, max=c)
 
 
-def _write_prefill(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
+def _write_prefill(cache: Cache, k: torch.Tensor, v: torch.Tensor,
+                   shard: Optional[shard_ctx.ContextShard] = None) -> Cache:
     """Write positions 0..S-1 as rotating decode writes would (position p in
-    slot p % C, keeping the last C), in place."""
+    slot p % C, keeping the last C), in place.  With a ``shard`` only the
+    rank's rows ``[first, first + c)`` of the layer's ``C`` are stored."""
+    if shard is not None:
+        return _write_prefill_shard(cache, k, v, shard)
     c = cache["k"].shape[1]
     s = k.shape[1]
     for name, val in _parts(cache, k, v).items():
@@ -275,6 +327,35 @@ def _write_prefill(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
             slots = (torch.arange(c, device=val.device) + (s - c)) % c
             cache[name][:, slots] = val[:, s - c:]
     return cache
+
+
+def _write_prefill_shard(cache: Cache, k: torch.Tensor, v: torch.Tensor,
+                         shard: shard_ctx.ContextShard) -> Cache:
+    c, c_all, first = cache["k"].shape[1], shard.length, shard.first
+    s = k.shape[1]
+    if s <= c_all:
+        # Slot p holds position p: the rank's rows that the prompt reaches.
+        n = max(0, min(s - first, c))
+        for name, val in _parts(cache, k[:, first:first + n], v[:, first:first + n]).items():
+            cache[name][:, :n] = val
+        return cache
+    # Every slot holds the last position that maps to it.
+    slot = torch.arange(first, first + c, device=k.device)
+    pos = (s - c_all) + (slot - (s - c_all)) % c_all
+    for name, val in _parts(cache, k[:, pos], v[:, pos]).items():
+        cache[name][:, :] = val
+    return cache
+
+
+def _context_parallel_decode(qg: torch.Tensor, cache: Cache, n_valid, shard: shard_ctx.ContextShard,
+                             softcap: float) -> torch.Tensor:
+    """The rank's flash-decode partials over its rows, all-gathered over the
+    data axes (one collective: the partials' one buffer) and merged over the
+    ranks' splits in rank order; ``(B, 1, KV, G, hd)`` in q's dtype."""
+    acc, ml = decode_attention_partials(qg, cache, n_valid, softcap=softcap)
+    gathered = comm.all_gather_along(partials_buffer(acc, ml)[None], shard.group())   # (R, n)
+    acc_all, ml_all = split_partials(gathered, tuple(acc.shape[:4]), acc.shape[-1])
+    return merge_decode_partials(acc_all, ml_all, qg.dtype)
 
 
 def _masked_decode_attn(qg: torch.Tensor, cache: Cache, cache_index, softcap: float,
@@ -349,8 +430,12 @@ class Attention(nn.Module):
                                          seq_len=c, block_size=cache_index.block_size,
                                          softcap=cfg.logit_softcap)
         elif cache is not None and s == 1:
-            _write_decode(cache, k, v, cache_index)
-            if cfg.attn_impl in ("flash_decode", "blockwise"):
+            shard = shard_ctx.context_shard(self)
+            _write_decode(cache, k, v, cache_index, shard)
+            if shard is not None:
+                n_valid = _n_valid(cache_index, cache["k"].shape[1], shard)
+                out = _context_parallel_decode(qg, cache, n_valid, shard, cfg.logit_softcap)
+            elif cfg.attn_impl in ("flash_decode", "blockwise"):
                 n_valid = _n_valid(cache_index, cache["k"].shape[1])
                 out = decode_attention(qg, cache, n_valid, softcap=cfg.logit_softcap,
                                        block_kv=cfg.attn_decode_block_kv)
@@ -371,7 +456,7 @@ class Attention(nn.Module):
                     msk &= pos[:, None] - pos[None, :] < self.spec.window
                 out = _naive_attn(qg, k, v, msk[None, None, None], cfg.logit_softcap)
             if cache is not None:
-                _write_prefill(cache, k, v)
+                _write_prefill(cache, k, v, shard_ctx.context_shard(self))
         y = out.reshape(b, s, h * hd) @ self.w_out
         return y if h == cfg.num_heads else shard_ctx.sum_over_model(y)
 

@@ -38,7 +38,14 @@ takes one of two forms, as ``repro/models/moe.py:86-105`` dispatches:
 * otherwise the dense form over the global batch: while a split batch is
   active (``sharding.ctx.use_batch_shard``) the rank gathers the layer's
   tokens over ``data``, routes them jointly (capacity and ``aux`` from all
-  of them, as the reference's GSPMD program) and keeps its own rows.
+  of them, as the reference's GSPMD program) and keeps its own rows.  In
+  the sharded serving steps (``sharding.ctx.use_tensor_parallel``), where
+  the ``model`` axis divides the experts, the dense form runs on the
+  experts where they are stored, as the reference's GSPMD program keeps
+  them partitioned over ``model``: every ``model`` rank routes the global
+  rows with the dense routing and capacity, runs its ``E / m`` experts and
+  the partial outputs are summed over ``model`` (:meth:`MoE._forward_dense`
+  with its ``mesh``); no expert tensor is gathered along ``model``.
 """
 
 from __future__ import annotations
@@ -141,20 +148,33 @@ class MoE(nn.Module):
         if (mesh is not None and not per_row and "model" in mesh.axis_names
                 and cfg.num_experts % mesh.shape["model"] == 0):
             return self.forward_shard_map(x, cfg, mesh)
+        # The sharded serving steps keep the experts where stored along model.
+        tp = shard_ctx.tensor_parallel_mesh()
+        local = tp if tp is not None and not per_row and cfg.num_experts % tp.shape["model"] == 0 else None
         shard = shard_ctx.batch_shard()
         if shard is not None and shard.split and not per_row:
-            out, aux = self._forward_dense(comm.gather_rows(x, shard.group()), cfg)
+            out, aux = self._forward_dense(comm.gather_rows(x, shard.group()), cfg, mesh=local)
             return shard.mine(out), aux
-        return self._forward_dense(x, cfg, per_row)
+        return self._forward_dense(x, cfg, per_row, mesh=local)
 
-    def _forward_dense(self, x: torch.Tensor, cfg: ModelConfig, per_row: bool = False):
+    def _forward_dense(self, x: torch.Tensor, cfg: ModelConfig, per_row: bool = False, mesh=None):
+        """The dense form over all the experts, or, with ``mesh`` (the
+        experts stored along ``model``), the same routing with this rank's
+        experts run (:meth:`_local_experts`) and the partial outputs summed
+        over ``model``; the shared and dense-residual MLPs outside the
+        sum."""
         b, s, d = x.shape
         groups = b if per_row else 1
         t = b * s // groups
         xt = x.reshape(groups, t, d)
         logits = upcast(xt @ self.router)
         r = route(logits, cfg)
-        out = self._dispatch(xt, r, cfg).reshape(b * s, d)
+        if mesh is None:
+            out = self._dispatch(xt, r, cfg)
+        else:
+            first, weights = self._local_experts(cfg, mesh)
+            out = shard_ctx.sum_over_model(self._dispatch(xt, r, cfg, first=first, weights=weights))
+        out = out.reshape(b * s, d)
         flat = x.reshape(b * s, d)
         if self.shared is not None:
             out = out + self.shared(flat)
@@ -177,13 +197,11 @@ class MoE(nn.Module):
         dense-residual MLPs stay outside too."""
         b, s, d = x.shape
         e = cfg.num_experts
-        e_loc = e // mesh.shape["model"]
-        first = mesh.coordinate()["model"] * e_loc
+        first, weights = self._local_experts(cfg, mesh)
         mgroup, dgroup = mesh.group("model"), mesh.group(shard_ctx.mesh_axes(mesh)[0])
         xt = x.reshape(1, b * s, d)
         r = route(upcast(xt @ self.router), cfg)
         aux = float(e) * torch.sum(comm.all_mean(r["f_e"], dgroup) * comm.all_mean(r["p_e"], dgroup), dim=-1)
-        weights = [w if w.shape[0] == e_loc else w[first:first + e_loc] for w in (self.w_up, self.w_gate, self.w_down)]
         out = self._dispatch(comm.copy_to(xt, mgroup), dict(r, gates=comm.copy_to(r["gates"], mgroup)), cfg,
                              first=first, weights=weights)
         out = comm.reduce_from(out, mgroup).reshape(b * s, d)
@@ -193,6 +211,14 @@ class MoE(nn.Module):
         if self.dense_residual is not None:
             out = out + self.dense_residual(flat)
         return out.reshape(b, s, d), aux.mean()
+
+    def _local_experts(self, cfg: ModelConfig, mesh):
+        """(first, [w_up, w_gate, w_down]) of this ``model`` rank's ``E / m``
+        experts ``[first, first + E / m)``: the expert tensors as stored (the
+        sharded steps keep the rank's experts) or all ``E``, sliced here."""
+        e_loc = cfg.num_experts // mesh.shape["model"]
+        first = mesh.coordinate()["model"] * e_loc
+        return first, [w if w.shape[0] == e_loc else w[first:first + e_loc] for w in (self.w_up, self.w_gate, self.w_down)]
 
     def _dispatch(self, xt: torch.Tensor, r: Dict[str, torch.Tensor], cfg: ModelConfig, first: int = 0,
                   weights=None) -> torch.Tensor:

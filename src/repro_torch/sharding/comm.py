@@ -41,7 +41,7 @@ from __future__ import annotations
 import collections
 import contextlib
 from contextvars import ContextVar
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -89,21 +89,24 @@ def name_group(group, axes: str):
 
 class Tally:
     """Collective output bytes, by kind and by mesh axis (``by_axis[axes]
-    [kind]``), and the number of calls."""
+    [kind]``), the number of calls, and each call's (kind, axes, output
+    shape) in order (``shapes``)."""
 
     def __init__(self):
         self.by_kind: Dict[str, int] = collections.Counter()
         self.by_axis: Dict[str, Dict[str, int]] = collections.defaultdict(collections.Counter)
         self.calls: Dict[str, Dict[str, int]] = collections.defaultdict(collections.Counter)
+        self.shapes: List[Tuple[str, str, Tuple[int, ...]]] = []
 
     @property
     def total(self) -> int:
         return sum(self.by_kind.values())
 
-    def add(self, kind: str, axes: str, nbytes: int) -> None:
-        self.by_kind[kind] += nbytes
-        self.by_axis[axes][kind] += nbytes
+    def add(self, kind: str, axes: str, out: torch.Tensor) -> None:
+        self.by_kind[kind] += out.numel() * out.element_size()
+        self.by_axis[axes][kind] += out.numel() * out.element_size()
         self.calls[axes][kind] += 1
+        self.shapes.append((kind, axes, tuple(out.shape)))
 
 
 @contextlib.contextmanager
@@ -122,7 +125,7 @@ def _record(kind: str, group, out: torch.Tensor) -> None:
     if tallies:
         axes = group.axes if isinstance(group, PlaceholderGroup) else _NAMES.get(id(group), "world")
         for t in tallies:
-            t.add(kind, axes, out.numel() * out.element_size())
+            t.add(kind, axes, out)
 
 
 def group_size(group) -> int:
@@ -137,8 +140,9 @@ def all_gather_along(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
                       device="meta" if isinstance(group, PlaceholderGroup) else t.device)
     if not isinstance(group, PlaceholderGroup):
         _all_gather(out, src, group=group)
+    out = out.movedim(0, dim).contiguous() if dim else out
     _record("all-gather", group, out)
-    return out.movedim(0, dim).contiguous() if dim else out
+    return out
 
 
 def reduce_scatter_along(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -149,8 +153,9 @@ def reduce_scatter_along(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
                       device="meta" if isinstance(group, PlaceholderGroup) else t.device)
     if not isinstance(group, PlaceholderGroup):
         _reduce_scatter(out, src, group=group)
+    out = out.movedim(0, dim).contiguous() if dim else out
     _record("reduce-scatter", group, out)
-    return out.movedim(0, dim).contiguous() if dim else out
+    return out
 
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:

@@ -12,6 +12,15 @@ its rows of the batch, and the layers that couple rows (the dense MoE's
 joint routing, the link emulation's masks) gather the rows over the mesh's
 data axes while a :class:`BatchShard` is active.
 
+``use_context_shards`` has no counterpart in the reference either: where
+the batch cannot be split over the data axes (``long_500k``),
+``rules.cache_pspecs`` puts an attention layer's KV sequence on them and
+the reference's GSPMD program partitions the decode over it.  The port's
+sharded steps give each such layer a :class:`ContextShard`: the rank holds
+rows ``[first, first + rows)`` of the layer's cache, writes the decode
+token only where it owns the slot, and merges flash decode's partials over
+the data axes (``models.attention``).
+
 ``use_tensor_parallel`` is the port's counterpart of the reference's GSPMD
 partitioning over ``model`` (and of ``models/attention.py:85``
 ``_constrain_attention``): under it, a layer whose parameters are the
@@ -26,7 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from contextvars import ContextVar
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,6 +44,7 @@ from repro_torch.sharding import comm
 _MOE_MESH: ContextVar = ContextVar("repro_torch_moe_mesh", default=None)
 _BATCH: ContextVar = ContextVar("repro_torch_batch_shard", default=None)
 _TP: ContextVar = ContextVar("repro_torch_tensor_parallel", default=None)
+_CONTEXT: ContextVar = ContextVar("repro_torch_context_shards", default=None)
 
 
 @contextlib.contextmanager
@@ -96,6 +106,56 @@ def batch_shard() -> Optional[BatchShard]:
     return _BATCH.get()
 
 
+@dataclasses.dataclass(frozen=True)
+class ContextShard:
+    """An attention layer's KV sequence split over the mesh's data ``axes``
+    (``R`` ranks, pod and data on the multi-pod mesh): this rank, ``index``
+    along them, holds ``rows`` (``C / R``) of the layer's ``C`` cache rows,
+    from row ``first = index * rows``."""
+
+    mesh: object
+    axes: Tuple[str, ...]
+    rows: int
+
+    @property
+    def ranks(self) -> int:
+        return self.mesh.size_of(self.axes)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.index_of(self.axes)
+
+    @property
+    def first(self) -> int:
+        return self.index * self.rows
+
+    @property
+    def length(self) -> int:
+        """The layer's whole cache length, ``C``."""
+        return self.rows * self.ranks
+
+    def group(self):
+        """The ranks that hold the other rows."""
+        return self.mesh.group(self.axes)
+
+
+@contextlib.contextmanager
+def use_context_shards(shards: Optional[Dict[object, ContextShard]]):
+    """Set the step's context-parallel layers: attention module ->
+    :class:`ContextShard` (a layer absent holds its whole cache)."""
+    token = _CONTEXT.set(shards)
+    try:
+        yield
+    finally:
+        _CONTEXT.reset(token)
+
+
+def context_shard(layer) -> Optional[ContextShard]:
+    """``layer``'s :class:`ContextShard` in the active step, or None."""
+    shards = _CONTEXT.get()
+    return None if shards is None else shards.get(layer)
+
+
 @contextlib.contextmanager
 def use_tensor_parallel(mesh):
     token = _TP.set(mesh)
@@ -103,6 +163,11 @@ def use_tensor_parallel(mesh):
         yield
     finally:
         _TP.reset(token)
+
+
+def tensor_parallel_mesh():
+    """The mesh of the active sharded serving step, or None."""
+    return _TP.get()
 
 
 def model_rank() -> int:

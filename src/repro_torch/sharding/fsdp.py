@@ -39,7 +39,6 @@ class ShardedModel:
     def __init__(self, model: torch.nn.Module, mesh, specs: Mapping[str, P],
                  local: Optional[Mapping[str, Iterable[str]]] = None, moe_shard_map: bool = False):
         self.model, self.mesh, self.moe_shard_map = model, mesh, moe_shard_map
-        self._whole: list = []
         self.specs = {n: P(*specs[n].padded(p.dim())) for n, p in model.named_parameters()}
         self.params = dict(model.named_parameters())
         self.coord = mesh.coordinate()
@@ -86,15 +85,9 @@ class ShardedModel:
     # -- the step --------------------------------------------------------
 
     @torch.no_grad()
-    def gather(self, whole: Iterable[str] = ()) -> None:
-        """Put each parameter's compute tensor into the model; the names in
-        ``whole`` are gathered along the axes they are computed on where
-        stored too (the decode step's dense MoE over experts stored along
-        ``model``)."""
-        split = {n: [(a, d) for a, d in self.local[n] if self.mesh.size_of(a) > 1] for n in whole}
-        self._whole = [n for n in whole if split[n]]
-        for name in self.params:
-            pairs = self.plan[name] + (split[name] if name in self._whole else [])
+    def gather(self) -> None:
+        """Put each parameter's compute tensor into the model."""
+        for name, pairs in self.plan.items():
             if pairs:
                 t = self.shards[name]
                 for axis, dim in pairs:
@@ -108,9 +101,6 @@ class ShardedModel:
             p = self.params[name]
             if pairs:
                 p.data = torch.empty(0, dtype=p.dtype, device=p.device)
-            elif name in self._whole:
-                p.data = self.shards[name]
-        self._whole = []
 
     @torch.no_grad()
     def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

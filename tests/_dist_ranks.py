@@ -140,25 +140,28 @@ def case_epochs(runs):
 
 # The sharded serving steps' test size: prompt P, cache S, batch B.
 SERVE_B, SERVE_S, SERVE_P, SERVE_STEPS = 4, 16, 6, 8
+# (batch, cache rows, prompt, decode steps): the serving runs' ``sizes``.
+SERVE = (SERVE_B, SERVE_S, SERVE_P, SERVE_STEPS)
 
 
-def serve_inputs(cfg):
+def serve_inputs(cfg, sizes=SERVE):
     """(prompts (B, P), the key) of the serving runs."""
     import numpy as np
 
     from repro_torch import prng
 
+    b, _, p, _ = sizes
     rng = np.random.default_rng(11)
-    prompts = rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_P)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
     return prompts, prng.PRNGKey(5)
 
 
-def serve_run(cfg, state=None, fns=None, forced=None):
-    """The prefill and SERVE_STEPS decode steps in this process: the
-    unsharded steps on the model, or with ``state`` and ``fns`` = (prefill,
-    decode) the sharded ones on a world of one; each step's logits and
-    greedy tokens, and the cache.  ``forced`` (B, SERVE_STEPS) feeds the
-    decode steps instead of the greedy tokens."""
+def serve_run(cfg, state=None, fns=None, forced=None, sizes=SERVE):
+    """The prefill and ``steps`` decode steps in this process (``sizes`` =
+    (B, S, P, steps)): the unsharded steps on the model, or with ``state``
+    and ``fns`` = (prefill, decode) the sharded ones on a world of one;
+    each step's logits and greedy tokens, and the cache.  ``forced`` (B,
+    steps) feeds the decode steps instead of the greedy tokens."""
     import torch
 
     from repro_torch import prng
@@ -168,36 +171,39 @@ def serve_run(cfg, state=None, fns=None, forced=None):
     from repro_torch.models import cache as cache_lib
     from repro_torch.models import lm
 
+    b, seq, p, n_steps = sizes
     if state is None:
-        model, cache = lm.init_lm(cfg, seed=0, device="cpu"), cache_lib.init_cache(cfg, SERVE_B, SERVE_S, device="cpu")
+        model, cache = lm.init_lm(cfg, seed=0, device="cpu"), cache_lib.init_cache(cfg, b, seq, device="cpu")
         fns = steps.make_prefill_step(cfg), steps.make_serve_step(cfg)
     else:
         model = state
-        cache = steps.init_cache_shards(cfg, ShapeConfig("d", SERVE_S, SERVE_B, "decode"), M.make_host_mesh(),
-                                        device="cpu")
+        cache = steps.init_cache_shards(cfg, ShapeConfig("d", seq, b, "decode"), M.make_host_mesh(), device="cpu")
     prefill, decode = fns
-    prompts, key = serve_inputs(cfg)
+    prompts, key = serve_inputs(cfg, sizes)
     logits_all, tokens = [], []
     with torch.no_grad():
         logits, cache = prefill(model, {"tokens": torch.from_numpy(prompts)}, cache, key)
-        for i in range(SERVE_STEPS + 1):
+        for i in range(n_steps + 1):
             logits_all.append(logits)
             tokens.append(torch.argmax(logits, dim=-1)[:, None].to(torch.int32))
-            if i == SERVE_STEPS:
+            if i == n_steps:
                 break
             feed = tokens[-1] if forced is None else torch.tensor(forced)[:, i:i + 1]
-            logits, cache = decode(model, feed, cache, SERVE_P + i, prng.fold_in(key, i))
+            logits, cache = decode(model, feed, cache, p + i, prng.fold_in(key, i))
     return logits_all, tokens, cache
 
 
-def reference_serve(arch, **overrides):
-    """The reference's ``make_prefill_step`` and SERVE_STEPS greedy
+def reference_serve(arch, sizes=SERVE, caches=None, **overrides):
+    """The reference's ``make_prefill_step`` and ``steps`` greedy
     ``make_serve_step`` (jitted) on the port's seed-0 weights
     (``params_to_jax``), on ``serve_inputs`` with the key of step ``i``
-    ``fold_in(key, i)``: each step's logits (numpy), the greedy tokens
-    (B, SERVE_STEPS + 1) and each step's split link as (its input, its
-    output) tensors, read out of the compiled steps by a debug callback.
-    Runs in the test process (it imports jax)."""
+    ``fold_in(key, i)`` (``sizes`` = (B, S, P, steps)): each step's logits
+    (numpy), the greedy tokens (B, steps + 1) and each step's split link as
+    (its input, its output) tensors, read out of the compiled steps by a
+    debug callback.  ``caches``: a list that receives the cache after the
+    prefill and after each decode step, as the port's list of layers (an
+    attention layer's leaves as tensors, any other layer None), for
+    :func:`pinned_cache`.  Runs in the test process (it imports jax)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -212,7 +218,8 @@ def reference_serve(arch, **overrides):
     cfg, jcfg = _cfg(arch, **overrides), _cfg(arch, J_ARCHS, **overrides)
     params = jax.tree_util.tree_map(jnp.asarray, params_to_jax(lm.init_lm(cfg, seed=0, device="cpu").state_dict(),
                                                                cfg))
-    prompts, _ = serve_inputs(cfg)
+    prompts, _ = serve_inputs(cfg, sizes)
+    b, seq, p, n_steps = sizes
     key = jax.random.PRNGKey(5)
     links, make_link_fn = [], j_lm.make_link_fn
 
@@ -226,22 +233,31 @@ def reference_serve(arch, **overrides):
 
         return record
 
+    def layers(cache):
+        # The prologue's layers, then unit by unit the pattern's (each
+        # stacked over the units): the port's order.
+        units = [{k: v[u] for k, v in layer.items()} for u in range(jcfg.resolved_num_units)
+                 for layer in cache["units"]]
+        return [{k: to_tensor(v) for k, v in layer.items()} if "k" in layer else None
+                for layer in list(cache["prologue"]) + units]
+
     out, tokens = [], []
     j_lm.make_link_fn = recording
     try:
         prefill, decode = jax.jit(j_steps.make_prefill_step(jcfg)), jax.jit(j_steps.make_serve_step(jcfg))
-        logits, cache = prefill(params, {"tokens": jnp.asarray(prompts)}, j_cache.init_cache(jcfg, SERVE_B, SERVE_S),
-                                key)
-        for i in range(SERVE_STEPS + 1):
+        logits, cache = prefill(params, {"tokens": jnp.asarray(prompts)}, j_cache.init_cache(jcfg, b, seq), key)
+        for i in range(n_steps + 1):
+            if caches is not None:
+                caches.append(layers(cache))
             out.append(np.asarray(logits))
             tokens.append(np.asarray(jnp.argmax(logits, axis=-1))[:, None].astype(np.int32))
-            if i == SERVE_STEPS:
+            if i == n_steps:
                 break
-            logits, cache = decode(params, jnp.asarray(tokens[-1]), cache, SERVE_P + i, jax.random.fold_in(key, i))
+            logits, cache = decode(params, jnp.asarray(tokens[-1]), cache, p + i, jax.random.fold_in(key, i))
         jax.effects_barrier()
     finally:
         j_lm.make_link_fn = make_link_fn
-    assert len(links) == SERVE_STEPS + 1, len(links)
+    assert len(links) == n_steps + 1, len(links)
     return out, np.concatenate(tokens, axis=1), links
 
 
@@ -294,27 +310,102 @@ def pinned_link(links):
         lm.make_link_fn = make_link_fn
 
 
-def _full(t, mesh, vocab_dim: bool):
+# An int8 KV cache code is a step function too: a K or V element on a
+# code's rounding edge lands one code apart between two correct programs
+# (measured: one element of reduced qwen1.5-0.5b's int8 cache, written in
+# decode step 13, by the unsharded port as by the sharded one).  At most
+# this many codes a write, each at most one code from the reference's.
+CACHE_FLIPS = 4
+
+
+@contextlib.contextmanager
+def pinned_cache(caches, prompt_len):
+    """Carry the reference's int8 cache codes and scales
+    (``reference_serve``'s ``caches``) into the port's cache writes run
+    inside, as :func:`pinned_link` carries the link, so that a code on its
+    rounding edge is not told apart from a fault.  Each attention layer's
+    prefill or decode write (at an int index; the n-th write of a step is
+    the step's n-th attention layer) checks the rows the rank stored
+    against the reference's rows there: the scales within one bf16 step,
+    the codes at most one apart at at most ``CACHE_FLIPS`` elements; then
+    stores the reference's.  Yields the list of codes that differed, a
+    write each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import attention as A
+
+    write_prefill, write_decode = A._write_prefill, A._write_decode
+    flips, writes = [], {}
+
+    def carry(cache, step, first, lo, hi):
+        n = writes.get(step, 0)
+        writes[step] = n + 1
+        ref = [layer for layer in caches[step] if layer is not None][n]
+        diff = 0
+        for name in ("k", "v", "k_scale", "v_scale"):
+            got, want = cache[name][:, lo:hi], ref[name][:, first + lo:first + hi]
+            assert got.shape == want.shape, (name, got.shape, want.shape)
+            if name.endswith("scale"):
+                np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=2.0 ** -7, atol=0)
+            else:
+                d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+                assert d.numel() == 0 or int(d.max()) <= 1, f"{name}: a code {int(d.max())} steps apart"
+                diff += int((d > 0).sum())
+            cache[name][:, lo:hi] = want
+        assert diff <= CACHE_FLIPS, f"step {step}, attention layer {n}: {diff} codes differ"
+        flips.append(diff)
+
+    def span(cache, shard):
+        c = cache["k"].shape[1]
+        return c, (0, c) if shard is None else (shard.first, shard.length)
+
+    def prefill(cache, k, v, shard=None):
+        out = write_prefill(cache, k, v, shard)
+        c, (first, length) = span(cache, shard)
+        carry(cache, 0, first, 0, c if k.shape[1] > length else max(0, min(k.shape[1] - first, c)))
+        return out
+
+    def decode(cache, k, v, index, shard=None):
+        out = write_decode(cache, k, v, index, shard)
+        c, (first, length) = span(cache, shard)
+        row = int(index) % length - first
+        lo, hi = (row, row + 1) if 0 <= row < c else (0, 0)
+        carry(cache, int(index) - prompt_len + 1, first, lo, hi)
+        return out
+
+    A._write_prefill, A._write_decode = prefill, decode
+    try:
+        yield flips
+    finally:
+        A._write_prefill, A._write_decode = write_prefill, write_decode
+
+
+def _full(t, mesh, vocab_dim: bool, batch: int = SERVE_B):
     """Every rank's (rows, vocabulary slice) put together: over ``model``
     along the last dim when ``vocab_dim``, then over the data rows."""
     from repro_torch.sharding import comm, rules
 
     if vocab_dim and mesh.shape["model"] > 1:
         t = comm.all_gather_along(t, mesh.group("model"), t.dim() - 1)
-    axes = rules.batch_spec(mesh, SERVE_B)
+    axes = rules.batch_spec(mesh, batch)
     if axes is not None:
         t = comm.all_gather_along(t, mesh.group(axes), 0)
     return t
 
 
 def _serve(forced, arch="qwen1.5-0.5b", model_axis=1, fsdp="on", moe_shard_map=False, cfg_over=None,
-           pinned=None):
-    """The sharded prefill, then SERVE_STEPS decode steps (the step's key
-    ``fold_in(key, i)``) fed ``forced[:, i]`` (teacher forcing): the whole
-    logits of each step, each step's greedy tokens (``steps.greedy_tokens``)
-    and the tally of the real collectives, by axis.  ``pinned``: the path of
+           pinned=None, pinned_caches=None, sizes=SERVE):
+    """The sharded prefill, then ``steps`` decode steps (the step's key
+    ``fold_in(key, i)``) fed ``forced[:, i]`` (teacher forcing), at
+    ``sizes`` = (B, S, P, steps): the whole logits of each step, each
+    step's greedy tokens (``steps.greedy_tokens``), the tally of the real
+    collectives, by axis, and each decode step's collectives as (kind,
+    axes, output shape) (``step_shapes``).  ``pinned``: the path of
     ``reference_serve``'s ``links``, carried by :func:`pinned_link`; the
-    flipped codes a step are then ``flips``."""
+    flipped codes a step are then ``flips``.  ``pinned_caches``: the path
+    of ``reference_serve``'s ``caches``, carried by :func:`pinned_cache`;
+    the differing cache codes a write are then ``cache_flips``."""
     import torch
 
     from repro_torch import prng
@@ -324,15 +415,17 @@ def _serve(forced, arch="qwen1.5-0.5b", model_axis=1, fsdp="on", moe_shard_map=F
     from repro_torch.models import lm
     from repro_torch.sharding import comm
 
+    b, seq, p, n_steps = sizes
     cfg = _cfg(arch, **(cfg_over or {}))
     mesh = M.make_host_mesh(model_axis)
     kw = dict(fsdp=fsdp, moe_shard_map=moe_shard_map)
-    prefill, _ = steps.build_sharded_step(cfg, ShapeConfig("p", SERVE_S, SERVE_B, "prefill"), mesh, **kw)
-    decode, _ = steps.build_sharded_step(cfg, ShapeConfig("d", SERVE_S, SERVE_B, "decode"), mesh, **kw)
+    prefill, _ = steps.build_sharded_step(cfg, ShapeConfig("p", seq, b, "prefill"), mesh, **kw)
+    decode, _ = steps.build_sharded_step(cfg, ShapeConfig("d", seq, b, "decode"), mesh, **kw)
     state = prefill.place(lm.init_lm(cfg, seed=0, device="cpu"))
-    cache = steps.init_cache_shards(cfg, ShapeConfig("d", SERVE_S, SERVE_B, "decode"), mesh, device="cpu")
-    prompts, key = serve_inputs(cfg)
-    out = {"logits": [], "tokens": [], "tally": {}, "calls": {}, "flips": []}
+    cache = steps.init_cache_shards(cfg, ShapeConfig("d", seq, b, "decode"), mesh, device="cpu")
+    prompts, key = serve_inputs(cfg, sizes)
+    out = {"logits": [], "tokens": [], "tally": {}, "calls": {}, "flips": [], "cache_flips": [], "step_shapes": [],
+           "cache_shapes": [{n: tuple(t.shape) for n, t in layer.items()} for layer in cache]}
 
     def counted(fn, *args):
         # Only the steps' own collectives are tallied.
@@ -343,18 +436,20 @@ def _serve(forced, arch="qwen1.5-0.5b", model_axis=1, fsdp="on", moe_shard_map=F
                 for kind, n in kinds.items():
                     out[field].setdefault(axes, {}).setdefault(kind, 0)
                     out[field][axes][kind] += n
+        out["step_shapes"].append(tally.shapes)
         return res
 
     links = contextlib.nullcontext([]) if pinned is None else pinned_link(torch.load(pinned))
-    with torch.no_grad(), links as out["flips"]:
+    codes = contextlib.nullcontext([]) if pinned_caches is None else pinned_cache(torch.load(pinned_caches), p)
+    with torch.no_grad(), links as out["flips"], codes as out["cache_flips"]:
         logits, cache = counted(prefill, state, {"tokens": torch.from_numpy(prompts)}, cache, key)
-        for i in range(SERVE_STEPS + 1):
-            out["logits"].append(_full(logits, mesh, True))
-            out["tokens"].append(_full(steps.greedy_tokens(logits, cfg, mesh), mesh, False))
-            if i == SERVE_STEPS:
+        for i in range(n_steps + 1):
+            out["logits"].append(_full(logits, mesh, True, b))
+            out["tokens"].append(_full(steps.greedy_tokens(logits, cfg, mesh), mesh, False, b))
+            if i == n_steps:
                 break
             feed = torch.tensor(forced)[:, i:i + 1]
-            logits, cache = counted(decode, state, feed, cache, SERVE_P + i, prng.fold_in(key, i))
+            logits, cache = counted(decode, state, feed, cache, p + i, prng.fold_in(key, i))
     return out
 
 

@@ -7,9 +7,13 @@ devices, no data moved), and its report.
   analytic terms with the H100 constants; the tally's sums over ``model``
   (qwen: ``2 L + 1`` of the rank's rows a step, no gather along ``model``;
   jamba's gathered layers gather along ``model``).
-* ``long_500k`` of a config with attention raises the ROADMAP A13c
-  ``NotImplementedError`` (the CLI reports the pair and exits 1);
-  xlstm-350m's, with no attention layer, lowers.
+* ``long_500k`` of qwen1.5-0.5b (+swa) and gemma3-12b lowers through
+  context-parallel decode (the CLI exits 0): the tally shows one
+  all-gather of the partials over ``data`` an attention layer and no
+  cache leaf gathered over ``data``; xlstm-350m's, with no attention
+  layer, lowers.
+* kimi-k2 x ``decode_32k``: the dense MoE runs on the experts stored
+  along ``model``, so no expert tensor is all-gathered along ``model``.
 * A ``(1, m)`` placeholder mesh's decode step (reduced qwen, f32): the
   sums over ``model`` are two a layer of ``B x d`` elements, plus the
   embedding's, counted by hand.
@@ -83,14 +87,52 @@ def test_jamba_gathers_what_runs_whole(reports):
     assert by_axis["model"]["all-gather"] > 0 and by_axis["model"]["all-reduce"] > 0
 
 
-def test_long_500k_with_attention_is_a13c(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        dryrun.run_one("qwen1.5-0.5b", "long_500k")
+def _traced_tally(arch, shape):
+    """The rank-0 step of the pair on the placeholder production mesh, its
+    tally and the (rank's) cache it ran on."""
+    cfg, _ = dryrun.resolve_config(arch, shape)
+    mesh = dryrun.make_production_mesh()
+    with comm.placeholder_world(0):
+        fn, args = steps.build_sharded_step(cfg, INPUT_SHAPES[shape], mesh)
+        with torch.no_grad(), comm.tally() as tally:
+            fn(*args)
+    return cfg, tally, args[2]
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-12b"])
+def test_long_500k_context_parallel_lowers(tmp_path, arch):
+    """Batch 1 cannot be split over ``data`` (16), so every attention layer
+    whose cache length 16 divides holds 1/16 of its KV rows and merges
+    flash decode's partials over ``data``: one all-gather a layer of the
+    16 ranks' partial buffers, (16, n); no cache leaf is gathered over
+    ``data``.  The CLI exits 0 and writes the report."""
+    cfg, tally, cache = _traced_tally(arch, "long_500k")
+    split = [i for i, (spec, layer) in enumerate(zip(cfg.all_layers(), cache))
+             if spec.kind == "attn" and layer["k"].shape[1] * 16 == min(spec.window or 524288, 524288)]
+    assert len(split) == sum(s.kind == "attn" for s in cfg.all_layers()) > 0
+    on_data = [shape for kind, axes, shape in tally.shapes if axes == "data" and kind == "all-gather"]
+    hd = cfg.resolved_head_dim
+    # The partial buffer of a rank: (B, KV heads on the rank's step, G, splits) x (hd + 2).
+    partials = [shape for shape in on_data if len(shape) == 2 and shape[0] == 16 and shape[1] % (hd + 2) == 0]
+    assert len(partials) == len(split)
+    cache_shapes = {tuple(t.shape) for layer in cache for t in layer.values()}
+    assert not [shape for shape in on_data if shape in cache_shapes or (len(shape) == 4 and shape[1] > 1)]
     out = tmp_path / "r.jsonl"
     with pytest.raises(SystemExit) as exit_:
-        dryrun.main(["--arch", "gemma3-12b", "--shape", "long_500k", "--out", str(out)])
-    assert exit_.value.code == 1
-    assert "ROADMAP A13c" in out.read_text()
+        dryrun.main(["--arch", arch, "--shape", "long_500k", "--out", str(out)])
+    assert exit_.value.code == 0
+    assert "error" not in out.read_text()
+
+
+def test_kimi_decode_gathers_no_expert_along_model():
+    """kimi-k2 x decode_32k: 384 experts over ``model`` 16, each rank's 24
+    computed where stored; the experts are gathered over ``data`` only."""
+    cfg, tally, _ = _traced_tally("kimi-k2-1t-a32b", "decode_32k")
+    e = cfg.num_experts
+    experts = [(kind, axes) for kind, axes, shape in tally.shapes if len(shape) == 3 and shape[0] in (e, e // 16)]
+    assert experts and all(axes == "data" for _, axes in experts), experts
+    assert not [shape for kind, axes, shape in tally.shapes if axes == "model" and kind == "all-gather"
+                and len(shape) == 3 and shape[0] == e]
 
 
 def test_xlstm_long_500k_lowers():

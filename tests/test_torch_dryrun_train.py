@@ -1,7 +1,7 @@
 """The dry run's train kind (``launch.dryrun.run_one``): qwen1.5-0.5b x
 ``train_4k`` traced on the placeholder production mesh, forward, backward
 and Adam on the rank's shards; and the multi-pod mesh's decode.  The
-train step computes over ``model`` on gathered parameters (ROADMAP A13c):
+train step computes over ``model`` on gathered parameters (ROADMAP A13d):
 its tally gathers along ``model`` and reduce-scatters its gradients over
 ``data``.
 """

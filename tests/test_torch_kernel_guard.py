@@ -2,7 +2,8 @@
 
 A wrapper fills its output through ``ctypes``, so an output would carry
 no ``grad_fn`` and a gradient would be lost without a word.  Each of the
-``cuda_kernel`` wrappers (the six kernels' and the SSM scan's backward)
+``cuda_kernel`` wrappers (the six kernels', flash decode's partials and
+cross-rank merge, and the SSM scan's backward)
 therefore raises first when grad is enabled and an input requires grad
 (flash attention's and the SSM scan's gradients go through
 ``FlashAttentionFunction`` and ``SSMScanFunction`` instead).
@@ -40,6 +41,17 @@ def _paged_flash_decode(grad):
     return decode_kernel.paged_flash_decode, (q, k, v, None, None, bt, torch.full((2,), 8, dtype=torch.int32)), {}
 
 
+def _flash_decode_partials(grad):
+    q = torch.randn(2, 2, 1, 64)
+    k, v = torch.randn(2, 8, 2, 64, requires_grad=grad), torch.randn(2, 8, 2, 64)
+    return decode_kernel.flash_decode_partials, (q, k, v, None, None, torch.full((2,), 8, dtype=torch.int32)), {}
+
+
+def _merge_decode_partials(grad):
+    acc, ml = torch.randn(4, 2, 2, 1, 3, 64, requires_grad=grad), torch.randn(4, 2, 2, 1, 3, 2)
+    return decode_kernel.merge_decode_partials, (acc, ml, torch.float32), {}
+
+
 def _lossy_link_egress(grad):
     x = torch.randn(4, 16, requires_grad=grad)
     args = (prng.PRNGKey(0), x, torch.full((16,), -3.0), torch.full((16,), 3.0))
@@ -71,6 +83,8 @@ def _ssm_scan_bwd(grad):
 WRAPPERS = {
     "flash_decode": _flash_decode,
     "paged_flash_decode": _paged_flash_decode,
+    "flash_decode_partials": _flash_decode_partials,
+    "merge_decode_partials": _merge_decode_partials,
     "lossy_link_egress": _lossy_link_egress,
     "burst_mask": _burst_mask,
     "flash_attention": _flash_attention,

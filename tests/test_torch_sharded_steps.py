@@ -89,7 +89,7 @@ def test_the_builder_refuses_a_state_it_did_not_place(world_of_one):
 
 def test_the_train_step_refuses_tensor_parallel_slices(world_of_one):
     """Training computes over ``model`` on gathered parameters (ROADMAP
-    A13c): a tensor-parallel state on a model axis wider than one is
+    A13d): a tensor-parallel state on a model axis wider than one is
     refused, one of width one trains as ever."""
     cfg = D._cfg("qwen1.5-0.5b")
     model = lm.init_lm(cfg, seed=0, device="cpu").requires_grad_(True)
@@ -104,7 +104,7 @@ def test_the_train_step_refuses_tensor_parallel_slices(world_of_one):
     with comm.placeholder_world(0):
         meta = steps.shard_model(lm.LM(cfg, device="meta").requires_grad_(True), cfg, t_mesh.Mesh(grid.reshape(1, 2)),
                                  "off", tensor_parallel=True)
-        with pytest.raises(NotImplementedError, match="A13c"):
+        with pytest.raises(NotImplementedError, match="A13d"):
             step(meta, init_adam(meta.shards, adam), {"tokens": tokens.to("meta")}, D.serve_inputs(cfg)[1])
 
 

@@ -1,5 +1,5 @@
 """The layers the sharded serving steps run on gathered parameters under
-``model`` 2 (ROADMAP A13c makes them tensor parallel), on four gloo ranks
+``model`` 2 (ROADMAP A13d makes them tensor parallel), on four gloo ranks
 (tests/_dist_ranks.py, ``(data, model)`` = (2, 2)) against the reference's
 ``make_prefill_step`` / ``make_serve_step`` on the same weights
 (``params_to_jax``), as tests/test_torch_sharded_steps_ranks.py does for
@@ -10,12 +10,13 @@ steps fed the reference's greedy tokens, with the cfg's serving link.
 * reduced jamba-v0.1: Mamba layers (their ``conv`` / ``ssm`` states
   placed on ``model`` by ``rules.cache_pspecs``, gathered for the step and
   cut back after it) and MoE layers, expert-parallel in the prefill and
-  dense, with the experts gathered, in decode; capacity factor 16, so that
+  dense in decode, on the experts stored along ``model`` (each rank's
+  two, the partial outputs summed over ``model``); capacity factor 16, so that
   no token is dropped (capacity couples the tokens routed together, and
   the expert-parallel form routes a data rank's rows alone);
 * reduced kimi-k2 with one KV head: attention whose KV heads ``model``
   does not divide (gathered, its cache on the head dim), a dense
-  prologue, MoE layers.
+  prologue, MoE layers (dense, on the stored experts, in both steps).
 
 The split link's 8-bit codes are carried from the reference
 (``D.pinned_link``: each step's link input within
