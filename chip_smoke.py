@@ -5579,30 +5579,38 @@ CP_KIMI = (4, 64, 1024, 4)
 def _cp_ranks(q, k, v, ks, vs, n, ranks=CP_RANKS):
     """The ``ranks`` data ranks of a sequence-split cache simulated in turn
     on this card: each rank's ``flash_decode_partials`` on its rows at its
-    local n_valid, the buffers stacked as the all-gather delivers them,
-    ``merge_decode_partials`` over them.  (output, gathered acc, ml)."""
+    local n_valid (its splits folded into one entry a row), the buffers
+    stacked as the all-gather delivers them, ``merge_decode_partials`` over
+    them.  (output, gathered acc, ml, the gathered buffer's bytes)."""
     import torch
 
     from repro_torch.kernels.decode_attention import cuda_kernel as fd
     from repro_torch.kernels.decode_attention import partials_buffer
 
+    b, kvh, g, hd = q.shape
     rows = k.shape[1] // ranks
     bufs = []
     for r in range(ranks):
         sl = slice(r * rows, (r + 1) * rows)
         acc, ml = fd.flash_decode_partials(q, k[:, sl], v[:, sl], None if ks is None else ks[:, sl],
                                            None if vs is None else vs[:, sl], torch.clamp(n - r * rows, 0, rows))
+        assert tuple(acc.shape) == (b, kvh, g, 1, hd) and tuple(ml.shape) == (b, kvh, g, 1, 2), \
+            f"a rank's partial is {tuple(acc.shape)} / {tuple(ml.shape)}, not one entry a row"
         bufs.append(partials_buffer(acc, ml))
-    acc_all, ml_all = fd.split_partials(torch.stack(bufs), tuple(acc.shape[:4]), acc.shape[-1])
-    return fd.merge_decode_partials(acc_all, ml_all, q.dtype), acc_all, ml_all
+    gathered = torch.stack(bufs)
+    acc_all, ml_all = fd.split_partials(gathered, tuple(acc.shape[:4]), hd)
+    return (fd.merge_decode_partials(acc_all, ml_all, q.dtype), acc_all, ml_all,
+            gathered.numel() * gathered.element_size())
 
 
 def _cp_plain(q, k, v, ks, vs, n, ranks=CP_RANKS):
-    """The plain versions of :func:`_cp_ranks`, at the kernel's split plan."""
+    """The plain versions of :func:`_cp_ranks`: each rank's partials at the
+    kernel's split plan, folded (``fold_partials_ref``), then merged over
+    the ranks.  (output, the ranks' folded acc, ml)."""
     import torch
 
     from repro_torch.kernels.decode_attention import cuda_kernel as fd
-    from repro_torch.kernels.decode_attention import flash_decode_partials_ref, merge_partials_ref
+    from repro_torch.kernels.decode_attention import flash_decode_partials_ref, fold_partials_ref, merge_partials_ref
 
     b, kvh, g, _ = q.shape
     rows = k.shape[1] // ranks
@@ -5610,19 +5618,46 @@ def _cp_plain(q, k, v, ks, vs, n, ranks=CP_RANKS):
     parts = []
     for r in range(ranks):
         sl = slice(r * rows, (r + 1) * rows)
-        parts.append(flash_decode_partials_ref(q, k[:, sl], v[:, sl], None if ks is None else ks[:, sl],
-                                               None if vs is None else vs[:, sl], torch.clamp(n - r * rows, 0, rows),
-                                               nsplit=nsplit))
-    return merge_partials_ref(torch.stack([a for a, _ in parts]), torch.stack([m for _, m in parts]), q.dtype)
+        parts.append(fold_partials_ref(*flash_decode_partials_ref(
+            q, k[:, sl], v[:, sl], None if ks is None else ks[:, sl], None if vs is None else vs[:, sl],
+            torch.clamp(n - r * rows, 0, rows), nsplit=nsplit)))
+    acc, ml = torch.stack([a for a, _ in parts]), torch.stack([m for _, m in parts])
+    return merge_partials_ref(acc, ml, q.dtype), acc, ml
+
+
+def _cp_tally_bytes(b, kvh, g, hd, rows, cache) -> int:
+    """The dry run's all-gather bytes for one context-parallel decode layer
+    at this rank shape: ``models.attention._context_parallel_decode`` traced
+    on ``meta`` tensors over the production mesh's placeholder data ranks,
+    under ``sharding.comm.tally``."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.attention import _context_parallel_decode
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.ctx import ContextShard
+
+    meta = lambda *shape, dt=torch.bfloat16: torch.empty(shape, dtype=dt, device="meta")
+    dt = torch.int8 if cache == "int8" else torch.bfloat16
+    kv = {"k": meta(b, rows, kvh, hd, dt=dt), "v": meta(b, rows, kvh, hd, dt=dt)}
+    if cache == "int8":
+        kv.update(k_scale=meta(b, rows, kvh), v_scale=meta(b, rows, kvh))
+    with comm.placeholder_world(0), comm.tally() as t:
+        _context_parallel_decode(meta(b, 1, kvh, g, hd), kv, rows,
+                                 ContextShard(mesh_lib.make_production_mesh(), ("data",), rows), 0.0)
+    return t.by_kind["all-gather"]
 
 
 def check_context_parallel_kernels() -> dict:
-    """Part 1: at each of ``CP_SHAPES``, the 16 ranks' partials merged
-    (:func:`_cp_ranks`) against whole-cache ``flash_decode`` and both
-    against their plain versions (``_cp_plain``; ``flash_decode_split_ref``
-    at the whole cache's plan), with phase 2's bf16 bars, at n_valid inside
-    rank 0 only (15 empty ranks: their partials m = -1e30, l = 0, acc = 0),
-    at a rank boundary, midway and full; nothing NaN.  Then each timed at
+    """Part 1: at each of ``CP_SHAPES``, the 16 ranks' partials (one
+    folded entry a row each) merged (:func:`_cp_ranks`) against whole-cache
+    ``flash_decode`` and both against their plain versions (``_cp_plain``;
+    ``flash_decode_split_ref`` at the whole cache's plan), each rank's
+    entry (normalised, and its m) against its plain fold, with phase 2's
+    bf16 bars, at n_valid inside rank 0 only (15 empty ranks: their entries
+    m = -1e30, l = 0, acc = 0 exactly), at a rank boundary, midway and full;
+    nothing NaN; the gathered bytes R x B * KV * G * (hd + 2) x 4, the dry
+    run's tally for the shape (:func:`_cp_tally_bytes`).  Then each timed at
     the full cache: one rank's partial call and its library calls (the
     memory-efficient and flash attention ops with their log-sum-exp on the
     rank's rows, checked against the partial), the merge of 16, the 16 calls and the
@@ -5634,7 +5669,7 @@ def check_context_parallel_kernels() -> dict:
 
     from repro_torch.kernels.decode_attention import cuda_kernel as fd
     from repro_torch.kernels.decode_attention import (flash_decode_partials_ref, flash_decode_split_ref,
-                                                      merge_partials_ref, partials_buffer)
+                                                      fold_partials_ref, merge_partials_ref, partials_buffer)
 
     gen = torch.Generator(device="cuda").manual_seed(22)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -5645,11 +5680,15 @@ def check_context_parallel_kernels() -> dict:
         q, k, v, ks, vs = _decode_inputs(gen, b, kvh, g, hd, c, torch.bfloat16, cache)
         rows = c // CP_RANKS
         whole_plan = fd.decode_plan(b, kvh, g, c, sms)
+        n_entry = b * kvh * g * (hd + 2)
+        tally = _cp_tally_bytes(b, kvh, g, hd, rows, cache)
         for nv in (rows // 3, rows, c // 2 + rows // 3, c):
             n = torch.full((b,), nv, dtype=torch.int32, device="cuda")
-            got, acc_all, ml_all = _cp_ranks(q, k, v, ks, vs, n)
+            got, acc_all, ml_all, gathered_bytes = _cp_ranks(q, k, v, ks, vs, n)
+            assert gathered_bytes == CP_RANKS * n_entry * 4 == tally, \
+                f"{name}: gathered {gathered_bytes} B, want {CP_RANKS * n_entry * 4} (the dry run's tally {tally})"
             whole = fd.flash_decode(q, k, v, ks, vs, n)
-            plain = _cp_plain(q, k, v, ks, vs, n)
+            plain, plain_acc, plain_ml = _cp_plain(q, k, v, ks, vs, n)
             plain_whole = flash_decode_split_ref(q, k, v, ks, vs, n, nsplit=whole_plan["nsplit"])
             torch.cuda.synchronize()
             for t in (got, acc_all, ml_all, whole):
@@ -5657,15 +5696,21 @@ def check_context_parallel_kernels() -> dict:
             empty = [r for r in range(CP_RANKS) if nv <= r * rows]
             for r in empty:
                 assert bool((ml_all[r][..., 0] == -1.0e30).all() and (ml_all[r][..., 1] == 0).all()
-                            and (acc_all[r] == 0).all()), f"{name}: rank {r} holds no row but its partial is not empty"
+                            and (acc_all[r] == 0).all()), f"{name}: rank {r} holds no row but its entry is not empty"
+            # Each rank's folded entry, normalised, and its max against the plain fold's.
+            norm = lambda a, m: a[..., 0, :] / torch.clamp(m[..., 0, 1:], min=1e-20)
             for a, w, what in ((got, whole, "merged vs whole-cache flash_decode"), (got, plain, "merged vs plain"),
-                               (whole, plain_whole, "flash_decode vs plain")):
+                               (whole, plain_whole, "flash_decode vs plain"),
+                               (norm(acc_all, ml_all), norm(plain_acc, plain_ml),
+                                "the ranks' entries vs the plain fold"),
+                               (ml_all[..., 0], plain_ml[..., 0], "the ranks' maxima vs the plain fold")):
                 torch.testing.assert_close(a.float(), w.float(), **bar, msg=lambda m: f"{name} n_valid {nv} {what}: {m}")
                 worst = max(worst, float((a.float() - w.float()).abs().max()))
-            del got, acc_all, ml_all, whole, plain, plain_whole
+            del got, acc_all, ml_all, whole, plain, plain_acc, plain_ml, plain_whole
         log(f"[cp] {name} (B {b}, KV {kvh}, G {g}, hd {hd}, C {c} {cache}, {rows} rows a rank of {CP_RANKS}): "
-            f"merged partials agree with whole-cache flash_decode and the plain versions, empty ranks hold m = -1e30, "
-            f"l = 0, acc = 0; worst |err| so far {worst:.3e}")
+            f"one entry a row a rank, {CP_RANKS * n_entry * 4} B gathered (the dry run's tally), merged partials agree "
+            f"with whole-cache flash_decode and the plain versions, empty ranks hold m = -1e30, l = 0, acc = 0; "
+            f"worst |err| so far {worst:.3e}")
 
         # Times at the full cache, every rank's rows valid.
         n = torch.full((b,), c, dtype=torch.int32, device="cuda")
@@ -5688,13 +5733,14 @@ def check_context_parallel_kernels() -> dict:
         ranks = lambda: _cp_ranks(q, k, v, ks, vs, n)
         whole = lambda: fd.flash_decode(q, k, v, ks, vs, n)
         rec = dict(name=name, shape=dict(B=b, KV=kvh, G=g, hd=hd, C=c, ranks=CP_RANKS, rows_a_rank=rows, cache=cache),
-                   plan_a_rank=plan, partial_ms=time_graph(part, iters=100), partial_ms_eager=time_events(part, iters=50),
+                   plan_a_rank=plan, gathered_bytes=CP_RANKS * n_entry * 4, partial_ms=time_graph(part, iters=100),
+                   partial_ms_eager=time_events(part, iters=50),
                    merge_ms=time_graph(merge, iters=100), merge_ms_eager=time_events(merge, iters=50),
                    ranks_and_merge_ms=time_graph(ranks, iters=5), ranks_and_merge_ms_eager=time_events(ranks, iters=5,
                                                                                                      warmup=2),
                    whole_ms=time_graph(whole, iters=20), whole_ms_eager=time_events(whole, iters=20))
-        rec["partial_plain_ms"] = time_events(lambda: flash_decode_partials_ref(
-            q, k[:, sl], v[:, sl], ks0, vs0, n_rank, nsplit=plan["nsplit"]), iters=5, warmup=1)
+        rec["partial_plain_ms"] = time_events(lambda: fold_partials_ref(*flash_decode_partials_ref(
+            q, k[:, sl], v[:, sl], ks0, vs0, n_rank, nsplit=plan["nsplit"])), iters=5, warmup=1)
         rec["merge_plain_ms"] = time_events(lambda: merge_partials_ref(acc_all, ml_all, q.dtype), iters=20, warmup=2)
         if ks is not None:
             kd, vd = (k.float() * ks.float()[..., None]).bfloat16(), (v.float() * vs.float()[..., None]).bfloat16()
@@ -5733,14 +5779,16 @@ def check_context_parallel_kernels() -> dict:
         rec["sdpa_whole_ms"] = time_graph(lambda: F.scaled_dot_product_attention(qs, kt, vt, enable_gqa=True), iters=20)
         del kt, vt
         elem = {"bfloat16": 2, "int8": 1}[cache]
-        n_part = b * kvh * g * plan["nsplit"] * (hd + 2)
-        # One rank: its valid K / V rows (and scales) once, q, n_valid, the partial buffer written.
+        # One rank: its valid K / V rows (and scales) once, q, n_valid, its one
+        # entry a row written.  The splits' partials, written and read back by
+        # the fold in the same launch (through L2), are not the function's
+        # inputs or outputs and are not counted.
         p_bytes = 2 * rows * b * kvh * hd * elem + (2 * rows * b * kvh * 2 if cache == "int8" else 0) \
-            + b * kvh * g * hd * 2 + 4 * b + 4 * n_part
+            + b * kvh * g * hd * 2 + 4 * b + 4 * n_entry
         p_ops = 4 * rows * b * kvh * g * hd
-        # The merge: the 16 ranks' partials read once, the output written.
-        m_bytes = 4 * CP_RANKS * n_part + b * kvh * g * hd * 2
-        m_ops = CP_RANKS * plan["nsplit"] * b * kvh * g * (2 * hd + 4)
+        # The merge: the 16 ranks' entries read once, the output written.
+        m_bytes = 4 * CP_RANKS * n_entry + b * kvh * g * hd * 2
+        m_ops = CP_RANKS * b * kvh * g * (2 * hd + 4)
         for key, nbytes, ops, peak in (("partial", p_bytes, p_ops, PEAK_OPS[cache]), ("merge", m_bytes, m_ops,
                                                                                       PEAK_OPS["float32"])):
             t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / peak
@@ -5751,10 +5799,11 @@ def check_context_parallel_kernels() -> dict:
         log(f"[cp] ({card_line()}) {name} (graph replay; eager: partial {rec['partial_ms_eager'] * 1e3:.2f}, merge "
             f"{rec['merge_ms_eager'] * 1e3:.2f}, 16 + merge {rec['ranks_and_merge_ms_eager'] * 1e3:.1f}, whole "
             f"{rec['whole_ms_eager'] * 1e3:.1f} us): a rank's partial call {rec['partial_ms'] * 1e3:.2f} us ({plan['nsplit']} "
-            f"splits of {plan['rows_per_split']} rows; bound {rec['partial_bound_ms'] * 1e3:.2f} us, "
+            f"splits of {plan['rows_per_split']} rows folded into one entry; bound "
+            f"{rec['partial_bound_ms'] * 1e3:.2f} us, "
             f"{rec['partial_bound_by']}; plain {rec['partial_plain_ms'] * 1e3:.1f} us; the library's attention with "
             f"its log-sum-exp on the rank's rows: efficient {rec['partial_efficient_ms'] * 1e3:.2f} us, flash "
-            f"{rec['partial_flash_ms'] * 1e3:.2f} us), the merge of {CP_RANKS} "
+            f"{rec['partial_flash_ms'] * 1e3:.2f} us), the merge of {CP_RANKS} entries a row "
             f"{rec['merge_ms'] * 1e3:.2f} us (bound {rec['merge_bound_ms'] * 1e3:.3f} us; plain "
             f"{rec['merge_plain_ms'] * 1e3:.1f} us); {CP_RANKS} partial calls and the merge in turn "
             f"{rec['ranks_and_merge_ms'] * 1e3:.1f} us; whole-cache flash_decode {rec['whole_ms'] * 1e3:.1f} us "
@@ -5904,9 +5953,10 @@ def _cp_records(report, launches) -> list:
     cp = report["context_parallel"]["kernels"]
     t = cp["times"][0]
     qwen = next(v for k, v in launches.items() if "long_500k" in k)
-    src = "src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu"
+    csrc = "src/repro_torch/kernels/decode_attention/csrc/"
     recs = []
-    for name, key in (("flash_decode_partials", "partial"), ("merge_decode_partials", "merge")):
+    for name, key, src in (("flash_decode_partials", "partial", csrc + "flash_decode_partials.cu"),
+                           ("merge_decode_partials", "merge", csrc + "flash_decode.cu")):
         lib = f"{key}_library_ms"
         recs.append(dict(name=name, route="cuda", source=src, replaces="src/repro/kernels/decode_attention/kernel.py:120",
                          launches=qwen[name], launches_by_path={"context_parallel/qwen_long_500k": qwen[name]},
@@ -5917,6 +5967,7 @@ def _cp_records(report, launches) -> list:
                                                       f"{key}_bound_ms", f"{key}_bound_by", lib,
                                                       f"{key}_efficient_ms", f"{key}_flash_ms") if k in r}
                                     for r in cp["times"]],
+                         gathered_bytes=t["gathered_bytes"],
                          context_parallel_ms={k: t[k] for k in ("ranks_and_merge_ms", "whole_ms", "sdpa_whole_ms")}))
     return recs
 
@@ -6025,7 +6076,7 @@ def main(argv=None) -> int:
         libs = nvcc.build_libraries([(m.LIB_NAME, m.SOURCES) for m in (decode_kernel, link_kernel, flash_kernel)])
         log(f"[card] {card_line()}; three libraries built in {time.perf_counter() - t0:.1f} s")
         text = libs[decode_kernel.LIB_NAME].with_suffix(".log").read_text()
-        for name, line in kernel_resources(text, ("split_decode_kernel", "merge_splits_kernel")):
+        for name, line in kernel_resources(text, ("split_decode_kernel", "merge_splits_kernel", "merge_ranks_kernel")):
             if "Li112E" in name:
                 log(f"[build]   {name}: {line}")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -6161,7 +6212,7 @@ def main(argv=None) -> int:
         libs = nvcc.build_libraries([(decode_kernel.LIB_NAME, decode_kernel.SOURCES)])
         log(f"[card] {card}; the decode library built in {time.perf_counter() - t0:.1f} s")
         for name, line in kernel_resources(libs[decode_kernel.LIB_NAME].with_suffix(".log").read_text(),
-                                           ("split_decode_kernel", "merge_splits_kernel")):
+                                           ("split_decode_kernel", "merge_splits_kernel", "merge_ranks_kernel")):
             log(f"[build]   {name}: {line}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -6212,7 +6263,8 @@ def main(argv=None) -> int:
             log(f"[build] {path.name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
                 f"spill stores up to {max(spills or [0])} B, static smem up to {max(smem or [0])} B")
         for name, line in kernel_resources(text, ("flash_attention_wgmma_kernel", "flash_attention_tf32x3_kernel",
-                                                  "split_decode_kernel", "merge_splits_kernel", "egress_kernel",
+                                                  "split_decode_kernel", "merge_splits_kernel", "merge_ranks_kernel",
+                                                  "egress_kernel",
                                                   "burst_mask_kernel", "fa_bwd_stats_kernel", "fa_bwd_dkdv_kernel",
                                                   "fa_bwd_dq_kernel", "fa_bwd_dq_wgmma_kernel",
                                                   "fa_bwd_dkdv_wgmma_kernel", "fa_bwd_stats_bf16x6_kernel",

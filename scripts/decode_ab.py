@@ -17,7 +17,13 @@ that checkout; ``--build-only`` stops there) and times, by CUDA-graph
 replay, rows 1 and 2 of PERF.md's kernel table at the main path's shapes
 (B 4, KV 16, G 1, hd 64 over 64 and 1,024 rows; the engine's paged shape
 mid generation), and the same GQA heads as kimi-k2 (B 4, KV 8, G 8) at hd
-128 and, where the checkout takes it, hd 112, over 64 and 1,024 rows.
+128 and, where the checkout takes it, hd 112, over 64 and 1,024 rows; and,
+where the checkout has context-parallel decode (its ``chip_smoke.py``'s
+``check_context_parallel_kernels``, phase 22's part 1: checks, then times),
+a rank's partial call, the cross-rank merge of 16 ranks and the 16 calls
+and the merge in turn at phase 22's shapes (jamba-v0.1's attention layer, a
+qwen1.5-0.5b+swa rank in bf16 and int8).  The registers and spills are
+those of the split body, the one-call merge and the cross-rank merge.
 Needs one CUDA card.
 """
 
@@ -55,7 +61,8 @@ def main(argv=None) -> int:
         return 0
     log = libs[cuda_kernel.LIB_NAME].with_suffix(".log").read_text()
     out = {"root": str(root), "card": cs.card_line(),
-           "resources": dict(cs.kernel_resources(log, ("split_decode_kernel", "merge_splits_kernel")))}
+           "resources": dict(cs.kernel_resources(log, ("split_decode_kernel", "merge_splits_kernel",
+                                                              "merge_ranks_kernel")))}
     mid = [p + 17 for p in (5, 13, 29, 61, 127, 5, 13, 29)]
     out["row1_64"] = cs.time_flash_decode(4, 16, 1, 64, 64, 64, "bfloat16")
     out["row1_1024"] = cs.time_flash_decode(4, 16, 1, 64, 1024, 1024, "bfloat16")
@@ -67,6 +74,11 @@ def main(argv=None) -> int:
             out[f"g8_hd{hd}_{c}"] = cs.time_flash_decode(4, 8, 8, hd, c, c, "bfloat16")
             out[f"g8_hd{hd}_{c}_paged"] = cs.time_paged_flash_decode([c] * 4, b=4, kvh=8, g=8, hd=hd, bs=16,
                                                                      j=c // 16)
+    if hasattr(cs, "check_context_parallel_kernels"):
+        keys = ("name", "plan_a_rank", "partial_ms", "merge_ms", "ranks_and_merge_ms", "whole_ms", "partial_bound_ms",
+                "merge_bound_ms", "partial_flash_ms")
+        out["context_parallel"] = [{k: r[k] for k in keys if k in r}
+                                   for r in cs.check_context_parallel_kernels()["times"]]
     sys.stdout.write("AB " + json.dumps(out) + "\n")
     return 0
 

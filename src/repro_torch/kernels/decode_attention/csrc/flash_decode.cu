@@ -59,19 +59,23 @@
 //
 // Context-parallel decode (the KV sequence split over ranks; no TPU kernel
 // of its own: the reference's GSPMD program partitions flash_decode_kernel's
-// caller over the sequence) uses the same two kernels apart:
+// caller over the sequence) takes the body and a merge apart:
 //   * flash_decode_partials_launch (flash_decode_partials.cu) runs the split
-//     kernel alone over a rank's rows and always writes the f32 partials,
-//     also at one split (a rank with no valid row writes m = -1e30, l = 0,
-//     acc = 0, never NaN);
-//   * merge_decode_partials_launch runs merge_splits_kernel over the R ranks'
-//     gathered partials, R x nsplit splits in rank order, rank r's at a
-//     rank stride from rank r - 1's (what an all-gather of each rank's one
-//     partial buffer delivers), so no copy puts them side by side.  The
-//     merge's arithmetic is the one-call merge's: the max, then e^(m - M),
-//     then the sums in split order.
-// Bound: the partials' split kernel reads what flash decode reads (the
-// rank's valid rows); the merge reads R x nsplit x (hd + 2) f32 a row.
+//     kernel alone over a rank's rows and writes the rank's one f32 entry a
+//     row: its splits' partials folded on the rank (fold_splits, in the
+//     last block of each row to finish: one launch) into one unnormalised
+//     (acc, m, l), the one-call merge's sums without its division.  A rank
+//     with no valid row writes m = -1e30, l = 0, acc = 0, never NaN.  So the
+//     all-gather carries R x (hd + 2) floats a row, not R x nsplit x (hd + 2);
+//   * merge_decode_partials_launch runs merge_ranks_kernel over the R ranks'
+//     gathered entries in rank order, rank r's at a rank stride from rank
+//     r - 1's (what an all-gather of each rank's one buffer delivers), so no
+//     copy puts them side by side: the max across a warp, each entry's
+//     weight once, the sums in entry order, then the division.  In a world
+//     of one (one entry) it gives the one-call merge's bits.
+// Bound: the partial's split kernel reads what flash decode reads (the
+// rank's valid rows) and writes (hd + 2) f32 a row (its splits' scratch
+// stays in L2); the merge reads R x (hd + 2) f32 a row.
 //
 // The body and the merge live in flash_decode.cuh; this unit builds them at
 // hd 64, 128 and 256, flash_decode_hd112.cu at hd 112, and
@@ -181,8 +185,9 @@ extern "C" int paged_flash_decode_launch(const void* q, const void* k, const voi
   return dispatch(a, HD, cache_type, q_type);
 }
 
-// The merge of nrank ranks' partials of `rows` output rows (B * KV * G) of
-// nsplit splits each, rank r's at part_acc / part_ml + r * rank_stride
+// The merge of nrank ranks' entries of `rows` output rows (B * KV * G),
+// nsplit a rank and row (1 from flash_decode_partials_launch; any count is
+// taken, rank-major), rank r's at part_acc / part_ml + r * rank_stride
 // floats; out (rows, hd) in q_type.
 extern "C" int merge_decode_partials_launch(const void* part_acc, const void* part_ml, void* out,
                                             int rows, int HD, int q_type, int nsplit, int nrank,

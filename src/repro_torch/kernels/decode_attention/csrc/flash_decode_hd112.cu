@@ -1,6 +1,6 @@
 // Flash decode at head dim 112 (kimi-k2-1t-a32b: d_model 7168 over 64
 // heads), contiguous and paged, and the cross-rank merge of context-parallel
-// decode: the split-KV body and merge of
+// decode: the split-KV body and the merges of
 // flash_decode.cuh instantiated at HD = 112, in a translation unit of its
 // own so that the power-of-two head dims of flash_decode.cu keep their code.
 //

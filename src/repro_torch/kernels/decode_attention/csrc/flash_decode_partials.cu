@@ -1,17 +1,22 @@
 // Context-parallel decode's partial entry point: the split-KV body of
 // flash_decode.cuh over a rank's contiguous (B, C_r, KV, hd) rows of a KV
-// sequence split over ranks, writing every split's f32 partial (m, l and
-// the unnormalised sums), also at one split, and launching no merge: the
-// ranks' partials are all-gathered and merged by merge_decode_partials_launch
-// (flash_decode.cu).  Its instantiations (kPartials) live in this unit of
-// their own, at hd 64, 112, 128 and 256, so that the decode kernels of
-// flash_decode.cu and flash_decode_hd112.cu keep their code and registers.
+// sequence split over ranks, writing the rank's one f32 entry a row (the
+// unnormalised sums, m and l), and launching no merge: the ranks' entries
+// are all-gathered and merged by merge_decode_partials_launch
+// (flash_decode.cu).  Over several splits, each split block writes its
+// partial to scratch and the row's last block to finish folds them into the
+// entry (fold_splits, flash_decode.cuh), in the same launch.  Its
+// instantiations (kPartials) live in this unit of their own, at hd 64, 112,
+// 128 and 256, so that the decode kernels of flash_decode.cu and
+// flash_decode_hd112.cu keep their code and registers.
 //
 // Replaces, for a rank's rows, the same Pallas TPU kernel as flash_decode.cu
 // (repro/kernels/decode_attention/kernel.py:120 flash_decode_kernel), whose
 // caller the reference's GSPMD program partitions over the KV sequence.
 // Bound: HBM bytes, as flash decode (the rank's valid rows read once); the
-// partials written are B * KV * G * nsplit * (hd + 2) f32.
+// entries written are B * KV * G * (hd + 2) f32.  The splits' partials
+// (B * KV * G * nsplit * (hd + 2) f32) are written and read back once
+// through L2, which holds them.
 
 #include "flash_decode.cuh"
 
@@ -49,9 +54,12 @@ int partials_cache(int cache_type, int HD, const Args& a) {
 
 }  // namespace
 
-// Type codes as flash_decode_launch's.  part_acc (B * KV * G * nsplit * hd
-// f32) and part_ml (B * KV * G * nsplit * 2 f32) are the output; 0, a
-// cudaError_t from the launch, or -1 for arguments the kernel does not take.
+// Type codes as flash_decode_launch's.  part_acc (B * KV * G * hd f32) and
+// part_ml (B * KV * G * 2 f32) are the output.  At nsplit > 1 the
+// B * KV * G * nsplit * (hd + 2) f32 after part_ml are the fold's scratch
+// (the splits' partials), and B * KV * G is at most kFoldArrivals (2^18).
+// 0, a cudaError_t from the launch, or -1 for arguments the kernel does not
+// take.
 extern "C" int flash_decode_partials_launch(const void* q, const void* k, const void* v,
                                             const void* k_scale, const void* v_scale,
                                             const void* n_valid, void* part_acc, void* part_ml,

@@ -17,12 +17,14 @@ same plan for a contiguous cache of C rows and a table of J * bs rows:
 with one split a call launches one kernel; with more it launches the split
 kernel and the merge, two device kernels for one call (one count).
 
-Context-parallel decode (a KV sequence split over ranks) runs the two
-kernels apart: ``flash_decode_partials`` (``partials_launch_count``) runs
-the split kernel over a rank's rows, its splits planned by those rows, and
-returns the f32 partials (m, l and the unnormalised sums) of every split;
-``merge_decode_partials`` (``merge_launch_count``) merges the partials the
-ranks' all-gather delivers, with a rank stride, into the output.
+Context-parallel decode (a KV sequence split over ranks) runs the body
+and a merge apart: ``flash_decode_partials`` (``partials_launch_count``)
+runs the split kernel over a rank's rows, its splits planned by those rows,
+and folds the splits' partials on the rank (in the same launch) into one
+f32 entry a row (m, l and the unnormalised sums); ``merge_decode_partials``
+(``merge_launch_count``) merges the entries the ranks' all-gather delivers,
+with a rank stride, into the output (its own kernel, not the one-call
+merge).
 """
 
 from __future__ import annotations
@@ -179,13 +181,17 @@ def flash_decode_partials(
     *,
     softcap: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A rank's flash-decode partials on the card: the split kernel over
-    its ``C_r`` rows, planned by ``decode_plan`` on those rows, writing
-    every split's f32 partial, also at one split.  Returns ``acc`` (B, KV,
-    G, S, hd), the unnormalised sums, and ``ml`` (B, KV, G, S, 2), (m, l),
-    views of one flat buffer, ``acc`` first (:func:`partials_buffer`), so
-    that one all-gather moves both.  A split with no valid row holds m =
-    -1e30, l = 0, acc = 0."""
+    """A rank's flash-decode partial on the card: the split kernel over
+    its ``C_r`` rows, planned by ``decode_plan`` on those rows, its splits'
+    partials folded on the rank, in the same launch, into one unnormalised
+    entry a row (``M = max m_s``, ``l = sum l_s e^(m_s - M)``, ``acc = sum
+    acc_s e^(m_s - M)`` in split order, ``m = M``).  Returns ``acc`` (B,
+    KV, G, 1, hd) and ``ml`` (B, KV, G, 1, 2), (m, l), views of one flat
+    buffer, ``acc`` first (:func:`partials_buffer`), so that one all-gather
+    moves both: the CPU's layout.  A row with no valid row holds m =
+    -1e30, l = 0, acc = 0.  The splits' scratch follows the entries in
+    the same allocation; the fold's arrival counters are the library's,
+    one set a device, so calls on a device run on one stream at a time."""
     global partials_launch_count
     runtime.forbid_grad("flash_decode_partials", q, k, v, k_scale, v_scale)
     b, kvh, g, hd = q.shape
@@ -193,9 +199,10 @@ def flash_decode_partials(
     _check_contiguous_call(q, k, v, k_scale, v_scale, n_valid)
     plan = decode_plan(b, kvh, g, c, _sms(q.device.index))
     nsplit = plan["nsplit"]
-    buf = torch.empty((b * kvh * g * nsplit * (hd + 2),), dtype=torch.float32, device=q.device)
-    acc, ml = split_partials(buf, (b, kvh, g, nsplit), hd)
-    if buf.numel() == 0:
+    n_entry = b * kvh * g * (hd + 2)
+    buf = torch.empty((n_entry * (1 + nsplit if nsplit > 1 else 1),), dtype=torch.float32, device=q.device)
+    acc, ml = split_partials(buf[:n_entry], (b, kvh, g, 1), hd)
+    if n_entry == 0:
         return acc, ml
     quantized = k_scale is not None
     err = _library().flash_decode_partials_launch(
@@ -211,12 +218,13 @@ def flash_decode_partials(
 
 
 def merge_decode_partials(acc: torch.Tensor, ml: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The merge of R ranks' gathered partials on the card: ``acc`` (R, B,
-    KV, G, S, hd) and ``ml`` (R, B, KV, G, S, 2) f32 (or without R: one
-    rank), each rank's block contiguous and both at one rank stride (the
-    views :func:`split_partials` makes of an all-gather's ``(R, n)``
-    output), merged over the R x S splits in rank order; returns (B, KV,
-    G, hd) in ``dtype``."""
+    """The cross-rank merge on the card: ``acc`` (R, B, KV, G, S, hd) and
+    ``ml`` (R, B, KV, G, S, 2) f32 (or without R: one rank), each rank's
+    block contiguous and both at one rank stride (the views
+    :func:`split_partials` makes of an all-gather's ``(R, n)`` output),
+    merged over the R x S entries in rank order (S is 1 from
+    :func:`flash_decode_partials`; any S is taken); returns (B, KV, G, hd)
+    in ``dtype``."""
     global merge_launch_count
     runtime.forbid_grad("merge_decode_partials", acc, ml)
     if acc.dim() == 5:

@@ -12,10 +12,11 @@ contiguous cache lengths that share no usable divisor with the block (65,
 100, ...).
 
 Context-parallel decode (the KV sequence split over ranks) takes the two
-halves apart: ``decode_attention_partials`` gives a rank's partials over
-its rows (the kernel's splits on the card, one split on the CPU), as views
-of one flat buffer (``partials_buffer``) that one all-gather moves, and
-``merge_decode_partials`` merges the ranks' gathered partials.
+halves apart: ``decode_attention_partials`` gives a rank's one partial
+entry a row over its rows (on the card the kernel's splits folded on the
+rank, on the CPU one split), as views of one flat buffer
+(``partials_buffer``) that one all-gather moves, and
+``merge_decode_partials`` merges the ranks' gathered entries.
 """
 
 from __future__ import annotations
@@ -89,10 +90,12 @@ def decode_attention_partials(
     *,
     softcap: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A rank's decode partials over its cache rows: ``acc`` (B, KV, G, S,
-    hd) and ``ml`` (B, KV, G, S, 2) f32, views of one flat buffer
-    (:func:`partials_buffer`).  The card splits the rows as
-    ``cuda_kernel.decode_plan`` says; the CPU takes them as one split."""
+    """A rank's decode partial over its cache rows, one unnormalised entry
+    a row: ``acc`` (B, KV, G, 1, hd) and ``ml`` (B, KV, G, 1, 2) f32,
+    views of one flat buffer (:func:`partials_buffer`), on every device
+    type.  The card splits the rows as ``cuda_kernel.decode_plan`` says and
+    folds the splits on the rank (``torch_ref.fold_partials_ref``); the CPU
+    takes them as one split."""
     b, s, kvh, g, hd = q.shape
     assert s == 1, f"decode attention is the s == 1 path, got S={s}"
     k, v = cache["k"], cache["v"]
@@ -116,8 +119,9 @@ def partials_buffer(acc: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
 
 def merge_decode_partials(acc: torch.Tensor, ml: torch.Tensor, dtype) -> torch.Tensor:
     """R ranks' gathered partials ``acc`` (R, B, KV, G, S, hd) / ``ml`` (R,
-    B, KV, G, S, 2), merged over their R x S splits in rank order; returns
-    ``(B, 1, KV, G, hd)`` in ``dtype``."""
+    B, KV, G, S, 2) (S = 1 from :func:`decode_attention_partials`), merged
+    over their R x S entries in rank order; returns ``(B, 1, KV, G, hd)``
+    in ``dtype``."""
     if runtime.use_kernel(acc):
         out = cuda_kernel.merge_decode_partials(acc, ml, dtype)
     else:

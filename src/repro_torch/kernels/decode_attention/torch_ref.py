@@ -19,7 +19,9 @@ versions the CUDA kernels are held against on the card.
 body's arithmetic: per split of ``split_rows(C, nsplit)`` rows the partial
 (m, l, acc) (``flash_decode_partials_ref``), then the merge
 (``merge_partials_ref``), which also takes R ranks' gathered partials in
-rank order: context-parallel decode's plain version.  Both pools run that one body on the card, so
+rank order.  Context-parallel decode's plain version is a rank's partials
+at its plan, folded into one unnormalised entry (``fold_partials_ref``),
+then ``merge_partials_ref`` over the R ranks' entries.  Both pools run that one body on the card, so
 ``paged_flash_decode_split_ref`` gathers the table's blocks into a
 request-major cache and takes the same splits.  The tests hold both to
 ``flash_decode_ref`` / ``paged_flash_decode_ref`` and to the reference;
@@ -186,6 +188,21 @@ def merge_partials_ref(acc: torch.Tensor, ml: torch.Tensor, dtype) -> torch.Tens
     w = torch.exp(m - big)
     out = (acc * w[..., None]).sum(dim=3) / torch.clamp((l * w).sum(dim=-1), min=1e-20)[..., None]
     return out.to(dtype)
+
+
+def fold_partials_ref(acc: torch.Tensor, ml: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A rank's S splits folded into one unnormalised entry: ``M = max
+    m_s``, ``l = sum l_s e^(m_s - M)``, ``acc = sum acc_s e^(m_s - M)``,
+    ``m = M``; ``acc`` (B, KV, G, S, hd) / ``ml`` (B, KV, G, S, 2) in,
+    (B, KV, G, 1, hd) / (B, KV, G, 1, 2) out.  The merge's arithmetic
+    without its division: the sums are :func:`merge_partials_ref`'s
+    (torch's reduction over the split dim; the card's fold adds in split
+    order), so one rank's fold then the merge is ``merge_partials_ref``
+    bit for bit.  A rank with no valid row folds to (-1e30, 0, 0)."""
+    m, l = ml[..., 0], ml[..., 1]
+    big = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - big)
+    return (acc * w[..., None]).sum(dim=3, keepdim=True), torch.stack([big, (l * w).sum(dim=-1, keepdim=True)], dim=-1)
 
 
 def flash_decode_split_ref(

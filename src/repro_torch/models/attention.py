@@ -349,9 +349,10 @@ def _write_prefill_shard(cache: Cache, k: torch.Tensor, v: torch.Tensor,
 
 def _context_parallel_decode(qg: torch.Tensor, cache: Cache, n_valid, shard: shard_ctx.ContextShard,
                              softcap: float) -> torch.Tensor:
-    """The rank's flash-decode partials over its rows, all-gathered over the
-    data axes (one collective: the partials' one buffer) and merged over the
-    ranks' splits in rank order; ``(B, 1, KV, G, hd)`` in q's dtype."""
+    """The rank's flash-decode partial over its rows (one unnormalised
+    entry a row), all-gathered over the data axes (one collective: the
+    entries' one buffer, R x B * KV * G * (hd + 2) f32) and merged over the
+    ranks in rank order; ``(B, 1, KV, G, hd)`` in q's dtype."""
     acc, ml = decode_attention_partials(qg, cache, n_valid, softcap=softcap)
     gathered = comm.all_gather_along(partials_buffer(acc, ml)[None], shard.group())   # (R, n)
     acc_all, ml_all = split_partials(gathered, tuple(acc.shape[:4]), acc.shape[-1])
